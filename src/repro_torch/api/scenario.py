@@ -1,0 +1,255 @@
+"""Declarative scenarios: one serializable config for the whole MCSA
+pipeline (topology geometry + budgets, fleet, mobility, layer-profile
+source, solver, admission, schedule).
+
+The port of the JAX package's ``repro/api/scenario.py``.  A
+:class:`Scenario` has the same fields, and ``to_dict`` gives the same
+dict, so a scenario crosses between the two packages through
+``to_dict`` / ``from_dict`` (see :mod:`repro_torch.interop`).
+
+What this slice supports: chain-CNN models, K = 1, no budgets, no
+faults, no serving.  ``serving`` must stay None (the serving data plane
+is not ported: ROADMAP, queue 1, item 2); a ``faults`` config
+round-trips but :class:`~repro_torch.api.Session` refuses it.  Every
+reference preset without ``serving`` is registered here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs import CNN_BUILDERS
+from repro_torch.core.costs import DeviceFleet, LayerProfile
+from repro_torch.core.faults import FaultConfig
+from repro_torch.core.ligd import LiGDConfig
+from repro_torch.core.mobility import RandomWaypointMobility, StaticMobility
+from repro_torch.core.network import Topology, build_topology
+from repro_torch.core.profile import profile_of
+
+SERVING_DEFERRED = ("Scenario.serving: the serving data plane is not "
+                    "ported yet (ROADMAP, queue 1, item 2); it must be None")
+
+#: mobility-model registry: name -> class with the
+#: (topo, num_users, *, seed, speed_range-ignorable) constructor surface
+MOBILITY_MODELS = {
+    "random_waypoint": RandomWaypointMobility,
+    "static": StaticMobility,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One named, serializable MCSA world (field groups as in the
+    reference: topology, model, fleet, mobility, planner, faults,
+    serving, schedule)."""
+    name: str = "custom"
+    # --- topology ---
+    num_aps: int = 16
+    num_servers: int = 4
+    area: float = 2000.0
+    topo_seed: int = 0
+    heterogeneity: float = 0.5
+    r_capacity: Optional[float] = None
+    B_capacity: Optional[float] = None
+    # --- model / layer profile source ---
+    model: str = "vgg16"
+    model_seq: int = 128
+    # --- fleet ---
+    num_users: int = 16
+    c_dev_range: Tuple[float, float] = (3e9, 6e9)
+    device_seed: int = 0
+    # --- mobility ---
+    mobility: str = "random_waypoint"
+    speed_range: Tuple[float, float] = (1.0, 15.0)
+    mobility_seed: int = 1
+    # --- planner / policy defaults ---
+    ligd: LiGDConfig = LiGDConfig()
+    candidates_k: int = 1
+    async_replanning: bool = False
+    async_horizon: int = 1
+    hysteresis: float = 0.0
+    admission_aware_handoffs: Optional[bool] = None
+    # --- fault injection (None = chaos off) ---
+    faults: Optional[FaultConfig] = None
+    # --- closed-loop serving: not ported, must be None ---
+    serving: Optional[object] = None
+    # --- schedule ---
+    steps: int = 30
+    dt: float = 60.0
+
+    def __post_init__(self):
+        if self.serving is not None:
+            raise NotImplementedError(SERVING_DEFERRED)
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
+    def to_dict(self) -> dict:
+        """Plain JSON-safe dict (tuples become lists; the nested
+        LiGDConfig becomes its own dict) — the reference's layout."""
+        d = dataclasses.asdict(self)
+        for k, v in d.items():
+            if isinstance(v, tuple):
+                d[k] = list(v)
+        d["ligd"] = {k: (list(v) if isinstance(v, tuple) else v)
+                     for k, v in dataclasses.asdict(self.ligd).items()}
+        d["faults"] = None if self.faults is None else self.faults.to_dict()
+        d["serving"] = None
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Scenario":
+        """Inverse of :meth:`to_dict` (also reads the reference's
+        ``to_dict`` output).  Unknown keys are rejected loudly."""
+        d = dict(d)
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise TypeError(f"unknown Scenario fields: {sorted(unknown)}")
+        ligd = d.get("ligd", LiGDConfig())
+        if isinstance(ligd, dict):
+            ligd = dict(ligd)
+            if "init" in ligd:
+                ligd["init"] = tuple(ligd["init"])
+            ligd = LiGDConfig(**ligd)
+        d["ligd"] = ligd
+        faults = d.get("faults")
+        if isinstance(faults, dict):
+            d["faults"] = FaultConfig.from_dict(faults)
+        for k in ("c_dev_range", "speed_range"):
+            if k in d:
+                d[k] = tuple(d[k])
+        return cls(**d)
+
+    def replace(self, **changes) -> "Scenario":
+        """A modified copy (``dataclasses.replace`` as a method)."""
+        return dataclasses.replace(self, **changes)
+
+    # ------------------------------------------------------------------
+    # component builders (Session calls these; scripts may too)
+    # ------------------------------------------------------------------
+    def build_topology(self) -> Topology:
+        return build_topology(
+            self.num_aps, self.num_servers, area=self.area,
+            seed=self.topo_seed, heterogeneity=self.heterogeneity,
+            r_capacity=self.r_capacity, B_capacity=self.B_capacity)
+
+    def build_profile(self) -> LayerProfile:
+        try:
+            builder = CNN_BUILDERS[self.model]
+        except KeyError:
+            raise NotImplementedError(
+                f"model {self.model!r}: only the chain CNNs "
+                f"{sorted(CNN_BUILDERS)} are ported; transformer profiles "
+                "wait for the serving slice (ROADMAP, queue 1, item 2)"
+            ) from None
+        return profile_of(builder())
+
+    def build_devices(self) -> DeviceFleet:
+        rng = np.random.default_rng(self.device_seed)
+        return DeviceFleet(
+            c_dev=rng.uniform(*self.c_dev_range, self.num_users))
+
+    def build_mobility(self, topo: Topology):
+        try:
+            model = MOBILITY_MODELS[self.mobility]
+        except KeyError:
+            raise KeyError(
+                f"unknown mobility model {self.mobility!r}; available: "
+                f"{sorted(MOBILITY_MODELS)}") from None
+        kw = {"seed": self.mobility_seed}
+        if model is RandomWaypointMobility:
+            kw["speed_range"] = self.speed_range
+        return model(topo, self.num_users, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Preset registry: the reference's presets that carry no ServeConfig,
+# field for field (the differential tests pin the to_dict round trip).
+# ---------------------------------------------------------------------------
+_SCENARIOS: Dict[str, Scenario] = {}
+
+
+def register_scenario(scenario: Scenario) -> Scenario:
+    """Register (or overwrite) a named preset; returns it unchanged."""
+    _SCENARIOS[scenario.name] = scenario
+    return scenario
+
+
+def get_scenario(name: str) -> Scenario:
+    try:
+        return _SCENARIOS[name]
+    except KeyError:
+        raise KeyError(f"unknown scenario {name!r}; available: "
+                       f"{sorted(_SCENARIOS)}") from None
+
+
+def list_scenarios() -> Tuple[str, ...]:
+    return tuple(sorted(_SCENARIOS))
+
+
+# The paper's Fig. 1 system: 25 APs / 3 heterogeneous servers, YOLOv2
+# stream, 10 vehicles at 8-25 m/s, one MLi-GD batch per simulated minute.
+register_scenario(Scenario(
+    name="paper_fig1", num_aps=25, num_servers=3, topo_seed=0,
+    model="yolov2", num_users=10, device_seed=0,
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=250), steps=30, dt=60.0))
+
+# Dense city core: many APs, short cells, pedestrian-to-scooter speeds.
+register_scenario(Scenario(
+    name="dense_urban", num_aps=64, num_servers=8, area=1600.0,
+    topo_seed=2, model="vgg16", num_users=2000,
+    speed_range=(1.0, 8.0), mobility_seed=3,
+    ligd=LiGDConfig(max_iters=120), steps=20, dt=30.0))
+
+# Sparse corridor: few APs over a long stretch, vehicular speeds.
+register_scenario(Scenario(
+    name="highway", num_aps=12, num_servers=3, area=6000.0,
+    topo_seed=5, model="yolov2", num_users=200,
+    speed_range=(25.0, 40.0), mobility_seed=7,
+    ligd=LiGDConfig(max_iters=150), steps=40, dt=10.0))
+
+# Admission-control showcase (K=3 under a compute budget): registered
+# for the round trip; Session refuses it until admission is ported.
+register_scenario(Scenario(
+    name="capacitated_k3", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=500, r_capacity=200.0, candidates_k=3,
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=100), steps=10, dt=30.0))
+
+# The paper's static Figs. 3-8 setting: users never move.
+register_scenario(Scenario(
+    name="static_no_mobility", num_aps=16, num_servers=4, topo_seed=0,
+    model="vgg16", num_users=64, mobility="static",
+    ligd=LiGDConfig(max_iters=300), steps=5, dt=60.0))
+
+# Production scale: 100k users on the NiN profile, async replanning
+# hiding each step's MLi-GD solve behind the mobility numpy.
+register_scenario(Scenario(
+    name="megafleet_100k", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=100_000, speed_range=(10.0, 30.0),
+    mobility_seed=2, ligd=LiGDConfig(max_iters=60),
+    async_replanning=True, steps=5, dt=30.0))
+
+# Chaos presets: registered for the round trip; Session refuses them
+# until the fault path is ported.
+register_scenario(Scenario(
+    name="chaos_singlefail_k3", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=500, r_capacity=200.0, candidates_k=3,
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=100),
+    faults=FaultConfig(schedule=(("server_down", 30.0, 2),
+                                 ("server_up", 150.0, 2))),
+    steps=8, dt=30.0))
+
+register_scenario(Scenario(
+    name="chaos_churn", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=200, r_capacity=250.0, candidates_k=2,
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=80),
+    faults=FaultConfig(server_mtbf=240.0, server_mttr=60.0,
+                       link_mtbf=300.0, link_mttr=90.0,
+                       capacity_jitter=0.15, seed=7),
+    steps=12, dt=30.0))

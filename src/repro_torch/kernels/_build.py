@@ -1,0 +1,81 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``kernels/**/csrc/`` has a plain C interface and
+is compiled by ``nvcc`` into its own shared library, loaded with ctypes
+(no PyTorch headers, so a build takes seconds, not minutes).  Libraries
+go to ``build/kernels/`` at the repository root, named after a hash of
+the source bytes, the flags and the compiler path, so a stale library is
+never loaded: editing a source or a flag changes the name.  The build
+runs at first use, never at import, and writes to a temporary name that
+is renamed into place, so concurrent builders cannot load a half-written
+file.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+#: Hopper only (``sm_90a`` keeps wgmma/setmaxnreg available to later
+#: kernels).  No --use_fast_math: it turns exp2f/log2f and division into
+#: approximations.  --fmad=false keeps every product and sum separately
+#: rounded, as the plain PyTorch versions round them.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on PATH, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the "
+                       "port's CUDA kernels are built on the machine "
+                       "with the card")
+
+
+def library_path(name: str, source: Path) -> Path:
+    """Where the library of ``source`` lives for the current flags."""
+    h = hashlib.sha256()
+    h.update(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_path().encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, source: Path) -> Path:
+    """Compile ``source`` unless its library already exists; returns the
+    library path.  Raises with nvcc's output when the build fails."""
+    out = library_path(name, source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        (out.with_suffix(".log")).write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str, source: Path) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library."""
+    return ctypes.CDLL(str(build(name, source)))

@@ -1,0 +1,64 @@
+"""Public entry points of the fused sweep: dispatch on the tensor's device.
+
+A CUDA tensor goes to the hand-written kernel (:func:`.kernel.sweep_cuda`)
+or raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`).
+There is no other route and no fallback.
+
+The batch axis carries no meaning of its own: callers may tile it per
+(user, candidate) as long as every feature row is gathered per lane.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .kernel import sweep_cuda
+from .ref import ligd_sweep_ref, mligd_sweep_ref, table_tensor
+
+
+class SweepResult(NamedTuple):
+    """Whole-sweep solve, layer-major: per-layer tensors are (M1, X)."""
+    u_layers: torch.Tensor       # utility per split
+    xB_layers: torch.Tensor      # normalized B per split
+    xr_layers: torch.Tensor      # normalized r per split
+    iters_layers: torch.Tensor   # per-lane GD iterations per split (f32)
+    best_s: torch.Tensor         # (X,) int32 — argmin over splits
+    best_x: tuple                # K× (X,) normalized optimum at best_s
+    best_u: torch.Tensor         # (X,)
+
+
+def _sweep(feat, x0, tables, *, joint, lr, eps, max_iters, chunk,
+           warm_start, init) -> SweepResult:
+    tab = table_tensor(tables, feat.device)
+    if feat.device.type == "cuda":
+        u, xB, xr, it, best = sweep_cuda(
+            feat, x0, tab, joint=joint, lr=lr, eps=eps, max_iters=max_iters,
+            warm_start=warm_start, init=init)
+        best_s, best_u = best[0], best[1]
+        best_x = tuple(best[2 + i] for i in range(x0.shape[0]))
+    elif feat.device.type == "cpu":
+        ref = mligd_sweep_ref if joint else ligd_sweep_ref
+        u, (xB, xr, *_rest), it, best_s, best_x, best_u = ref(
+            feat, x0, tab, lr=lr, eps=eps, max_iters=max_iters,
+            chunk=chunk, warm_start=warm_start, init=init)
+    else:
+        raise ValueError(f"fused sweep: unsupported device {feat.device}")
+    return SweepResult(u, xB, xr, it, best_s.to(torch.int32), best_x, best_u)
+
+
+def ligd_sweep(feat, x0, tables, *, lr=0.15, eps=1e-5, max_iters=400,
+               chunk=16, warm_start=True, init=(0.5, 0.5)) -> SweepResult:
+    """Fused whole-sweep Li-GD over x = (B, r)."""
+    return _sweep(feat, x0, tables, joint=False, lr=lr, eps=eps,
+                  max_iters=max_iters, chunk=chunk, warm_start=warm_start,
+                  init=init)
+
+
+def mligd_sweep(feat, x0, tables, *, lr=0.15, eps=1e-5, max_iters=400,
+                chunk=16, warm_start=True, init=(0.5, 0.5, 0.5, 0.5)
+                ) -> SweepResult:
+    """Fused whole-sweep MLi-GD joint (B, r, R, B_back) solve."""
+    return _sweep(feat, x0, tables, joint=True, lr=lr, eps=eps,
+                  max_iters=max_iters, chunk=chunk, warm_start=warm_start,
+                  init=init)

@@ -1,0 +1,275 @@
+"""The plain PyTorch version of the fused Li-GD / MLi-GD sweep.
+
+A port of the whole-sweep reference in the JAX package's
+``repro/kernels/ligd_step/ref.py`` (``ligd_sweep_ref`` /
+``mligd_sweep_ref``): the warm-started M+1 split sweep, closed-form
+gradients, per-lane stopping with a chunked early exit, and the running
+first-min argmin over splits, on a dense ``(NF_SWEEP, X)`` feature
+matrix with users on the trailing axis.
+
+It serves two callers: the CPU path of :mod:`.ops` (a CPU tensor always
+takes it) and the on-card comparison of the CUDA kernel in
+``csrc/sweep.cu``, which runs the same arithmetic per lane.  Every
+formula keeps the reference's own form — λ = exp2(a·log2 r), then
+1/λ and a multiply; L = log2(1 + q/B); pow_B = exp2(γ·log2(B/B0)) —
+because near-ties in U decide discrete splits and iteration counts sit
+on the |ΔU| < ε threshold: forms that are equal in exact arithmetic
+would flip some of them.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+LN2 = math.log(2.0)
+
+# ---------------------------------------------------------------------------
+# Feature layout: one ROW per feature, users on the trailing axis.  Rows
+# 23..28 are only populated for the MLi-GD joint solve (frozen original
+# strategy).  Row order is the kernel's ABI (csrc/sweep.cu, enum Row).
+# ---------------------------------------------------------------------------
+SWEEP_FIELDS = (
+    "c_dev", "epf", "p_tx", "c1", "hops", "k", "t_ag", "wT", "wE", "wC",
+    "c_min", "rho_min", "lam_a", "rho_B", "gamma_B", "B0", "B_bh", "N0",
+    "B_min", "B_max", "r_min", "r_max", "m",
+    "f_l_o", "f_e_o", "w_o", "r_o", "rent_o", "hops_bk",
+)
+NF_SWEEP = 32                     # rows, padded to a power of two
+#: rows each variant reads: Li-GD stops at "m", the joint solve reads all
+#: of SWEEP_FIELDS (csrc/sweep.cu, NROWS_LIGD / NROWS_JOINT)
+NROWS_LIGD = SWEEP_FIELDS.index("m") + 1
+NROWS_JOINT = len(SWEEP_FIELDS)
+
+
+def sweep_tables(profile) -> tuple:
+    """Per-split prefix tables, one (f_l, f_e, w, offloaded) row per
+    split s = 0..M (hashable tuple of floats, as in the reference)."""
+    f_l, f_e, w = profile.prefix_tables()
+    return tuple(
+        (float(f_l[s]), float(f_e[s]), float(w[s]),
+         1.0 if float(f_e[s]) > 0 else 0.0)
+        for s in range(len(f_l)))
+
+
+def table_tensor(tables, device) -> torch.Tensor:
+    """(M1, 4) float32 tensor of :func:`sweep_tables` on ``device``
+    (tensors pass through)."""
+    if torch.is_tensor(tables):
+        return tables
+    return torch.tensor(tables, dtype=torch.float32, device=device)
+
+
+def pack_sweep_features(dev: dict, edge: dict, m_bits, num_users: int,
+                        orig: dict = None, hops_back=None) -> torch.Tensor:
+    """(NF_SWEEP, X) float32 feature matrix from batched device/edge
+    dicts.  Leaves may be (X,) tensors or scalars (shared edge);
+    ``orig``/``hops_back`` fill the MLi-GD rows (frozen original
+    strategy of Eq. 41–43).  Rows are anonymous batch lanes, so the
+    caller may tile (user, candidate) pairs into them."""
+    X = num_users
+    epf = dev["xi"] * dev["c_dev"] ** 2 * dev["phi"]     # ξc²φ J/FLOP
+    c1 = dev["p_tx"] * dev["alpha"] * dev["g_fade"]      # pαg
+    rows = [dev["c_dev"], epf, dev["p_tx"], c1, dev["hops"],
+            dev["k_rounds"], dev["t_ag"], dev["w_T"], dev["w_E"], dev["w_C"],
+            edge["c_min"], edge["rho_min"], edge["lam_a"], edge["rho_B"],
+            edge["gamma_B"], edge["B0"], edge["B_backhaul"], edge["N0"],
+            edge["B_min"], edge["B_max"], edge["r_min"], edge["r_max"],
+            m_bits]
+    if orig is not None:
+        rows += [orig["f_l"], orig["f_e"], orig["w"], orig["r"],
+                 orig["rent"], hops_back]
+    feat = torch.zeros((NF_SWEEP, X), dtype=torch.float32,
+                       device=dev["c_dev"].device)
+    for i, v in enumerate(rows):
+        feat[i] = v
+    return feat
+
+
+def _frows(feat):
+    """Name -> (X,) row view of the feature matrix."""
+    return {name: feat[i] for i, name in enumerate(SWEEP_FIELDS)}
+
+
+# ---------------------------------------------------------------------------
+# Closed-form utility + gradients in normalized coordinates (Eqs. 21–22
+# generalized to λ(r)=r^a, g(B)=ρ_B(B/B0)^γ), per-user edge parameters.
+# ---------------------------------------------------------------------------
+def _u1_ug(fr, f_l, f_e, w, offl):
+    """(U, grad) closure over x = (xB, xr) for one split point.  Every
+    x-independent group is evaluated here, once per layer; the GD step
+    carries 3 log2 + 2 exp2."""
+    B_span = fr["B_max"] - fr["B_min"]
+    r_span = fr["r_max"] - fr["r_min"]
+    q = fr["c1"] / fr["N0"]                        # pαg/N0
+    wm = w + fr["m"]
+    inv_k = 1.0 / fr["k"]
+    u_const = (fr["wT"] * (f_l / fr["c_dev"] + fr["t_ag"] * inv_k)
+               + fr["wE"] * fr["epf"] * f_l)      # x-independent utility
+    tT = fr["wT"] * offl                           # coefficient groups
+    cT_relay = tT * fr["hops"] * wm / fr["B_bh"]
+    cT_srv = tT * f_e / fr["c_min"]
+    cT_up = tT * wm
+    cE = fr["wE"] * offl * fr["p_tx"] * wm
+    cC_r = fr["wC"] * offl * fr["rho_min"] * inv_k
+    cC_B = fr["wC"] * offl * fr["rho_B"] * inv_k
+    inv_B0 = 1.0 / fr["B0"]
+
+    def ug(x):
+        xB, xr = x
+        B = fr["B_min"] + xB * B_span
+        r = fr["r_min"] + xr * r_span
+        lam = torch.exp2(fr["lam_a"] * torch.log2(r))   # λ(r) = r^a
+        L = torch.log2(1.0 + q / B)                     # log2(1 + q/B)
+        tau = B * L
+        pow_B = torch.exp2(fr["gamma_B"] * torch.log2(B * inv_B0))
+        inv_lam = 1.0 / lam
+
+        U = (u_const + cT_srv * inv_lam + cT_up / B + cT_relay
+             + cE / tau + cC_r * r + cC_B * pow_B)
+
+        # dτ/dB = L - q / (ln2 · (B + q))
+        dtau = L - q / (LN2 * (B + q))
+        dU_dB = (cT_up * (-1.0 / (B * B))
+                 + cE * (-dtau / (tau * tau))
+                 + cC_B * fr["gamma_B"] * pow_B / B)
+        # d(r^-a)/dr = -a·r^(-a-1) = -a / (λ(r)·r)
+        dU_dr = cT_srv * (-fr["lam_a"]) * inv_lam / r + cC_r
+        return U, (dU_dB * B_span, dU_dr * r_span)
+    return ug
+
+
+def _u2_ug(fr):
+    """(U₂, dU₂/dxB_back) closure (Eq. 41–43 relay-back vertex): the
+    frozen original split/server terms collapse into one constant."""
+    B_span = fr["B_max"] - fr["B_min"]
+    q = fr["c1"] / fr["N0"]
+    wm = fr["w_o"] + fr["m"]
+    inv_k = 1.0 / fr["k"]
+    lam_o = torch.exp2(fr["lam_a"] * torch.log2(fr["r_o"]))
+    u_const = (fr["wT"] * (fr["f_l_o"] / fr["c_dev"]
+                           + fr["f_e_o"] / (lam_o * fr["c_min"])
+                           + fr["hops_bk"] * wm / fr["B_bh"])
+               + fr["wE"] * fr["epf"] * fr["f_l_o"]
+               + fr["wC"] * fr["rent_o"] * inv_k)
+    cT = fr["wT"] * wm
+    cE = fr["wE"] * fr["p_tx"] * wm
+    cC_B = fr["wC"] * fr["rho_B"] * inv_k
+    inv_B0 = 1.0 / fr["B0"]
+
+    def ug(xBb):
+        Bb = fr["B_min"] + xBb * B_span
+        L = torch.log2(1.0 + q / Bb)
+        tau = Bb * L
+        pow_B = torch.exp2(fr["gamma_B"] * torch.log2(Bb * inv_B0))
+        U = u_const + cT / Bb + cE / tau + cC_B * pow_B
+        dtau = L - q / (LN2 * (Bb + q))
+        dU_dBb = (cT * (-1.0 / (Bb * Bb))
+                  + cE * (-dtau / (tau * tau))
+                  + cC_B * fr["gamma_B"] * pow_B / Bb)
+        return U, dU_dBb * B_span
+    return ug
+
+
+def _joint_ug(fr, f_l, f_e, w, offl):
+    """(U, grad) closure over x = (xB, xr, R, xB_back): the MLi-GD joint
+    objective U = (1-R)·U₁ + R·U₂, affine in R (Corollary 7)."""
+    u1 = _u1_ug(fr, f_l, f_e, w, offl)
+    u2 = _u2_ug(fr)
+
+    def ug(x):
+        xB, xr, R, xBb = x
+        U1, (g1B, g1r) = u1((xB, xr))
+        U2, g2Bb = u2(xBb)
+        U = (1.0 - R) * U1 + R * U2
+        return U, ((1.0 - R) * g1B, (1.0 - R) * g1r, U2 - U1, R * g2Bb)
+    return ug
+
+
+# ---------------------------------------------------------------------------
+# Masked chunked projected GD
+# ---------------------------------------------------------------------------
+def _masked_chunked_gd(ug_fn, x, *, lr, eps, max_iters, chunk):
+    """Projected GD with the paper's stopping rules, one lane per user.
+
+    The rule tests the CARRIED (old) gradient for ‖g‖ < ε and the new
+    point for |ΔU| < ε and ‖Δx‖∞ < ε.  Frozen lanes keep x, u and g; the
+    float32 iteration count grows only on active lanes.  The loop checks
+    for any live lane every ``chunk`` steps; the masked step is
+    idempotent on frozen lanes, so results do not depend on ``chunk``.
+    Returns (x, U(x), iters)."""
+    u, g = ug_fn(x)
+    it = torch.zeros_like(u)
+    done = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    mi = float(max_iters)
+
+    def step(x, u, g, it, done):
+        active = torch.logical_and(torch.logical_not(done), it < mi)
+        x_new = tuple(torch.clamp(xi - lr * gi, 0.0, 1.0)
+                      for xi, gi in zip(x, g))
+        u_new, g_new = ug_fn(x_new)
+        gnorm = torch.sqrt(sum(gi * gi for gi in g))
+        dx = functools.reduce(
+            torch.maximum, [torch.abs(a - b) for a, b in zip(x_new, x)])
+        stop = ((gnorm < eps) | (torch.abs(u_new - u) < eps) | (dx < eps))
+        x = tuple(torch.where(active, a, b) for a, b in zip(x_new, x))
+        u = torch.where(active, u_new, u)
+        g = tuple(torch.where(active, a, b) for a, b in zip(g_new, g))
+        done = torch.where(active, stop, done)
+        it = it + active.to(it.dtype)
+        return x, u, g, it, done
+
+    while torch.any(torch.logical_and(torch.logical_not(done), it < mi)):
+        for _ in range(chunk):
+            x, u, g, it, done = step(x, u, g, it, done)
+    return x, u, it
+
+
+def _sweep_ref(feat, x0, tables, *, lr, eps, max_iters, chunk, warm_start,
+               init, joint):
+    """Warm-started M+1 split sweep with a running (first-min) argmin.
+
+    Returns (u_layers, x_layers tuple, it_layers, best_s, best_x, best_u);
+    per-layer tensors are (M1, X), best_* are (X,)."""
+    fr = _frows(feat)
+    tab = table_tensor(tables, feat.device)               # (M1, 4)
+    closure = _joint_ug if joint else _u1_ug
+    x0 = tuple(x0[i] for i in range(x0.shape[0]))
+    x = x0
+    u_b = torch.full_like(x0[0], math.inf)
+    s_b = torch.zeros_like(x0[0])
+    x_b = x0
+    us, xs, its = [], [], []
+    for s in range(tab.shape[0]):
+        if not warm_start:
+            x = tuple(torch.full_like(fr["c_dev"], v) for v in init)
+        ug = closure(fr, tab[s, 0], tab[s, 1], tab[s, 2], tab[s, 3])
+        x, u, it = _masked_chunked_gd(ug, x, lr=lr, eps=eps,
+                                      max_iters=max_iters, chunk=chunk)
+        better = u < u_b                                   # strict: first min
+        u_b = torch.where(better, u, u_b)
+        s_b = torch.where(better, float(s), s_b)
+        x_b = tuple(torch.where(better, a, b) for a, b in zip(x, x_b))
+        us.append(u)
+        xs.append(torch.stack(x, 0))
+        its.append(it)
+    x_l = torch.stack(xs, 0)                               # (M1, K, X)
+    return (torch.stack(us, 0), tuple(x_l[:, i] for i in range(len(x0))),
+            torch.stack(its, 0), s_b, x_b, u_b)
+
+
+def ligd_sweep_ref(feat, x0, tables, *, lr=0.15, eps=1e-5, max_iters=400,
+                   chunk=16, warm_start=True, init=(0.5, 0.5)):
+    """Fused Li-GD sweep, plain PyTorch.  feat: (NF_SWEEP, X); x0: (2, X)."""
+    return _sweep_ref(feat, x0, tables, lr=lr, eps=eps, max_iters=max_iters,
+                      chunk=chunk, warm_start=warm_start, init=init,
+                      joint=False)
+
+
+def mligd_sweep_ref(feat, x0, tables, *, lr=0.15, eps=1e-5, max_iters=400,
+                    chunk=16, warm_start=True, init=(0.5, 0.5, 0.5, 0.5)):
+    """Fused MLi-GD joint sweep over x = (B, r, R, B_back); x0: (4, X)."""
+    return _sweep_ref(feat, x0, tables, lr=lr, eps=eps, max_iters=max_iters,
+                      chunk=chunk, warm_start=warm_start, init=init,
+                      joint=True)

@@ -1,0 +1,130 @@
+"""The port's front door (``repro_torch.api``) against the JAX package's:
+``Session`` on ``paper_fig1`` (first 6 steps, sync) and on a 512-user
+``megafleet_100k`` (3 steps, async), every FleetState column per step and
+the handoff/relay/resplit accounting; ``Scenario.to_dict`` across the two
+packages for every preset the port registers; the refused worlds; and,
+in a fresh interpreter, that the port loads neither JAX nor ``repro``.
+
+Tolerances are ``torch_diff``'s: discrete columns exact outside the
+users the reference's own solves name as near-ties, continuous columns
+within 1e-4 relative on the other users."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.api import Scenario as JScenario                      # noqa: E402
+from repro.api import Session as JSession                        # noqa: E402
+from repro.api import get_scenario as j_get_scenario             # noqa: E402
+from repro_torch import interop                                  # noqa: E402
+from repro_torch.api import Scenario as TScenario                # noqa: E402
+from repro_torch.api import Session as TSession                  # noqa: E402
+from repro_torch.api import get_scenario as t_get_scenario       # noqa: E402
+from repro_torch.api import list_scenarios                       # noqa: E402
+
+from torch_diff import ReferenceTap, assert_fleets_agree         # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name, changes, steps", [
+    ("paper_fig1", {}, 6),
+    ("megafleet_100k", {"num_users": 512, "steps": 3}, 3),
+])
+def test_session_matches_reference(name, changes, steps, monkeypatch):
+    js_sc = j_get_scenario(name).replace(**changes)
+    ts_sc = t_get_scenario(name).replace(**changes)
+    assert ts_sc.to_dict() == js_sc.to_dict()
+    tap = ReferenceTap(monkeypatch, js_sc.num_users)
+    js, ts = JSession(js_sc), TSession(ts_sc, device="cpu")
+    assert ts.device.type == "cpu"
+    assert_fleets_agree(ts.fleet, js.fleet, tap.ties, f"{name} plan")
+    for k in range(steps):
+        jr, tr = js.step(), ts.step()
+        assert len(tr.events) == len(jr.events)
+        assert tr.in_flight == jr.in_flight
+        # under async both tables are one step stale, the same way
+        assert_fleets_agree(ts.fleet, js.fleet, tap.ties, f"{name} step {k}")
+    js.drain()
+    ts.drain()
+    assert not ts.policy.pending
+    assert_fleets_agree(ts.fleet, js.fleet, tap.ties, f"{name} drained")
+    mj, mt = js.metrics(), ts.metrics()
+    for f in ("t", "handoffs", "relays", "resplits"):
+        np.testing.assert_array_equal(getattr(mt, f), getattr(mj, f), f)
+    assert tap.ties.mean() <= 0.01, np.nonzero(tap.ties)[0].tolist()
+    assert set(ts.timings) == {"plan_s", "steps_s", "drain_s"}
+
+
+@pytest.mark.parametrize("name", list_scenarios())
+def test_scenario_dict_round_trips_across_packages(name):
+    t_sc, j_sc = t_get_scenario(name), j_get_scenario(name)
+    assert t_sc.to_dict() == j_sc.to_dict()
+    assert interop.scenario_from_dict(j_sc.to_dict()) == t_sc
+    assert JScenario.from_dict(t_sc.to_dict()) == j_sc
+    assert TScenario.from_dict(t_sc.to_dict()) == t_sc
+
+
+def test_port_registers_every_preset_without_serving():
+    from repro.api import list_scenarios as j_list
+    want = {n for n in j_list() if j_get_scenario(n).serving is None}
+    assert set(list_scenarios()) == want
+
+
+@pytest.mark.parametrize("case", ["faults", "candidates_k", "budget",
+                                  "serving", "transformer"])
+def test_refused_worlds_raise(case):
+    base = t_get_scenario("paper_fig1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if case == "faults":
+            TSession(t_get_scenario("chaos_churn"), device="cpu")
+        elif case == "candidates_k":
+            TSession(base.replace(candidates_k=3), device="cpu")
+        elif case == "budget":
+            TSession(base.replace(r_capacity=100.0), device="cpu")
+        elif case == "serving":
+            base.replace(serving=object())
+        else:
+            TSession(base.replace(model="starcoder2-3b"), device="cpu")
+
+
+def test_async_step_leaves_the_solve_in_flight():
+    sc = t_get_scenario("megafleet_100k").replace(num_users=256, steps=2)
+    s = TSession(sc, device="cpu")
+    rep = s.step()
+    assert len(rep.events) > 0
+    assert rep.in_flight and rep.result is None and s.policy.pending
+    m = s.run()
+    assert not s.policy.pending
+    assert list(m.relays) == [-1, -1]
+    assert np.all(np.isfinite(s.fleet.U))
+
+
+def test_session_device_none_means_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TSession(t_get_scenario("paper_fig1"))
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """A fresh interpreter: import the port, run a CPU session, and list
+    every loaded module named jax/jax.* or repro/repro.*."""
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "from repro_torch.api import Session, get_scenario\n"
+        "Session(get_scenario('paper_fig1').replace(steps=2),"
+        " device='cpu').run()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro')"
+        " or m.startswith(('jax.', 'repro.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
