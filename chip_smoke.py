@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: builds the CUDA sweep kernel from the checkout, holds both of its
-variants against the plain PyTorch version on the card, drives the MCSA
-planner's main path (``Session(get_scenario("megafleet_100k")).run()``)
-at full size, holds each variant against the plain version again on the
-inputs of its first launch there, and checks the card's result against
-the CPU path.
+card, over its two main paths.
+
+* The MCSA planner: builds the CUDA kernels from the checkout, holds both
+  variants of the sweep kernel against the plain PyTorch version on the
+  card, drives ``Session(get_scenario("megafleet_100k")).run()`` at full
+  size, holds each variant against the plain version again on the inputs
+  of its first launch there, and checks the card's result against the
+  CPU path.
+* Split LLM serving of starcoder2-3b at full width and depth (random
+  weights from a seed): holds the RMSNorm and flash-attention kernels
+  against their plain versions at the model's shapes, runs Li-GD split
+  generation against unsplit generation and the continuous-batching
+  engine over 16 requests, and compares the card with the CPU path on a
+  2-layer cut of the same width.
 
     python3 chip_smoke.py
 
@@ -57,6 +65,30 @@ SESSION_RTOL = 1e-4
 SESSION_ROW_SHARE = 0.01
 SESSION_RTOL_ALL = 1e-2
 SESSION_DISCRETE_SHARE = 0.005
+
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet): the least
+#: time for attention's products counts them at this rate
+PEAK_BF16_S = 989e12
+
+#: language-model kernels vs plain version on the card, as atol = rtol
+#: (``torch.allclose``).  RMSNorm, the reference's own kernel-test
+#: tolerances: f32 sums in another order (1e-5), one bf16 output rounding
+#: (5e-2).  Attention: another summation order in f32 (2e-5); in bf16
+#: 1e-2, set from the card's readings (max abs error <= 0.0039 at these
+#: shapes), not the reference tests' 3e-2: a long causal row's output is
+#: only ~0.05 in size.  Attention's error RMS over the output's RMS must
+#: also stay within ATTN_RMS_TOL (readings: <= 4.6e-5 in bf16, where
+#: both sides round the same f32 value and differ by one ulp on a few
+#: elements; 5.8e-7 in f32), so a fault confined to a few rows or one kv
+#: tile cannot hide under an elementwise bound
+RMS_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+ATTN_RMS_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+
+#: card vs CPU on the 2-layer full-width cut: bf16 prefill logits to the
+#: reference's own bound for one model computed in two orders (atol 0.08,
+#: rtol 0.02, tests/test_split_serving.py); f32 greedy tokens exactly
+CROSS_ATOL, CROSS_RTOL = 0.08, 0.02
 
 #: operations counted from csrc/sweep.cu as (plain, mufu): per objective
 #: evaluation, per GD update besides its evaluation, and per split's
@@ -280,6 +312,310 @@ def compare_fleets(a, b) -> dict:
     return out
 
 
+def build_all(modules) -> None:
+    """Build every kernel library at once (one nvcc each, in threads) and
+    print each build's ptxas register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+
+    def one(mod):
+        t0 = time.perf_counter()
+        mod.library()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        secs = list(pool.map(one, modules))
+    phase("build", f"{time.perf_counter() - t0:.2f} s for "
+          f"{len(modules)} libraries in parallel")
+    for mod, sec in zip(modules, secs):
+        lib = _build.library_path(mod.LIB_NAME, mod.SOURCE, mod.FLAGS)
+        log = lib.with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] if log.exists() \
+            else []
+        phase("build", f"{mod.LIB_NAME}: {sec:.2f} s ({lib.name}) "
+              + " | ".join(ptxas))
+
+
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave for one head of an S-token
+    sequence attending to itself."""
+    import numpy as np
+    q = np.arange(S)
+    if causal:
+        n = q + 1
+        if window:
+            n = np.minimum(n, window)
+    else:
+        lo = np.maximum(q - window + 1, 0) if window else np.zeros(S, int)
+        n = S - lo
+    return int(n.sum())
+
+
+def lm_kernel_cases(device) -> dict:
+    """RMSNorm and flash attention against their plain versions on the
+    card at starcoder2-3b's shapes, with times, bounds and the one-call
+    library time.  Returns, per kernel, the record of its main-path case
+    (RMSNorm: 4096 prefill rows in bf16; attention: B=4, S=1024, causal,
+    bf16) with ``max_abs_err`` the largest over its cases."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    out, breaches = {}, []
+    d, eps = 3072, 1e-6
+    errs = []
+    for rows in (8, 4096):
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            x, w = randn((rows, d), dt), randn((d,), dt)
+            got = rn.rmsnorm_cuda(x, w, eps).float()
+            want = rn.rmsnorm_ref(x, w, eps).float()
+            err = (got - want).abs().max().item()
+            errs.append(err)
+            tol = RMS_TOL[dtn]
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                breaches.append(f"rmsnorm {rows}x{d} {dtn}: {err:.3g}")
+            w1 = (1.0 + w.float()).to(dt)
+            rec = dict(
+                rows=rows, d=d, dtype=dtn, max_abs_err=err,
+                ms=timed_ms(lambda: rn.rmsnorm_cuda(x, w, eps), 30, 3),
+                plain_ms=timed_ms(lambda: rn.rmsnorm_ref(x, w, eps), 30, 3),
+                library_ms=timed_ms(lambda: F.rms_norm(x, (d,), w1, eps),
+                                    30, 3),
+                bound_ms=(2 * rows * d + d) * x.element_size()
+                / PEAK_BYTES_S * 1e3, bound_by="bytes")
+            phase("lm-kernel", "rmsnorm " + json.dumps(rec))
+            if (rows, dtn) == (4096, "bfloat16"):
+                out["rmsnorm"] = rec
+    out["rmsnorm"]["max_abs_err"] = max(errs)
+
+    Hq, Hkv, hd = 24, 2, 128
+    errs = []
+    for B, S, causal, window, dtn in ((1, 2048, True, 0, "bfloat16"),
+                                      (4, 1024, True, 0, "bfloat16"),
+                                      (1, 512, True, 128, "bfloat16"),
+                                      (1, 512, False, 0, "bfloat16"),
+                                      (1, 2048, True, 0, "float32")):
+        dt = getattr(torch, dtn)
+        q = randn((B, S, Hq, hd), dt)
+        k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention_cuda(q, k, v, **kw).float()
+        want = fa.attention_ref(q, k, v, **kw).float()
+        err = (got - want).abs().max().item()
+        rel_rms = ((got - want).square().mean().sqrt()
+                   / want.square().mean().sqrt()).item()
+        errs.append(err)
+        tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
+        if not (torch.allclose(got, want, atol=tol, rtol=tol)
+                and rel_rms <= rms_tol):
+            breaches.append(f"attention B={B} S={S} {kw} {dtn}: max "
+                            f"{err:.3g} (tol {tol}), error RMS / output "
+                            f"RMS {rel_rms:.3g} (tol {rms_tol})")
+        del got, want
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(S, device=device)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                  < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        try:
+            lib_ms = timed_ms(library, 30, 3)
+        except TypeError:        # a PyTorch without enable_gqa
+            lib_ms = None
+        flops = 4.0 * B * Hq * hd * attention_pairs(S, causal, window)
+        t_ops = flops / PEAK_BF16_S * 1e3
+        t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+            / PEAK_BYTES_S * 1e3
+        rec = dict(
+            B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, causal=causal, window=window,
+            dtype=dtn, max_abs_err=err, rel_rms_err=rel_rms,
+            ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                        30, 3),
+            plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw),
+                              5, 1),
+            library_ms=lib_ms, flops=flops,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        phase("lm-kernel", "flash_attention " + json.dumps(rec))
+        if (B, S, window) == (4, 1024, 0):
+            out["flash_attention"] = rec
+    out["flash_attention"]["max_abs_err"] = max(errs)
+    if breaches:
+        raise AssertionError("LM kernel vs plain: " + "; ".join(breaches))
+    return out
+
+
+def serve_full_width(device) -> dict:
+    """starcoder2-3b as get_config gives it (30 layers, d 3072, bf16),
+    random weights from ``serve_split.SEED``: Li-GD split generation on 4 prompts of
+    1024 tokens against unsplit, a mid split too, then the engine over 16
+    requests.  Every kernel's count is zeroed just before and read just
+    after (the Li-GD plan launches the sweep).  Raises on a breach."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ligd_step import kernel as sk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch import serve_split
+    from repro_torch.serving import InferenceEngine, SplitServer
+
+    cfg = get_config("starcoder2-3b")
+    t0 = time.perf_counter()
+    params, tokens = serve_split.make_inputs(cfg, device=device, batch=4,
+                                             prompt_len=1024)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES)
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    res = serve_split.run(cfg, params, tokens, new_tokens=32)
+    mid = cfg.num_layers // 2
+    mid_out = SplitServer(cfg, params, device=device).generate(
+        tokens, mid, max_new=32)
+    mid_match = bool(mid_out.cpu().tolist() == res["unsplit_tokens"])
+
+    rng = np.random.default_rng(serve_split.SEED + 7)
+    lens = rng.integers(128, 1025, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    eng = InferenceEngine(cfg, params, device=device, slots=8,
+                          cache_len=2048)
+    rids = [eng.submit(p, max_new=32) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run_to_completion()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one-request references (after the counts were read)
+    first_ok, later_same, later_all, prefix = 0, 0, 0, 0
+    for rid, p in zip(rids, prompts):
+        ref, _, _ = serve_split.unsplit_generate(
+            cfg, params, torch.as_tensor(p, device=device)[None], 32)
+        ref = ref[0].cpu().tolist()
+        got = results[rid]
+        first_ok += int(got[0] == ref[0])
+        later_same += sum(int(a == b) for a, b in zip(got[1:], ref[1:]))
+        later_all += len(ref) - 1
+        prefix += next((i for i, (a, b) in enumerate(zip(got, ref))
+                        if a != b), len(ref))
+    rec = {k: res[k] for k in ("split", "B_hz", "r", "match", "prefill_ms",
+                               "decode_ms_per_step", "split_generate_s")}
+    rec.update(
+        init_s=init_s, mid_split=mid, mid_match=mid_match,
+        decode_tokens_per_s=4 / (res["decode_ms_per_step"] * 1e-3),
+        engine_requests=len(results),
+        engine_complete=sum(len(results[r]) == 32 for r in rids),
+        engine_s=engine_s, engine_tokens_per_s=16 * 32 / engine_s,
+        engine_first_token_equal=first_ok,
+        engine_later_token_share_equal=later_same / later_all,
+        engine_mean_equal_prefix=prefix / len(rids),
+        launches=launches, peak_mem_gb=peak_gb)
+    phase("serve", json.dumps(rec))
+    breaches = []
+    if not (res["match"] and mid_match):
+        breaches.append("split generation != unsplit")
+    if rec["engine_complete"] != 16:
+        breaches.append(f"{16 - rec['engine_complete']} requests incomplete")
+    if first_ok != 16:
+        breaches.append(f"{16 - first_ok} first tokens differ from prefill")
+    if not all(launches[k] > 0 for k in ("rmsnorm", "flash_attention",
+                                         "ligd_sweep")):
+        breaches.append(f"a kernel never launched: {launches}")
+    if breaches:
+        raise AssertionError("serve: " + "; ".join(breaches))
+    del params, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_cross(device, seed: int = 3) -> None:
+    """Full width, 2 layers, one 64-token prompt: bf16 prefill logits on
+    the card (kernels) against the CPU (plain versions), then 8 greedy
+    tokens in float32, which must be equal.  Then, in float32 on the
+    card, the engine's batched decode over 4 slots that hold prompts of
+    other lengths (so other positions), 6 requests: every token of every
+    request must equal that request's own unsplit generation.  Raises on
+    a breach."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_split import unsplit_generate
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2)
+    cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (1, 64),
+                        generator=torch.Generator().manual_seed(seed + 1))
+
+    def to(tree, **kw):
+        if isinstance(tree, dict):
+            return {k: to(v, **kw) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, **kw) for v in tree]
+        return tree.to(**kw)
+
+    logits = {}
+    for dev in ("cpu", device):
+        p = to(cpu_params, device=dev)
+        logits[str(dev)], _ = tfm.prefill(cfg, p, {"tokens": tok.to(dev)},
+                                          cache_len=64)
+    a = logits[str(device)].float().cpu()
+    b = logits["cpu"].float()
+    err = (a - b).abs().max().item()
+    bf16_ok = bool(torch.allclose(a, b, atol=CROSS_ATOL, rtol=CROSS_RTOL))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks, p32 = {}, {}
+    for dev in ("cpu", device):
+        p32[dev] = to(cpu_params, device=dev, dtype=torch.float32)
+        toks[str(dev)] = unsplit_generate(cfg32, p32[dev], tok.to(dev),
+                                          8)[0].cpu()
+    same = bool(torch.equal(toks["cpu"], toks[str(device)]))
+    p = p32[device]
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in rng.integers(8, 97, 6)]
+    eng = InferenceEngine(cfg32, p, device=device, slots=4, cache_len=128)
+    rids = [eng.submit(q, max_new=8) for q in prompts]
+    results = eng.run_to_completion()
+    eng_equal = sum(
+        results[rid] == unsplit_generate(
+            cfg32, p, torch.as_tensor(q, device=device)[None], 8)[0][0]
+        .cpu().tolist() for rid, q in zip(rids, prompts))
+    phase("serve-cross", json.dumps({
+        "layers": 2, "prompt": 64, "bf16_logits_max_abs_err": err,
+        "bf16_within_tol": bf16_ok, "f32_tokens_equal": same,
+        "f32_tokens": toks["cpu"].tolist(),
+        "f32_engine_prompt_lens": [len(q) for q in prompts],
+        "f32_engine_requests_equal": eng_equal}))
+    if not (bf16_ok and same and eng_equal == len(prompts)):
+        raise AssertionError(f"serve card vs CPU: bf16 logits err {err:.3g}"
+                             f" (tol {CROSS_ATOL}/{CROSS_RTOL}), f32 tokens "
+                             f"equal: {same}; f32 engine: {eng_equal} of "
+                             f"{len(prompts)} requests equal unsplit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -300,17 +636,11 @@ def main() -> int:
           f"{torch.version.cuda} | python {sys.version.split()[0]}")
     device = torch.device("cuda", 0)
 
-    # 2. build ---------------------------------------------------------
-    from repro_torch.kernels import _build
+    # 2. build: one nvcc per source, all started together -------------
     from repro_torch.kernels.ligd_step import kernel as sweep_kernel
-    t0 = time.perf_counter()
-    sweep_kernel.library()
-    build_s = time.perf_counter() - t0
-    log = _build.library_path("mcsa_sweep", sweep_kernel.SOURCE)
-    ptxas = [ln.strip() for ln in log.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln] \
-        if log.with_suffix(".log").exists() else []
-    phase("build", f"{build_s:.2f} s ({log.name}) " + " | ".join(ptxas))
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    build_all((sweep_kernel, rms_kernel, flash_kernel))
 
     # 3. kernel against plain on the card --------------------------------
     from repro_torch.configs import nin, vgg16
@@ -372,7 +702,17 @@ def main() -> int:
         fleets[dev] = s.fleet
     phase("cross", json.dumps(compare_fleets(fleets["cuda"], fleets["cpu"])))
 
-    # 6. kernels line, 7. result ----------------------------------------
+    # 6. language-model kernels against plain on the card ---------------
+    lm = lm_kernel_cases(device)
+
+    # 7. serving main path: full-width starcoder2-3b split generation and
+    # the continuous-batching engine -------------------------------------
+    serve = serve_full_width(device)
+
+    # 8. serving, card against the CPU path -------------------------------
+    serve_cross(device)
+
+    # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
     kernels = [{
         "name": name, "route": "cuda", "source": src,
@@ -381,6 +721,19 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
     } for name, r in recs.items()]
+    for name, src, replaces in (
+            ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:27"),
+            ("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:98")):
+        r = lm[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": serve["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

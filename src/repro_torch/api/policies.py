@@ -4,7 +4,7 @@ policy registry.
 The port of the JAX package's ``repro/api/policies.py``, with one policy
 so far: :class:`repro_torch.core.planner.MCSAPlanner`, the paper's
 Li-GD/MLi-GD control plane, which implements the protocol natively.  The
-§6 comparison baselines wait for slice 2 (ROADMAP, queue 1, item 1):
+§6 comparison baselines wait for ROADMAP, queue 1, item 2:
 their evaluator, ``core/baselines.py``, is not ported yet, and asking
 for one by name raises.
 """

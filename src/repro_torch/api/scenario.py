@@ -7,11 +7,12 @@ The port of the JAX package's ``repro/api/scenario.py``.  A
 dict, so a scenario crosses between the two packages through
 ``to_dict`` / ``from_dict`` (see :mod:`repro_torch.interop`).
 
-What this slice supports: chain-CNN models, K = 1, no budgets, no
-faults, no serving.  ``serving`` must stay None (the serving data plane
-is not ported: ROADMAP, queue 1, item 2); a ``faults`` config
-round-trips but :class:`~repro_torch.api.Session` refuses it.  Every
-reference preset without ``serving`` is registered here.
+What the port's Session supports: chain-CNN models, K = 1, no budgets,
+no faults, no serving.  ``serving`` must stay None (the closed-loop
+serving data plane is not ported: ROADMAP, queue 1, item 3); a
+``faults`` config round-trips but :class:`~repro_torch.api.Session`
+refuses it.  Every reference preset without ``serving`` is registered
+here.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ from repro_torch.core.mobility import RandomWaypointMobility, StaticMobility
 from repro_torch.core.network import Topology, build_topology
 from repro_torch.core.profile import profile_of
 
-SERVING_DEFERRED = ("Scenario.serving: the serving data plane is not "
-                    "ported yet (ROADMAP, queue 1, item 2); it must be None")
+SERVING_DEFERRED = ("Scenario.serving: the closed-loop serving data plane "
+                    "is not ported yet (ROADMAP, queue 1, item 3); it must "
+                    "be None")
 
 #: mobility-model registry: name -> class with the
 #: (topo, num_users, *, seed, speed_range-ignorable) constructor surface
@@ -140,9 +142,9 @@ class Scenario:
             builder = CNN_BUILDERS[self.model]
         except KeyError:
             raise NotImplementedError(
-                f"model {self.model!r}: only the chain CNNs "
-                f"{sorted(CNN_BUILDERS)} are ported; transformer profiles "
-                "wait for the serving slice (ROADMAP, queue 1, item 2)"
+                f"model {self.model!r}: a Session plans the chain CNNs "
+                f"{sorted(CNN_BUILDERS)} only; planning a transformer "
+                "model's fleet waits for ROADMAP, queue 1, item 3"
             ) from None
         return profile_of(builder())
 

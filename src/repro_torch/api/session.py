@@ -13,7 +13,7 @@ end; ``step`` never does).  The step order is the reference's
 This slice covers ``__init__``, ``step``, ``run``, ``drain`` and
 ``metrics`` for fault-free, serving-free worlds with K = 1 and no
 budgets; a scenario with ``faults``, ``candidates_k > 1`` or budgets
-raises (ROADMAP, queue 1, item 1).  The planner runs on ``device``:
+raises (ROADMAP, queue 1, item 2).  The planner runs on ``device``:
 None means the card, and a missing card raises.
 """
 from __future__ import annotations

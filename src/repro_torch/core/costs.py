@@ -151,6 +151,14 @@ def t_transmit(dev, edge, w_bits, m_bits, B, hops=None):
     return t_up + t_relay
 
 
+def relay_seconds(bits, hops, B_backhaul):
+    """The backhaul relay term of Eq. (5) / Eq. (41)'s H₂ path on an
+    arbitrary payload: ship ``bits`` over ``hops`` AP→server hops at
+    ``B_backhaul`` bit/s each.  The serving layer prices mid-stream
+    failover with it (:mod:`repro_torch.serving.failover`)."""
+    return float(bits) * float(hops) / float(B_backhaul)
+
+
 def cbr_calc(dev):
     """Eq. (7): strategy-calculation cost-benefit ratio T_Ag / k."""
     return dev["t_ag"] / dev["k_rounds"]

@@ -28,7 +28,7 @@ Not ported yet, and raising ``NotImplementedError`` instead: admission
 control (``candidates_k > 1`` or a capacitated topology), the fault path
 (a faulted topology, ``StepEvents.faults``), the
 ``shard_map`` static path (``env``), and ``run_baseline`` — ROADMAP,
-queue 1, items 1 and 4.
+queue 1, items 2 and 4.
 """
 from __future__ import annotations
 
@@ -49,13 +49,13 @@ from .mligd import MLiGDResult, solve_mligd_batch
 
 ADMISSION_DEFERRED = ("admission control (candidates_k > 1 or a "
                       "capacitated topology) is not ported yet: ROADMAP, "
-                      "queue 1, item 1 (slice 2)")
+                      "queue 1, item 2")
 FAULTS_DEFERRED = ("the fault path (faulted topology, StepEvents.faults) "
-                   "is not ported yet: ROADMAP, queue 1, item 1 (slice 2)")
+                   "is not ported yet: ROADMAP, queue 1, item 2")
 SHARDED_DEFERRED = ("the sharded static plan (env / shard_map) is not "
                     "ported yet: ROADMAP, queue 1, item 4")
 BASELINES_DEFERRED = ("baseline policies are not ported yet: ROADMAP, "
-                      "queue 1, item 1 (slice 2)")
+                      "queue 1, item 2")
 
 
 def _host(a) -> np.ndarray:

@@ -1,18 +1,22 @@
-"""Carrying planner state across from the JAX package.
+"""Carrying state across from the JAX package.
 
-The planner has no weights: its state is the scenario, the layer profile
-and the plan table.  These functions take them as plain numpy arrays and
-dicts — what the reference's ``Scenario.to_dict()``, ``LayerProfile``
-fields and ``FleetState`` columns hold — so nothing here imports the
-reference.  A differential test seeds the port's planner with the
-reference's plan table through :func:`fleet_from_columns`, and both
-packages then compute the same ``on_events`` step.
+The planner's state is the scenario, the layer profile and the plan
+table; the language model's is its parameter tree.  These functions take
+them as plain numpy arrays and dicts — what the reference's
+``Scenario.to_dict()``, ``LayerProfile`` fields, ``FleetState`` columns
+and ``init_lm`` leaves hold — so nothing here imports the reference.  A
+differential test seeds the port's planner with the reference's plan
+table through :func:`fleet_from_columns`, or the port's model with the
+reference's weights through :func:`lm_params_from_numpy`, and both
+packages then compute the same step.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.api.scenario import Scenario
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.costs import LayerProfile
 from repro_torch.core.planner import PLAN_FIELDS, FleetState
 
@@ -44,3 +48,46 @@ def fleet_from_columns(cols: dict) -> FleetState:
     return FleetState(**{
         k: np.array(cols[k], np.int64 if k in _INT_COLUMNS else np.float64)
         for k in PLAN_FIELDS})
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of a numpy leaf; bfloat16 (ml_dtypes) goes through
+    float32, which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
+    """The port's parameters (CPU tensors) from the reference's ``init_lm``
+    tree as numpy leaves: ``embed`` (Vp, d), ``final_norm`` (d,),
+    ``unembed`` (d, Vp) unless tied, and ``stack`` = {``tail``: one block
+    per remainder layer, ``scan``: one block per pattern position, each
+    leaf stacked on a leading superblock axis}.  Block ``i`` of the port
+    is ``tail[i]`` for the first ``num_layers % len(pattern)`` blocks,
+    then superblock ``j // period`` of ``scan[j % period]``."""
+    period = len(cfg.pattern)
+    rem = cfg.num_layers % period
+    stack = tree["stack"]
+    layers = []
+    for i in range(cfg.num_layers):
+        if i < rem:
+            block = _tree_map(_tensor, stack["tail"][i])
+        else:
+            j = i - rem
+            block = _tree_map(lambda a: _tensor(np.asarray(a)[j // period]),
+                              stack["scan"][j % period])
+        layers.append(block)
+    params = {"embed": _tensor(tree["embed"]),
+              "final_norm": _tensor(tree["final_norm"]),
+              "layers": layers}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _tensor(tree["unembed"])
+    return params

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version.  Only the fused Li-GD/MLi-GD sweep is ported so far; the other
-TPU kernels of the JAX package are queued in ROADMAP.md (queue 2)."""
-from . import ligd_step
+version: the fused Li-GD/MLi-GD sweep, RMSNorm and flash attention.  The
+other TPU kernels of the JAX package are queued in ROADMAP.md."""
+from . import flash_attention, ligd_step, rmsnorm
 
-__all__ = ["ligd_step"]
+__all__ = ["flash_attention", "ligd_step", "rmsnorm"]

@@ -8,7 +8,7 @@ the source bytes, the flags and the compiler path, so a stale library is
 never loaded: editing a source or a flag changes the name.  The build
 runs at first use, never at import, and writes to a temporary name that
 is renamed into place, so concurrent builders cannot load a half-written
-file.
+file.  Each kernel module passes its own flags (``flags=``).
 """
 from __future__ import annotations
 
@@ -22,10 +22,9 @@ from pathlib import Path
 
 #: Hopper only (``sm_90a`` keeps wgmma/setmaxnreg available to later
 #: kernels).  No --use_fast_math: it turns exp2f/log2f and division into
-#: approximations.  --fmad=false keeps every product and sum separately
-#: rounded, as the plain PyTorch versions round them.
+#: approximations.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -43,26 +42,26 @@ def nvcc_path() -> str:
                        "with the card")
 
 
-def library_path(name: str, source: Path) -> Path:
-    """Where the library of ``source`` lives for the current flags."""
+def library_path(name: str, source: Path, flags=NVCC_FLAGS) -> Path:
+    """Where the library of ``source`` built with ``flags`` lives."""
     h = hashlib.sha256()
     h.update(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     h.update(nvcc_path().encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, source: Path) -> Path:
+def build(name: str, source: Path, flags=NVCC_FLAGS) -> Path:
     """Compile ``source`` unless its library already exists; returns the
     library path.  Raises with nvcc's output when the build fails."""
-    out = library_path(name, source)
+    out = library_path(name, source, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+        cmd = [nvcc_path(), *flags, "-Xptxas", "-v", "-o", tmp,
                str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -76,6 +75,6 @@ def build(name: str, source: Path) -> Path:
     return out
 
 
-def load(name: str, source: Path) -> ctypes.CDLL:
+def load(name: str, source: Path, flags=NVCC_FLAGS) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library."""
-    return ctypes.CDLL(str(build(name, source)))
+    return ctypes.CDLL(str(build(name, source, flags)))

@@ -1,0 +1,106 @@
+"""ctypes wrapper of the CUDA flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+The library is built by :mod:`repro_torch.kernels._build` at the first
+launch, never at import.  :func:`flash_attention_cuda` checks its
+inputs, allocates the output with ``torch.empty``, launches on the
+current stream without synchronising, and raises if the launch was
+refused.  ``LAUNCHES`` counts successful launches, nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+LIB_NAME = "mcsa_flash_attention"
+FLAGS = _build.NVCC_FLAGS
+
+#: launches since the last reset (callers may zero it)
+LAUNCHES = {"flash_attention": 0}
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (first call) and load the attention library, with argtypes."""
+    lib = _build.load(LIB_NAME, SOURCE, FLAGS)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mcsa_flash_attention_launch.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+    lib.mcsa_flash_attention_launch.restype = ctypes.c_int
+    lib.mcsa_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mcsa_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: int) -> None:
+    """Raise on what neither version takes: shapes that are not
+    (B, S, H, hd) with matching B/hd, Hkv not dividing Hq, k/v shapes that
+    differ, a negative window, or causal attention with Sq != Skv (the
+    kernel aligns q 0 with k 0, while ``models.attention.naive_attention``
+    aligns the ends: prefill always has Sq == Skv)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         "(B, Sq, Hq, hd) and two equal (B, Skv, Hkv, hd)")
+    B, Sq, Hq, hd = q.shape
+    Bk, Skv, Hkv, hdk = k.shape
+    if Bk != B or hdk != hd or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree on B or hd, or Hkv "
+                         "does not divide Hq")
+    if window < 0:
+        raise ValueError(f"attention: window {window} < 0")
+    if causal and Sq != Skv:
+        raise ValueError(f"attention: causal with Sq={Sq} != Skv={Skv} is "
+                         "refused (q 0 would align with k 0, not with the "
+                         "end of the keys)")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), one dtype (float32 or
+    bfloat16), contiguous and 16-byte aligned, on one CUDA device ->
+    (B, Sq, Hq, hd) in that dtype."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not torch.is_tensor(t):
+            raise TypeError(f"{name}: expected a tensor")
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, expected q's CUDA "
+                             f"device ({q.device})")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                            "bfloat16, the same for q, k and v")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: not contiguous or not 16-byte "
+                             "aligned")
+    check_shapes(q, k, v, causal, window)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"attention: head_dim {hd}, expected one of "
+                         f"{HEAD_DIMS}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mcsa_flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+        Skv, Hq, Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),
+        DTYPES[q.dtype], stream)
+    if rc != 0:
+        msg = lib.mcsa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"flash attention launch failed: {msg} ({rc})")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -2,7 +2,7 @@
 Corollary 3): the CUDA kernel ``csrc/sweep.cu`` on the card, its plain
 PyTorch version ``ref.py`` on the CPU, chosen by ``ops.py`` from the
 tensor's device.  The JAX package's single-step kernel
-(``ligd_steps_tpu``) is not ported yet (ROADMAP, queue 2, item 2)."""
+(``ligd_steps_tpu``) is not ported yet (ROADMAP, queue 1, item 1)."""
 from .kernel import LAUNCHES, sweep_cuda
 from .ops import SweepResult, ligd_sweep, mligd_sweep
 from .ref import (NF_SWEEP, NROWS_JOINT, NROWS_LIGD, SWEEP_FIELDS,

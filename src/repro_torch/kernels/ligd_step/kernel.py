@@ -22,6 +22,13 @@ from repro_torch.kernels import _build
 from .ref import NF_SWEEP
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
+LIB_NAME = "mcsa_sweep"
+
+#: --fmad=false keeps every product and sum separately rounded, as the
+#: plain PyTorch version rounds them: the sweep's discrete outputs (split,
+#: iteration counts) flip on one ulp, and this flag is what makes the
+#: kernel equal its plain version bit for bit
+FLAGS = _build.NVCC_FLAGS + ("--fmad=false",)
 
 #: launches per variant since the last reset (callers may zero them)
 LAUNCHES = {"ligd_sweep": 0, "mligd_sweep": 0}
@@ -34,7 +41,7 @@ MAX_SPLITS = 48 * 1024 // 16
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (first call) and load the sweep library, with argtypes."""
-    lib = _build.load("mcsa_sweep", SOURCE)
+    lib = _build.load(LIB_NAME, SOURCE, FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mcsa_sweep_launch.argtypes = [p] * 8 + [i, i, i, f, f, i, i,
                                                 f, f, f, f, i, p]

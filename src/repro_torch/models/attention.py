@@ -1,0 +1,93 @@
+"""Attention paths of the dense decoder in plain PyTorch: decode against
+a KV cache, and the reference softmax attention.
+
+The port of the JAX package's ``repro/models/attention.py``.  Every path
+is GQA-grouped: q has Hq heads, k/v Hkv <= Hq, and the group structure
+(rep = Hq // Hkv) is carried through the products, so the cache is never
+widened to Hq heads.
+
+* Prefill attention is not here: the reference's model code calls its
+  chunked-jnp ``flash_attention``; the port's ``models/transformer.py``
+  calls the same contract through
+  :mod:`repro_torch.kernels.flash_attention.ops` (the CUDA kernel on the
+  card, the plain version on the CPU).
+* :func:`decode_attention` — one query token against the cache, with
+  per-sequence positions (continuous batching).  Plain tensor code, as in
+  the reference (a candidate kernel: ROADMAP).
+* :func:`naive_attention` — the reference softmax attention (ends of q
+  and k aligned) that tests hold the others against.
+
+Sliding-window (local) layers and int8 KV caches are not ported:
+``models/transformer.py`` refuses them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
+
+
+def _group(q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B, S, Hq, hd) -> (B, S, Hkv, rep, hd)."""
+    B, S, Hq, hd = q.shape
+    return q.reshape(B, S, Hkv, Hq // Hkv, hd)
+
+
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_positions=None, kv_positions=None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Reference: q (B,Sq,Hq,hd), k/v (B,Skv,Hkv,hd), Hkv | Hq ->
+    (B,Sq,Hq,hd); causal aligns the last query with the last key."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev) + (Skv - Sq if causal else 0)
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=dev)
+    qg = _group(q, Hkv).float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    dq = q_positions[:, None]
+    dk = kv_positions[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= dq >= dk
+    if window > 0:
+        mask &= (dq - dk) < window
+    scores = scores + _mask_bias(mask)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
+    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def decode_attention(q, cache_k, cache_v, pos, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,1,Hq,hd); cache_k/v (B,L,Hkv,hd); pos: the position of the
+    query token, an int or a (B,) tensor of per-sequence positions.
+    Slots 0..pos are valid.  Scores and probabilities in float32."""
+    B, _, Hq, hd = q.shape
+    L, Hkv = cache_k.shape[1], cache_k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = _group(q, Hkv).float()                          # (B,1,Hkv,rep,hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache_k.float()) * scale
+    slots = torch.arange(L, device=q.device)
+    p = torch.as_tensor(pos, device=q.device)
+    if p.dim() == 1:
+        valid = slots[None, :] <= p[:, None]             # (B, L)
+        bias = _mask_bias(valid)[:, None, None, None, :]
+    else:
+        bias = _mask_bias(slots <= p)
+    probs = torch.softmax(s + bias, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v.float())
+    return out.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+__all__ = ["NEG_INF", "decode_attention", "naive_attention"]

@@ -112,14 +112,23 @@ def test_session_device_none_means_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh interpreter: import the port, run a CPU session, and list
-    every loaded module named jax/jax.* or repro/repro.*."""
+    """A fresh interpreter: import the port, run a CPU session and a
+    reduced CPU split generation, and list every loaded module named
+    jax/jax.* or repro/repro.*."""
     code = (
         "import sys\n"
+        "import torch\n"
         "import repro_torch\n"
         "from repro_torch.api import Session, get_scenario\n"
+        "import repro_torch.serving, repro_torch.launch.serve_split\n"
+        "from repro_torch.configs import get_config, reduced\n"
+        "from repro_torch.models.transformer import init_lm\n"
         "Session(get_scenario('paper_fig1').replace(steps=2),"
         " device='cpu').run()\n"
+        "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
+        "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "repro_torch.serving.SplitServer(cfg, params, device='cpu')"
+        ".generate(torch.zeros((1, 5), dtype=torch.long), 1, 3)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')"
         " or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"

@@ -171,3 +171,79 @@ def assert_fleets_agree(port, ref, ties: np.ndarray, where: str) -> None:
     for f in ("B", "r", "U", "T", "E", "C"):
         assert_rel(getattr(port, f), getattr(ref, f), f"{where} {f}",
                    rows=rows)
+
+
+NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def _randomise_norms(tree, rng):
+    if isinstance(tree, dict):
+        return {k: (rng.standard_normal(np.shape(v)).astype(np.asarray(v).dtype)
+                    * 0.5 if k in NORMS else _randomise_norms(v, rng))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_randomise_norms(v, rng) for v in tree)
+    return tree
+
+
+def model_pair(arch: str, *, layers: int, dtype: str = "float32",
+               seed: int = 0):
+    """(reference cfg, reference params, port cfg, port params): the same
+    weights in both packages, from the reference's ``init_lm`` with the
+    norm weights randomised (they start at zero, which would hide a
+    wrong ``(1 + w)`` convention)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.models import transformer as jtfm
+    from repro.runtime.meshenv import CPU_ENV
+    from repro_torch import interop
+    from repro_torch.configs import get_config, reduced
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch), layers=layers),
+                               dtype=dtype)
+    tcfg = dataclasses.replace(reduced(get_config(arch), layers=layers),
+                               dtype=dtype)
+    jp, _ = jtfm.init_lm(jcfg, jax.random.PRNGKey(seed), CPU_ENV)
+    tree = jax.tree.map(lambda a: np.asarray(a), jp)
+    tree = _randomise_norms(tree, np.random.default_rng(seed + 100))
+    jp = jax.tree.map(jnp.asarray, tree)
+    return jcfg, jp, tcfg, interop.lm_params_from_numpy(tcfg, tree)
+
+
+def j_greedy(cfg, params, tokens: np.ndarray, max_new: int):
+    """Reference greedy tokens (B, max_new) through prefill + decode_step,
+    and the prefill logits."""
+    import jax.numpy as jnp
+    from repro.models import transformer as jtfm
+    from repro.runtime.meshenv import CPU_ENV
+    B, S = tokens.shape
+    logits, caches = jtfm.prefill(cfg, params, CPU_ENV,
+                                  {"tokens": jnp.asarray(tokens)},
+                                  cache_len=S + max_new)
+    cur = jnp.argmax(logits[:, :cfg.vocab_size], -1).astype(jnp.int32)
+    out = [np.asarray(cur)]
+    for i in range(max_new - 1):
+        _, cur, caches = jtfm.decode_step(cfg, params, CPU_ENV, cur[:, None],
+                                          jnp.asarray(S + i, jnp.int32),
+                                          caches)
+        out.append(np.asarray(cur))
+    return np.stack(out, axis=1), np.asarray(logits, np.float32)
+
+
+def t_greedy(cfg, params, tokens: np.ndarray, max_new: int):
+    """The port's counterpart of :func:`j_greedy` (CPU tensors)."""
+    import torch
+    from repro_torch.models import transformer as ttfm
+    B, S = tokens.shape
+    tok = torch.from_numpy(tokens.astype(np.int64))
+    logits, caches = ttfm.prefill(cfg, params, {"tokens": tok},
+                                  cache_len=S + max_new)
+    cur = torch.argmax(logits[:, :cfg.vocab_size], -1)
+    out = [np_of(cur)]
+    for i in range(max_new - 1):
+        _, cur, caches = ttfm.decode_step(cfg, params, cur[:, None], S + i,
+                                          caches)
+        out.append(np_of(cur))
+    return np.stack(out, axis=1), np_of(logits.float())

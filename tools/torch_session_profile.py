@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's main path on the card.
+"""Where the time goes in the port's main paths on the card.
 
-Runs ``Session(get_scenario(<scenario>)).run()`` (default
-``megafleet_100k``: 100k users, 5 async steps) twice on one CUDA card —
-the first run warms the CUDA context, the allocator and the kernel
-library — and reports for the second run:
+Planner (default): runs ``Session(get_scenario(<scenario>)).run()``
+(default ``megafleet_100k``: 100k users, 5 async steps) twice on one
+CUDA card — the first run warms the CUDA context, the allocator and the
+kernel library — and reports for the second run:
 
 * host wall-clock per phase, from timers wrapped around the planner's and
   the mobility model's methods: mobility step, applying the previous
@@ -14,10 +14,18 @@ library — and reports for the second run:
 * device time by kernel from ``torch.profiler`` (CUDA activity), and the
   device's busy share of the run's wall-clock.
 
-    python3 tools/torch_session_profile.py [--scenario megafleet_100k]
-        [--out chiprun_out/session_profile.json]
+Serving (``--serve``): full-width starcoder2-3b (random weights), split
+at the Li-GD choice, ``SplitServer`` prefill of 4 prompts of 1024 tokens
+then 31 decode steps, after one warm-up generation; for the prefill and
+for the decode steps apart: host wall-clock, device busy share and
+device time by kernel, grouped into the two hand-written kernels, matrix
+products and the rest.
 
-Needs a CUDA card; prints one JSON object (also written to ``--out``).
+    python3 tools/torch_session_profile.py [--scenario megafleet_100k]
+        [--serve] [--out report.json]
+
+Needs a CUDA card; prints one JSON object (also written to ``--out``
+when given).
 """
 from __future__ import annotations
 
@@ -93,11 +101,91 @@ def device_times(prof) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_us"]))
 
 
+def _groups(dev: dict) -> dict:
+    """Device microseconds of the hand-written kernels, the matrix
+    products (cuBLAS / CUTLASS kernels) and everything else."""
+    out = {"flash_attention_kernel": 0.0, "rmsnorm_kernel": 0.0,
+           "matmul": 0.0, "other": 0.0}
+    for name, v in dev.items():
+        if "flash_attention_kernel" in name:
+            key = "flash_attention_kernel"
+        elif "rmsnorm_kernel" in name:
+            key = "rmsnorm_kernel"
+        elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
+                                             "cublas", "gemv", "nvjet")):
+            key = "matmul"
+        else:
+            key = "other"
+        out[key] += v["device_us"]
+    return out
+
+
+def serve_profile() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_split import C_DEV, make_inputs, plan_split
+    from repro_torch.serving import SplitServer
+
+    batch, prompt_len, new_tokens = 4, 1024, 32   # chip_smoke.py's [serve]
+    device = torch.device("cuda", 0)
+    cfg = get_config("starcoder2-3b")
+    params, tokens = make_inputs(cfg, device=device, batch=batch,
+                                 prompt_len=prompt_len)
+    split = plan_split(cfg, seq=prompt_len, batch=batch, c_dev=C_DEV,
+                       device=device)["split"]
+    server = SplitServer(cfg, params, device=device)
+    server.generate(tokens, split, max_new=new_tokens)          # warm-up
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    report = {"model": cfg.name, "layers": cfg.num_layers, "split": split,
+              "batch": batch, "prompt_len": prompt_len}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, nxt, caches = server.prefill(tokens, split,
+                                        prompt_len + new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report["prefill"] = _phase_report(prof, wall, 1)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            _, nxt, caches = server.decode(nxt[:, None], prompt_len + i,
+                                           caches, split)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report["decode"] = _phase_report(prof, wall, new_tokens - 1)
+    return report
+
+
+def _phase_report(prof, wall_s: float, steps: int) -> dict:
+    dev = device_times(prof)
+    busy_us = sum(v["device_us"] for v in dev.values())
+    return {"wall_ms": wall_s * 1e3, "steps": steps,
+            "wall_ms_per_step": wall_s * 1e3 / steps,
+            "device_busy_ms": busy_us * 1e-3,
+            "device_busy_share": busy_us * 1e-6 / wall_s,
+            "device_ms_by_group": {k: v * 1e-3
+                                   for k, v in _groups(dev).items()},
+            "device_by_kernel_top": dict(list(dev.items())[:10])}
+
+
+def emit(report: dict, out) -> int:
+    """Print the report as one JSON line; also write it to ``out``."""
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(report, indent=1))
+    print(json.dumps(report))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="megafleet_100k")
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
-                                         / "session_profile.json"))
+    ap.add_argument("--serve", action="store_true",
+                    help="profile full-width split serving instead")
+    ap.add_argument("--out", default=None,
+                    help="also write the report to this JSON file")
     args = ap.parse_args()
 
     import torch
@@ -107,11 +195,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.api import get_scenario
 
-    sc = get_scenario(args.scenario)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.serve:
+        return emit(dict(serve_profile(), card=card), args.out)
+    sc = get_scenario(args.scenario)
     run_once(sc, profile=False)                       # warm-up
     sess, host, launches, prof = run_once(sc, profile=True)
     dev = device_times(prof)
@@ -127,11 +217,7 @@ def main() -> int:
         "device_busy_share": busy_us * 1e-6 / host["wall_s"],
         "device_by_kernel_top": dict(list(dev.items())[:12]),
     }
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(report, indent=1))
-    print(json.dumps(report))
-    return 0
+    return emit(report, args.out)
 
 
 if __name__ == "__main__":
