@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card, over its two main paths.
+card, over its main paths.
 
 * The MCSA planner: builds the CUDA kernels from the checkout, holds both
   variants of the sweep kernel against the plain PyTorch version on the
@@ -14,6 +14,12 @@ card, over its two main paths.
   generation against unsplit generation and the continuous-batching
   engine over 16 requests, and compares the card with the CPU path on a
   2-layer cut of the same width.
+* Split serving of the MoE family (granite-moe-1b-a400m) and of RWKV-6
+  (rwkv6-3b) at full width and depth, the same way: holds the fused
+  expert SwiGLU and WKV6 kernels (and attention at granite's shape)
+  against their plain versions, runs split against unsplit generation and
+  the engine, compares card with CPU on 2-layer cuts and runs the float32
+  engine there.
 
     python3 chip_smoke.py
 
@@ -84,6 +90,21 @@ PEAK_BF16_S = 989e12
 RMS_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 ATTN_RMS_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+
+#: fused expert SwiGLU vs plain version, as atol = rtol: float32 1e-5, the
+#: reference kernel tests' figure (the same float32 products summed in
+#: another order; reading 3.5e-6); bfloat16 in and out, where both sides
+#: round nearly the same float32 value once (the tensor-core path carries
+#: h as bf16 hi + lo): 2e-2 elementwise (readings: at most 0.0156, one
+#: bf16 ulp at values 2-4), and the error's RMS over the output's RMS
+#: within 1e-3 (readings 1.3e-4 at most).  WKV6: 2e-4 on y and the final
+#: state, the reference kernel tests' figure (readings 4.6e-5 at most),
+#: for float32 and bfloat16 r/k/v alike (both read bf16 exactly and
+#: compute in float32), with the RMS ratio within 1e-6 (readings 1.6e-7).
+MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MOE_RMS_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+WKV_TOL = 2e-4
+WKV_RMS_TOL = 1e-6
 
 #: card vs CPU on the 2-layer full-width cut: bf16 prefill logits to the
 #: reference's own bound for one model computed in two orders (atol 0.08,
@@ -396,13 +417,15 @@ def lm_kernel_cases(device) -> dict:
                 out["rmsnorm"] = rec
     out["rmsnorm"]["max_abs_err"] = max(errs)
 
-    Hq, Hkv, hd = 24, 2, 128
+    sc2, granite = (24, 2, 128), (16, 8, 64)      # (Hq, Hkv, hd)
     errs = []
-    for B, S, causal, window, dtn in ((1, 2048, True, 0, "bfloat16"),
-                                      (4, 1024, True, 0, "bfloat16"),
-                                      (1, 512, True, 128, "bfloat16"),
-                                      (1, 512, False, 0, "bfloat16"),
-                                      (1, 2048, True, 0, "float32")):
+    for B, S, causal, window, dtn, (Hq, Hkv, hd) in (
+            (1, 2048, True, 0, "bfloat16", sc2),
+            (4, 1024, True, 0, "bfloat16", sc2),
+            (1, 512, True, 128, "bfloat16", sc2),
+            (1, 512, False, 0, "bfloat16", sc2),
+            (1, 2048, True, 0, "float32", sc2),
+            (4, 1024, True, 0, "bfloat16", granite)):
         dt = getattr(torch, dtn)
         q = randn((B, S, Hq, hd), dt)
         k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
@@ -451,109 +474,158 @@ def lm_kernel_cases(device) -> dict:
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
         phase("lm-kernel", "flash_attention " + json.dumps(rec))
-        if (B, S, window) == (4, 1024, 0):
+        if (B, S, window, hd) == (4, 1024, 0, 128):
             out["flash_attention"] = rec
+        elif hd == 64:
+            out["flash_attention_hd64"] = rec
     out["flash_attention"]["max_abs_err"] = max(errs)
     if breaches:
         raise AssertionError("LM kernel vs plain: " + "; ".join(breaches))
     return out
 
 
-def serve_full_width(device) -> dict:
-    """starcoder2-3b as get_config gives it (30 layers, d 3072, bf16),
-    random weights from ``serve_split.SEED``: Li-GD split generation on 4 prompts of
-    1024 tokens against unsplit, a mid split too, then the engine over 16
-    requests.  Every kernel's count is zeroed just before and read just
-    after (the Li-GD plan launches the sweep).  Raises on a breach."""
-    import numpy as np
+def rel_rms(got, want) -> float:
+    return ((got - want).square().mean().sqrt()
+            / want.square().mean().sqrt()).item()
+
+
+def moe_wkv_kernel_cases(device) -> dict:
+    """The fused expert SwiGLU and WKV6 kernels against their plain
+    versions on the card: MoE at granite-moe-1b-a400m's prefill shape
+    (E 32, C 1280 = capacity_for(4096 tokens), d 1024, ff 512, bf16), its
+    engine decode shape (C 4 at 8 slots) and a ragged case (ff 1408,
+    moonshot's width, C not a multiple of the 16-row tile) in float32 and
+    bfloat16; WKV6 at rwkv6-3b's prefill shape (B 4, S 1024, H 40, n 64,
+    bf16 r/k/v) from a non-zero state, and at S 1 with the state aliased
+    as in decode.  Returns, per kernel, the record of its main-path case
+    (the prefill shape) with ``max_abs_err`` the largest over its
+    cases."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.ligd_step import kernel as sk
-    from repro_torch.kernels.rmsnorm import kernel as rk
-    from repro_torch.launch import serve_split
-    from repro_torch.serving import InferenceEngine, SplitServer
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.moe import capacity_for
+    g = torch.Generator(device=device).manual_seed(13)
 
-    cfg = get_config("starcoder2-3b")
-    t0 = time.perf_counter()
-    params, tokens = serve_split.make_inputs(cfg, device=device, batch=4,
-                                             prompt_len=1024)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    counters = (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES)
-    for c in counters:
-        c.update(dict.fromkeys(c, 0))
-    res = serve_split.run(cfg, params, tokens, new_tokens=32)
-    mid = cfg.num_layers // 2
-    mid_out = SplitServer(cfg, params, device=device).generate(
-        tokens, mid, max_new=32)
-    mid_match = bool(mid_out.cpu().tolist() == res["unsplit_tokens"])
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
 
-    rng = np.random.default_rng(serve_split.SEED + 7)
-    lens = rng.integers(128, 1025, 16)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-    eng = InferenceEngine(cfg, params, device=device, slots=8,
-                          cache_len=2048)
-    rids = [eng.submit(p, max_new=32) for p in prompts]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run_to_completion()
-    torch.cuda.synchronize()
-    engine_s = time.perf_counter() - t0
-    launches = {k: v for c in counters for k, v in c.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out, breaches = {}, []
+    granite = get_config("granite-moe-1b-a400m")
+    E, d, ff = granite.num_experts, granite.d_model, granite.d_ff
+    C_prefill = capacity_for(4 * 1024, granite, 1.25)
+    C_decode = capacity_for(8, granite, 2.0)
+    errs = []
+    for label, E_, C, ff_, dtn in (("prefill", E, C_prefill, ff, "bfloat16"),
+                                   ("decode", E, C_decode, ff, "bfloat16"),
+                                   ("ragged", 4, 37, 1408, "float32"),
+                                   ("ragged", 4, 37, 1408, "bfloat16"),
+                                   ("ragged", 4, 37, 1000, "bfloat16")):
+        dt = getattr(torch, dtn)
+        x = randn((E_, C, d)).to(dt)
+        wg = randn((E_, d, ff_), d ** -0.5).to(dt)
+        wu = randn((E_, d, ff_), d ** -0.5).to(dt)
+        wd = randn((E_, ff_, d), ff_ ** -0.5).to(dt)
+        got = mg.moe_swiglu_cuda(x, wg, wu, wd).float()
+        want = mg.moe_swiglu_ref(x, wg, wu, wd).float()
+        err = (got - want).abs().max().item()
+        rr = rel_rms(got, want)
+        errs.append(err)
+        tol, rms_tol = MOE_TOL[dtn], MOE_RMS_TOL[dtn]
+        if not (torch.allclose(got, want, atol=tol, rtol=tol)
+                and rr <= rms_tol):
+            breaches.append(f"moe_swiglu {label} {dtn}: max {err:.3g} (tol "
+                            f"{tol}), RMS ratio {rr:.3g} (tol {rms_tol})")
+        del got, want
+        flops = 6.0 * E_ * C * d * ff_
+        peak = PEAK_BF16_S if dtn == "bfloat16" else PEAK_FP32_S
+        t_ops = flops / peak * 1e3
+        t_bytes = (2 * x.numel() + 3 * wg.numel()) * x.element_size() \
+            / PEAK_BYTES_S * 1e3
 
-    # one-request references (after the counts were read)
-    first_ok, later_same, later_all, prefix = 0, 0, 0, 0
-    for rid, p in zip(rids, prompts):
-        ref, _, _ = serve_split.unsplit_generate(
-            cfg, params, torch.as_tensor(p, device=device)[None], 32)
-        ref = ref[0].cpu().tolist()
-        got = results[rid]
-        first_ok += int(got[0] == ref[0])
-        later_same += sum(int(a == b) for a, b in zip(got[1:], ref[1:]))
-        later_all += len(ref) - 1
-        prefix += next((i for i, (a, b) in enumerate(zip(got, ref))
-                        if a != b), len(ref))
-    rec = {k: res[k] for k in ("split", "B_hz", "r", "match", "prefill_ms",
-                               "decode_ms_per_step", "split_generate_s")}
-    rec.update(
-        init_s=init_s, mid_split=mid, mid_match=mid_match,
-        decode_tokens_per_s=4 / (res["decode_ms_per_step"] * 1e-3),
-        engine_requests=len(results),
-        engine_complete=sum(len(results[r]) == 32 for r in rids),
-        engine_s=engine_s, engine_tokens_per_s=16 * 32 / engine_s,
-        engine_first_token_equal=first_ok,
-        engine_later_token_share_equal=later_same / later_all,
-        engine_mean_equal_prefix=prefix / len(rids),
-        launches=launches, peak_mem_gb=peak_gb)
-    phase("serve", json.dumps(rec))
-    breaches = []
-    if not (res["match"] and mid_match):
-        breaches.append("split generation != unsplit")
-    if rec["engine_complete"] != 16:
-        breaches.append(f"{16 - rec['engine_complete']} requests incomplete")
-    if first_ok != 16:
-        breaches.append(f"{16 - first_ok} first tokens differ from prefill")
-    if not all(launches[k] > 0 for k in ("rmsnorm", "flash_attention",
-                                         "ligd_sweep")):
-        breaches.append(f"a kernel never launched: {launches}")
+        def library():
+            h = F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
+            return torch.bmm(h, wd)
+
+        rec = dict(
+            case=label, E=E_, C=C, d=d, ff=ff_, dtype=dtn, max_abs_err=err,
+            rel_rms_err=rr, flops=flops,
+            ms=timed_ms(lambda: mg.moe_swiglu_cuda(x, wg, wu, wd), 30, 3),
+            plain_ms=timed_ms(lambda: mg.moe_swiglu_ref(x, wg, wu, wd),
+                              10, 2),
+            library_ms=timed_ms(library, 30, 3),
+            library_call="composition: 3 torch.bmm + silu (no single call)",
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        phase("lm-kernel", "moe_swiglu " + json.dumps(rec))
+        if label == "prefill":
+            out["moe_swiglu"] = rec
+    out["moe_swiglu"]["max_abs_err"] = max(errs)
+
+    rwkv = get_config("rwkv6-3b")
+    H, n = rwkv.rwkv_num_heads, rwkv.rwkv_head_dim
+    errs = []
+    for label, B, S, dtn in (("prefill", 4, 1024, "bfloat16"),
+                             ("prefill", 4, 1024, "float32"),
+                             ("decode, aliased state", 8, 1, "bfloat16")):
+        dt = getattr(torch, dtn)
+        r, k, v = (randn((B, S, H, n)).to(dt) for _ in range(3))
+        w = torch.rand((B, S, H, n), generator=g, device=device) * 0.65 + 0.3
+        u = randn((H, n), 0.5)
+        s0 = randn((B, H, n, n), 0.5)
+        want_y, want_s = wk.wkv6_ref(r, k, v, w, u, s0)
+        if S == 1:
+            state = s0.clone()
+            got_y, got_s = wk.wkv6_cuda(r, k, v, w, u, state,
+                                        state_out=state)
+            if got_s.data_ptr() != state.data_ptr():
+                breaches.append("wkv6 did not write the aliased state")
+        else:
+            got_y, got_s = wk.wkv6_cuda(r, k, v, w, u, s0)
+        err = max((got_y - want_y).abs().max().item(),
+                  (got_s - want_s).abs().max().item())
+        rr = max(rel_rms(got_y, want_y), rel_rms(got_s, want_s))
+        errs.append(err)
+        if not (torch.allclose(got_y, want_y, atol=WKV_TOL, rtol=WKV_TOL)
+                and torch.allclose(got_s, want_s, atol=WKV_TOL,
+                                   rtol=WKV_TOL) and rr <= WKV_RMS_TOL):
+            breaches.append(f"wkv6 {label} {dtn}: max {err:.3g} (tol "
+                            f"{WKV_TOL}), RMS ratio {rr:.3g} (tol "
+                            f"{WKV_RMS_TOL})")
+        ops = 3.0 * B * S * H * n * n
+        t_ops = ops / ISSUE_S * 1e3
+        t_bytes = (r.numel() * (3 * r.element_size() + 4 + 4)
+                   + 2 * s0.numel() * 4 + u.numel() * 4) / PEAK_BYTES_S * 1e3
+        rec = dict(
+            case=label, B=B, S=S, H=H, n=n, dtype=dtn, max_abs_err=err,
+            rel_rms_err=rr, state_ops=ops,
+            ms=timed_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0), 30, 3),
+            plain_ms=timed_ms(lambda: wk.wkv6_ref(r, k, v, w, u, s0),
+                              3 if S > 1 else 30, 1),
+            library_ms=None, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+        phase("lm-kernel", "wkv6 " + json.dumps(rec))
+        if (label, dtn) == ("prefill", "bfloat16"):
+            out["wkv6"] = rec
+    out["wkv6"]["max_abs_err"] = max(errs)
     if breaches:
-        raise AssertionError("serve: " + "; ".join(breaches))
-    del params, eng
-    torch.cuda.empty_cache()
-    return rec
+        raise AssertionError("MoE/WKV6 kernel vs plain: "
+                             + "; ".join(breaches))
+    return out
 
 
-def serve_cross(device, seed: int = 3) -> None:
-    """Full width, 2 layers, one 64-token prompt: bf16 prefill logits on
-    the card (kernels) against the CPU (plain versions), then 8 greedy
-    tokens in float32, which must be equal.  Then, in float32 on the
-    card, the engine's batched decode over 4 slots that hold prompts of
-    other lengths (so other positions), 6 requests: every token of every
-    request must equal that request's own unsplit generation.  Raises on
-    a breach."""
+def serve_cross(device, arch: str, seed: int = 3) -> None:
+    """``arch`` at full width, 2 layers, one 64-token prompt: bf16
+    prefill logits on the card (kernels) against the CPU (plain
+    versions), then 8 greedy tokens in float32, which must be equal.
+    Then, in float32 on the card, the engine's batched decode over 4
+    slots that hold prompts of other lengths (so other positions), 6
+    requests: every token of every request must equal that request's own
+    unsplit generation; for an MoE model, whose capacity drops couple the
+    slots by design, the port's CPU engine on the same requests.  Raises
+    on a breach."""
     import dataclasses
     import numpy as np
     import torch
@@ -563,7 +635,7 @@ def serve_cross(device, seed: int = 3) -> None:
     from repro_torch.serving import InferenceEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
     tok = torch.randint(0, cfg.vocab_size, (1, 64),
                         generator=torch.Generator().manual_seed(seed + 1))
@@ -596,24 +668,168 @@ def serve_cross(device, seed: int = 3) -> None:
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n)
                for n in rng.integers(8, 97, 6)]
-    eng = InferenceEngine(cfg32, p, device=device, slots=4, cache_len=128)
-    rids = [eng.submit(q, max_new=8) for q in prompts]
-    results = eng.run_to_completion()
-    eng_equal = sum(
-        results[rid] == unsplit_generate(
-            cfg32, p, torch.as_tensor(q, device=device)[None], 8)[0][0]
-        .cpu().tolist() for rid, q in zip(rids, prompts))
+    def engine_run(dev):
+        eng = InferenceEngine(cfg32, p32[dev], device=dev, slots=4,
+                              cache_len=128)
+        rids = [eng.submit(q, max_new=8) for q in prompts]
+        results = eng.run_to_completion()
+        return [results[rid] for rid in rids]
+
+    got = engine_run(device)
+    if cfg.num_experts:
+        want = engine_run("cpu")
+    else:
+        want = [unsplit_generate(cfg32, p, torch.as_tensor(
+            q, device=device)[None], 8)[0][0].cpu().tolist()
+            for q in prompts]
+    eng_equal = sum(a == b for a, b in zip(got, want))
     phase("serve-cross", json.dumps({
+        "model": cfg.name, "f32_engine_reference":
+        "CPU engine" if cfg.num_experts else "one-request generation",
         "layers": 2, "prompt": 64, "bf16_logits_max_abs_err": err,
         "bf16_within_tol": bf16_ok, "f32_tokens_equal": same,
         "f32_tokens": toks["cpu"].tolist(),
         "f32_engine_prompt_lens": [len(q) for q in prompts],
         "f32_engine_requests_equal": eng_equal}))
     if not (bf16_ok and same and eng_equal == len(prompts)):
-        raise AssertionError(f"serve card vs CPU: bf16 logits err {err:.3g}"
+        raise AssertionError(f"serve card vs CPU, {cfg.name}: bf16 logits "
+                             f"err {err:.3g}"
                              f" (tol {CROSS_ATOL}/{CROSS_RTOL}), f32 tokens "
                              f"equal: {same}; f32 engine: {eng_equal} of "
-                             f"{len(prompts)} requests equal unsplit")
+                             f"{len(prompts)} requests equal their "
+                             "reference")
+
+
+def kernel_counters() -> tuple:
+    """Every kernel wrapper's launch count (dicts, zeroed in place)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ligd_step import kernel as sk
+    from repro_torch.kernels.moe_gemm import kernel as mk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    return (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES, mk.LAUNCHES, wk.LAUNCHES)
+
+
+def serve_full_width(device, arch: str, tag: str) -> dict:
+    """``arch`` as get_config gives it (full width and depth, bf16),
+    random weights from ``serve_split.SEED``: the Li-GD split on its
+    profile (one sweep launch), split generation of 4 prompts x 1024
+    tokens, 32 new, at that split and at the middle split, each equal to
+    unsplit; then the engine over 16 requests of 128-1024 prompt tokens,
+    32 new tokens each, 8 slots, 2048-token caches, whose first tokens
+    must equal each request's own generation (later tokens are counted,
+    not required: bf16 rounds differently at batch 8 and batch 1).
+    Every kernel's count is zeroed just before and read just after, and
+    each kernel of the family must launch a whole number of times per
+    forward.  For MoE, prints the capacities both factors give at the
+    batches used and requires split and unsplit decode to agree (the
+    split path decodes at ``CAPACITY_FACTOR``, ``decode_step`` at
+    ``DECODE_CAPACITY_FACTOR``, as in the reference).  Raises on a
+    breach."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RWKV6
+    from repro_torch.launch import serve_split
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.serving import InferenceEngine, SplitServer
+
+    cfg = get_config(arch)
+    batch, prompt_len, new, slots = 4, 1024, 32, 8
+    breaches = []
+    caps = None
+    if cfg.num_experts:
+        factors = (tfm.CAPACITY_FACTOR, tfm.DECODE_CAPACITY_FACTOR)
+        caps = {f"{what} T={T}": {f: capacity_for(T, cfg, f)
+                                  for f in factors}
+                for what, T in (("prefill", batch * prompt_len),
+                                ("split/unsplit decode", batch),
+                                ("engine decode", slots))}
+        dec = list(caps[f"split/unsplit decode T={batch}"].values())
+        if dec[0] != dec[1]:
+            breaches.append(f"split and unsplit decode capacities differ "
+                            f"at T={batch}: {dec}")
+    t0 = time.perf_counter()
+    params, tokens = serve_split.make_inputs(cfg, device=device, batch=batch,
+                                             prompt_len=prompt_len)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    res = serve_split.run(cfg, params, tokens, new_tokens=new)
+    mid = cfg.num_layers // 2
+    mid_out = SplitServer(cfg, params, device=device).generate(
+        tokens, mid, max_new=new)
+    mid_match = bool(mid_out.cpu().tolist() == res["unsplit_tokens"])
+
+    rng = np.random.default_rng(serve_split.SEED + 7)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in rng.integers(128, 1025, 16)]
+    eng = InferenceEngine(cfg, params, device=device, slots=slots,
+                          cache_len=2048)
+    rids = [eng.submit(p, max_new=new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run_to_completion()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one-request references (after the counts were read)
+    first_ok, later_same, later_all, prefix = 0, 0, 0, 0
+    for rid, p in zip(rids, prompts):
+        ref, _, _ = serve_split.unsplit_generate(
+            cfg, params, torch.as_tensor(p, device=device)[None], new)
+        ref = ref[0].cpu().tolist()
+        got = results[rid]
+        first_ok += int(got[0] == ref[0])
+        later_same += sum(int(a == b) for a, b in zip(got[1:], ref[1:]))
+        later_all += len(ref) - 1
+        prefix += next((i for i, (a, b) in enumerate(zip(got, ref))
+                        if a != b), len(ref))
+    rec = {k: res[k] for k in ("split", "B_hz", "r", "match", "prefill_ms",
+                               "decode_ms_per_step", "split_generate_s")}
+    rec.update(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params_b=cfg.num_params() / 1e9, init_s=init_s, mid_split=mid,
+        mid_match=mid_match,
+        decode_tokens_per_s=batch / (res["decode_ms_per_step"] * 1e-3),
+        engine_requests=len(results),
+        engine_complete=sum(len(results[r]) == new for r in rids),
+        engine_s=engine_s, engine_tokens_per_s=16 * new / engine_s,
+        engine_first_token_equal=first_ok,
+        engine_later_token_share_equal=later_same / later_all,
+        engine_mean_equal_prefix=prefix / len(rids),
+        launches=launches, peak_mem_gb=peak_gb, moe_capacities=caps)
+    phase(tag, json.dumps(rec))
+    if not (res["match"] and mid_match):
+        breaches.append("split generation != unsplit")
+    if rec["engine_complete"] != 16:
+        breaches.append(f"{16 - rec['engine_complete']} requests incomplete")
+    if first_ok != 16:
+        breaches.append(f"{16 - first_ok} first tokens differ from one-"
+                        "request generation")
+    L = cfg.num_layers
+    per_forward = {"rmsnorm": 2 * L + 1, "ligd_sweep": 1}
+    if RWKV6 in cfg.layer_types():
+        per_forward["wkv6"] = L
+    else:
+        per_forward["flash_attention"] = L          # prefill only
+    if cfg.num_experts:
+        per_forward["moe_swiglu"] = L
+    for name, per in per_forward.items():
+        if launches[name] <= 0 or launches[name] % per:
+            breaches.append(f"{name}: {launches[name]} launches, expected a "
+                            f"positive multiple of {per}")
+    if breaches:
+        raise AssertionError(f"{tag}: " + "; ".join(breaches))
+    del params, eng
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -640,7 +856,10 @@ def main() -> int:
     from repro_torch.kernels.ligd_step import kernel as sweep_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    build_all((sweep_kernel, rms_kernel, flash_kernel))
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    build_all((sweep_kernel, rms_kernel, flash_kernel, moe_kernel,
+               wkv_kernel))
 
     # 3. kernel against plain on the card --------------------------------
     from repro_torch.configs import nin, vgg16
@@ -704,13 +923,17 @@ def main() -> int:
 
     # 6. language-model kernels against plain on the card ---------------
     lm = lm_kernel_cases(device)
+    lm.update(moe_wkv_kernel_cases(device))
 
-    # 7. serving main path: full-width starcoder2-3b split generation and
-    # the continuous-batching engine -------------------------------------
-    serve = serve_full_width(device)
+    # 7. serving main paths: full-width starcoder2-3b, granite-moe and
+    # rwkv6-3b split generation and the continuous-batching engine -------
+    serve = serve_full_width(device, "starcoder2-3b", "serve")
+    serve_moe = serve_full_width(device, "granite-moe-1b-a400m", "serve-moe")
+    serve_rwkv = serve_full_width(device, "rwkv6-3b", "serve-rwkv")
 
     # 8. serving, card against the CPU path -------------------------------
-    serve_cross(device)
+    for arch in ("starcoder2-3b", "granite-moe-1b-a400m", "rwkv6-3b"):
+        serve_cross(device, arch)
 
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
@@ -721,16 +944,23 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
     } for name, r in recs.items()]
+    paths = (serve, serve_moe, serve_rwkv)
     for name, src, replaces in (
             ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/kernel.py:27"),
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:98")):
+             "src/repro/kernels/flash_attention/kernel.py:98"),
+            ("moe_swiglu",
+             "src/repro_torch/kernels/moe_gemm/csrc/moe_swiglu.cu",
+             "src/repro/kernels/moe_gemm/kernel.py:59"),
+            ("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/kernel.py:66")):
         r = lm[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": serve["launches"][name],
+            "replaces": replaces,
+            "launches": sum(pth["launches"].get(name, 0) for pth in paths),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

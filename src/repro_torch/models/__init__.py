@@ -1,2 +1,2 @@
-"""The dense decoder on one card: layers, attention, embedding ops and
-the transformer (init, prefill, decode)."""
+"""Decoder models on one card: layers, attention, embedding ops, the MoE
+FFN, the RWKV-6 blocks and the transformer (init, prefill, decode)."""

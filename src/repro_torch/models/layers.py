@@ -1,5 +1,5 @@
-"""Core layer primitives: RMSNorm, RoPE, the SwiGLU MLP and the parameter
-builders of the attention and MLP blocks.
+"""Core layer primitives: RMSNorm, the per-head group norm, RoPE, the
+SwiGLU MLP and the parameter builders of the attention and MLP blocks.
 
 The port of the JAX package's ``repro/models/layers.py`` on one card:
 parameters are plain dicts of tensors with the reference's shapes
@@ -43,6 +43,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """``x·rsqrt(mean(x²)+eps)·(1+weight)``, float32 statistics: the CUDA
     kernel on the card, the plain version on the CPU."""
     return rmsnorm_ops.rmsnorm(x, weight, eps)
+
+
+def group_norm_heads(x: torch.Tensor, weight: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm of RWKV-6: x (..., H, hd), weight (H, hd).
+    Mean and (biased) variance over hd in float32, the result cast back
+    to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -102,5 +114,5 @@ def init_norm(cfg: ModelConfig, device) -> torch.Tensor:
 
 
 __all__ = ["Params", "apply_mlp", "apply_rope", "dense_init",
-           "init_attention", "init_mlp", "init_norm", "param_dtype",
-           "rms_norm", "rope_freqs"]
+           "group_norm_heads", "init_attention", "init_mlp", "init_norm",
+           "param_dtype", "rms_norm", "rope_freqs"]

@@ -10,12 +10,15 @@ This is the edge-server role of the MCSA system: the planner decides
 per-user splits and resource shares, the engine burns those compute
 units.
 
-The KV pool is a list with one ``{"k", "v"}`` dict of (slots, cache_len,
-Hkv, hd) per block; slot ``i`` is row ``i`` of every leaf.  Decode and
-admission write into the pool in place.  A cache migrates between
-engines with :meth:`~InferenceEngine.export_cache` /
-:meth:`~InferenceEngine.import_cache`, cropped to the stream's filled
-prefix.
+The cache pool is a list with one cache tree per block, as
+``transformer.init_caches`` builds it for ``slots`` rows: ``{"k", "v"}``
+of (slots, cache_len, Hkv, hd) for attention, ``{"mix": {"s", "tm"},
+"ffn": {"cm"}}`` of recurrent state for RWKV-6.  Slot ``i`` is row ``i``
+of every leaf.  Decode and admission write into the pool in place.  A
+cache migrates between engines with
+:meth:`~InferenceEngine.export_cache` /
+:meth:`~InferenceEngine.import_cache`: the k/v leaves cropped to the
+stream's filled prefix, state leaves whole.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ class Request:
 
 @dataclasses.dataclass
 class DecodeState:
-    caches: List[dict]              # per block {"k", "v"}: (slots, L, Hkv, hd)
+    caches: List[dict]              # per block cache tree, slots rows
     last_token: torch.Tensor        # (slots, 1)
     pos: np.ndarray                 # (slots,) per-slot positions
     active: np.ndarray              # (slots,) bool
@@ -86,6 +89,40 @@ def _bucket(n: int, buckets=(64, 128, 256, 512, 1024, 2048, 4096)) -> int:
         if n <= b:
             return b
     return -(-n // 4096) * 4096
+
+
+#: the cache leaves that have a cache-length axis (axis 1); every other
+#: leaf is recurrent state, which has none and ships whole
+CACHE_LEN_LEAVES = ("k", "v")
+
+
+def _leaf_pairs(pool: dict, other: dict):
+    """(pool leaf, ``other``'s leaf at the same key path) for every leaf
+    of one block's cache tree."""
+    for key, sub in pool.items():
+        if isinstance(sub, dict):
+            yield from _leaf_pairs(sub, other[key])
+        else:
+            yield sub, other[key]
+
+
+def _export_tree(tree: dict, slot: int, pos: int) -> dict:
+    """Copies of row ``slot`` of every leaf of a block's cache tree, the
+    leaves with a cache-length axis cropped to ``pos`` positions.  Which
+    leaves those are follows from their names, not from their sizes: the
+    reference's ``_cache_axes`` takes the first axis after the slot axis
+    whose size equals ``cache_len``, so it crops an RWKV state
+    (slots, H, n, n) to ``pos`` rows of k when ``cache_len == n`` (and
+    ``tm``/``cm`` when ``cache_len == d_model``)."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            out[key] = _export_tree(sub, slot, pos)
+        else:
+            row = sub[slot:slot + 1]
+            out[key] = (row[:, :pos] if key in CACHE_LEN_LEAVES
+                        else row).clone()
+    return out
 
 
 def _slot_write(pool: torch.Tensor, one: torch.Tensor, slot: int) -> None:
@@ -164,8 +201,8 @@ class InferenceEngine:
             nxt = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
             req.out.append(nxt)
             for pool, one in zip(self.state.caches, caches):
-                for name in ("k", "v"):
-                    _slot_write(pool[name], one[name], slot)
+                for leaf, new in _leaf_pairs(pool, one):
+                    _slot_write(leaf, new, slot)
             self.state.last_token[slot, 0] = nxt
             self.state.pos[slot] = S
             self.state.active[slot] = True
@@ -203,15 +240,15 @@ class InferenceEngine:
     # -- KV-cache migration --------------------------------------------
     def export_cache(self, rid: int):
         """An active stream's cache for migration: ``(leaves, pos)``,
-        ``leaves`` one {"k", "v"} of (1, pos, Hkv, hd) per block (copies,
-        so the engine may go on writing its pool), ``pos`` the filled
-        positions.  The engine state is untouched."""
+        ``leaves`` one cache tree per block with the stream's row of every
+        leaf (copies, so the engine may go on writing its pool): k/v
+        cropped to (1, pos, Hkv, hd), recurrent state whole; ``pos`` the
+        filled positions.  The engine state is untouched."""
         slot = self.slot_of.get(rid)
         if slot is None:
             raise KeyError(f"rid {rid} has no active slot")
         pos = int(self.state.pos[slot])
-        leaves = [{n: c[n][slot:slot + 1, :pos].clone() for n in ("k", "v")}
-                  for c in self.state.caches]
+        leaves = [_export_tree(c, slot, pos) for c in self.state.caches]
         return leaves, pos
 
     def import_cache(self, tokens: np.ndarray, max_new: int, leaves,
@@ -240,8 +277,8 @@ class InferenceEngine:
             raise RuntimeError("import_cache: no free slot")
         slot = free[0]
         for pool, one in zip(self.state.caches, leaves):
-            for name in ("k", "v"):
-                _slot_write(pool[name], one[name].to(self.device), slot)
+            for leaf, new in _leaf_pairs(pool, one):
+                _slot_write(leaf, new.to(self.device), slot)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, tokens=tokens, max_new=max_new)

@@ -1,6 +1,6 @@
 """Tests that need a CUDA card: the hand-written kernels (the sweep,
-RMSNorm, flash attention) against their plain PyTorch versions on the
-same card tensors.  They skip without a
+RMSNorm, flash attention, the fused expert SwiGLU, WKV6) against their
+plain PyTorch versions on the same card tensors.  They skip without a
 card.  On the machine with the card (no JAX there, so without the
 repository's conftest):
 
@@ -202,3 +202,109 @@ def test_cuda_lm_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2),
                                     q.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# Fused expert SwiGLU (row 5) and WKV6 (row 7): kernel against plain
+# version on the card.  MoE: 1e-5 in float32 (the reference kernel tests'
+# figure; the same float32 products summed in another order); in
+# bfloat16 both sides round the same float32 value once (the tensor-core
+# path keeps h as bf16 hi + lo, ~16 bits), 2e-2 elementwise and 1e-3 on
+# the error's RMS over the output's RMS.  WKV6: 2e-4, the
+# reference kernel tests' figure, on y and on the final state.
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import moe_gemm as tmoe                 # noqa: E402
+from repro_torch.kernels import wkv6 as twkv                     # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,ff", [
+    (32, 4, 1024, 512),         # granite decode: bf16 splits ff in 8 slices
+    (32, 1280, 1024, 512),      # granite prefill: one slice
+    (4, 37, 1024, 1408),        # ragged C
+    (4, 37, 1024, 1000),        # ragged C and ff tail (1000 = 15·64 + 40)
+    (32, 300, 128, 96),         # one slice, ragged ff tail
+    (3, 20, 64, 40),            # CUDA-core path in bf16 too (d % 128)
+    (2, 17, 2048, 96)])         # CUDA-core path (d > 1024)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_swiglu_matches_plain_version(E, C, d, ff, dtype, cuda):
+    dt = getattr(torch, dtype)
+    x = _randn((E, C, d), dt, cuda, 20)
+    wg = (_randn((E, d, ff), torch.float32, cuda, 21) * d ** -0.5).to(dt)
+    wu = (_randn((E, d, ff), torch.float32, cuda, 22) * d ** -0.5).to(dt)
+    wd = (_randn((E, ff, d), torch.float32, cuda, 23) * ff ** -0.5).to(dt)
+    before = tmoe.LAUNCHES["moe_swiglu"]
+    y = tmoe.moe_swiglu_cuda(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert tmoe.LAUNCHES["moe_swiglu"] == before + 1
+    ref = tmoe.moe_swiglu_ref(x, wg, wu, wd).float()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y.float(), ref, atol=tol, rtol=tol)
+    if dtype == "bfloat16":
+        rms = lambda t: t.square().mean().sqrt().item()           # noqa: E731
+        assert rms(y.float() - ref) <= 1e-3 * rms(ref)
+
+
+def _wkv_inputs(B, S, H, n, dt, device):
+    r, k, v = (_randn((B, S, H, n), dt, device, 30 + i) for i in range(3))
+    w = torch.rand((B, S, H, n), generator=torch.Generator(
+        device=device).manual_seed(33), device=device) * 0.65 + 0.3
+    u = _randn((H, n), torch.float32, device, 34)
+    s0 = _randn((B, H, n, n), torch.float32, device, 35) * 0.5
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,n", [(2, 100, 3, 64), (1, 33, 2, 32),
+                                     (3, 1, 40, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_matches_plain_version(B, S, H, n, dtype, cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(B, S, H, n, getattr(torch, dtype), cuda)
+    before = twkv.LAUNCHES["wkv6"]
+    y, s = twkv.wkv6_cuda(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6"] == before + 1
+    ry, rs = twkv.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, ry, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, rs, atol=2e-4, rtol=2e-4)
+    y0, _ = twkv.wkv6_cuda(r, k, v, w, u)                    # zero state
+    torch.testing.assert_close(y0, twkv.wkv6_ref(r, k, v, w, u)[0],
+                               atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_state_may_alias(cuda):
+    """Decode: the cache's own state is s0 and the output, one tensor."""
+    r, k, v, w, u, s0 = _wkv_inputs(4, 1, 40, 64, torch.bfloat16, cuda)
+    ry, rs = twkv.wkv6_ref(r, k, v, w, u, s0)
+    state = s0.clone()
+    y, s = twkv.wkv6(r, k, v, w, u, state, state_out=state)
+    torch.cuda.synchronize()
+    assert s.data_ptr() == state.data_ptr()
+    torch.testing.assert_close(y, ry, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, rs, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_wkv_wrappers_reject_bad_inputs(cuda):
+    x = _randn((2, 4, 64), torch.float32, cuda, 40)
+    wg = _randn((2, 64, 32), torch.float32, cuda, 41)
+    wd = _randn((2, 32, 64), torch.float32, cuda, 42)
+    with pytest.raises(TypeError, match="dtype"):
+        tmoe.moe_swiglu_cuda(x, wg.bfloat16(), wg, wd)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmoe.moe_swiglu_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             wg, wg, wd)
+    with pytest.raises(ValueError, match="d="):
+        big = _randn((1, 2, 4096), torch.float32, cuda, 43)
+        tmoe.moe_swiglu_cuda(big, big.new_zeros((1, 4096, 8)),
+                             big.new_zeros((1, 4096, 8)),
+                             big.new_zeros((1, 8, 4096)))
+    r, k, v, w, u, s0 = _wkv_inputs(1, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        twkv.wkv6_cuda(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="head size"):
+        twkv.wkv6_cuda(*(t[..., :16].contiguous() for t in (r, k, v, w)),
+                       u[:, :16].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        twkv.wkv6_cuda(r, k, v, w, u.cpu())

@@ -121,6 +121,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch\n"
         "from repro_torch.api import Session, get_scenario\n"
         "import repro_torch.serving, repro_torch.launch.serve_split\n"
+        "import repro_torch.models.moe, repro_torch.models.rwkv\n"
+        "import repro_torch.kernels.moe_gemm, repro_torch.kernels.wkv6\n"
         "from repro_torch.configs import get_config, reduced\n"
         "from repro_torch.models.transformer import init_lm\n"
         "Session(get_scenario('paper_fig1').replace(steps=2),"
@@ -128,6 +130,11 @@ def test_port_imports_neither_jax_nor_reference():
         "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
         "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "repro_torch.serving.SplitServer(cfg, params, device='cpu')"
+        ".generate(torch.zeros((1, 5), dtype=torch.long), 1, 3)\n"
+        "for arch in ('granite-moe-1b-a400m', 'rwkv6-3b'):\n"
+        "    cfg = reduced(get_config(arch), layers=2)\n"
+        "    params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "    repro_torch.serving.SplitServer(cfg, params, device='cpu')"
         ".generate(torch.zeros((1, 5), dtype=torch.long), 1, 3)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')"
         " or m.startswith(('jax.', 'repro.'))]\n"

@@ -159,7 +159,6 @@ def test_init_lm_shapes_and_seed():
 
 @pytest.mark.parametrize("arch, what", [
     ("gemma3-27b", "local"), ("recurrentgemma-9b", "rglru"),
-    ("rwkv6-3b", "rwkv6"), ("granite-moe-1b-a400m", "MoE"),
     ("seamless-m4t-large-v2", "encoder-decoder")])
 def test_unported_families_raise(arch, what):
     cfg = reduced(get_config(arch), layers=2)
@@ -174,10 +173,14 @@ def test_int8_kv_cache_raises():
         ttfm.init_caches(cfg, 1, 8, "cpu", kv_quant=True)
 
 
-@pytest.mark.parametrize("entry", ["split", "engine", "launch"])
-def test_device_none_means_cuda(entry, monkeypatch):
+@pytest.mark.parametrize("arch, entry", [
+    ("starcoder2-3b", "split"), ("starcoder2-3b", "engine"),
+    ("starcoder2-3b", "launch"), ("granite-moe-1b-a400m", "split"),
+    ("granite-moe-1b-a400m", "engine"), ("rwkv6-3b", "split"),
+    ("rwkv6-3b", "engine")])
+def test_device_none_means_cuda(arch, entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = reduced(get_config("starcoder2-3b"), layers=2)
+    cfg = reduced(get_config(arch), layers=2)
     params = ttfm.init_lm(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "split":

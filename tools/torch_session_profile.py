@@ -14,15 +14,16 @@ kernel library — and reports for the second run:
 * device time by kernel from ``torch.profiler`` (CUDA activity), and the
   device's busy share of the run's wall-clock.
 
-Serving (``--serve``): full-width starcoder2-3b (random weights), split
-at the Li-GD choice, ``SplitServer`` prefill of 4 prompts of 1024 tokens
-then 31 decode steps, after one warm-up generation; for the prefill and
-for the decode steps apart: host wall-clock, device busy share and
-device time by kernel, grouped into the two hand-written kernels, matrix
-products and the rest.
+Serving (``--serve [MODEL]``, default starcoder2-3b; also
+granite-moe-1b-a400m and rwkv6-3b): the model at full width and depth
+(random weights), split at the Li-GD choice, ``SplitServer`` prefill of
+4 prompts of 1024 tokens then 31 decode steps, after one warm-up
+generation; for the prefill and for the decode steps apart: host
+wall-clock, device busy share and device time by kernel, grouped into
+the hand-written kernels, matrix products and the rest.
 
     python3 tools/torch_session_profile.py [--scenario megafleet_100k]
-        [--serve] [--out report.json]
+        [--serve [MODEL]] [--out report.json]
 
 Needs a CUDA card; prints one JSON object (also written to ``--out``
 when given).
@@ -104,13 +105,15 @@ def device_times(prof) -> dict:
 def _groups(dev: dict) -> dict:
     """Device microseconds of the hand-written kernels, the matrix
     products (cuBLAS / CUTLASS kernels) and everything else."""
-    out = {"flash_attention_kernel": 0.0, "rmsnorm_kernel": 0.0,
-           "matmul": 0.0, "other": 0.0}
+    mine = {"flash_attention": ("flash_attention_kernel",),
+            "rmsnorm": ("rmsnorm_kernel",),
+            "moe_swiglu": ("moe_swiglu", "sum_slices_kernel"),
+            "wkv6": ("wkv6_kernel",), "sweep": ("sweep_kernel",)}
+    out = dict.fromkeys(tuple(mine) + ("matmul", "other"), 0.0)
     for name, v in dev.items():
-        if "flash_attention_kernel" in name:
-            key = "flash_attention_kernel"
-        elif "rmsnorm_kernel" in name:
-            key = "rmsnorm_kernel"
+        hit = [k for k, subs in mine.items() if any(t in name for t in subs)]
+        if hit:
+            key = hit[0]
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
                                              "cublas", "gemv", "nvjet")):
             key = "matmul"
@@ -120,7 +123,7 @@ def _groups(dev: dict) -> dict:
     return out
 
 
-def serve_profile() -> dict:
+def serve_profile(arch: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_split import C_DEV, make_inputs, plan_split
@@ -128,7 +131,7 @@ def serve_profile() -> dict:
 
     batch, prompt_len, new_tokens = 4, 1024, 32   # chip_smoke.py's [serve]
     device = torch.device("cuda", 0)
-    cfg = get_config("starcoder2-3b")
+    cfg = get_config(arch)
     params, tokens = make_inputs(cfg, device=device, batch=batch,
                                  prompt_len=prompt_len)
     split = plan_split(cfg, seq=prompt_len, batch=batch, c_dev=C_DEV,
@@ -182,8 +185,10 @@ def emit(report: dict, out) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="megafleet_100k")
-    ap.add_argument("--serve", action="store_true",
-                    help="profile full-width split serving instead")
+    ap.add_argument("--serve", nargs="?", const="starcoder2-3b",
+                    default=None, metavar="MODEL",
+                    help="profile full-width split serving of MODEL "
+                         "(default starcoder2-3b) instead")
     ap.add_argument("--out", default=None,
                     help="also write the report to this JSON file")
     args = ap.parse_args()
@@ -200,7 +205,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     if args.serve:
-        return emit(dict(serve_profile(), card=card), args.out)
+        return emit(dict(serve_profile(args.serve), card=card), args.out)
     sc = get_scenario(args.scenario)
     run_once(sc, profile=False)                       # warm-up
     sess, host, launches, prof = run_once(sc, profile=True)
