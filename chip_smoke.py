@@ -20,6 +20,15 @@ card, over its main paths.
   against their plain versions, runs split against unsplit generation and
   the engine, compares card with CPU on 2-layer cuts and runs the float32
   engine there.
+* Split serving of the RecurrentGemma hybrid (recurrentgemma-9b: RG-LRU
+  blocks and sliding-window MQA at head_dim 256) at full width and depth,
+  with prompts longer than the window so the rings wrap: holds the RG-LRU
+  scan and windowed hd-256 attention against their plain versions, then
+  the same split, engine and card-against-CPU checks (a 3-layer cut with a
+  reduced window).
+* Kernel row 2, the single-split Li-GD steps: ``ligd_steps`` for the
+  100,000 users of ``megafleet_100k`` at their planned splits, one launch
+  per edge server's group, held against its plain version (autograd).
 
     python3 chip_smoke.py
 
@@ -121,6 +130,20 @@ OPS = {
     "ligd_sweep": {"eval": (34, 14), "update": (22, 1), "split": (24, 6)},
     "mligd_sweep": {"eval": (64, 24), "update": (38, 1), "split": (43, 14)},
 }
+
+#: the same count for csrc/steps.cu (kernel row 2), built with FMA
+#: contraction, so a multiply-add counts one plain op: per GD step (5
+#: divisions, 3 log2, 2 exp2), for the final utility and for each row's
+#: set-up (constants hoisted out of the loop)
+STEPS_OPS = {"step": (28, 10), "final": (22, 13), "setup": (16, 4)}
+#: ligd_steps, kernel vs plain version (autograd) on the card: the
+#: reference test's tolerances, x atol 1e-5 and U atol 1e-5 / rtol 1e-4
+#: (tests/test_kernels.py; the closed-form gradient against autograd)
+STEPS_X_ATOL, STEPS_U_ATOL, STEPS_U_RTOL = 1e-5, 1e-5, 1e-4
+#: RG-LRU scan vs plain version: 1e-5 as atol = rtol, the reference
+#: kernel tests' figure (the same float32 recurrence; the kernel fuses
+#: a·h + b into one FMA)
+RGLRU_TOL = 1e-5
 
 
 def phase(name: str, msg: str) -> None:
@@ -382,7 +405,6 @@ def lm_kernel_cases(device) -> dict:
     bf16) with ``max_abs_err`` the largest over its cases."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device=device).manual_seed(11)
 
@@ -419,69 +441,230 @@ def lm_kernel_cases(device) -> dict:
 
     sc2, granite = (24, 2, 128), (16, 8, 64)      # (Hq, Hkv, hd)
     errs = []
-    for B, S, causal, window, dtn, (Hq, Hkv, hd) in (
+    for B, S, causal, window, dtn, heads in (
             (1, 2048, True, 0, "bfloat16", sc2),
             (4, 1024, True, 0, "bfloat16", sc2),
             (1, 512, True, 128, "bfloat16", sc2),
             (1, 512, False, 0, "bfloat16", sc2),
             (1, 2048, True, 0, "float32", sc2),
             (4, 1024, True, 0, "bfloat16", granite)):
-        dt = getattr(torch, dtn)
-        q = randn((B, S, Hq, hd), dt)
-        k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
-        kw = dict(causal=causal, window=window)
-        got = fa.flash_attention_cuda(q, k, v, **kw).float()
-        want = fa.attention_ref(q, k, v, **kw).float()
-        err = (got - want).abs().max().item()
-        rel_rms = ((got - want).square().mean().sqrt()
-                   / want.square().mean().sqrt()).item()
-        errs.append(err)
-        tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
-        if not (torch.allclose(got, want, atol=tol, rtol=tol)
-                and rel_rms <= rms_tol):
-            breaches.append(f"attention B={B} S={S} {kw} {dtn}: max "
-                            f"{err:.3g} (tol {tol}), error RMS / output "
-                            f"RMS {rel_rms:.3g} (tol {rms_tol})")
-        del got, want
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None
-        if window:
-            i = torch.arange(S, device=device)
-            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
-                                                  < window)
-
-        def library():
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask,
-                is_causal=causal and mask is None, enable_gqa=True)
-
-        try:
-            lib_ms = timed_ms(library, 30, 3)
-        except TypeError:        # a PyTorch without enable_gqa
-            lib_ms = None
-        flops = 4.0 * B * Hq * hd * attention_pairs(S, causal, window)
-        t_ops = flops / PEAK_BF16_S * 1e3
-        t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-            / PEAK_BYTES_S * 1e3
-        rec = dict(
-            B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, causal=causal, window=window,
-            dtype=dtn, max_abs_err=err, rel_rms_err=rel_rms,
-            ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
-                        30, 3),
-            plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw),
-                              5, 1),
-            library_ms=lib_ms, flops=flops,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
-        phase("lm-kernel", "flash_attention " + json.dumps(rec))
-        if (B, S, window, hd) == (4, 1024, 0, 128):
+        rec = attention_case(device, randn, B, S, causal, window, dtn,
+                             heads, breaches)
+        errs.append(rec["max_abs_err"])
+        if (B, S, window, heads) == (4, 1024, 0, sc2):
             out["flash_attention"] = rec
-        elif hd == 64:
+        elif heads == granite:
             out["flash_attention_hd64"] = rec
     out["flash_attention"]["max_abs_err"] = max(errs)
     if breaches:
         raise AssertionError("LM kernel vs plain: " + "; ".join(breaches))
     return out
+
+
+def attention_case(device, randn, B, S, causal, window, dtn, heads,
+                   breaches) -> dict:
+    """Flash attention against its plain version on the card at one shape
+    (``heads`` = (Hq, Hkv, hd)), with its time, the plain version's, the
+    library call's (SDPA with ``enable_gqa``; a windowed case passes the
+    boolean window mask) and the bound; a breach is appended to
+    ``breaches``.  Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    Hq, Hkv, hd = heads
+    dt = getattr(torch, dtn)
+    q = randn((B, S, Hq, hd), dt)
+    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
+    kw = dict(causal=causal, window=window)
+    got = fa.flash_attention_cuda(q, k, v, **kw).float()
+    want = fa.attention_ref(q, k, v, **kw).float()
+    err = (got - want).abs().max().item()
+    rr = rel_rms(got, want)
+    tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
+    if not (torch.allclose(got, want, atol=tol, rtol=tol)
+            and rr <= rms_tol):
+        breaches.append(f"attention B={B} S={S} heads={heads} {kw} {dtn}: "
+                        f"max {err:.3g} (tol {tol}), error RMS / output "
+                        f"RMS {rr:.3g} (tol {rms_tol})")
+    del got, want
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(S, device=device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                              < window)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    try:
+        lib_ms = timed_ms(library, 30, 3)
+    except TypeError:        # a PyTorch without enable_gqa
+        lib_ms = None
+    flops = 4.0 * B * Hq * hd * attention_pairs(S, causal, window)
+    t_ops = flops / PEAK_BF16_S * 1e3
+    t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        / PEAK_BYTES_S * 1e3
+    rec = dict(
+        B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, causal=causal, window=window,
+        dtype=dtn, max_abs_err=err, rel_rms_err=rr,
+        ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 30, 3),
+        plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw), 5, 1),
+        library_ms=lib_ms, flops=flops, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    phase("lm-kernel", "flash_attention " + json.dumps(rec))
+    return rec
+
+
+def hybrid_kernel_cases(device) -> dict:
+    """recurrentgemma-9b's kernels against their plain versions on the
+    card: the RG-LRU scan at its prefill shape (B 4, S 2560, C 4096,
+    float32) and at a ragged S and C; flash attention at its local layers'
+    prefill shape (B 4, S 2560, 16 query heads and 1 KV head of 256,
+    window 2048) in bfloat16 and float32.  Returns the records of the
+    main-path cases (``rglru_scan``: the prefill shape;
+    ``flash_attention_hd256``: bfloat16), ``max_abs_err`` the largest
+    over each kernel's cases."""
+    import torch
+    from repro_torch.kernels import rglru as rg
+    g = torch.Generator(device=device).manual_seed(17)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    out, breaches, errs = {}, [], []
+    for B, S, C in ((4, 2560, 4096), (2, 777, 4000)):
+        a = torch.rand((B, S, C), generator=g, device=device) * 0.5 + 0.499
+        b = torch.randn((B, S, C), generator=g, device=device) * 0.3
+        got = rg.rglru_scan_cuda(a, b)
+        want = rg.rglru_scan_ref(a, b)
+        err = (got - want).abs().max().item()
+        errs.append(err)
+        if not torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL):
+            breaches.append(f"rglru_scan B={B} S={S} C={C}: max {err:.3g} "
+                            f"(tol {RGLRU_TOL})")
+        del got, want
+        n = B * S * C
+        t_bytes = 12.0 * n / PEAK_BYTES_S * 1e3
+        t_ops = 2.0 * n / PEAK_FP32_S * 1e3
+        rec = dict(
+            B=B, S=S, C=C, dtype="float32", max_abs_err=err,
+            ms=timed_ms(lambda: rg.rglru_scan_cuda(a, b), 30, 3),
+            plain_ms=timed_ms(lambda: rg.rglru_scan_ref(a, b), 3, 1),
+            library_ms=None, library_call="none: no PyTorch call computes "
+            "a linear recurrence", bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        phase("lm-kernel", "rglru_scan " + json.dumps(rec))
+        out.setdefault("rglru_scan", rec)
+    out["rglru_scan"]["max_abs_err"] = max(errs)
+    errs = []
+    for dtn in ("bfloat16", "float32"):
+        rec = attention_case(device, randn, 4, 2560, True, 2048, dtn,
+                             (16, 1, 256), breaches)
+        errs.append(rec["max_abs_err"])
+        out.setdefault("flash_attention_hd256", rec)
+    out["flash_attention_hd256"]["max_abs_err"] = max(errs)
+    if breaches:
+        raise AssertionError("hybrid kernels vs plain: "
+                             + "; ".join(breaches))
+    return out
+
+
+def steps_case(sess, device) -> dict:
+    """Kernel row 2 on the planner's own users: the ``megafleet_100k``
+    session's users at their planned splits and servers (features from
+    its devices, the hops from each user's access point to its server),
+    x0 = 0.5, 64 steps, through ``ligd_steps`` with one launch per edge
+    server's group (the server's constants are the launch's).  Launches
+    are counted from zero over that pass; then each group is held against
+    the plain version (autograd) on the same card inputs, and the pass is
+    timed as a whole (and the largest group's launch alone).  Returns the
+    record; raises on a breach."""
+    import numpy as np
+    import torch
+    from repro_torch.core.costs import device_columns, edge_dict, \
+        rows_to_device
+    from repro_torch.kernels.ligd_step import (edge_tuple_of, ligd_steps,
+                                               ligd_steps_cuda,
+                                               ligd_steps_ref,
+                                               pack_features)
+    from repro_torch.kernels.ligd_step import steps as steps_kernel
+    prof, topo, fleet = sess.profile, sess.topo, sess.fleet
+    f_l, f_e, w = prof.prefix_tables()
+    s = np.asarray(fleet.split)
+    srv = np.asarray(fleet.server)
+    X = len(s)
+    aps = topo.nearest_ap(sess.mobility.positions())
+    cols = dict(device_columns(sess.devices),
+                hops=topo.hops[aps, srv].astype(np.float64))
+    dev = rows_to_device(cols, device, X)
+
+    def col(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    feat = pack_features(col(f_l[s]), col(f_e[s]), col(w[s]),
+                         col(np.full(X, prof.result_bits)),
+                         col(f_e[s] > 0), dev)
+    groups = []
+    for z in np.unique(srv):
+        idx = torch.as_tensor(np.nonzero(srv == z)[0], device=device)
+        groups.append((feat[idx].contiguous(),
+                       torch.full((len(idx), 2), 0.5, device=device),
+                       edge_dict(topo.edges[int(z)], device)))
+    iters, lr = 64, 0.15
+    steps_kernel.LAUNCHES["ligd_steps"] = 0
+    outs = [ligd_steps(f, x0, e, iters=iters, lr=lr) for f, x0, e in groups]
+    torch.cuda.synchronize()
+    launches = steps_kernel.LAUNCHES["ligd_steps"]
+    x_err = u_err = u_rel = 0.0
+    ok = launches == len(groups)
+    for (f, x0, e), (x, u) in zip(groups, outs):
+        xr, ur = ligd_steps_ref(f, x0, e, iters=iters, lr=lr)
+        x_err = max(x_err, (x - xr).abs().max().item())
+        du = (u - ur).abs()
+        u_err = max(u_err, du.max().item())
+        u_rel = max(u_rel, (du / ur.abs().clamp_min(1e-30)).max().item())
+        ok &= bool(torch.allclose(x, xr, atol=STEPS_X_ATOL, rtol=0)
+                   and torch.allclose(u, ur, atol=STEPS_U_ATOL,
+                                      rtol=STEPS_U_RTOL))
+    ets = [edge_tuple_of(e) for _, _, e in groups]
+
+    def kernel_pass():
+        for (f, x0, _), et in zip(groups, ets):
+            ligd_steps_cuda(f, x0, et, iters=iters, lr=lr)
+
+    def plain_pass():
+        for f, x0, e in groups:
+            ligd_steps_ref(f, x0, e, iters=iters, lr=lr)
+
+    big = max(range(len(groups)), key=lambda i: len(groups[i][0]))
+
+    count = {"step": iters * X, "final": X, "setup": X}
+    plain = sum(n * STEPS_OPS[k][0] for k, n in count.items())
+    mufu = sum(n * STEPS_OPS[k][1] for k, n in count.items())
+    t_ops = max((plain + mufu) / ISSUE_S, mufu / MUFU_S) * 1e3
+    t_bytes = 4.0 * X * (16 + 2 + 2 + 1) / PEAK_BYTES_S * 1e3
+    rec = dict(
+        users=X, groups=[len(g[0]) for g in groups], iters=iters,
+        launches=launches, x_max_abs_err=x_err, u_max_abs_err=u_err,
+        u_max_rel_err=u_rel, max_abs_err=max(x_err, u_err),
+        ms=timed_ms(kernel_pass, 30, 3), plain_ms=timed_ms(plain_pass, 3, 1),
+        largest_group_ms=timed_ms(lambda: ligd_steps_cuda(
+            groups[big][0], groups[big][1], ets[big], iters=iters, lr=lr),
+            30, 3),
+        library_ms=None, library_call="none: no PyTorch call computes the "
+        "steps", bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    phase("ligd-steps", json.dumps(rec))
+    if not ok:
+        raise AssertionError(
+            f"ligd_steps: {launches} launches for {len(groups)} groups; "
+            f"x max abs {x_err:.3g} (tol {STEPS_X_ATOL}), U max abs "
+            f"{u_err:.3g} / rel {u_rel:.3g} (tol {STEPS_U_ATOL} / "
+            f"{STEPS_U_RTOL})")
+    return rec
 
 
 def rel_rms(got, want) -> float:
@@ -616,10 +799,13 @@ def moe_wkv_kernel_cases(device) -> dict:
     return out
 
 
-def serve_cross(device, arch: str, seed: int = 3) -> None:
-    """``arch`` at full width, 2 layers, one 64-token prompt: bf16
-    prefill logits on the card (kernels) against the CPU (plain
-    versions), then 8 greedy tokens in float32, which must be equal.
+def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
+                window: int = 0) -> None:
+    """``arch`` at full width, ``layers`` layers (``window``, if given,
+    replaces the sliding window, so that the prompts wrap its ring), one
+    64-token prompt: bf16 prefill logits on the card (kernels) against
+    the CPU (plain versions), then 8 greedy tokens in float32, which must
+    be equal.
     Then, in float32 on the card, the engine's batched decode over 4
     slots that hold prompts of other lengths (so other positions), 6
     requests: every token of every request must equal that request's own
@@ -635,7 +821,9 @@ def serve_cross(device, arch: str, seed: int = 3) -> None:
     from repro_torch.serving import InferenceEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if window:
+        cfg = dataclasses.replace(cfg, window_size=window)
     cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
     tok = torch.randint(0, cfg.vocab_size, (1, 64),
                         generator=torch.Generator().manual_seed(seed + 1))
@@ -686,7 +874,9 @@ def serve_cross(device, arch: str, seed: int = 3) -> None:
     phase("serve-cross", json.dumps({
         "model": cfg.name, "f32_engine_reference":
         "CPU engine" if cfg.num_experts else "one-request generation",
-        "layers": 2, "prompt": 64, "bf16_logits_max_abs_err": err,
+        "layers": cfg.num_layers, "layer_types": cfg.layer_types(),
+        "window": cfg.window_size, "prompt": 64,
+        "bf16_logits_max_abs_err": err,
         "bf16_within_tol": bf16_ok, "f32_tokens_equal": same,
         "f32_tokens": toks["cpu"].tolist(),
         "f32_engine_prompt_lens": [len(q) for q in prompts],
@@ -704,19 +894,24 @@ def kernel_counters() -> tuple:
     """Every kernel wrapper's launch count (dicts, zeroed in place)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ligd_step import kernel as sk
+    from repro_torch.kernels.ligd_step import steps as tk
     from repro_torch.kernels.moe_gemm import kernel as mk
+    from repro_torch.kernels.rglru import kernel as gk
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.wkv6 import kernel as wk
-    return (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES, mk.LAUNCHES, wk.LAUNCHES)
+    return (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES, tk.LAUNCHES, mk.LAUNCHES,
+            gk.LAUNCHES, wk.LAUNCHES)
 
 
-def serve_full_width(device, arch: str, tag: str) -> dict:
+def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
+                     cache_len: int = 2048) -> dict:
     """``arch`` as get_config gives it (full width and depth, bf16),
     random weights from ``serve_split.SEED``: the Li-GD split on its
-    profile (one sweep launch), split generation of 4 prompts x 1024
-    tokens, 32 new, at that split and at the middle split, each equal to
-    unsplit; then the engine over 16 requests of 128-1024 prompt tokens,
-    32 new tokens each, 8 slots, 2048-token caches, whose first tokens
+    profile (one sweep launch), split generation of 4 prompts x
+    ``prompt_len`` tokens, 32 new, at that split and at the middle split,
+    each equal to unsplit; then the engine over 16 requests of
+    128-``prompt_len`` prompt tokens, 32 new tokens each, 8 slots,
+    ``cache_len``-token caches, whose first tokens
     must equal each request's own generation (later tokens are counted,
     not required: bf16 rounds differently at batch 8 and batch 1).
     Every kernel's count is zeroed just before and read just after, and
@@ -729,14 +924,15 @@ def serve_full_width(device, arch: str, tag: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import RWKV6
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, \
+        RWKV6
     from repro_torch.launch import serve_split
     from repro_torch.models import transformer as tfm
     from repro_torch.models.moe import capacity_for
     from repro_torch.serving import InferenceEngine, SplitServer
 
     cfg = get_config(arch)
-    batch, prompt_len, new, slots = 4, 1024, 32, 8
+    batch, new, slots = 4, 32, 8
     breaches = []
     caps = None
     if cfg.num_experts:
@@ -767,9 +963,9 @@ def serve_full_width(device, arch: str, tag: str) -> dict:
 
     rng = np.random.default_rng(serve_split.SEED + 7)
     prompts = [rng.integers(0, cfg.vocab_size, n)
-               for n in rng.integers(128, 1025, 16)]
+               for n in rng.integers(128, prompt_len + 1, 16)]
     eng = InferenceEngine(cfg, params, device=device, slots=slots,
-                          cache_len=2048)
+                          cache_len=cache_len)
     rids = [eng.submit(p, max_new=new) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -791,12 +987,24 @@ def serve_full_width(device, arch: str, tag: str) -> dict:
         later_all += len(ref) - 1
         prefix += next((i for i, (a, b) in enumerate(zip(got, ref))
                         if a != b), len(ref))
+    L, types = cfg.num_layers, cfg.layer_types()
+    per_forward = {"rmsnorm": 2 * L + 1, "ligd_sweep": 1}
+    for name, n in (
+            ("flash_attention",                       # prefill only
+             sum(t in (ATTN_GLOBAL, ATTN_LOCAL) for t in types)),
+            ("rglru_scan", types.count(RGLRU)),       # prefill only
+            ("wkv6", types.count(RWKV6)),
+            ("moe_swiglu", L if cfg.num_experts else 0)):
+        if n:
+            per_forward[name] = n
     rec = {k: res[k] for k in ("split", "B_hz", "r", "match", "prefill_ms",
                                "decode_ms_per_step", "split_generate_s")}
     rec.update(
         model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-        params_b=cfg.num_params() / 1e9, init_s=init_s, mid_split=mid,
-        mid_match=mid_match,
+        params_b=cfg.num_params() / 1e9, prompt_len=prompt_len,
+        window=cfg.window_size, engine_cache_len=cache_len,
+        engine_prompt_lens=[len(p) for p in prompts], init_s=init_s,
+        mid_split=mid, mid_match=mid_match, per_forward=per_forward,
         decode_tokens_per_s=batch / (res["decode_ms_per_step"] * 1e-3),
         engine_requests=len(results),
         engine_complete=sum(len(results[r]) == new for r in rids),
@@ -813,14 +1021,6 @@ def serve_full_width(device, arch: str, tag: str) -> dict:
     if first_ok != 16:
         breaches.append(f"{16 - first_ok} first tokens differ from one-"
                         "request generation")
-    L = cfg.num_layers
-    per_forward = {"rmsnorm": 2 * L + 1, "ligd_sweep": 1}
-    if RWKV6 in cfg.layer_types():
-        per_forward["wkv6"] = L
-    else:
-        per_forward["flash_attention"] = L          # prefill only
-    if cfg.num_experts:
-        per_forward["moe_swiglu"] = L
     for name, per in per_forward.items():
         if launches[name] <= 0 or launches[name] % per:
             breaches.append(f"{name}: {launches[name]} launches, expected a "
@@ -856,10 +1056,12 @@ def main() -> int:
     from repro_torch.kernels.ligd_step import kernel as sweep_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.ligd_step import steps as steps_kernel
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
-    build_all((sweep_kernel, rms_kernel, flash_kernel, moe_kernel,
-               wkv_kernel))
+    build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
+               moe_kernel, rglru_kernel, wkv_kernel))
 
     # 3. kernel against plain on the card --------------------------------
     from repro_torch.configs import nin, vgg16
@@ -911,6 +1113,10 @@ def main() -> int:
         errs[name].append(recs[name]["max_abs_err"])
     del recorded
 
+    # 4c. kernel row 2 on the session's users at their planned splits
+    steps = steps_case(sess, device)
+    del sess
+
     # 5. card against the CPU path ---------------------------------------
     small = sc.replace(num_users=4096, steps=3)
     fleets = {}
@@ -924,16 +1130,28 @@ def main() -> int:
     # 6. language-model kernels against plain on the card ---------------
     lm = lm_kernel_cases(device)
     lm.update(moe_wkv_kernel_cases(device))
+    lm.update(hybrid_kernel_cases(device))
+    lm["flash_attention"]["max_abs_err"] = max(
+        lm["flash_attention"]["max_abs_err"],
+        lm["flash_attention_hd256"]["max_abs_err"])
 
-    # 7. serving main paths: full-width starcoder2-3b, granite-moe and
-    # rwkv6-3b split generation and the continuous-batching engine -------
+    # 7. serving main paths: full-width starcoder2-3b, granite-moe,
+    # rwkv6-3b and recurrentgemma-9b split generation and the
+    # continuous-batching engine; recurrentgemma's prompts (2560) are
+    # longer than its window (2048), so its rings wrap ------------------
     serve = serve_full_width(device, "starcoder2-3b", "serve")
     serve_moe = serve_full_width(device, "granite-moe-1b-a400m", "serve-moe")
     serve_rwkv = serve_full_width(device, "rwkv6-3b", "serve-rwkv")
+    serve_hybrid = serve_full_width(device, "recurrentgemma-9b",
+                                    "serve-hybrid", prompt_len=2560,
+                                    cache_len=4096)
 
     # 8. serving, card against the CPU path -------------------------------
     for arch in ("starcoder2-3b", "granite-moe-1b-a400m", "rwkv6-3b"):
         serve_cross(device, arch)
+    # one block of each kind, (R, R, A), with a 32-token window that the
+    # 64-token prompt and the engine's prompts wrap
+    serve_cross(device, "recurrentgemma-9b", layers=3, window=32)
 
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
@@ -944,16 +1162,26 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
     } for name, r in recs.items()]
-    paths = (serve, serve_moe, serve_rwkv)
+    kernels.append({
+        "name": "ligd_steps", "route": "cuda",
+        "source": "src/repro_torch/kernels/ligd_step/csrc/steps.cu",
+        "replaces": "src/repro/kernels/ligd_step/kernel.py:113",
+        **{k: steps[k] for k in ("launches", "max_abs_err", "ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+    paths = (serve, serve_moe, serve_rwkv, serve_hybrid)
     for name, src, replaces in (
-            ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm/kernel.py:27"),
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:98"),
+            ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:27"),
             ("moe_swiglu",
              "src/repro_torch/kernels/moe_gemm/csrc/moe_swiglu.cu",
              "src/repro/kernels/moe_gemm/kernel.py:59"),
+            ("rglru_scan",
+             "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+             "src/repro/kernels/rglru/kernel.py:59"),
             ("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
              "src/repro/kernels/wkv6/kernel.py:66")):
         r = lm[name]

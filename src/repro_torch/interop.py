@@ -3,8 +3,9 @@
 The planner's state is the scenario, the layer profile and the plan
 table; the language model's is its parameter tree.  These functions take
 them as plain numpy arrays and dicts — what the reference's
-``Scenario.to_dict()``, ``LayerProfile`` fields, ``FleetState`` columns
-and ``init_lm`` leaves hold — so nothing here imports the reference.  A
+``Scenario.to_dict()``, ``LayerProfile`` fields, ``FleetState`` columns,
+``init_lm`` leaves and ``prefill`` caches hold — so nothing here imports
+the reference.  A
 differential test seeds the port's planner with the reference's plan
 table through :func:`fleet_from_columns`, or the port's model with the
 reference's weights through :func:`lm_params_from_numpy`, and both
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.scenario import Scenario
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.core.costs import LayerProfile
 from repro_torch.core.planner import PLAN_FIELDS, FleetState
 
@@ -65,29 +66,49 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _unstack_blocks(cfg: ModelConfig, stack: dict) -> list:
+    """One tree per block from the reference's ``{"tail", "scan"}``
+    stacking: block ``i`` is ``tail[i]`` for the first ``num_layers %
+    len(pattern)`` blocks, then superblock ``j // period`` of
+    ``scan[j % period]``."""
+    period = len(cfg.pattern)
+    rem = cfg.num_layers % period
+    blocks = []
+    for i in range(cfg.num_layers):
+        if i < rem:
+            blocks.append(_tree_map(_tensor, stack["tail"][i]))
+        else:
+            j = i - rem
+            blocks.append(_tree_map(
+                lambda a, n=j // period: _tensor(np.asarray(a)[n]),
+                stack["scan"][j % period]))
+    return blocks
+
+
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     """The port's parameters (CPU tensors) from the reference's ``init_lm``
     tree as numpy leaves: ``embed`` (Vp, d), ``final_norm`` (d,),
     ``unembed`` (d, Vp) unless tied, and ``stack`` = {``tail``: one block
     per remainder layer, ``scan``: one block per pattern position, each
-    leaf stacked on a leading superblock axis}.  Block ``i`` of the port
-    is ``tail[i]`` for the first ``num_layers % len(pattern)`` blocks,
-    then superblock ``j // period`` of ``scan[j % period]``."""
-    period = len(cfg.pattern)
-    rem = cfg.num_layers % period
-    stack = tree["stack"]
-    layers = []
-    for i in range(cfg.num_layers):
-        if i < rem:
-            block = _tree_map(_tensor, stack["tail"][i])
-        else:
-            j = i - rem
-            block = _tree_map(lambda a: _tensor(np.asarray(a)[j // period]),
-                              stack["scan"][j % period])
-        layers.append(block)
+    leaf stacked on a leading superblock axis}: the stacking of
+    :func:`_unstack_blocks`, whatever the blocks hold (attention, MoE,
+    RWKV-6 or RG-LRU leaves)."""
     params = {"embed": _tensor(tree["embed"]),
               "final_norm": _tensor(tree["final_norm"]),
-              "layers": layers}
+              "layers": _unstack_blocks(cfg, tree["stack"])}
     if not cfg.tie_embeddings:
         params["unembed"] = _tensor(tree["unembed"])
     return params
+
+
+def lm_caches_from_numpy(cfg: ModelConfig, tree: dict) -> list:
+    """The port's caches (CPU tensors, one tree per block) from the
+    reference's ``prefill``/``init_caches`` caches as numpy leaves,
+    stacked as the parameters are.  An attention block's ``{"mix": {"k",
+    "v"}}`` becomes the port's ``{"k", "v"}`` (a sliding-window ring in
+    the same slot order); RWKV-6 and RG-LRU state trees carry over as
+    they are."""
+    blocks = _unstack_blocks(cfg, tree)
+    types = cfg.layer_types()
+    return [b["mix"] if lt in (ATTN_GLOBAL, ATTN_LOCAL) else b
+            for b, lt in zip(blocks, types)]

@@ -21,17 +21,20 @@
 //   * kv tiles wholly outside the causal / window band are skipped;
 //   * out = acc / max(l, 1e-30), scale applied to q.k before masking.
 //
-// Bound: at prefill shapes (S = 1024..2048, HD = 128) the causal FLOPs
-// (4·B·Hq·HD·S²/2) over the card's bf16 tensor-core rate bind, well above
-// the bytes.  This first kernel is simple and right before it is fast: it
-// computes with fp32 FMAs on CUDA cores, not on the tensor cores, so it
-// sits far above that bound.  Design for the CUDA cores: 64 q rows x 32
+// Bound: at prefill shapes (S = 1024..2560, HD = 64..256) the causal or
+// windowed FLOPs (4·B·Hq·HD per unmasked pair) over the card's bf16
+// tensor-core rate bind, well above the bytes.  This first kernel is
+// simple and right before it is fast: it computes with fp32 FMAs on CUDA
+// cores, not on the tensor cores, so it sits far above that bound.  Design for the CUDA cores: 64 q rows x 32
 // keys a tile, 128 threads, each thread owns 4 q rows x 4 keys of the
 // score tile and 4 rows x HD/8 columns of the output; tiles sit in shared
 // memory as float32 (row pitch HD+4 so that 16-byte reads by the 8 threads
 // of a row group hit 8 different bank groups), read as float4.  The 8
 // threads that share a q row are neighbouring lanes, so row max and row
 // sum are three xor-shuffles.  Heavier causal q tiles are scheduled first.
+// At HD 256 (recurrentgemma) a thread holds 4 x 32 = 128 float
+// accumulators (226-232 registers, no spill) and a block 138.5 KiB of
+// shared memory, inside the 227 KB opt-in: one block per SM.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; the launch
 // goes on the caller's stream and returns cudaGetLastError().
@@ -281,6 +284,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                   causal, window, s);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
                                     causal, window, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
+                                    causal, window, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -290,7 +295,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous in the model
-// layout; Hq % Hkv == 0; hd in {32, 64, 128}.
+// layout; Hq % Hkv == 0; hd in {32, 64, 128, 256}.
 int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
                                 void* out, int B, int Sq, int Skv, int Hq,
                                 int Hkv, int hd, float scale, int causal,

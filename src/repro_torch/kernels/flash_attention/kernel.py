@@ -25,7 +25,7 @@ FLAGS = _build.NVCC_FLAGS
 LAUNCHES = {"flash_attention": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)

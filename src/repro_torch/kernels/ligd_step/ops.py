@@ -1,7 +1,9 @@
-"""Public entry points of the fused sweep: dispatch on the tensor's device.
+"""Public entry points of the fused sweep and the single-split steps:
+dispatch on the tensor's device.
 
-A CUDA tensor goes to the hand-written kernel (:func:`.kernel.sweep_cuda`)
-or raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`).
+A CUDA tensor goes to the hand-written kernel (:func:`.kernel.sweep_cuda`,
+:func:`.steps.ligd_steps_cuda`) or raises; a CPU tensor goes to the plain
+PyTorch version (:mod:`.ref`).
 There is no other route and no fallback.
 
 The batch axis carries no meaning of its own: callers may tile it per
@@ -14,7 +16,21 @@ from typing import NamedTuple
 import torch
 
 from .kernel import sweep_cuda
-from .ref import ligd_sweep_ref, mligd_sweep_ref, table_tensor
+from .ref import (edge_tuple_of, ligd_steps_ref, ligd_sweep_ref,
+                  mligd_sweep_ref, table_tensor)
+from .steps import ligd_steps_cuda
+
+
+def ligd_steps(feat, x0, edge: dict, *, iters: int = 64, lr: float = 0.15):
+    """``iters`` projected-GD steps at one split point per row: feat
+    (X, NF), x0 (X, 2), ``edge`` the server's constants (dict of floats
+    or 0-d tensors) -> (x (X, 2), U (X,))."""
+    et = edge_tuple_of(edge)
+    if feat.device.type == "cuda":
+        return ligd_steps_cuda(feat, x0, et, iters=iters, lr=lr)
+    if feat.device.type == "cpu":
+        return ligd_steps_ref(feat, x0, dict(et), iters=iters, lr=lr)
+    raise ValueError(f"ligd_steps: unsupported device {feat.device}")
 
 
 class SweepResult(NamedTuple):

@@ -273,3 +273,81 @@ def mligd_sweep_ref(feat, x0, tables, *, lr=0.15, eps=1e-5, max_iters=400,
     return _sweep_ref(feat, x0, tables, lr=lr, eps=eps, max_iters=max_iters,
                       chunk=chunk, warm_start=warm_start, init=init,
                       joint=True)
+
+
+# ---------------------------------------------------------------------------
+# Single-split Li-GD steps (the TPU kernel ligd_steps_tpu's contract) and
+# its autodiff oracle.  Feature layout (X, NF), one row per user: the
+# kernel's ABI (csrc/steps.cu).
+# ---------------------------------------------------------------------------
+NF = 16
+STEP_FIELDS = ("f_l", "f_e", "w", "m", "offl", "c_dev", "epf", "p_tx", "c1",
+               "hops", "k", "t_ag", "wT", "wE", "wC", "x0_B")
+#: the edge constants a launch takes, in the kernel's argument order
+EDGE_KEYS = ("B_min", "B_max", "r_min", "r_max", "lam_a", "c_min",
+             "rho_min", "rho_B", "gamma_B", "B0", "B_backhaul", "N0")
+
+
+def pack_features(f_l, f_e, w, m, offl, dev: dict) -> torch.Tensor:
+    """(X, NF) float32 feature matrix from batched device dicts (leaves
+    (X,) tensors or scalars); column 15 is zero (the TPU layout's unused
+    warm-start slot)."""
+    epf = dev["xi"] * dev["c_dev"] ** 2 * dev["phi"]
+    c1 = dev["p_tx"] * dev["alpha"] * dev["g_fade"]
+    cols = [f_l, f_e, w, m, offl, dev["c_dev"], epf, dev["p_tx"], c1,
+            dev["hops"], dev["k_rounds"], dev["t_ag"], dev["w_T"],
+            dev["w_E"], dev["w_C"]]
+    X = torch.as_tensor(f_l).shape[0]
+    device = torch.as_tensor(f_l).device
+    feat = torch.zeros((X, NF), dtype=torch.float32, device=device)
+    for i, v in enumerate(cols):
+        feat[:, i] = torch.as_tensor(v, dtype=torch.float32, device=device)
+    return feat
+
+
+def edge_tuple_of(edge: dict) -> tuple:
+    """The edge constants as ``(name, float)`` pairs in EDGE_KEYS order
+    (the TPU kernel's hashable statics; the CUDA kernel's arguments)."""
+    missing = [k for k in EDGE_KEYS if k not in edge]
+    if missing:
+        raise ValueError(f"edge constants missing {missing}; expected "
+                         f"{EDGE_KEYS}")
+    return tuple((k, float(edge[k])) for k in EDGE_KEYS)
+
+
+def _steps_utility(feat: torch.Tensor, x: torch.Tensor, edge: dict):
+    """U (X,) of every row at normalized x (X, 2), through
+    ``core/costs.utility`` with the device dict rebuilt from the
+    features, as the reference's oracle rebuilds it."""
+    # imported here: repro_torch.core imports this package (core.ligd)
+    from repro_torch.core.costs import utility
+    f = feat.T
+    one = torch.ones((), dtype=torch.float32, device=feat.device)
+    dev = {"c_dev": f[5], "xi": f[6] / torch.clamp_min(f[5] ** 2, 1e-30),
+           "phi": one, "p_tx": f[7],
+           "alpha": f[8] / torch.clamp_min(f[7], 1e-30), "g_fade": one,
+           "w_T": f[12], "w_E": f[13], "w_C": f[14], "k_rounds": f[10],
+           "t_ag": f[11], "hops": f[9]}
+    ep = {k: torch.as_tensor(v, dtype=torch.float32, device=feat.device)
+          for k, v in edge.items()}
+    B = ep["B_min"] + x[:, 0] * (ep["B_max"] - ep["B_min"])
+    r = ep["r_min"] + x[:, 1] * (ep["r_max"] - ep["r_min"])
+    U, _ = utility(dev, ep, f[0], f[1], f[2], f[3], B, r, offloaded=f[4])
+    return U
+
+
+def ligd_steps_ref(feat: torch.Tensor, x0: torch.Tensor, edge: dict, *,
+                   iters: int = 64, lr: float = 0.15):
+    """The autodiff oracle of the single-split steps, as the JAX
+    package's ``ligd_steps_ref``: ``iters`` steps of x <- clip(x - lr ·
+    dU/dx, 0, 1) with the gradient from autograd.  feat (X, NF), x0
+    (X, 2) -> (x (X, 2), U (X,))."""
+    feat = feat.float()
+    x = x0.float().clone()
+    for _ in range(iters):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            g, = torch.autograd.grad(_steps_utility(feat, xg, edge).sum(),
+                                     xg)
+        x = torch.clamp(x - lr * g, 0.0, 1.0)
+    return x, _steps_utility(feat, x, edge).detach()

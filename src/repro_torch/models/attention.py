@@ -17,8 +17,9 @@ widened to Hq heads.
 * :func:`naive_attention` — the reference softmax attention (ends of q
   and k aligned) that tests hold the others against.
 
-Sliding-window (local) layers and int8 KV caches are not ported:
-``models/transformer.py`` refuses them.
+Sliding-window (local) layers keep a ring-buffer cache: slot ``j``
+holds position ``pos - ((pos - j) mod L)``.  Int8 KV caches are not
+ported: ``models/transformer.py`` refuses them.
 """
 from __future__ import annotations
 
@@ -68,11 +69,14 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
-def decode_attention(q, cache_k, cache_v, pos, *,
+def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q (B,1,Hq,hd); cache_k/v (B,L,Hkv,hd); pos: the position of the
     query token, an int or a (B,) tensor of per-sequence positions.
-    Slots 0..pos are valid.  Scores and probabilities in float32."""
+    Global layers (``window`` 0): slots 0..pos are valid.  Local layers:
+    the cache is a ring of L slots, slot j holds position
+    ``pos - ((pos - j) mod L)``, valid when that position is >= 0 and
+    within ``window`` of ``pos``.  Scores and probabilities in float32."""
     B, _, Hq, hd = q.shape
     L, Hkv = cache_k.shape[1], cache_k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
@@ -81,10 +85,14 @@ def decode_attention(q, cache_k, cache_v, pos, *,
     slots = torch.arange(L, device=q.device)
     p = torch.as_tensor(pos, device=q.device)
     if p.dim() == 1:
-        valid = slots[None, :] <= p[:, None]             # (B, L)
-        bias = _mask_bias(valid)[:, None, None, None, :]
+        p = p[:, None]                                   # (B,1) vs (L,)
+    if window > 0:
+        slot_pos = p - torch.remainder(p - slots, L)     # ring positions
+        valid = (slot_pos >= 0) & (slot_pos <= p) & ((p - slot_pos) < window)
     else:
-        bias = _mask_bias(slots <= p)
+        valid = slots <= p
+    bias = _mask_bias(valid)                             # (L,) or (B, L)
+    bias = bias[:, None, None, None, :] if bias.dim() == 2 else bias
     probs = torch.softmax(s + bias, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v.float())
     return out.reshape(B, 1, Hq, hd).to(q.dtype)

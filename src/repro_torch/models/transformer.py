@@ -1,36 +1,45 @@
 """Decoder stacks on one card: init, prefill and decode.
 
-The port of the JAX package's ``repro/models/transformer.py`` for three
-families: the dense decoder (RMSNorm, global causal GQA attention with
-RoPE and optional qk-norm, a SwiGLU MLP), the MoE decoder (the same
-attention, a routed expert FFN, :mod:`.moe`) and RWKV-6 (time mix and
-channel mix, :mod:`.rwkv`); then a final norm and an untied or tied
-unembedding.  Both norms of every block and the final norm go through
-the RMSNorm kernel, prefill attention through the flash-attention
-kernel, the experts through the fused expert SwiGLU kernel and the WKV
-recurrence through the WKV6 kernel (``kernels/``); the projections and
-the unembedding are plain matrix products, as the reference leaves them
-to XLA.
+The port of the JAX package's ``repro/models/transformer.py`` for four
+families: the dense decoder (RMSNorm, global or sliding-window causal
+GQA attention with RoPE and optional qk-norm, a SwiGLU MLP), the MoE
+decoder (the same attention, a routed expert FFN, :mod:`.moe`), RWKV-6
+(time mix and channel mix, :mod:`.rwkv`) and the RecurrentGemma hybrid
+(RG-LRU blocks, :mod:`.rglru`, between sliding-window MQA blocks); then
+a final norm and an untied or tied unembedding.  Both norms of every
+block and the final norm go through the RMSNorm kernel, prefill
+attention through the flash-attention kernel, the experts through the
+fused expert SwiGLU kernel, the WKV recurrence through the WKV6 kernel
+and the RG-LRU recurrence through the RG-LRU scan kernel
+(``kernels/``); the projections and the unembedding are plain matrix
+products, as the reference leaves them to XLA.
 
 Parameters are a plain dict: ``embed`` (Vp, d), ``final_norm`` (d,),
 ``unembed`` (d, Vp) unless tied, and ``layers``, a list with one dict per
 block (``ln1``, ``mix``, ``ln2``, ``ffn``; ``mix`` = {wq, wk, wv, wo[,
-q_norm, k_norm]} or the time mix, ``ffn`` = {wg, wu, wd}, the MoE's
-{router, wg, wu, wd} or the channel mix).  The reference stacks blocks
+q_norm, k_norm]}, the time mix or the RG-LRU's {wx, wy, wo, conv_w,
+gate_a, gate_i, a_param}, ``ffn`` = {wg, wu, wd}, the MoE's {router, wg,
+wu, wd} or the channel mix).  The reference stacks blocks
 on a superblock axis for ``lax.scan``; PyTorch runs eagerly, so a Python
 loop over the list takes its place.
 
 Caches are a list with one dict per block: ``{"k", "v"}`` of
 (B, L, Hkv, hd) for an attention block, ``{"mix": {"s", "tm"}, "ffn":
-{"cm"}}`` for an RWKV-6 block (the reference's tree, float32).  Decode
-writes each new k/v row, and the new recurrent state, into the cache in
-place (JAX returns an updated copy) and returns the same list.
+{"cm"}}`` for an RWKV-6 block and ``{"mix": {"h", "conv"}}`` for an
+RG-LRU block (the reference's trees).  A sliding-window block's k/v are
+a ring of L = min(window, cache length) slots, slot ``pos mod L``; the
+reference's prefill always returns a ring of ``window`` rows, which
+does not fit its own pool when the cache length is below the window
+(ROADMAP §3), so the port's prefill ring is min(window, max(cache
+length, S)) rows, the pool's size.  Decode writes each new k/v row, and
+the new recurrent state, into the cache in place (JAX returns an
+updated copy) and returns the same list.
 
 MoE capacity factors are the reference's (``CAPACITY_FACTOR``,
 ``DECODE_CAPACITY_FACTOR``).
 
-Local attention, RG-LRU, encoder-decoder stacks and int8 KV caches raise
-``NotImplementedError`` naming their ROADMAP item.
+Encoder-decoder stacks and int8 KV caches raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ from . import attention as attn_lib
 from .layers import (apply_mlp, apply_rope, init_attention, init_mlp,
                      init_norm, param_dtype, rms_norm)
 from .moe import apply_moe, init_moe
+from .rglru import (apply_rglru_decode, apply_rglru_seq, init_rglru,
+                    init_rglru_state)
 from .rwkv import (apply_channel_mix, apply_time_mix, init_rwkv_channel_mix,
                    init_rwkv_state, init_rwkv_time_mix)
 from .sharded_ops import (embed_lookup, padded_vocab, sharded_argmax,
@@ -53,9 +64,6 @@ from .sharded_ops import (embed_lookup, padded_vocab, sharded_argmax,
 
 Params = dict
 
-FAMILY_DEFERRED = ("{what} is not ported yet: ROADMAP, queue 1, item 1 "
-                   "(kernel row 6 with recurrentgemma and local "
-                   "attention)")
 REST_DEFERRED = "{what} is not ported yet: ROADMAP, queue 1, item 4"
 
 #: MoE capacity factors, the reference's defaults: ``apply_block`` (and so
@@ -68,13 +76,7 @@ DECODE_CAPACITY_FACTOR = 2.0
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
     for lt in dict.fromkeys(cfg.layer_types()):
-        if lt == ATTN_LOCAL:
-            raise NotImplementedError(FAMILY_DEFERRED.format(
-                what="sliding-window (local) attention"))
-        if lt == RGLRU:
-            raise NotImplementedError(FAMILY_DEFERRED.format(
-                what=f"the {lt} layer type"))
-        if lt not in (ATTN_GLOBAL, RWKV6):
+        if lt not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6):
             raise ValueError(f"unknown layer type {lt!r}")
     if cfg.enc_dec:
         raise NotImplementedError(REST_DEFERRED.format(
@@ -87,9 +89,9 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_block(cfg: ModelConfig, gen: torch.Generator, device,
                layer_type: str = ATTN_GLOBAL) -> Params:
     rwkv = layer_type == RWKV6
-    p = {"ln1": init_norm(cfg, device),
-         "mix": (init_rwkv_time_mix if rwkv else init_attention)(cfg, gen,
-                                                                 device),
+    init_mix = {RWKV6: init_rwkv_time_mix, RGLRU: init_rglru}.get(
+        layer_type, init_attention)
+    p = {"ln1": init_norm(cfg, device), "mix": init_mix(cfg, gen, device),
          "ln2": init_norm(cfg, device)}
     if rwkv:
         p["ffn"] = init_rwkv_channel_mix(cfg, gen, device)
@@ -127,8 +129,10 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
 # ===========================================================================
 # Attention block
 # ===========================================================================
-def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
-    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE'd."""
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
+                 layer_type: str):
+    """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE'd
+    with the local base for a sliding-window block."""
     B, S, d = x.shape
 
     def proj(w):
@@ -138,17 +142,36 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    theta = (cfg.rope_theta_local if layer_type == ATTN_LOCAL
+             else cfg.rope_theta)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
     return q, k, v
 
 
+def _to_ring(t: torch.Tensor, L: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, L, ...) ring layout, slot = position mod L: the
+    last L positions, zero-padded when S < L (the reference's
+    ``_to_ring``)."""
+    B, S = t.shape[:2]
+    if S < L:
+        out = t.new_zeros((B, L) + t.shape[2:])
+        out[:, :S] = t
+        return out
+    j = torch.arange(L, device=t.device)
+    return t[:, (S - 1) - torch.remainder((S - 1) - j, L)]
+
+
 def _write_decode_rows(cache: torch.Tensor, new: torch.Tensor,
-                       pos: torch.Tensor) -> None:
-    """cache[b, pos[b]] = new[b, 0], in place.  A position past the cache
-    drops its write, as JAX's scatter does, without a host sync."""
+                       pos: torch.Tensor, ring: bool) -> None:
+    """cache[b, slot(pos[b])] = new[b, 0], in place: slot ``pos mod L``
+    in a ring, else ``pos``, where a position past the cache drops its
+    write, as JAX's scatter does, without a host sync."""
     L = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
+    if ring:
+        cache[rows, torch.remainder(pos, L)] = new[:, 0].to(cache.dtype)
+        return
     slot = pos.clamp(0, L - 1)
     keep = (pos < L)[:, None, None]
     cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
@@ -157,31 +180,31 @@ def _write_decode_rows(cache: torch.Tensor, new: torch.Tensor,
 
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     mode: str, positions, cache: Optional[dict],
-                    cache_len: int = 0):
+                    cache_len: int = 0, layer_type: str = ATTN_GLOBAL):
     """x (B, S, d) normalised input -> (out (B, S, d), cache).
 
-    mode ``prefill``: positions (B, S); returns a new cache of length
-    max(cache_len, S) holding k/v at [0, S).  mode ``decode``: S = 1,
-    positions an int or (B,) tensor; writes into ``cache`` in place."""
+    mode ``prefill``: positions (B, S); returns a new cache: for a global
+    block of length max(cache_len, S) holding k/v at [0, S), for a
+    sliding-window block a ring of min(window, max(cache_len, S)) slots.
+    mode ``decode``: S = 1, positions an int or (B,) tensor; writes into
+    ``cache`` in place."""
     B, S, d = x.shape
+    W = cfg.window_size if layer_type == ATTN_LOCAL else 0
     if mode == "decode":
         pos = torch.as_tensor(positions, device=x.device)
         pos = pos.expand(B) if pos.dim() == 0 else pos
-        q, k, v = _project_qkv(cfg, p, x, pos[:, None])
-        _write_decode_rows(cache["k"], k, pos)
-        _write_decode_rows(cache["v"], v, pos)
-        out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos)
+        q, k, v = _project_qkv(cfg, p, x, pos[:, None], layer_type)
+        _write_decode_rows(cache["k"], k, pos, ring=bool(W))
+        _write_decode_rows(cache["v"], v, pos, ring=bool(W))
+        out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
+                                        window=W)
         new_cache = cache
     elif mode == "prefill":
-        q, k, v = _project_qkv(cfg, p, x, positions)
-        out = flash_ops.flash_attention(q, k, v, causal=True)
-        L = max(cache_len, S)
-        new_cache = {}
-        for name, t in (("k", k), ("v", v)):
-            c = torch.zeros((B, L) + t.shape[2:], dtype=param_dtype(cfg),
-                            device=x.device)
-            c[:, :S] = t
-            new_cache[name] = c
+        q, k, v = _project_qkv(cfg, p, x, positions, layer_type)
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=W)
+        L = min(W, max(cache_len, S)) if W else max(cache_len, S)
+        dt = param_dtype(cfg)
+        new_cache = {"k": _to_ring(k.to(dt), L), "v": _to_ring(v.to(dt), L)}
     else:
         raise ValueError(f"mode {mode!r}: 'prefill' or 'decode'")
     Hq, hd = p["wo"].shape[:2]
@@ -193,23 +216,32 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
                 positions, cache=None, cache_len: int = 0,
                 layer_type: str = ATTN_GLOBAL,
                 capacity_factor: float = CAPACITY_FACTOR):
-    """Residual block: the mixer (attention or RWKV-6 time mix) then the
-    FFN (SwiGLU MLP, MoE or RWKV-6 channel mix), each behind an RMSNorm.
+    """Residual block: the mixer (attention, RWKV-6 time mix or RG-LRU)
+    then the FFN (SwiGLU MLP, MoE or RWKV-6 channel mix), each behind an
+    RMSNorm.
     Returns (h, cache).  The MoE's aux loss is dropped: serving ignores
     it."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: 'prefill' or 'decode'")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if layer_type == RWKV6:
-        if mode not in ("prefill", "decode"):
-            raise ValueError(f"mode {mode!r}: 'prefill' or 'decode'")
         st = cache if mode == "decode" else {"mix": None, "ffn": None}
         out, mix_state = apply_time_mix(cfg, p["mix"], x, st["mix"])
         h = h + out
         x = rms_norm(h, p["ln2"], cfg.norm_eps)
         out, ffn_state = apply_channel_mix(cfg, p["ffn"], x, st["ffn"])
         return h + out, {"mix": mix_state, "ffn": ffn_state}
-    out, new_cache = apply_attention(cfg, p["mix"], x, mode=mode,
-                                     positions=positions, cache=cache,
-                                     cache_len=cache_len)
+    if layer_type == RGLRU:
+        if mode == "decode":
+            out, st = apply_rglru_decode(cfg, p["mix"], x, cache["mix"])
+        else:
+            out, st = apply_rglru_seq(cfg, p["mix"], x)
+        new_cache = {"mix": st}
+    else:
+        out, new_cache = apply_attention(cfg, p["mix"], x, mode=mode,
+                                         positions=positions, cache=cache,
+                                         cache_len=cache_len,
+                                         layer_type=layer_type)
     h = h + out
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:
@@ -244,9 +276,11 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int,
                      device, kv_quant: bool = False,
                      layer_type: str = ATTN_GLOBAL) -> dict:
-    """Zero cache of one block: {"k", "v"} of (batch, cache_len, Hkv, hd)
-    in the model's dtype for attention; {"mix": {"s", "tm"}, "ffn":
-    {"cm"}} in float32 for RWKV-6 (no cache-length axis)."""
+    """Zero cache of one block: {"k", "v"} of (batch, L, Hkv, hd) in the
+    model's dtype for attention, L = cache_len for a global block and
+    min(window, cache_len) for a sliding-window ring; {"mix": {"s", "tm"},
+    "ffn": {"cm"}} in float32 for RWKV-6 and {"mix": {"h", "conv"}} for
+    RG-LRU (no cache-length axis)."""
     if kv_quant:
         raise NotImplementedError(REST_DEFERRED.format(what="the int8 KV "
                                                             "cache"))
@@ -254,7 +288,11 @@ def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int,
         st = init_rwkv_state(cfg, batch, device)
         return {"mix": {"s": st["s"], "tm": st["tm"]},
                 "ffn": {"cm": st["cm"]}}
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    if layer_type == RGLRU:
+        return {"mix": init_rglru_state(cfg, batch, device)}
+    L = (min(cfg.window_size, cache_len) if layer_type == ATTN_LOCAL
+         else cache_len)
+    shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
     return {n: torch.zeros(shape, dtype=param_dtype(cfg), device=device)
             for n in ("k", "v")}
 

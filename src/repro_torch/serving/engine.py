@@ -12,13 +12,21 @@ units.
 
 The cache pool is a list with one cache tree per block, as
 ``transformer.init_caches`` builds it for ``slots`` rows: ``{"k", "v"}``
-of (slots, cache_len, Hkv, hd) for attention, ``{"mix": {"s", "tm"},
-"ffn": {"cm"}}`` of recurrent state for RWKV-6.  Slot ``i`` is row ``i``
-of every leaf.  Decode and admission write into the pool in place.  A
+of (slots, L, Hkv, hd) for attention (L = cache_len, or a ring of
+min(window, cache_len) slots for a sliding-window block), ``{"mix":
+{"s", "tm"}, "ffn": {"cm"}}`` of recurrent state for RWKV-6 and
+``{"mix": {"h", "conv"}}`` for RG-LRU.  Slot ``i`` is row ``i`` of every
+leaf.  Decode and admission write into the pool in place.  A
 cache migrates between engines with
 :meth:`~InferenceEngine.export_cache` /
 :meth:`~InferenceEngine.import_cache`: the k/v leaves cropped to the
-stream's filled prefix, state leaves whole.
+stream's filled prefix (a ring that has wrapped is whole), state
+leaves whole.
+
+A request must fit its cache: :meth:`InferenceEngine.submit` refuses one
+whose prompt and new tokens need more than ``cache_len`` positions (the
+reference accepts it, drops the global cache's writes past the end and
+so corrupts the stream), so a ring shorter than the window never wraps.
 """
 from __future__ import annotations
 
@@ -58,10 +66,12 @@ class DecodeState:
 class CacheOverflowError(RuntimeError):
     """A migrated cache prefix does not fit the target slot's cache.
 
-    Raised by :meth:`InferenceEngine.import_cache` when the imported
-    prefix would leave no room for the remaining decode writes
-    (``pos + max_new > cache_len``), and by the per-slot cache write when
-    an incoming leaf exceeds the pool leaf along any axis.  Cropping
+    Raised by :meth:`InferenceEngine.submit` when a request's positions
+    (prompt + max_new - 1) exceed ``cache_len``, by
+    :meth:`InferenceEngine.import_cache` when the imported prefix would
+    leave no room for the remaining decode writes (``pos + max_new >
+    cache_len``), and by the per-slot cache write when an incoming leaf
+    exceeds the pool leaf along any axis.  Cropping
     either would corrupt the stream's KV state."""
 
 
@@ -176,6 +186,14 @@ class InferenceEngine:
         return int(self.slots - self.state.active.sum())
 
     def submit(self, tokens: np.ndarray, max_new: int) -> int:
+        """Queue a request; raises :class:`CacheOverflowError` when its
+        prompt and the ``max_new - 1`` decode writes after it need more
+        than ``cache_len`` positions."""
+        if len(tokens) + max_new - 1 > self.cache_len:
+            raise CacheOverflowError(
+                f"request of {len(tokens)} prompt token(s) + {max_new} new "
+                f"needs {len(tokens) + max_new - 1} positions > "
+                f"cache_len={self.cache_len}")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid=rid, tokens=np.asarray(tokens),

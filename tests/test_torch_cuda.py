@@ -1,6 +1,7 @@
-"""Tests that need a CUDA card: the hand-written kernels (the sweep,
-RMSNorm, flash attention, the fused expert SwiGLU, WKV6) against their
-plain PyTorch versions on the same card tensors.  They skip without a
+"""Tests that need a CUDA card: the hand-written kernels (the sweep and
+the single-split Li-GD steps, RMSNorm, flash attention, the fused expert
+SwiGLU, the RG-LRU scan, WKV6) against their plain PyTorch versions on
+the same card tensors.  They skip without a
 card.  On the machine with the card (no JAX there, so without the
 repository's conftest):
 
@@ -139,6 +140,8 @@ def test_cuda_rmsnorm_matches_plain_version(rows, d, dtype, cuda):
     (1, 2, 2, 192, 32, True, 32),
     (2, 4, 2, 96, 64, False, 0),
     (1, 4, 4, 160, 128, False, 48),
+    (1, 16, 1, 300, 256, True, 64),     # recurrentgemma: MQA, windowed
+    (2, 4, 1, 130, 256, True, 0),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain_version(B, Hq, Hkv, S, hd, causal,
@@ -308,3 +311,77 @@ def test_cuda_moe_wkv_wrappers_reject_bad_inputs(cuda):
                        u[:, :16].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         twkv.wkv6_cuda(r, k, v, w, u.cpu())
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan (row 6) and single-split Li-GD steps (row 2): kernel against
+# plain version on the card.  The scan: 1e-5, the reference kernel tests'
+# figure (the same float32 recurrence; the kernel fuses a·h + b into one
+# FMA).  The steps: the reference test's tolerances, x 1e-5 and U atol
+# 1e-5 / rtol 1e-4 (closed-form gradient against autograd).
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import rglru as trglru                  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C", [(4, 300, 4096), (3, 33, 130), (1, 1, 5)])
+def test_cuda_rglru_scan_matches_plain_version(B, S, C, cuda):
+    g = torch.Generator(device=cuda).manual_seed(50)
+    a = torch.rand((B, S, C), generator=g, device=cuda) * 0.5 + 0.499
+    b = torch.randn((B, S, C), generator=g, device=cuda) * 0.3
+    before = trglru.LAUNCHES["rglru_scan"]
+    h = trglru.rglru_scan_cuda(a, b)
+    torch.cuda.synchronize()
+    assert trglru.LAUNCHES["rglru_scan"] == before + 1
+    torch.testing.assert_close(h, trglru.rglru_scan_ref(a, b), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(trglru.rglru_scan(a, b), h)       # ops -> kernel
+    assert trglru.LAUNCHES["rglru_scan"] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_ligd_steps_matches_plain_version(cuda):
+    from repro_torch.kernels.ligd_step import steps as tsteps
+    rng = np.random.default_rng(51)
+    X = 5000
+    profile = profile_of(vgg16())
+    f_l, f_e, w = profile.prefix_tables()
+    s = rng.integers(0, len(f_l), X)
+    dev = tcosts.rows_to_device(tcosts.device_columns(tcosts.DeviceFleet(
+        c_dev=rng.uniform(3e9, 60e9, X),
+        hops=rng.integers(1, 6, X).astype(np.float64))), cuda, X)
+    col = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda)  # noqa
+    feat = tsweep.pack_features(col(f_l[s]), col(f_e[s]), col(w[s]),
+                                col(np.full(X, profile.result_bits)),
+                                col((f_e[s] > 0).astype(np.float64)), dev)
+    x0 = col(rng.uniform(0, 1, (X, 2)))
+    edge = tcosts.edge_dict(tcosts.EdgeParams(), cuda)
+    before = tsteps.LAUNCHES["ligd_steps"]
+    x, u = tsweep.ligd_steps(feat, x0, edge, iters=64)
+    torch.cuda.synchronize()
+    assert tsteps.LAUNCHES["ligd_steps"] == before + 1
+    xr, ur = tsweep.ligd_steps_ref(feat, x0, edge, iters=64)
+    torch.testing.assert_close(x, xr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(u, ur, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_and_steps_wrappers_reject_bad_inputs(cuda):
+    from repro_torch.kernels.ligd_step import steps as tsteps
+    a = torch.rand((2, 3, 8), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        trglru.rglru_scan_cuda(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        trglru.rglru_scan_cuda(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="equal"):
+        trglru.rglru_scan_cuda(a, a[:, :2].contiguous())
+    feat = torch.rand((10, 16), device=cuda)
+    et = tsweep.edge_tuple_of(tcosts.edge_dict(tcosts.EdgeParams(), cuda))
+    with pytest.raises(ValueError, match="shape"):
+        tsteps.ligd_steps_cuda(feat[:, :15].contiguous(),
+                               torch.rand((10, 2), device=cuda), et)
+    with pytest.raises(ValueError, match="rows"):
+        tsteps.ligd_steps_cuda(feat, torch.rand((9, 2), device=cuda), et)
+    with pytest.raises(TypeError, match="dtype"):
+        tsteps.ligd_steps_cuda(feat.double(),
+                               torch.rand((10, 2), device=cuda), et)

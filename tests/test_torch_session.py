@@ -122,7 +122,9 @@ def test_port_imports_neither_jax_nor_reference():
         "from repro_torch.api import Session, get_scenario\n"
         "import repro_torch.serving, repro_torch.launch.serve_split\n"
         "import repro_torch.models.moe, repro_torch.models.rwkv\n"
+        "import repro_torch.models.rglru, repro_torch.kernels.rglru\n"
         "import repro_torch.kernels.moe_gemm, repro_torch.kernels.wkv6\n"
+        "import repro_torch.kernels.ligd_step.steps, repro_torch.interop\n"
         "from repro_torch.configs import get_config, reduced\n"
         "from repro_torch.models.transformer import init_lm\n"
         "Session(get_scenario('paper_fig1').replace(steps=2),"
@@ -131,7 +133,8 @@ def test_port_imports_neither_jax_nor_reference():
         "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "repro_torch.serving.SplitServer(cfg, params, device='cpu')"
         ".generate(torch.zeros((1, 5), dtype=torch.long), 1, 3)\n"
-        "for arch in ('granite-moe-1b-a400m', 'rwkv6-3b'):\n"
+        "for arch in ('granite-moe-1b-a400m', 'rwkv6-3b',"
+        " 'recurrentgemma-9b'):\n"
         "    cfg = reduced(get_config(arch), layers=2)\n"
         "    params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "    repro_torch.serving.SplitServer(cfg, params, device='cpu')"

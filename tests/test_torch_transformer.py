@@ -158,13 +158,32 @@ def test_init_lm_shapes_and_seed():
 
 
 @pytest.mark.parametrize("arch, what", [
-    ("gemma3-27b", "local"), ("recurrentgemma-9b", "rglru"),
     ("seamless-m4t-large-v2", "encoder-decoder")])
 def test_unported_families_raise(arch, what):
     cfg = reduced(get_config(arch), layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP") as ei:
         ttfm.init_lm(cfg, torch.Generator().manual_seed(0))
     assert what in str(ei.value)
+
+
+@pytest.mark.parametrize("arch, what", [
+    ("gemma3-27b", "local"), ("recurrentgemma-9b", "rglru")])
+def test_local_and_rglru_families_are_ported(arch, what):
+    """Sliding-window attention and RG-LRU blocks, refused before kernel
+    row 6 was ported, now build, with one cache tree per block."""
+    cfg = reduced(get_config(arch), layers=2)
+    assert what in cfg.layer_types()
+    params = ttfm.init_lm(cfg, torch.Generator().manual_seed(0))
+    caches = ttfm.init_caches(cfg, 2, 16, "cpu")
+    for lt, blk, c in zip(cfg.layer_types(), params["layers"], caches):
+        if lt == "rglru":
+            assert set(blk["mix"]) == {"wx", "wy", "wo", "conv_w", "gate_a",
+                                       "gate_i", "a_param"}
+            assert set(c["mix"]) == {"h", "conv"}
+        else:
+            L = cfg.window_size if lt == "local" else 16
+            assert tuple(c["k"].shape) == (2, L, cfg.num_kv_heads,
+                                           cfg.head_dim)
 
 
 def test_int8_kv_cache_raises():
@@ -177,7 +196,8 @@ def test_int8_kv_cache_raises():
     ("starcoder2-3b", "split"), ("starcoder2-3b", "engine"),
     ("starcoder2-3b", "launch"), ("granite-moe-1b-a400m", "split"),
     ("granite-moe-1b-a400m", "engine"), ("rwkv6-3b", "split"),
-    ("rwkv6-3b", "engine")])
+    ("rwkv6-3b", "engine"), ("recurrentgemma-9b", "split"),
+    ("recurrentgemma-9b", "engine")])
 def test_device_none_means_cuda(arch, entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config(arch), layers=2)

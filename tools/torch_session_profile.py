@@ -15,9 +15,11 @@ kernel library — and reports for the second run:
   device's busy share of the run's wall-clock.
 
 Serving (``--serve [MODEL]``, default starcoder2-3b; also
-granite-moe-1b-a400m and rwkv6-3b): the model at full width and depth
-(random weights), split at the Li-GD choice, ``SplitServer`` prefill of
-4 prompts of 1024 tokens then 31 decode steps, after one warm-up
+granite-moe-1b-a400m, rwkv6-3b and recurrentgemma-9b): the model at
+full width and depth (random weights), split at the Li-GD choice,
+``SplitServer`` prefill of 4 prompts of 1024 tokens (2560 for
+recurrentgemma-9b, longer than its 2048-token window) then 31 decode
+steps, after one warm-up
 generation; for the prefill and for the decode steps apart: host
 wall-clock, device busy share and device time by kernel, grouped into
 the hand-written kernels, matrix products and the rest.
@@ -108,7 +110,8 @@ def _groups(dev: dict) -> dict:
     mine = {"flash_attention": ("flash_attention_kernel",),
             "rmsnorm": ("rmsnorm_kernel",),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel"),
-            "wkv6": ("wkv6_kernel",), "sweep": ("sweep_kernel",)}
+            "wkv6": ("wkv6_kernel",), "rglru_scan": ("rglru_scan_kernel",),
+            "sweep": ("sweep_kernel",)}
     out = dict.fromkeys(tuple(mine) + ("matmul", "other"), 0.0)
     for name, v in dev.items():
         hit = [k for k, subs in mine.items() if any(t in name for t in subs)]
@@ -129,9 +132,12 @@ def serve_profile(arch: str) -> dict:
     from repro_torch.launch.serve_split import C_DEV, make_inputs, plan_split
     from repro_torch.serving import SplitServer
 
-    batch, prompt_len, new_tokens = 4, 1024, 32   # chip_smoke.py's [serve]
     device = torch.device("cuda", 0)
     cfg = get_config(arch)
+    # chip_smoke.py's [serve] phases; recurrentgemma's prompts pass its
+    # window, as in [serve-hybrid]
+    batch, new_tokens = 4, 32
+    prompt_len = 2560 if arch == "recurrentgemma-9b" else 1024
     params, tokens = make_inputs(cfg, device=device, batch=batch,
                                  prompt_len=prompt_len)
     split = plan_split(cfg, seq=prompt_len, batch=batch, c_dev=C_DEV,
