@@ -1,7 +1,6 @@
 // Flash attention for Hopper (sm_90a): online-softmax GQA attention with
-// causal and sliding-window masks, float32 accumulation, inputs and output
-// in float32 or bfloat16, in the model layout q (B, Sq, Hq, HD),
-// k/v (B, Skv, Hkv, HD), out (B, Sq, Hq, HD).
+// causal and sliding-window masks, float32 accumulation, in the model
+// layout q (B, Sq, Hq, HD), k/v (B, Skv, Hkv, HD), out (B, Sq, Hq, HD).
 //
 // Replaces the JAX package's TPU kernel flash_attention_tpu /
 // _attn_kernel (src/repro/kernels/flash_attention/kernel.py).  The TPU
@@ -10,7 +9,17 @@
 // no order, so here one block owns one (batch, q tile, q head) and walks
 // its kv tiles in a loop, with the state in registers.
 //
-// Semantics kept from the TPU kernel, so both equal attention_ref:
+// Two bodies, chosen by the input type, never by a fallback:
+//   * bfloat16 -> the tensor-core body (namespace tc): wgmma products,
+//     TMA copies into a two-stage ring, tiles kept in bf16;
+//   * float32  -> the CUDA-core body (namespace cc): fp32 FMAs, so the
+//     exact checks (2e-5) keep full float32 products; TF32 wgmma would
+//     keep about three digits.
+// The wrapper (kernel.py) names the body in the launch and the launch
+// refuses any other pairing of type and body.
+//
+// Semantics kept from the TPU kernel by both bodies, so both equal
+// attention_ref:
 //   * q position i aligns with k position i (the caller refuses causal
 //     Sq != Skv);
 //   * masked scores are NEG_INF = -1e30, not -inf: a row with no valid key
@@ -18,31 +27,73 @@
 //     with a valid key wipes out through corr = exp(-1e30 - m) = 0;
 //   * k/v rows past Skv are loaded as zeros (0 * garbage would still
 //     poison p @ v);
-//   * kv tiles wholly outside the causal / window band are skipped;
-//   * out = acc / max(l, 1e-30), scale applied to q.k before masking.
+//   * kv tiles wholly outside the causal / window band are skipped, and
+//     only tiles that cross the diagonal, the window's edge or Skv are
+//     masked;
+//   * heavier causal q tiles are scheduled first;
+//   * out = acc / max(l, 1e-30), with l summed from the float32 p, scale
+//     applied to q.k before masking.
 //
 // Bound: at prefill shapes (S = 1024..2560, HD = 64..256) the causal or
 // windowed FLOPs (4·B·Hq·HD per unmasked pair) over the card's bf16
-// tensor-core rate bind, well above the bytes.  This first kernel is
-// simple and right before it is fast: it computes with fp32 FMAs on CUDA
-// cores, not on the tensor cores, so it sits far above that bound.  Design for the CUDA cores: 64 q rows x 32
-// keys a tile, 128 threads, each thread owns 4 q rows x 4 keys of the
-// score tile and 4 rows x HD/8 columns of the output; tiles sit in shared
-// memory as float32 (row pitch HD+4 so that 16-byte reads by the 8 threads
-// of a row group hit 8 different bank groups), read as float4.  The 8
-// threads that share a q row are neighbouring lanes, so row max and row
-// sum are three xor-shuffles.  Heavier causal q tiles are scheduled first.
-// At HD 256 (recurrentgemma) a thread holds 4 x 32 = 128 float
-// accumulators (226-232 registers, no spill) and a block 138.5 KiB of
-// shared memory, inside the 227 KB opt-in: one block per SM.
+// tensor-core rate bind, well above the bytes.
 //
-// Plain C interface (no PyTorch headers), loaded with ctypes; the launch
-// goes on the caller's stream and returns cudaGetLastError().
+// Tensor-core body.  A block is two or three consumer warpgroups of 64 q
+// rows each (three at HD 128, see Cfg) over kv tiles of 64 keys:
+//   * Q, K and V stay bf16 in shared memory, in the 128-byte-swizzled
+//     layout that wgmma descriptors read: HD/64 column blocks, each R rows
+//     of 128 bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+//     HD 32 is padded to one 64-wide block whose other half reads zeros.
+//   * Copies are TMA (cp.async.bulk.tensor with a 4-D tensor map over
+//     (B, S, H, hd), mbarrier completion), issued by one thread: rows past
+//     S and columns past hd come in as zeros.  K and V of a tile share a
+//     stage of a two-stage ring; each warpgroup releases a stage when its
+//     products on it are done, and the last to release it issues the copy
+//     of tile kt+2 into it (an atomic counter per stage), so no warpgroup
+//     waits for another and no thread is set aside as a producer.  With
+//     no producer warp, setmaxnreg has nothing to rebalance.
+//   * S = Q·Kᵀ is wgmma m64n64k16 with Q and K from shared memory (both
+//     K-major).  The online softmax runs on the accumulator's registers:
+//     a thread holds rows 16·(warp%4) + lane/4 and +8, so a row's max
+//     takes two xor-shuffles within the quad, and l stays a per-thread
+//     partial sum reduced once at the end.  Scores are scaled by
+//     scale·log2(e) and exponentiated with ex2.approx.
+//   * P feeds O += P·V as wgmma's register A operand (the accumulator's
+//     layout is the A fragment's), with V from shared memory as a
+//     transposed (MN-major) B operand.  P goes in as bf16 hi + lo (hi =
+//     bf16(p), lo = bf16(p - hi)), two products per k step: P rounded to
+//     bf16 alone puts the output's error RMS above the 1e-3 of its RMS
+//     that the checks allow (tests/test_torch_kernels_lm.py simulates
+//     both); hi + lo keeps ~16 bits.
+//   * A warpgroup skips a kv tile that is wholly masked for its 64 rows
+//     (exact: such a tile adds 0, or is wiped by corr = 0).
+//   * Shared memory: Q 64·NWG·HDP·2 + 2 stages · 2 · 64·HDP·2 bytes (+1
+//     KiB to align the swizzle atoms): 49 KiB at HD 64, 113 KiB at 128,
+//     193 KiB at 256.
+//
+// CUDA-core body (float32; the first design): 64 q rows x 32 keys a tile,
+// 128 threads, each owning 4 q rows x 4 keys of the score tile and 4 rows
+// x HD/8 columns of the output; tiles in shared memory as float32 (row
+// pitch HD+4), read as float4; the 8 threads of a q row are neighbouring
+// lanes, so row max and sum are three xor-shuffles.  At HD 256 a thread
+// holds 128 float accumulators and a block 138.5 KiB of shared memory.
+//
+// Each template instance sets its shared-memory attribute once, not per
+// launch.  Plain C interface (no PyTorch headers), loaded with ctypes; the
+// launch goes on the caller's stream and returns cudaGetLastError().
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------
+// CUDA-core body, float32
+// ---------------------------------------------------------------------
+namespace cc {
 
 constexpr int BQ = 64;          // q rows per tile
 constexpr int BK = 32;          // keys per tile
@@ -50,68 +101,27 @@ constexpr int THREADS = 128;    // 16 row groups x 8 lanes
 constexpr int RPT = 4;          // q rows per thread
 constexpr int KPT = 4;          // keys per thread (BK / 8)
 constexpr int PS = BK + 4;      // pitch of the probability tile
-constexpr float NEG_INF = -1e30f;
 
-template <typename T> struct Ld;
-template <> struct Ld<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  __device__ static void store4(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-template <> struct Ld<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* in) {
-    uint2 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-    h[0] = __floats2bfloat162_rn(in[0], in[1]);
-    h[1] = __floats2bfloat162_rn(in[2], in[3]);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
-// Copy `rows` rows of one head (HD contiguous elements each, `stride`
-// elements apart) into shared memory as float32 with row pitch `pitch`;
-// rows at or past `valid` are zeros.
-template <typename T, int HD>
-__device__ void load_tile(float* dst, int pitch, const T* src, size_t stride,
-                          int rows, int valid) {
-  constexpr int N = Ld<T>::N;
-  constexpr int PER_ROW = HD / N;
+// Copy `rows` rows of one head (HD contiguous floats each, `stride`
+// floats apart) into shared memory with row pitch `pitch`; rows at or past
+// `valid` are zeros.
+template <int HD>
+__device__ void load_tile(float* dst, int pitch, const float* src,
+                          size_t stride, int rows, int valid) {
+  constexpr int PER_ROW = HD / 4;
   for (int v = threadIdx.x; v < rows * PER_ROW; v += THREADS) {
-    const int r = v / PER_ROW, c = (v % PER_ROW) * N;
-    float buf[N];
-    if (r < valid) {
-      Ld<T>::load(src + r * stride + c, buf);
-    } else {
-#pragma unroll
-      for (int e = 0; e < N; ++e) buf[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < N; e += 4)
-      *reinterpret_cast<float4*>(dst + r * pitch + c + e) =
-          make_float4(buf[e], buf[e + 1], buf[e + 2], buf[e + 3]);
+    const int r = v / PER_ROW, c = (v % PER_ROW) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) val = *reinterpret_cast<const float4*>(src + r * stride + c);
+    *reinterpret_cast<float4*>(dst + r * pitch + c) = val;
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int Sq, int Skv, int Hq, int Hkv, float scale,
                        int causal, int window) {
   constexpr int QP = HD + 4;           // pitch of the q and k tiles
@@ -131,7 +141,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
 
   const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
-  load_tile<T, HD>(Qs, QP, q + (((size_t)b * Sq + q0) * Hq + h) * HD,
+  load_tile<HD>(Qs, QP, q + (((size_t)b * Sq + q0) * Hq + h) * HD,
                    q_stride, BQ, Sq - q0);
 
   int k_begin = 0, k_end = Skv;
@@ -152,8 +162,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BK;
     __syncthreads();                   // previous tile fully consumed
     const size_t kv_off = (((size_t)b * Skv + k0) * Hkv + hk) * HD;
-    load_tile<T, HD>(Ks, QP, k + kv_off, kv_stride, BK, Skv - k0);
-    load_tile<T, HD>(Vs, HD, v + kv_off, kv_stride, BK, Skv - k0);
+    load_tile<HD>(Ks, QP, k + kv_off, kv_stride, BK, Skv - k0);
+    load_tile<HD>(Vs, HD, v + kv_off, kv_stride, BK, Skv - k0);
     __syncthreads();
 
     float s[RPT][KPT];
@@ -244,70 +254,646 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + tr * RPT + i;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + (((size_t)b * Sq + qpos) * Hq + h) * HD;
+    float* o = out + (((size_t)b * Sq + qpos) * Hq + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       float r[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) r[e] = acc[i][4 * c + e] * inv;
-      Ld<T>::store4(o + 32 * c + 4 * tc, r);
+      *reinterpret_cast<float4*>(o + 32 * c + 4 * tc) =
+          make_float4(r[0], r[1], r[2], r[3]);
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
            int window, cudaStream_t stream) {
   constexpr int QP = HD + 4;
   constexpr size_t smem = sizeof(float) *
       (size_t)(BQ * QP + BK * QP + BK * HD + BQ * PS);
-  auto kern = flash_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
+  auto kern = flash_attention_kernel<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B), block(THREADS);
   kern<<<grid, block, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, Hq, Hkv,
-      scale, causal, window);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
+      Skv, Hq, Hkv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                float scale, int causal, int window, cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
-                                  causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
-                                  causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
-                                    causal, window, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
-                                    causal, window, s);
+}  // namespace cc
+
+// ---------------------------------------------------------------------
+// Tensor-core body, bfloat16
+// ---------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers and TMA (cp.async.bulk.tensor) -------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// arrive once and expect `bytes` more of transactions in this phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
-  return (int)cudaErrorInvalidValue;
+}
+// copy box {64 columns, 1 head, rows, 1 batch} at coordinates (c0..c3) of
+// the tensor map into shared memory at dst (128-byte swizzled), completing
+// on mbarrier bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// barrier `id` over the 128 threads of one warpgroup
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+// keep the compiler from moving accesses of `d` across a wgmma
+// issue or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// the same for A fragments, which an asynchronous wgmma reads until it is
+// waited for: their registers stay live and untouched until then
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.  K-major tiles (Q, K):
+// the stride offset is 1024 (8 rows of 128 bytes), the leading one unused.
+// MN-major (V): leading = bytes between 64-column blocks, stride = 1024
+// between groups of 8 kv rows.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem,
+// K-major)^T; D is overwritten when scale_d == 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64,
+// smem, MN-major: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128,
+// smem, MN-major: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, f32) += A (64 x 16, bf16 in registers) * B (16 x 256,
+// smem, MN-major: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+constexpr int BK = 64;             // keys per kv tile
+
+// 2^x by the multi-function unit alone (ex2.approx.ftz: about 2 ulp of
+// float32, far inside the bf16 output's 2^-9; exp2f adds range handling
+// around the same instruction).  On the H100 the body ran measurably
+// faster with it.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Per head_dim: consumer warpgroups (64 q rows each) and K/V stages.  At
+// HD 128 a thread needs about 160 registers, so three warpgroups fit one
+// SM's 64 K registers; at HD 256 (about 220) two do, and two stages of
+// 64 x 256 K and V fill the shared memory beside Q.  On the H100, three
+// warpgroups beat two at HD 128 (starcoder2-3b's shape) and lost at HD 64
+// (granite's); a third stage changed nothing measurable.
+template <int HD>
+struct Cfg {
+  static constexpr int HDP = HD < 64 ? 64 : HD;    // padded width in smem
+  static constexpr int NWG = HD == 128 ? 3 : 2;
+  static constexpr int STAGES = 2;
+  static constexpr int BQ = 64 * NWG;              // q rows per block
+  static constexpr int THREADS = 128 * NWG;
+  // shared memory: Q (BQ rows), then STAGES x (K, V) of BK rows, all
+  // HDP/64 column blocks of 128-byte rows; then the mbarriers (Q, then
+  // one per stage) and the stages' release counters
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;    // one K or V tile
+  static constexpr int BAR = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 4 * STAGES + 1024;
+};
+
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HDP == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// hi = bf16(a, b); lo = bf16 of what hi leaves out
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          bf16* __restrict__ out, int Sq, int Skv, int Hq,
+                          int Hkv, float scale_log2, int causal,
+                          int window) {
+  using C = Cfg<HD>;
+  constexpr int HDP = C::HDP, NCB = HDP / 64, BQ = C::BQ;
+  constexpr int NWG = C::NWG, STAGES = C::STAGES;
+  constexpr int NO = HDP / 2;                  // O accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms (8 rows x 128 bytes) must sit on 1024-byte boundaries
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t barQ = base + C::BAR;         // then full[0..STAGES)
+  int* released = reinterpret_cast<int*>(smem_raw + (base - raw) + C::BAR +
+                                         8 * (1 + STAGES));
+
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - blockIdx.x;        // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  // the warpgroup index through a shuffle, so that ptxas sees it (and the
+  // branches on it) as warp-uniform and keeps the wgmmas asynchronous
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int wq0 = q0 + 64 * wg;                // this warpgroup's rows
+  const int wq_last = min(wq0 + 64, Sq) - 1;   // < wq0: no rows
+  const int r0 = wq0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const int c2 = 2 * (lane & 3);
+
+  int k_begin = 0, k_end = Skv;
+  if (causal) k_end = min(Skv, q_last + 1);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int kt_begin = k_begin / BK, kt_end = (k_end + BK - 1) / BK;
+
+  // tile kt sits in stage (kt - kt_begin) % STAGES: K, then V
+  auto stage_of = [&](int kt) { return (kt - kt_begin) % STAGES; };
+  auto sK_of = [&](int kt) {
+    return base + C::Q_BYTES + 2 * stage_of(kt) * C::KV_BYTES;
+  };
+  auto full_of = [&](int kt) { return barQ + 8 + 8 * stage_of(kt); };
+  auto load_kv = [&](int kt) {                 // one thread issues it
+    const uint32_t sK = sK_of(kt), bar = full_of(kt);
+    mbar_expect(bar, 2 * C::KV_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(sK + cb * BK * 128, &tmK, bar, 64 * cb, hk, kt * BK, b);
+      tma_load(sK + C::KV_BYTES + cb * BK * 128, &tmV, bar, 64 * cb, hk,
+               kt * BK, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(barQ + 8 * i, 1);
+    for (int i = 0; i < STAGES; ++i) released[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(barQ, C::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      tma_load(sQ + cb * BQ * 128, &tmQ, barQ, 64 * cb, h, q0, b);
+    for (int kt = kt_begin; kt < kt_end && kt < kt_begin + STAGES; ++kt)
+      load_kv(kt);
+  }
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  mbar_wait(barQ, 0);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    // every warpgroup waits for every tile, active or not, so none can
+    // release a stage a second time before the others released it once
+    mbar_wait(full_of(kt), ((kt - kt_begin) / STAGES) & 1);
+    const uint32_t sK = sK_of(kt), sV = sK + C::KV_BYTES;
+    const int k0 = kt * BK;
+    const bool active = wq_last >= wq0 && (!causal || k0 <= wq_last) &&
+                        (window == 0 || k0 + BK - 1 > wq0 - window);
+    if (active) {                    // uniform over the warpgroup
+      float s[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t koff = (ks & 3) * 32;   // 16 columns = 32 bytes
+        const uint64_t da = desc_sw128(
+            sQ + (ks >> 2) * BQ * 128 + wg * 64 * 128 + koff, 16, 1024);
+        const uint64_t db =
+            desc_sw128(sK + (ks >> 2) * BK * 128 + koff, 16, 1024);
+        wgmma_ss_n64(s, da, db, ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      const bool edge = (causal && k0 + BK - 1 > wq0) ||
+                        (window > 0 && k0 <= wq_last - window) ||
+                        k0 + BK > Skv;
+      float mt0 = NEG_INF, mt1 = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x0 = s[4 * jj + e] * scale_log2;
+          float x1 = s[4 * jj + 2 + e] * scale_log2;
+          if (edge) {
+            const int kp = k0 + 8 * jj + c2 + e;
+            bool ok0 = kp < Skv, ok1 = kp < Skv;
+            if (causal) { ok0 = ok0 && r0 >= kp; ok1 = ok1 && r1 >= kp; }
+            if (window > 0) {
+              ok0 = ok0 && (r0 - kp) < window;
+              ok1 = ok1 && (r1 - kp) < window;
+            }
+            x0 = ok0 ? x0 : NEG_INF;
+            x1 = ok1 ? x1 : NEG_INF;
+          }
+          s[4 * jj + e] = x0;
+          s[4 * jj + 2 + e] = x1;
+          mt0 = fmaxf(mt0, x0);
+          mt1 = fmaxf(mt1, x1);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, off));
+        mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, off));
+      }
+      const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+      const float corr0 = fast_exp2(m0 - mn0), corr1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = fast_exp2(s[4 * jj + e] - mn0);
+          const float p1 = fast_exp2(s[4 * jj + 2 + e] - mn1);
+          s[4 * jj + e] = p0;
+          s[4 * jj + 2 + e] = p1;
+          rs0 += p0;
+          rs1 += p1;
+        }
+      }
+      l0 = l0 * corr0 + rs0;
+      l1 = l1 * corr1 + rs1;
+#pragma unroll
+      for (int jj = 0; jj < NO / 4; ++jj) {
+        o[4 * jj] *= corr0;
+        o[4 * jj + 1] *= corr0;
+        o[4 * jj + 2] *= corr1;
+        o[4 * jj + 3] *= corr1;
+      }
+      // the score accumulator's layout is wgmma's A fragment: k step kb
+      // takes accumulator groups 2kb (keys 2c, 2c+1) and 2kb+1 (+8)
+      uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb) {
+        const int g0 = 4 * (2 * kb), g1 = 4 * (2 * kb + 1);
+        split_bf16(s[g0], s[g0 + 1], ph[kb][0], pl[kb][0]);
+        split_bf16(s[g0 + 2], s[g0 + 3], ph[kb][1], pl[kb][1]);
+        split_bf16(s[g1], s[g1 + 1], ph[kb][2], pl[kb][2]);
+        split_bf16(s[g1 + 2], s[g1 + 3], ph[kb][3], pl[kb][3]);
+      }
+      wgmma_fence();
+      fence_regs(o);
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb) {
+        const uint64_t db = desc_sw128(sV + kb * 16 * 128, BK * 128, 1024);
+        wgmma_pv<HDP>(o, ph[kb], db);
+        wgmma_pv<HDP>(o, pl[kb], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(ph);
+      fence_regs(pl);
+    }
+    // release the stage: the last warpgroup done with it loads tile
+    // kt + STAGES there
+    warpgroup_sync(1 + wg);
+    if (t == 0) {
+      int* count = released + stage_of(kt);
+      if (atomicAdd(count, 1) == NWG - 1) {
+        *count = 0;
+        if (kt + STAGES < kt_end) load_kv(kt + STAGES);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* o0 = out + (((size_t)b * Sq + r0) * Hq + h) * HD + c2;
+  bf16* o1 = out + (((size_t)b * Sq + r1) * Hq + h) * HD + c2;
+#pragma unroll
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    if (r0 < Sq)
+      *reinterpret_cast<uint32_t*>(o0 + 8 * jj) =
+          pack_bf16(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
+    if (r1 < Sq)
+      *reinterpret_cast<uint32_t*>(o1 + 8 * jj) =
+          pack_bf16(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return (err == cudaSuccess && got == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a (B, S, H, hd) bf16 tensor read in boxes of {64 columns,
+// 1 head, rows, 1 batch} with the 128-byte swizzle.  Columns past hd
+// (HD 32) and rows past S read as zeros.
+int tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
+               int hd, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
+           int window, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  auto kern = flash_attention_tc_kernel<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, B, Sq, Hq, HD, C::BQ);
+  if (!err) err = tensor_map(&tk, k, B, Skv, Hkv, HD, BK);
+  if (!err) err = tensor_map(&tv, v, B, Skv, Hkv, HD, BK);
+  if (err) return err;
+  dim3 grid((Sq + C::BQ - 1) / C::BQ, Hq, B), block(C::THREADS);
+  kern<<<grid, block, C::BYTES, stream>>>(tq, tk, tv, (bf16*)out, Sq, Skv,
+                                          Hq, Hkv, scale * LOG2E, causal,
+                                          window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, int,
+                        int, int, int, int, float, int, int, cudaStream_t);
+
+// the instance of a body for head_dim hd in {32, 64, 128, 256}, else null
+LaunchFn pick(int hd, const LaunchFn (&fns)[4]) {
+  switch (hd) {
+    case 32: return fns[0];
+    case 64: return fns[1];
+    case 128: return fns[2];
+    case 256: return fns[3];
+  }
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous in the model
-// layout; Hq % Hkv == 0; hd in {32, 64, 128, 256}.
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor
+// cores.  The only pairings taken are (float32, CUDA cores) and
+// (bfloat16, tensor cores); anything else returns cudaErrorInvalidValue.
+// All tensors contiguous in the model layout; Hq % Hkv == 0; hd in {32,
+// 64, 128, 256}.
 int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
                                 void* out, int B, int Sq, int Skv, int Hq,
                                 int Hkv, int hd, float scale, int causal,
-                                int window, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, B, Sq, Skv, Hq, Hkv, scale,
-                              causal, window, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Skv, Hq, Hkv,
-                                      scale, causal, window, s);
-  return (int)cudaErrorInvalidValue;
+                                int window, int dtype, int body,
+                                void* stream) {
+  static const LaunchFn cc_fns[4] = {cc::launch<32>, cc::launch<64>,
+                                     cc::launch<128>, cc::launch<256>};
+  static const LaunchFn tc_fns[4] = {tc::launch<32>, tc::launch<64>,
+                                     tc::launch<128>, tc::launch<256>};
+  LaunchFn fn = nullptr;
+  if (dtype == 0 && body == 0) fn = pick(hd, cc_fns);
+  if (dtype == 1 && body == 1) fn = pick(hd, tc_fns);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale, causal, window,
+            (cudaStream_t)stream);
+}
+
+// Dynamic shared memory a block of body `body` takes at head_dim hd
+// (bytes), or -1 for a pair that has no instance.
+int mcsa_flash_attention_smem(int hd, int body) {
+  if (hd != 32 && hd != 64 && hd != 128 && hd != 256) return -1;
+  if (body == 0) {
+    const int qp = hd + 4;
+    return (int)sizeof(float) * (cc::BQ * qp + cc::BK * qp + cc::BK * hd +
+                                 cc::BQ * cc::PS);
+  }
+  if (body == 1) {
+    switch (hd) {
+      case 32: return tc::Cfg<32>::BYTES;
+      case 64: return tc::Cfg<64>::BYTES;
+      case 128: return tc::Cfg<128>::BYTES;
+      case 256: return tc::Cfg<256>::BYTES;
+    }
+  }
+  return -1;
 }
 
 const char* mcsa_cuda_error_string(int code) {

@@ -5,7 +5,15 @@ The library is built by :mod:`repro_torch.kernels._build` at the first
 launch, never at import.  :func:`flash_attention_cuda` checks its
 inputs, allocates the output with ``torch.empty``, launches on the
 current stream without synchronising, and raises if the launch was
-refused.  ``LAUNCHES`` counts successful launches, nowhere else.
+refused.  ``LAUNCHES["flash_attention"]`` counts every successful launch
+and ``LAUNCHES["flash_attention_tc"]`` those of the tensor-core body,
+nowhere else.
+
+The body follows the dtype, explicitly (:func:`body_for`): bfloat16 runs
+the tensor-core body (wgmma, bf16 tiles), float32 the CUDA-core body
+(fp32 FMAs, so the float32 path keeps full float32 products).  The
+launch names the body and the library refuses any other pairing, so a
+bfloat16 tensor never reaches the CUDA-core body.
 """
 from __future__ import annotations
 
@@ -22,10 +30,27 @@ LIB_NAME = "mcsa_flash_attention"
 FLAGS = _build.NVCC_FLAGS
 
 #: launches since the last reset (callers may zero it)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
+#: the library's body codes
+BODIES = {"cuda_cores": 0, "tensor_cores": 1}
+
+
+def body_for(dtype: torch.dtype, hd: int) -> str:
+    """The kernel body that runs ``dtype`` at head_dim ``hd``:
+    ``"tensor_cores"`` for bfloat16, ``"cuda_cores"`` for float32; raises
+    for any other dtype or head_dim (no fallback)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"attention: head_dim {hd}, expected one of "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise TypeError(f"attention: dtype {dtype}, expected float32 or "
+                    "bfloat16")
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,11 +59,19 @@ def library() -> ctypes.CDLL:
     lib = _build.load(LIB_NAME, SOURCE, FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mcsa_flash_attention_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
     lib.mcsa_flash_attention_launch.restype = ctypes.c_int
+    lib.mcsa_flash_attention_smem.argtypes = [i, i]
+    lib.mcsa_flash_attention_smem.restype = ctypes.c_int
     lib.mcsa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcsa_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(hd: int, body: str) -> int:
+    """Dynamic shared memory one block of ``body`` takes at head_dim
+    ``hd`` (builds the library on first use)."""
+    return int(library().mcsa_flash_attention_smem(hd, BODIES[body]))
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,9 +120,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_shapes(q, k, v, causal, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"attention: head_dim {hd}, expected one of "
-                         f"{HEAD_DIMS}")
+    body = body_for(q.dtype, hd)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -98,9 +129,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.mcsa_flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
         Skv, Hq, Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),
-        DTYPES[q.dtype], stream)
+        DTYPES[q.dtype], BODIES[body], stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash attention launch failed: {msg} ({rc})")
     LAUNCHES["flash_attention"] += 1
+    if body == "tensor_cores":
+        LAUNCHES["flash_attention_tc"] += 1
     return out

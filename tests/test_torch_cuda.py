@@ -161,6 +161,98 @@ def test_cuda_flash_attention_matches_plain_version(B, Hq, Hkv, S, hd, causal,
     assert rms(out.float() - ref) <= rms_tol * rms(ref)
 
 
+def _attention_case(B, Hq, Hkv, S, hd, causal, window, dtype, device):
+    """One call of the kernel against its plain version, at the tolerances
+    above; returns the launch counts' increments."""
+    dt = getattr(torch, dtype)
+    q = _randn((B, S, Hq, hd), dt, device, 60)
+    k = _randn((B, S, Hkv, hd), dt, device, 61)
+    v = _randn((B, S, Hkv, hd), dt, device, 62)
+    before = dict(tflash.LAUNCHES)
+    out = tflash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    counts = {n: tflash.LAUNCHES[n] - before[n] for n in before}
+    ref = tflash.attention_ref(q, k, v, causal=causal, window=window).float()
+    tol, rms_tol = (2e-5, 2e-5) if dtype == "float32" else (1e-2, 1e-3)
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    rms = lambda t: t.square().mean().sqrt().item()               # noqa: E731
+    assert rms(out.float() - ref) <= rms_tol * rms(ref)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,window", [
+    (4, 24, 2, 1024, 128, 0),           # starcoder2-3b prefill
+    (4, 16, 8, 1024, 64, 0),            # granite-moe-1b-a400m prefill
+    (4, 16, 1, 2560, 256, 2048),        # recurrentgemma-9b local layers
+])
+def test_cuda_flash_attention_bf16_at_the_serving_shapes(B, Hq, Hkv, S, hd,
+                                                         window, cuda):
+    counts = _attention_case(B, Hq, Hkv, S, hd, True, window, "bfloat16",
+                             cuda)
+    assert counts == {"flash_attention": 1, "flash_attention_tc": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5, 63, 64, 65, 127, 129, 191, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_ragged_lengths(S, causal, dtype, cuda):
+    """S below one kv tile (64 keys), S = 1, and S off the q tile (64 rows
+    a warpgroup, 128 or 192 a block) and the kv tile."""
+    _attention_case(2, 6, 2, S, 128, causal, 0, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("ratio", [1, 2, 8, 12, 16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_gqa_ratios(hd, ratio, dtype, cuda):
+    Hkv = 2 if ratio <= 8 else 1
+    _attention_case(1, ratio * Hkv, Hkv, 150, hd, True, 0, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 17, 63, 64, 100, 130])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_windows(window, causal, hd, dtype, cuda):
+    """Windows below one kv tile and off its multiples, causal and not
+    (non-causal windows keep every later key)."""
+    _attention_case(1, 4, 1, 300, hd, causal, window, dtype, cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_counts_the_body_that_ran(cuda):
+    assert _attention_case(1, 4, 2, 80, 64, True, 0, "bfloat16", cuda) == {
+        "flash_attention": 1, "flash_attention_tc": 1}
+    assert _attention_case(1, 4, 2, 80, 64, True, 0, "float32", cuda) == {
+        "flash_attention": 1, "flash_attention_tc": 0}
+
+
+#: every d_model of the registry's transformers, and the qk-norm's head_dim
+def _rms_widths():
+    from repro_torch.configs import ARCH_IDS, get_config
+    return sorted({get_config(a).d_model for a in ARCH_IDS} | {128})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", _rms_widths())
+@pytest.mark.parametrize("rows", [1, 3, 4096, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_at_every_model_width(d, rows, dtype, cuda):
+    dt = getattr(torch, dtype)
+    x, w = _randn((rows, d), dt, cuda, 63), _randn((d,), dt, cuda, 64)
+    before = trms.LAUNCHES["rmsnorm"]
+    y = trms.rmsnorm_cuda(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert trms.LAUNCHES["rmsnorm"] == before + 1
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), trms.rmsnorm_ref(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_cuda_lm_ops_dispatch_launch_the_kernels(cuda):
     x = _randn((2, 5, 64), torch.bfloat16, cuda, 5)

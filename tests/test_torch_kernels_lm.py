@@ -244,3 +244,159 @@ def test_mlp_matches_reference():
     np.testing.assert_allclose(np_of(t_layers.apply_mlp(tp, tx)),
                                np.asarray(j_layers.apply_mlp(jp, jx)),
                                atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Host logic of the CUDA wrappers (rows 3 and 4): which attention body a
+# dtype runs, and the RMSNorm launch shape each width gets.  The kernels
+# themselves run only on the card (tests/test_torch_cuda.py).
+# ---------------------------------------------------------------------------
+import re                                                             # noqa: E402
+
+from repro_torch.configs import ARCH_IDS, get_config                  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as t_flash_k   # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as t_rms_k             # noqa: E402
+
+#: every d_model of the registry's transformers, and the qk-norm's head_dim
+_WIDTHS = sorted({get_config(a).d_model for a in ARCH_IDS} | {128})
+
+
+@pytest.mark.parametrize("hd", t_flash_k.HEAD_DIMS)
+def test_attention_body_follows_the_dtype(hd):
+    assert t_flash_k.body_for(torch.bfloat16, hd) == "tensor_cores"
+    assert t_flash_k.body_for(torch.float32, hd) == "cuda_cores"
+    with pytest.raises(TypeError, match="dtype"):
+        t_flash_k.body_for(torch.float16, hd)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 96, 512])
+def test_attention_body_refuses_other_head_dims(hd):
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head_dim"):
+            t_flash_k.body_for(dt, hd)
+
+
+def test_attention_body_codes_match_the_library():
+    """The wrapper's (dtype, body) codes are the only pairings the
+    library's C entry point takes."""
+    src = t_flash_k.SOURCE.read_text()
+    pairs = set(re.findall(r"if \(dtype == (\d) && body == (\d)\)", src))
+    assert pairs == {(str(t_flash_k.DTYPES[torch.float32]),
+                      str(t_flash_k.BODIES["cuda_cores"])),
+                     (str(t_flash_k.DTYPES[torch.bfloat16]),
+                      str(t_flash_k.BODIES["tensor_cores"]))}
+
+
+def test_flash_attention_cpu_tensor_never_counts_a_launch():
+    q = torch.randn(1, 8, 4, 32, dtype=torch.bfloat16)
+    before = dict(t_flash_k.LAUNCHES)
+    t_flash.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+    assert t_flash_k.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d", _WIDTHS)
+@pytest.mark.parametrize("element_size", [2, 4])
+@pytest.mark.parametrize("rows", [1, 4, 127, 128, 4096])
+def test_rmsnorm_launch_shape_covers_every_width(d, element_size, rows):
+    tpr, v = t_rms_k.launch_shape(d, element_size, rows)
+    nvec = d * element_size // 16
+    assert tpr * v >= nvec
+    if nvec <= t_rms_k.WARP:                 # one vector a thread
+        assert v == 1 and tpr >= nvec and tpr & (tpr - 1) == 0
+        assert tpr == 1 or tpr // 2 < nvec
+        return
+    # the fewest vectors in the thread count's set that cover the row
+    assert v in t_rms_k.V_SETS[tpr]
+    assert all(tpr * u < nvec for u in t_rms_k.V_SETS[tpr] if u < v)
+    if rows < t_rms_k.FEW_ROWS:              # decode: a block a row
+        assert tpr == t_rms_k.WIDE
+    elif nvec <= t_rms_k.WARP * t_rms_k.V_MAX_WARP:
+        assert tpr == t_rms_k.WARP
+    else:
+        assert tpr == t_rms_k.WIDE
+
+
+def test_rmsnorm_launch_shape_at_the_serving_widths():
+    """starcoder2-3b's prefill rows get a warp each (12 vectors a lane);
+    recurrentgemma-9b's d 4096 and decode's few rows a block each."""
+    shape = t_rms_k.launch_shape
+    assert shape(3072, 2, 4096) == (32, 12)
+    assert shape(1024, 2, 4096) == (32, 4)
+    assert shape(4096, 2, 10240) == (256, 2)
+    assert shape(3072, 2, 4) == (256, 2)
+    assert shape(128, 2, 4096 * 32) == (16, 1)
+
+
+def test_rmsnorm_instances_are_the_registry_widths_shapes():
+    """The library holds, at a warp and at 256 threads a row, exactly the
+    vector counts launch_shape gives the registry's widths, in both types
+    and at both prefill and decode row counts: no instance that no model
+    launches."""
+    used = {t_rms_k.WARP: set(), t_rms_k.WIDE: set()}
+    for d in _WIDTHS:
+        for size in (2, 4):
+            for rows in (1, 4096):
+                tpr, v = t_rms_k.launch_shape(d, size, rows)
+                used.setdefault(tpr, set()).add(v)
+    for tpr, vs in t_rms_k.V_SETS.items():
+        assert used[tpr] == set(vs), tpr
+
+
+def test_rmsnorm_launch_shapes_are_kernel_instances():
+    """V_SETS lists the instances launch_v() in csrc/rmsnorm.cu has at 32
+    and 256 threads a row, and launch_tpr() takes every thread count
+    launch_shape can return."""
+    src = t_rms_k.SOURCE.read_text()
+    body = src[src.index("int launch_v("):src.index("int launch_tpr(")]
+    warp = body[body.index("TPR == 32"):body.index("} else {")]
+    wide = body[body.index("} else {"):]
+    for tpr, part in ((t_rms_k.WARP, warp), (t_rms_k.WIDE, wide)):
+        assert tuple(int(v) for v in re.findall(r"RMS_CASE\((\d+)\)",
+                                                part)) == \
+            t_rms_k.V_SETS[tpr], tpr
+    for tpr in (1, 2, 4, 8, 16, t_rms_k.WARP, t_rms_k.WIDE):
+        assert f"case {tpr}: return launch_v<T, {tpr}>" in src
+
+
+@pytest.mark.parametrize("d,element_size", [(100, 2), (6, 4), (0, 2),
+                                            (32768 + 8, 2), (16384 + 4, 4),
+                                            (14336 + 8, 2), (7168 + 4, 4)])
+def test_rmsnorm_launch_shape_refuses(d, element_size):
+    with pytest.raises(ValueError, match="rmsnorm"):
+        t_rms_k.launch_shape(d, element_size, 4096)
+
+
+@pytest.mark.parametrize("rows", [1, 4096])
+def test_rmsnorm_launch_shape_takes_the_widest_instance(rows):
+    """bf16 d 14336 and f32 d 7168 are 256 threads x 7 vectors a row, the
+    widest the library holds."""
+    assert t_rms_k.launch_shape(14336, 2, rows) == (256, 7)
+    assert t_rms_k.launch_shape(7168, 4, rows) == (256, 7)
+
+
+def test_bf16_p_needs_hi_and_lo():
+    """Why the tensor-core body feeds P·V with P as bf16 hi + lo: with P
+    rounded to bf16 alone, bf16 attention's error RMS exceeds the 1e-3 of
+    the output's RMS that the card checks allow; hi + lo stays far
+    inside.  Simulated in float32 on the CPU (causal, S 256, hd 64, both
+    sides' outputs rounded to bf16 as the kernel and its plain version
+    round them)."""
+    g = torch.Generator().manual_seed(0)
+    S, H, hd = 256, 4, 64
+    q, k, v = (torch.randn(H, S, hd, generator=g).bfloat16().float()
+               for _ in range(3))
+    s = q @ k.transpose(-1, -2) * hd ** -0.5
+    i = torch.arange(S)
+    s = s.masked_fill(i[:, None] < i[None, :], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    ref = ((p @ v) / l).bfloat16().float()
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+
+    def rel_rms(pp):
+        out = ((pp @ v) / l).bfloat16().float()
+        return ((out - ref).square().mean().sqrt()
+                / ref.square().mean().sqrt()).item()
+    assert rel_rms(hi) > 1e-3
+    assert rel_rms(hi + lo) < 2e-4

@@ -107,7 +107,8 @@ def device_times(prof) -> dict:
 def _groups(dev: dict) -> dict:
     """Device microseconds of the hand-written kernels, the matrix
     products (cuBLAS / CUTLASS kernels) and everything else."""
-    mine = {"flash_attention": ("flash_attention_kernel",),
+    mine = {"flash_attention": ("flash_attention_kernel",
+                                "flash_attention_tc_kernel"),
             "rmsnorm": ("rmsnorm_kernel",),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel"),
             "wkv6": ("wkv6_kernel",), "rglru_scan": ("rglru_scan_kernel",),
