@@ -387,21 +387,25 @@ def compare_fleets(a, b) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_attention_tc_kernel<128>`` or ``rmsnorm_kernel<bf16,32,12>``
-    from a mangled kernel name (the identifier before its template
-    arguments, found by its length prefix; then the type and the integer
-    arguments)."""
+    """``flash_attention_tc_kernel<128>``, ``rmsnorm_kernel<bf16,32,12>``
+    or ``gate_up_kernel`` from a mangled kernel name (the identifier
+    before its template arguments or parameters, found by its length
+    prefix, which may follow other digits; then the type and the integer
+    template arguments)."""
     import re
-    end = mangled.find("_kernelI")
-    if end < 0:
+    found = re.search(r"_kernel([IE])", mangled)
+    if not found:
         return mangled
-    end += len("_kernel")
+    end = found.start() + len("_kernel")
     name = mangled
     for start in range(end - 1, 0, -1):
         digits = re.search(r"(\d+)$", mangled[:start])
-        if digits and int(digits.group(1)) == end - start:
+        if digits and any(int(digits.group(1)[-k:]) == end - start
+                          for k in range(1, len(digits.group(1)) + 1)):
             name = mangled[start:end]
             break
+    if found.group(1) == "E":
+        return name
     args = mangled[end + 1:]
     kind = ["bf16"] if args.startswith("13__nv_bfloat16") else \
         ["f32"] if args.startswith("f") else []
@@ -411,14 +415,17 @@ def kernel_label(mangled: str) -> str:
 def ptxas_instances(log: str) -> list:
     """Per kernel instance in an ``nvcc -Xptxas -v`` log: its readable
     name (template arguments in <>), registers, spill bytes (stores +
-    loads) and static shared memory."""
+    loads), static shared memory, and whether ptxas serialized its wgmma
+    instructions (warning C7511)."""
     import re
     out, cur = [], None
+    serialized = set(re.findall(r"C7511\).*?function '(\S+?)'", log))
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             cur = dict(name=kernel_label(m.group(1)), registers=None,
-                       spill_bytes=0, smem_bytes=0)
+                       spill_bytes=0, smem_bytes=0,
+                       wgmma_serialized=m.group(1) in serialized)
             out.append(cur)
             continue
         if cur is None:
@@ -435,15 +442,18 @@ def ptxas_instances(log: str) -> list:
     return out
 
 
-def build_all(modules, no_spill=()) -> None:
+def build_all(modules, no_spill) -> None:
     """Build every kernel library at once (one nvcc each, in threads) and
-    print each build's ptxas register and spill lines; for the libraries
-    named in ``no_spill``, print each instance's registers, spill bytes
-    and shared memory (static from ptxas; the attention body's dynamic
-    allocation from the library) and fail on any spill."""
+    print each build's ptxas register and spill lines.  ``no_spill`` maps
+    a library's name to the name prefixes of its instances that must not
+    spill (``None``: all of them): those are printed one by one with
+    their registers, spill bytes and shared memory (static from ptxas;
+    the dynamic allocation of the attention body and of the MoE wgmma
+    kernels from their libraries), and a spill in any of them fails."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.moe_gemm import kernel as mk
 
     def one(mod):
         t0 = time.perf_counter()
@@ -466,15 +476,22 @@ def build_all(modules, no_spill=()) -> None:
             phase("build", f"{mod.LIB_NAME}: {sec:.2f} s ({lib.name}) "
                   + " | ".join(ptxas))
             continue
-        insts = ptxas_instances(text)
+        prefixes = no_spill[mod.LIB_NAME]
+        insts = [rec for rec in ptxas_instances(text)
+                 if prefixes is None or rec["name"].startswith(prefixes)]
         if not insts:
-            raise AssertionError(f"{mod.LIB_NAME}: no ptxas report in {log}")
+            raise AssertionError(f"{mod.LIB_NAME}: no ptxas report of "
+                                 f"{prefixes} in {log}")
         for rec in insts:
             if mod is fk and rec["name"].startswith("flash_attention"):
                 hd = int(rec["name"].split("<")[1].rstrip(">"))
                 body = "tensor_cores" if "_tc_" in rec["name"] \
                     else "cuda_cores"
                 rec["dynamic_smem_bytes"] = fk.smem_bytes(hd, body)
+            if mod is mk and rec["name"] in ("gate_up_kernel",
+                                             "down_kernel"):
+                rec["dynamic_smem_bytes"] = mk.wgmma_smem_bytes(
+                    rec["name"][:-len("_kernel")])
             if rec["spill_bytes"]:
                 spills.append(f"{mod.LIB_NAME} {rec['name']}")
         phase("build", f"{mod.LIB_NAME}: {sec:.2f} s ({lib.name}) "
@@ -805,17 +822,32 @@ def rel_rms(got, want) -> float:
             / want.square().mean().sqrt()).item()
 
 
+def body_of(launches: dict, before: dict, prefix: str) -> str:
+    """The one body whose counter (``prefix`` + body) moved since
+    ``before``; raises unless exactly one did."""
+    moved = [k[len(prefix):] for k in launches
+             if k.startswith(prefix) and launches[k] != before[k]]
+    if len(moved) != 1:
+        raise AssertionError(f"{prefix}*: bodies launched {moved}, "
+                             "expected exactly one")
+    return moved[0]
+
+
 def moe_wkv_kernel_cases(device) -> dict:
     """The fused expert SwiGLU and WKV6 kernels against their plain
     versions on the card: MoE at granite-moe-1b-a400m's prefill shape
-    (E 32, C 1280 = capacity_for(4096 tokens), d 1024, ff 512, bf16), its
-    engine decode shape (C 4 at 8 slots) and a ragged case (ff 1408,
-    moonshot's width, C not a multiple of the 16-row tile) in float32 and
-    bfloat16; WKV6 at rwkv6-3b's prefill shape (B 4, S 1024, H 40, n 64,
-    bf16 r/k/v) from a non-zero state, and at S 1 with the state aliased
-    as in decode.  Returns, per kernel, the record of its main-path case
-    (the prefill shape) with ``max_abs_err`` the largest over its
-    cases."""
+    (E 32, C 1280 = capacity_for(4096 tokens), d 1024, ff 512, bf16),
+    its engine-prefill shape (C 320 = capacity_for(1024)), its engine
+    decode shape (C 4 at 8 slots) and ragged cases (ff 1408, moonshot's
+    width, and 1000; C 37) in float32 and bfloat16; WKV6 at rwkv6-3b's
+    prefill shape (B 4, S 1024, H 40, n 64, bf16 r/k/v) from a non-zero
+    state, at a ragged S 777 with the model's decays
+    (w = exp(-exp(clamp(x, -20, 10))), some exactly 0) from a state, and
+    at S 1 with the state aliased as in decode.  Each case names the body
+    that ran (from the per-body counters) and fails if it is not the one
+    the plan should pick.  Returns, per kernel, the record of its
+    main-path case (the prefill shape) with ``max_abs_err`` the largest
+    over its cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -831,19 +863,24 @@ def moe_wkv_kernel_cases(device) -> dict:
     granite = get_config("granite-moe-1b-a400m")
     E, d, ff = granite.num_experts, granite.d_model, granite.d_ff
     C_prefill = capacity_for(4 * 1024, granite, 1.25)
+    C_engine = capacity_for(1024, granite, 1.25)
     C_decode = capacity_for(8, granite, 2.0)
     errs = []
-    for label, E_, C, ff_, dtn in (("prefill", E, C_prefill, ff, "bfloat16"),
-                                   ("decode", E, C_decode, ff, "bfloat16"),
-                                   ("ragged", 4, 37, 1408, "float32"),
-                                   ("ragged", 4, 37, 1408, "bfloat16"),
-                                   ("ragged", 4, 37, 1000, "bfloat16")):
+    for label, E_, C, ff_, dtn, want_body in (
+            ("prefill", E, C_prefill, ff, "bfloat16", "wgmma"),
+            ("engine prefill", E, C_engine, ff, "bfloat16", "wgmma"),
+            ("decode", E, C_decode, ff, "bfloat16", "mma"),
+            ("ragged", 4, 37, 1408, "float32", "cuda_cores"),
+            ("ragged", 4, 37, 1408, "bfloat16", "wgmma"),
+            ("ragged", 4, 37, 1000, "bfloat16", "wgmma")):
         dt = getattr(torch, dtn)
         x = randn((E_, C, d)).to(dt)
         wg = randn((E_, d, ff_), d ** -0.5).to(dt)
         wu = randn((E_, d, ff_), d ** -0.5).to(dt)
         wd = randn((E_, ff_, d), ff_ ** -0.5).to(dt)
+        before = dict(mg.LAUNCHES)
         got = mg.moe_swiglu_cuda(x, wg, wu, wd).float()
+        body = body_of(mg.LAUNCHES, before, "moe_swiglu_")
         want = mg.moe_swiglu_ref(x, wg, wu, wd).float()
         err = (got - want).abs().max().item()
         rr = rel_rms(got, want)
@@ -853,6 +890,9 @@ def moe_wkv_kernel_cases(device) -> dict:
                 and rr <= rms_tol):
             breaches.append(f"moe_swiglu {label} {dtn}: max {err:.3g} (tol "
                             f"{tol}), RMS ratio {rr:.3g} (tol {rms_tol})")
+        if body != want_body:
+            breaches.append(f"moe_swiglu {label} {dtn} C={C}: ran the "
+                            f"{body} body, expected {want_body}")
         del got, want
         flops = 6.0 * E_ * C * d * ff_
         peak = PEAK_BF16_S if dtn == "bfloat16" else PEAK_FP32_S
@@ -865,14 +905,15 @@ def moe_wkv_kernel_cases(device) -> dict:
             return torch.bmm(h, wd)
 
         rec = dict(
-            case=label, E=E_, C=C, d=d, ff=ff_, dtype=dtn, max_abs_err=err,
-            rel_rms_err=rr, flops=flops,
+            case=label, E=E_, C=C, d=d, ff=ff_, dtype=dtn, body=body,
+            max_abs_err=err, rel_rms_err=rr, flops=flops,
             ms=timed_ms(lambda: mg.moe_swiglu_cuda(x, wg, wu, wd), 30, 3),
             device_ms=device_ms(lambda: mg.moe_swiglu_cuda(x, wg, wu, wd),
                                 30, 3),
             plain_ms=timed_ms(lambda: mg.moe_swiglu_ref(x, wg, wu, wd),
                               10, 2),
             library_ms=timed_ms(library, 30, 3),
+            library_device_ms=device_ms(library, 30, 3),
             library_call="composition: 3 torch.bmm + silu (no single call)",
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -884,15 +925,27 @@ def moe_wkv_kernel_cases(device) -> dict:
     rwkv = get_config("rwkv6-3b")
     H, n = rwkv.rwkv_num_heads, rwkv.rwkv_head_dim
     errs = []
-    for label, B, S, dtn in (("prefill", 4, 1024, "bfloat16"),
-                             ("prefill", 4, 1024, "float32"),
-                             ("decode, aliased state", 8, 1, "bfloat16")):
+    for label, B, S, dtn, want_body in (
+            ("prefill", 4, 1024, "bfloat16", "chunked"),
+            ("prefill", 4, 1024, "float32", "chunked"),
+            ("ragged, model decays", 1, 777, "bfloat16", "chunked"),
+            ("decode, aliased state", 8, 1, "bfloat16", "serial")):
         dt = getattr(torch, dtn)
         r, k, v = (randn((B, S, H, n)).to(dt) for _ in range(3))
-        w = torch.rand((B, S, H, n), generator=g, device=device) * 0.65 + 0.3
+        if label.startswith("ragged"):
+            # the model's decays (models/rwkv.py), log-decays spread past
+            # both ends of the clamp: some w are exactly 0
+            w = torch.exp(-torch.exp(torch.clamp(
+                randn((B, S, H, n), 6.0) + 1.0, -20.0, 10.0)))
+            if not bool((w == 0).any()):
+                breaches.append("wkv6 ragged case: no w == 0 drawn")
+        else:
+            w = torch.rand((B, S, H, n), generator=g,
+                           device=device) * 0.65 + 0.3
         u = randn((H, n), 0.5)
         s0 = randn((B, H, n, n), 0.5)
         want_y, want_s = wk.wkv6_ref(r, k, v, w, u, s0)
+        before = dict(wk.LAUNCHES)
         if S == 1:
             state = s0.clone()
             got_y, got_s = wk.wkv6_cuda(r, k, v, w, u, state,
@@ -901,6 +954,10 @@ def moe_wkv_kernel_cases(device) -> dict:
                 breaches.append("wkv6 did not write the aliased state")
         else:
             got_y, got_s = wk.wkv6_cuda(r, k, v, w, u, s0)
+        body = body_of(wk.LAUNCHES, before, "wkv6_")
+        if body != want_body:
+            breaches.append(f"wkv6 {label} S={S}: ran the {body} body, "
+                            f"expected {want_body}")
         err = max((got_y - want_y).abs().max().item(),
                   (got_s - want_s).abs().max().item())
         rr = max(rel_rms(got_y, want_y), rel_rms(got_s, want_s))
@@ -916,7 +973,8 @@ def moe_wkv_kernel_cases(device) -> dict:
         t_bytes = (r.numel() * (3 * r.element_size() + 4 + 4)
                    + 2 * s0.numel() * 4 + u.numel() * 4) / PEAK_BYTES_S * 1e3
         rec = dict(
-            case=label, B=B, S=S, H=H, n=n, dtype=dtn, max_abs_err=err,
+            case=label, B=B, S=S, H=H, n=n, dtype=dtn, body=body,
+            w_zero_share=(w == 0).float().mean().item(), max_abs_err=err,
             rel_rms_err=rr, state_ops=ops,
             ms=timed_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0), 30, 3),
             device_ms=device_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0),
@@ -1158,6 +1216,14 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
     if first_ok != 16:
         breaches.append(f"{16 - first_ok} first tokens differ from one-"
                         "request generation")
+    for body, why in (("moe_swiglu_wgmma", "prefill"),
+                      ("moe_swiglu_mma", "decode"),
+                      ("wkv6_chunked", "prefill"),
+                      ("wkv6_serial", "decode")):
+        family = body.rsplit("_", 1)[0]
+        if family in per_forward and launches[body] <= 0:
+            breaches.append(f"{family}: no {why} launch on its {body} "
+                            "body")
     if launches["flash_attention_tc"] != launches["flash_attention"]:
         breaches.append(f"{launches['flash_attention']} attention launches "
                         f"in bf16 serving, {launches['flash_attention_tc']} "
@@ -1203,7 +1269,11 @@ def main() -> int:
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
                moe_kernel, rglru_kernel, wkv_kernel),
-              no_spill=(rms_kernel.LIB_NAME, flash_kernel.LIB_NAME))
+              no_spill={rms_kernel.LIB_NAME: None,
+                        flash_kernel.LIB_NAME: None,
+                        moe_kernel.LIB_NAME: ("gate_up_kernel",
+                                              "down_kernel"),
+                        wkv_kernel.LIB_NAME: ("chunk_",)})
 
     # 3. kernel against plain on the card --------------------------------
     from repro_torch.configs import nin, vgg16
@@ -1335,7 +1405,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"]})
+            "device_ms": r["device_ms"], **({"body": r["body"]}
+                                             if "body" in r else {})})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

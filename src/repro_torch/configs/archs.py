@@ -3,8 +3,10 @@
 A copy of the JAX package's ``repro/configs/archs.py``: each is a
 zero-argument builder returning a :class:`ModelConfig`; the registry
 (``get_config``) lives in ``repro_torch.configs``.  The port runs the
-dense decoder path (global attention + SwiGLU MLP); the other layer
-types are listed here so that configs and profiles match the reference.
+decoder families: global and sliding-window attention with SwiGLU or
+MoE feed-forwards, RWKV-6 and the RG-LRU hybrid, and a VLM's patch
+prefix at prefill.  The encoder-decoder stack is listed here so that
+configs and profiles match the reference, and is refused at run time.
 """
 from __future__ import annotations
 

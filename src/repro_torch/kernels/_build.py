@@ -4,8 +4,10 @@ Each kernel source under ``kernels/**/csrc/`` has a plain C interface and
 is compiled by ``nvcc`` into its own shared library, loaded with ctypes
 (no PyTorch headers, so a build takes seconds, not minutes).  Libraries
 go to ``build/kernels/`` at the repository root, named after a hash of
-the source bytes, the flags and the compiler path, so a stale library is
-never loaded: editing a source or a flag changes the name.  The build
+the source bytes, the bytes of every local header it includes
+(``#include "..."``, followed recursively), the flags and the compiler
+path, so a stale library is never loaded: editing a source, a shared
+header or a flag changes the name.  The build
 runs at first use, never at import, and writes to a temporary name that
 is renamed into place, so concurrent builders cannot load a half-written
 file.  Each kernel module passes its own flags (``flags=``).
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,10 +45,30 @@ def nvcc_path() -> str:
                        "with the card")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_includes(source: Path) -> list:
+    """The local headers ``source`` includes (``#include "..."``,
+    relative to the including file), recursively, each once, in the
+    order first met."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        for rel in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / rel.decode()).resolve()
+            if dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str, source: Path, flags=NVCC_FLAGS) -> Path:
     """Where the library of ``source`` built with ``flags`` lives."""
     h = hashlib.sha256()
     h.update(source.read_bytes())
+    for dep in local_includes(source):
+        h.update(dep.read_bytes())
     h.update(" ".join(flags).encode())
     h.update(nvcc_path().encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

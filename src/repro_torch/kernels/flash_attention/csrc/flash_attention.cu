@@ -86,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/csrc/hopper.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -291,88 +293,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // ---------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA (cp.async.bulk.tensor) -------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-// arrive once and expect `bytes` more of transactions in this phase
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-// copy box {64 columns, 1 head, rows, 1 batch} at coordinates (c0..c3) of
-// the tensor map into shared memory at dst (128-byte swizzled), completing
-// on mbarrier bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// barrier `id` over the 128 threads of one warpgroup
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
-}
-// keep the compiler from moving accesses of `d` across a wgmma
-// issue or wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-// the same for A fragments, which an asynchronous wgmma reads until it is
-// waited for: their registers stay live and untouched until then
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.  K-major tiles (Q, K):
-// the stride offset is 1024 (8 rows of 128 bytes), the leading one unused.
-// MN-major (V): leading = bytes between 64-column blocks, stride = 1024
-// between groups of 8 kv rows.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
 
 // D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem,
 // K-major)^T; D is overwritten when scale_d == 0.
@@ -648,7 +572,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
         wgmma_ss_n64(s, da, db, ks > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(s);
 
       const bool edge = (causal && k0 + BK - 1 > wq0) ||
@@ -729,7 +653,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
         wgmma_pv<HDP>(o, pl[kb], db);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
       fence_regs(ph);
       fence_regs(pl);
@@ -763,32 +687,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
       *reinterpret_cast<uint32_t*>(o1 + 8 * jj) =
           pack_bf16(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    return (err == cudaSuccess && got == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
 }
 
 // Tensor map of a (B, S, H, hd) bf16 tensor read in boxes of {64 columns,

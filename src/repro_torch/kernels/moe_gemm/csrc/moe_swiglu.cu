@@ -8,25 +8,52 @@
 // (src/repro/kernels/moe_gemm/kernel.py).  The TPU kernel streams ff in
 // blocks along a sequential grid axis and accumulates the (C block, d)
 // output in VMEM scratch, so the activation h = silu(g) ⊙ u never reaches
-// HBM.  Blocks of a CUDA grid run in no order, so here one block owns one
-// (expert, tile of capacity rows, slice of ff) and walks its ff slice in
-// steps inside the block; h lives in registers and shared memory only,
-// the output tile in registers.
+// HBM.  Blocks of a CUDA grid run in no order and a block's registers
+// cannot hold a wide output tile, so the decode body keeps h on chip
+// with small tiles, and the prefill body writes h once to device memory
+// between two large-tile kernels (below).
 //
 // Bound: at prefill (granite-moe: E 32, C 1280, d 1024, ff 512) the
 // 6·E·C·d·ff products over the bf16 tensor-core rate bind, above the
-// bytes; at decode (C = 2..4) the expert weights' bytes bind.
+// bytes; at decode (C = 2..16) the expert weights' bytes bind.
 //
-// Why a small capacity tile and no split of d: a block that owns all of
-// d for a 64-row tile would hold 256 KB of float32 accumulator, and
-// splitting d across blocks would recompute h (two thirds of the work)
-// once per d-slice.  So a block keeps a few capacity rows and all of d.
+// Three bodies; the wrapper (kernel.py::body_for) names one per call and
+// the launch refuses any other pairing:
 //
-// Two paths, chosen by mcsa_moe_swiglu_plan:
-//
-// * Tensor cores (bfloat16, d a multiple of 128 up to 1024, ff a multiple
-//   of 8): mma.sync m16n8k16 bf16 -> f32.  BM = 32 rows a block, 8 warps;
-//   the x tile sits in shared memory as bf16.  Each ff step of BF = 64:
+// * wgmma (bfloat16, C above 16: prefill), two kernels, namespace
+//   hopper_tc.  A block that owns all of d for 128 capacity rows would
+//   need a 128 x d float32 accumulator (512 KB at d 1024), too large for
+//   registers, and 32-row tiles (the mma.sync body) re-read every
+//   expert's weights C/32 times (40 at granite's prefill, 4.0 GB a
+//   launch).  So h goes through device memory once:
+//     1. gate_up: tiles of (expert, 128 capacity rows, 128 ff columns);
+//        g = x·Wg and u = x·Wu as one m64n256k16 wgmma a warpgroup (64
+//        rows each), Wg's and Wu's column blocks adjacent in shared
+//        memory so they read as one 256-column B; the epilogue forms
+//        silu(g)·u in float32 and writes h as bf16 hi and
+//        lo = bf16(h - hi) to two (E, C, ff) workspaces.
+//     2. down: tiles of (expert, 128 rows, 256 d columns);
+//        y = h_hi·Wd + h_lo·Wd as two m64n256k16 wgmmas into one float32
+//        accumulator over ff, cast to bf16 once.
+//   Weights are re-read C/128 times (10 at prefill), the h round trip
+//   costs 4·E·C·ff bytes (168 MB at prefill), and hi + lo makes the
+//   tensor-core work 8/6 of the bound's.  Both kernels stream their
+//   operands by TMA into a ring of 128-byte-swizzled stages (4 of 48 KB,
+//   3 of 64 KB) with an mbarrier each; the weights are read MN-major
+//   (wgmma's transposed B).  There is no producer warp: the last
+//   warpgroup done with a stage issues the copy of the step STAGES
+//   ahead into it, as in flash_attention.cu, and a step's products stay
+//   in flight while the next step's are issued.  Blocks are persistent
+//   (one an SM) and their ring runs on across tiles, so a tile's first
+//   copies overlap the previous tile's last products and epilogue.
+//   Tiles are numbered row tile first, so the blocks in flight share an
+//   expert's weight tiles in L2.  TMA reads zeros past C, d and ff, and
+//   the epilogues mask their stores, so ragged C (engine prefills give
+//   40-320) and ff (1000, 1408) need no padding.
+// * mma.sync (bfloat16, C up to 16: decode; and other bf16 shapes it
+//   takes): mma.sync m16n8k16 bf16 -> f32.  BM = 32 rows a block, 8
+//   warps; the x tile sits in shared memory as bf16.  Each ff step of
+//   BF = 64:
 //     1. g and u (32 x 64) accumulate over d in chunks of KC = 128 d-rows
 //        of Wg and Wu staged in shared memory (ldmatrix, .trans for the
 //        weights); each warp owns one 16-row m-tile and two 8-column
@@ -41,26 +68,28 @@
 //   would run, so the plan splits ff into FS slices (grid z) until about
 //   two blocks per SM are in flight; each slice writes float32 partial
 //   outputs to a workspace and a second kernel sums the slices in a fixed
-//   order and casts (no atomics, the same bits every run).  h still never
-//   leaves the block.  This first tensor-core version has no
-//   cp.async/TMA pipeline and no wgmma: loads and math alternate behind
-//   barriers.
-// * CUDA cores (float32, and any shape the first path does not take):
+//   order and casts (no atomics, the same bits every run).  h never
+//   leaves the block.  Loads and math alternate behind barriers: at
+//   decode the weights' bytes bind, not the pipeline.
+// * CUDA cores (float32, and any shape neither tensor-core body takes):
 //   BC = 16 rows a block, fp32 FMAs, the x tile in shared memory as
 //   float32; lane l owns ff column f0 + l of g and u, warp w every eighth
 //   group of 4 d-rows; the 8 warps' partial sums meet in shared memory,
 //   where h = silu(g)·u is formed; every thread then adds h·Wd for its
 //   ceil(d/256) output columns.  d up to 2048.
 //
-// Ragged edges are masked on both: ff columns past ff read as zero
-// weights (so h = silu(0)·0 = 0), capacity rows past C load as zero and
-// are not written, d columns past d are neither read nor written.
+// Ragged edges on the last two: ff columns past ff read as zero weights
+// (so h = silu(0)·0 = 0), capacity rows past C load as zero and are not
+// written, d columns past d are neither read nor written.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; the launch
 // goes on the caller's stream and returns cudaGetLastError().
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../common/csrc/hopper.cuh"
 
 namespace {
 
@@ -509,13 +538,404 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
 
 }  // namespace cc
 
+// ===========================================================================
+// Hopper tensor-core path (bfloat16, C above DECODE_C): wgmma + TMA
+// ===========================================================================
+namespace hopper_tc {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+// committed wgmma groups left in flight while the next step is issued
+// (0, waiting for each step's products, was slower in a trial build)
+constexpr int PIPE = 1;
+// consumer warpgroups, 64 rows each (3, with 192-row tiles and two down
+// stages, was slower in a trial build)
+constexpr int NWG = 2;
+constexpr int BM = 64 * NWG;     // capacity rows a tile
+constexpr int BK = 64;           // reduction step: one 128-byte row of bf16
+constexpr int THREADS = 128 * NWG;
+constexpr int TILE_A = BM * BK * 2;          // a BM x 64 bf16 tile
+
+// gate/up: 128 ff columns a tile; a stage holds X | Wg | Wu, and Wg's two
+// 64-column blocks and Wu's are adjacent, so one n256 wgmma reads them as
+// one B of 256 columns: g in accumulators 0..63, u in 64..127
+constexpr int BN1 = 128, STAGES1 = 4;
+constexpr int W1_BYTES = BK * BN1 * 2;       // 2 blocks of 64 columns
+constexpr int STAGE1 = TILE_A + 2 * W1_BYTES;
+// down: 256 d columns a tile, stages of H_hi | H_lo | Wd
+constexpr int BN2 = 256, STAGES2 = 3;
+constexpr int W2_BYTES = BK * BN2 * 2;       // 4 blocks of 64 columns
+constexpr int STAGE2 = 2 * TILE_A + W2_BYTES;
+
+// dynamic shared memory: the stages, their mbarriers and release counters,
+// and 1 KiB to align the swizzle atoms
+constexpr int smem_bytes(int stage, int stages) {
+  return stages * stage + 12 * stages + 1024;
+}
+constexpr int SMEM1 = smem_bytes(STAGE1, STAGES1);
+constexpr int SMEM2 = smem_bytes(STAGE2, STAGES2);
+
+// D (64 x 256, f32) += A (64 x 16, smem, K-major) * B (16 x 256, smem,
+// MN-major: imm-trans-b = 1)
+__device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// silu by the multi-function unit's exp2 and a fast division (a few ulp
+// of float32, far inside the 16 bits that h keeps as bf16 hi + lo); the
+// epilogue runs it on every element of a tile while the tensor cores
+// wait
+__device__ __forceinline__ float silu_fast(float g) {
+  return __fdividef(g, 1.f + __expf(-g));
+}
+
+// The stage ring both kernels share: tile kt sits in stage kt % STAGES;
+// one thread issues a stage's copies, every consumer warpgroup waits on
+// its mbarrier, and the last warpgroup to release a stage issues the
+// copy of tile kt + STAGES into it (no producer warp, no block barrier).
+template <int STAGES>
+struct Ring {
+  uint32_t base, bars;
+  int* released;
+
+  __device__ Ring(uint8_t* raw, int stage_bytes) {
+    const uint32_t a = smem_addr(raw);
+    base = (a + 1023u) & ~1023u;
+    bars = base + STAGES * stage_bytes;
+    released = reinterpret_cast<int*>(raw + (bars - a) + 8 * STAGES);
+  }
+  __device__ uint32_t full(int kt) const { return bars + 8 * (kt % STAGES); }
+  __device__ void init() {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __device__ void wait(int kt) const {
+    mbar_wait(full(kt), (kt / STAGES) & 1);
+  }
+  // thread t of warpgroup wg is done with tile kt: true for the one
+  // thread that must issue the copy of tile kt + STAGES
+  __device__ bool release(int kt, int wg, int t) {
+    warpgroup_sync(1 + wg);
+    if (t != 0) return false;
+    int* count = released + kt % STAGES;
+    if (atomicAdd(count, 1) != NWG - 1) return false;
+    *count = 0;
+    return true;
+  }
+};
+
+// Tiles: (row tile m, column tile n, expert e) numbered with m fastest, so
+// the blocks in flight together share an expert's weight tile in L2.  A
+// block is persistent: it takes tiles blockIdx.x, + gridDim.x, ..., and
+// its ring runs on across tiles (step g = local tile · KT + k step), so
+// the next tile's first copies are in flight during this tile's last
+// products and epilogue.  Each step's products stay in flight while the
+// next step is issued (wgmma_wait<1>); a stage is released once the
+// products that read it are done.
+struct Tiles {
+  int MT, NT, KT, count;
+  __device__ Tiles(int mt, int nt, int kt, int E)
+      : MT(mt), NT(nt), KT(kt), count(mt * nt * E) {}
+  // this block's number of steps
+  __device__ int steps() const {
+    const int mine = (count - (int)blockIdx.x + (int)gridDim.x - 1) /
+                     (int)gridDim.x;
+    return mine * KT;
+  }
+  // (m, n, e) of the tile that step g belongs to
+  __device__ void coords(int g, int& m, int& n, int& e) const {
+    const int tile = blockIdx.x + (g / KT) * gridDim.x;
+    m = tile % MT;
+    n = (tile / MT) % NT;
+    e = tile / (MT * NT);
+  }
+};
+
+// h = silu(x·Wg) ⊙ (x·Wu) of each tile (128 capacity rows, 128 ff
+// columns, one expert), written as bf16 hi and lo = bf16(h - hi) to hhi /
+// hlo (E, C, ff).  tmX: x as (d, C, E); tmG, tmU: wg, wu as (ff, d, E).
+__global__ void __launch_bounds__(THREADS, 1)
+gate_up_kernel(const __grid_constant__ CUtensorMap tmX,
+               const __grid_constant__ CUtensorMap tmG,
+               const __grid_constant__ CUtensorMap tmU,
+               bf16* __restrict__ hhi, bf16* __restrict__ hlo, int E, int C,
+               int d, int ff) {
+  extern __shared__ uint8_t smem_raw[];
+  Ring<STAGES1> ring(smem_raw, STAGE1);
+  const Tiles tiles((C + BM - 1) / BM, (ff + BN1 - 1) / BN1,
+                    (d + BK - 1) / BK, E);
+  const int KT = tiles.KT, G = tiles.steps();
+  auto load = [&](int g) {
+    int m, n, e;
+    tiles.coords(g, m, n, e);
+    const int k0 = (g % KT) * BK;
+    const uint32_t sX = ring.base + (g % STAGES1) * STAGE1;
+    const uint32_t sG = sX + TILE_A, sU = sG + W1_BYTES, bar = ring.full(g);
+    mbar_expect(bar, STAGE1);
+    tma_load_3d(sX, &tmX, bar, k0, m * BM, e);
+#pragma unroll
+    for (int cb = 0; cb < BN1 / 64; ++cb) {
+      tma_load_3d(sG + cb * BK * 128, &tmG, bar, n * BN1 + 64 * cb, k0, e);
+      tma_load_3d(sU + cb * BK * 128, &tmU, bar, n * BN1 + 64 * cb, k0, e);
+    }
+  };
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int g = 0; g < G && g < STAGES1; ++g) load(g);
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  float gu[BN1];                       // g: 0 .. BN1/2, u: BN1/2 ..
+#pragma unroll
+  for (int i = 0; i < BN1; ++i) gu[i] = 0.f;
+  for (int g0 = 0; g0 < G; g0 += KT) {  // one tile: steps g0 .. g0 + KT
+    for (int g = g0; g < g0 + KT; ++g) {
+      ring.wait(g);
+      const uint32_t sX = ring.base + (g % STAGES1) * STAGE1;
+      wgmma_fence();
+      fence_regs(gu);
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_ss_n256_tb(
+            gu, desc_sw128(sX + wg * 64 * 128 + ks * 32, 16, 1024),
+            desc_sw128(sX + TILE_A + ks * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<PIPE>();              // step g - 1's products are done
+      fence_regs(gu);
+      if (g > g0 && ring.release(g - 1, wg, t) && g - 1 + STAGES1 < G)
+        load(g - 1 + STAGES1);
+    }
+    wgmma_wait<0>();
+    fence_regs(gu);
+    const int gl = g0 + KT - 1;
+    if (ring.release(gl, wg, t) && gl + STAGES1 < G) load(gl + STAGES1);
+
+    int m, n, e;
+    tiles.coords(g0, m, n, e);
+    const int r0 = m * BM + 64 * wg + 16 * warp + (lane >> 2);
+    const int c = n * BN1 + 2 * (lane & 3);
+#pragma unroll
+    for (int jj = 0; jj < BN1 / 8; ++jj) {
+      const int col = c + 8 * jj;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        const int i0 = 4 * jj + 2 * half;
+        // ff % 8 == 0, so col < ff means col + 1 < ff too
+        float* u_ = gu + BN1 / 2;
+        if (row < C && col < ff) {
+          const float h0 = silu_fast(gu[i0]) * u_[i0];
+          const float h1 = silu_fast(gu[i0 + 1]) * u_[i0 + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
+          const float2 hf = __bfloat1622float2(hi);
+          const size_t off = ((size_t)e * C + row) * ff + col;
+          *reinterpret_cast<__nv_bfloat162*>(hhi + off) = hi;
+          *reinterpret_cast<uint32_t*>(hlo + off) =
+              pack_bf16(h0 - hf.x, h1 - hf.y);
+        }
+        gu[i0] = gu[i0 + 1] = u_[i0] = u_[i0 + 1] = 0.f;
+      }
+    }
+  }
+}
+
+// y = h_hi·Wd + h_lo·Wd of each tile (128 capacity rows, 256 d columns,
+// one expert), one float32 accumulator, cast to bf16 once.  tmHh, tmHl:
+// h as (ff, C, E); tmD: wd as (d, ff, E).
+__global__ void __launch_bounds__(THREADS, 1)
+down_kernel(const __grid_constant__ CUtensorMap tmHh,
+            const __grid_constant__ CUtensorMap tmHl,
+            const __grid_constant__ CUtensorMap tmD, bf16* __restrict__ y,
+            int E, int C, int d, int ff) {
+  extern __shared__ uint8_t smem_raw[];
+  Ring<STAGES2> ring(smem_raw, STAGE2);
+  const Tiles tiles((C + BM - 1) / BM, (d + BN2 - 1) / BN2,
+                    (ff + BK - 1) / BK, E);
+  const int KT = tiles.KT, G = tiles.steps();
+  auto load = [&](int g) {
+    int m, n, e;
+    tiles.coords(g, m, n, e);
+    const int k0 = (g % KT) * BK;
+    const uint32_t sH = ring.base + (g % STAGES2) * STAGE2;
+    const uint32_t sW = sH + 2 * TILE_A, bar = ring.full(g);
+    mbar_expect(bar, STAGE2);
+    tma_load_3d(sH, &tmHh, bar, k0, m * BM, e);
+    tma_load_3d(sH + TILE_A, &tmHl, bar, k0, m * BM, e);
+#pragma unroll
+    for (int cb = 0; cb < BN2 / 64; ++cb)
+      tma_load_3d(sW + cb * BK * 128, &tmD, bar, n * BN2 + 64 * cb, k0, e);
+  };
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int g = 0; g < G && g < STAGES2; ++g) load(g);
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  float acc[BN2 / 2];
+#pragma unroll
+  for (int i = 0; i < BN2 / 2; ++i) acc[i] = 0.f;
+  for (int g0 = 0; g0 < G; g0 += KT) {  // one tile: steps g0 .. g0 + KT
+    for (int g = g0; g < g0 + KT; ++g) {
+      ring.wait(g);
+      const uint32_t sH = ring.base + (g % STAGES2) * STAGE2;
+      const uint32_t sW = sH + 2 * TILE_A;
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        const uint32_t a = sH + wg * 64 * 128 + ks * 32;
+        const uint64_t db = desc_sw128(sW + ks * 16 * 128, BK * 128, 1024);
+        wgmma_ss_n256_tb(acc, desc_sw128(a, 16, 1024), db);
+        wgmma_ss_n256_tb(acc, desc_sw128(a + TILE_A, 16, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait<PIPE>();              // step g - 1's products are done
+      fence_regs(acc);
+      if (g > g0 && ring.release(g - 1, wg, t) && g - 1 + STAGES2 < G)
+        load(g - 1 + STAGES2);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int gl = g0 + KT - 1;
+    if (ring.release(gl, wg, t) && gl + STAGES2 < G) load(gl + STAGES2);
+
+    int m, n, e;
+    tiles.coords(g0, m, n, e);
+    const int r0 = m * BM + 64 * wg + 16 * warp + (lane >> 2);
+    const int c = n * BN2 + 2 * (lane & 3);
+#pragma unroll
+    for (int jj = 0; jj < BN2 / 8; ++jj) {
+      const int col = c + 8 * jj;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        const int i0 = 4 * jj + 2 * half;
+        // d % 8 == 0, so col < d means col + 1 < d too
+        if (row < C && col < d)
+          *reinterpret_cast<uint32_t*>(y + ((size_t)e * C + row) * d + col) =
+              pack_bf16(acc[i0], acc[i0 + 1]);
+        acc[i0] = acc[i0 + 1] = 0.f;
+      }
+    }
+  }
+}
+
+// Tensor map of a bf16 tensor (outer, mid, inner) read in boxes of {64
+// inner, rows mid, 1 outer} with the 128-byte swizzle; past either edge
+// reads zeros.
+int tensor_map(CUtensorMap* map, const void* base, int inner, int mid,
+               int outer, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)mid,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)inner * mid * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+bool takes(int d, int ff) { return d % 8 == 0 && ff % 8 == 0; }
+
+int launch(const void* x, const void* wg_, const void* wu, const void* wd,
+           void* y, void* hhi, void* hlo, int E, int C, int d, int ff,
+           int sms, cudaStream_t stream) {
+  static const cudaError_t attr1 = cudaFuncSetAttribute(
+      gate_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM1);
+  static const cudaError_t attr2 = cudaFuncSetAttribute(
+      down_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM2);
+  if (attr1 != cudaSuccess) return (int)attr1;
+  if (attr2 != cudaSuccess) return (int)attr2;
+  if (!takes(d, ff) || hhi == nullptr || hlo == nullptr || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tg, tu, th, tl, td;
+  int err = tensor_map(&tx, x, d, C, E, BM);
+  if (!err) err = tensor_map(&tg, wg_, ff, d, E, BK);
+  if (!err) err = tensor_map(&tu, wu, ff, d, E, BK);
+  if (!err) err = tensor_map(&th, hhi, ff, C, E, BM);
+  if (!err) err = tensor_map(&tl, hlo, ff, C, E, BM);
+  if (!err) err = tensor_map(&td, wd, d, ff, E, BK);
+  if (err) return err;
+  const int mt = (C + BM - 1) / BM;
+  const int n1 = mt * ((ff + BN1 - 1) / BN1) * E;
+  const int n2 = mt * ((d + BN2 - 1) / BN2) * E;
+  gate_up_kernel<<<n1 < sms ? n1 : sms, THREADS, SMEM1, stream>>>(
+      tx, tg, tu, (bf16*)hhi, (bf16*)hlo, E, C, d, ff);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  down_kernel<<<n2 < sms ? n2 : sms, THREADS, SMEM2, stream>>>(
+      th, tl, td, (bf16*)y, E, C, d, ff);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hopper_tc
+
 }  // namespace
 
 extern "C" {
 
-// How a call of this shape runs: 0 = the CUDA-core path; s >= 1 = the
-// tensor-core path with ff split into s slices (s > 1 needs a float32
-// workspace of (s, E, C, d)).  dtype: 0 = float32, 1 = bfloat16.
+// How many ff slices the mma.sync path takes for this shape (>= 1), or 0
+// when that path does not take it (dtype: 0 = float32, 1 = bfloat16).
+// Slices above 1 need a float32 workspace of (slices, E, C, d).
 int mcsa_moe_swiglu_plan(int E, int C, int d, int ff, int dtype,
                          int num_sms) {
   if (dtype != 1 || !tc::takes(d, ff) || E <= 0 || C <= 0) return 0;
@@ -523,23 +943,40 @@ int mcsa_moe_swiglu_plan(int E, int C, int d, int ff, int dtype,
 }
 
 // x, y: (E, C, d); wg, wu: (E, d, ff); wd: (E, ff, d); all contiguous
-// and 16-byte aligned.  fs: what mcsa_moe_swiglu_plan returned for this
-// shape; ws: the workspace when fs > 1, else may be null.  d a multiple
-// of 4, at most 2048.
+// and 16-byte aligned.  body: 0 = CUDA cores (float32 or bfloat16, d a
+// multiple of 4 up to 2048), 1 = mma.sync (bfloat16; fs what
+// mcsa_moe_swiglu_plan returned, ws the workspace when fs > 1),
+// 2 = wgmma + TMA (bfloat16, d and ff multiples of 8; ws and ws2 hold
+// h_hi and h_lo, two bf16 (E, C, ff) tensors, 16-byte aligned; at most
+// sms persistent blocks, one an SM).  Any other pairing returns
+// cudaErrorInvalidValue.
 int mcsa_moe_swiglu_launch(const void* x, const void* wg, const void* wu,
-                           const void* wd, void* y, void* ws, int E, int C,
-                           int d, int ff, int fs, int dtype, void* stream) {
+                           const void* wd, void* y, void* ws, void* ws2,
+                           int E, int C, int d, int ff, int fs, int sms,
+                           int dtype, int body, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (E <= 0 || C <= 0 || d <= 0 || ff <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
-  if (fs >= 1) {
-    if (dtype != 1 || !tc::takes(d, ff)) return (int)cudaErrorInvalidValue;
+  if (body == 2) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return hopper_tc::launch(x, wg, wu, wd, y, ws, ws2, E, C, d, ff, sms,
+                             s);
+  }
+  if (body == 1) {
+    if (dtype != 1 || fs < 1 || !tc::takes(d, ff))
+      return (int)cudaErrorInvalidValue;
     return tc::launch(x, wg, wu, wd, y, (float*)ws, E, C, d, ff, fs, s);
   }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return cc::launch<float>(x, wg, wu, wd, y, E, C, d, ff, s);
   if (dtype == 1)
     return cc::launch<__nv_bfloat16>(x, wg, wu, wd, y, E, C, d, ff, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the wgmma body's two kernels (bytes).
+int mcsa_moe_swiglu_wgmma_smem(int which) {
+  return which == 0 ? hopper_tc::SMEM1 : hopper_tc::SMEM2;
 }
 
 const char* mcsa_cuda_error_string(int code) {

@@ -5,7 +5,16 @@ The library is built by :mod:`repro_torch.kernels._build` at the first
 launch, never at import.  :func:`moe_swiglu_cuda` checks its inputs,
 allocates the output with ``torch.empty``, launches on the current
 stream without synchronising, and raises if the launch was refused.
-``LAUNCHES`` counts successful launches, nowhere else.
+``LAUNCHES["moe_swiglu"]`` counts every successful call, and
+``LAUNCHES["moe_swiglu_" + body]`` those of each body, nowhere else.
+
+The body follows the dtype and the shape, explicitly (:func:`body_for`):
+bfloat16 with more than ``DECODE_C`` capacity rows (prefill) runs the
+wgmma + TMA body (two kernels, h through a bf16 hi + lo workspace
+allocated here); bfloat16 up to ``DECODE_C`` rows (decode) the mma.sync
+body, split over ff; float32 and shapes neither takes the CUDA-core
+body.  The launch names the body and the library refuses any other
+pairing.
 """
 from __future__ import annotations
 
@@ -22,11 +31,30 @@ LIB_NAME = "mcsa_moe_swiglu"
 FLAGS = _build.NVCC_FLAGS
 
 #: launches since the last reset (callers may zero it)
-LAUNCHES = {"moe_swiglu": 0}
+LAUNCHES = {"moe_swiglu": 0, "moe_swiglu_wgmma": 0, "moe_swiglu_mma": 0,
+            "moe_swiglu_cuda_cores": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel keeps d / 256 output columns a thread in registers
+#: the CUDA-core body keeps d / 256 output columns a thread in registers
 MAX_D = 2048
+#: capacity rows up to which bfloat16 runs the mma.sync body (decode:
+#: C 2-16, where the weights' bytes bind)
+DECODE_C = 16
+#: the library's body codes
+BODIES = {"cuda_cores": 0, "mma": 1, "wgmma": 2}
+
+
+def body_for(dtype: torch.dtype, C: int, d: int, ff: int) -> str:
+    """The body that runs x (E, C, d) of ``dtype`` with ff columns:
+    ``"wgmma"`` for bfloat16 with C > DECODE_C and d, ff multiples of 8;
+    ``"mma"`` for bfloat16 with d a multiple of 128 up to 1024 and ff a
+    multiple of 8; else ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and ff % 8 == 0:
+        if C > DECODE_C:
+            return "wgmma"
+        if d % 128 == 0 and d <= 1024:
+            return "mma"
+    return "cuda_cores"
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,12 +64,26 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mcsa_moe_swiglu_plan.argtypes = [i, i, i, i, i, i]
     lib.mcsa_moe_swiglu_plan.restype = ctypes.c_int
-    lib.mcsa_moe_swiglu_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           i, p]
+    lib.mcsa_moe_swiglu_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                           i, i, i, i, p]
     lib.mcsa_moe_swiglu_launch.restype = ctypes.c_int
+    lib.mcsa_moe_swiglu_wgmma_smem.argtypes = [i]
+    lib.mcsa_moe_swiglu_wgmma_smem.restype = ctypes.c_int
     lib.mcsa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcsa_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def wgmma_smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory of the wgmma body's ``"gate_up"`` or
+    ``"down"`` kernel (builds the library on first use)."""
+    return int(library().mcsa_moe_swiglu_wgmma_smem(
+        {"gate_up": 0, "down": 1}[kernel]))
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_shapes(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -65,11 +107,11 @@ def moe_swiglu_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                     wd: torch.Tensor) -> torch.Tensor:
     """x (E, C, d), wg/wu (E, d, ff), wd (E, ff, d): one dtype (float32 or
     bfloat16), contiguous and 16-byte aligned, on one CUDA device, d a
-    multiple of 4 and at most 2048 -> (E, C, d) in that dtype.  The
-    library's plan picks the tensor-core path (bfloat16, d a multiple of
-    128 up to 1024, ff a multiple of 8), split over ff into slices when
-    there are too few capacity tiles to fill the card; the slices'
-    float32 partial outputs go to a workspace allocated here."""
+    multiple of 4 and at most 2048 -> (E, C, d) in that dtype.  The body
+    is :func:`body_for`'s; the mma.sync body is split over ff into the
+    slices the library's plan gives (float32 partial outputs in a
+    workspace allocated here), the wgmma body writes h as bf16 hi + lo
+    into two (E, C, ff) workspaces allocated here."""
     for name, t in (("x", x), ("wg", wg), ("wu", wu), ("wd", wd)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name}: expected a tensor")
@@ -95,17 +137,29 @@ def moe_swiglu_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if ff == 0:
         return y.zero_()
     lib = library()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    fs = lib.mcsa_moe_swiglu_plan(E, C, d, ff, DTYPES[x.dtype], sms)
-    ws = (torch.empty((fs, E, C, d), dtype=torch.float32, device=x.device)
-          if fs > 1 else None)
+    body = body_for(x.dtype, C, d, ff)
+    fs, ws, ws2 = 0, None, None
+    if body == "mma":
+        fs = lib.mcsa_moe_swiglu_plan(E, C, d, ff, DTYPES[x.dtype],
+                                      num_sms(x.device))
+        if fs < 1:
+            raise RuntimeError(f"moe_swiglu: the library's plan refuses "
+                               f"the mma body at {(E, C, d, ff)}")
+        if fs > 1:
+            ws = torch.empty((fs, E, C, d), dtype=torch.float32,
+                             device=x.device)
+    elif body == "wgmma":
+        ws = torch.empty((E, C, ff), dtype=x.dtype, device=x.device)
+        ws2 = torch.empty((E, C, ff), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.mcsa_moe_swiglu_launch(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-        y.data_ptr(), None if ws is None else ws.data_ptr(), E, C, d, ff,
-        fs, DTYPES[x.dtype], stream)
+        y.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if ws2 is None else ws2.data_ptr(), E, C, d, ff, fs,
+        num_sms(x.device), DTYPES[x.dtype], BODIES[body], stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()
         raise RuntimeError(f"moe_swiglu kernel launch failed: {msg} ({rc})")
     LAUNCHES["moe_swiglu"] += 1
+    LAUNCHES["moe_swiglu_" + body] += 1
     return y

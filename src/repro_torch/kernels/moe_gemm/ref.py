@@ -16,3 +16,19 @@ def moe_swiglu_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     g = torch.bmm(x32, wg.float())
     u = torch.bmm(x32, wu.float())
     return torch.bmm(F.silu(g) * u, wd.float()).to(x.dtype)
+
+
+def moe_swiglu_split_ref(x: torch.Tensor, wg: torch.Tensor,
+                         wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """A plain float32 model of the wgmma body's two kernels, same
+    contract as :func:`moe_swiglu_ref`: g and u in float32, h written as
+    bf16 hi and lo = bf16(h - hi) and read back, y = hi·Wd + lo·Wd summed
+    in float32 and cast once.  The tests hold it against
+    :func:`moe_swiglu_ref`."""
+    x32 = x.float()
+    h = F.silu(torch.bmm(x32, wg.float())) * torch.bmm(x32, wu.float())
+    hi = h.to(torch.bfloat16)
+    lo = (h - hi.float()).to(torch.bfloat16)
+    wd32 = wd.float()
+    return (torch.bmm(hi.float(), wd32)
+            + torch.bmm(lo.float(), wd32)).to(x.dtype)

@@ -11,37 +11,68 @@
 // wkv6_scan (src/repro/models/rwkv.py): the TPU kernel starts from zero
 // and returns no state, while decode needs the state in and out.  The TPU
 // kernel keeps S in VMEM across a sequential grid axis of time chunks;
-// here one block owns one (batch, head) and the loop over time runs
-// inside it, so the TPU kernel's chunk has no counterpart.
+// here the chunks of the sequence become parallel blocks, and the state
+// at each chunk's start comes from a short serial pass over chunks.
 //
-// Design (that of the known CUDA wkv kernels, with the k axis split):
-// P = 4 neighbouring threads share a v column j, each holding N/P rows
-// of S[:, j] in registers for the whole sequence.  Time steps are staged
-// TC at a time: r_t, k_t, v_t, w_t of TC steps go to shared memory (u·k
-// premultiplied as the model does it; rows padded one word per part so
-// the P parts read different banks), one barrier, then each thread runs
-// the TC steps from shared-memory broadcasts, and the P partial sums of
-// y_j and of the bonus meet by two warp shuffles.  No global load sits
-// on the serial chain of steps: a v_t read from device memory inside
-// the loop cost a load latency a step and held the kernel at 13x its
-// bound.
+// Two bodies, picked by the wrapper (kernel.py::body_for) from S:
 //
-// Bound: every state element takes 3 operations a step (one FMA for y, a
-// multiply and an FMA for the update), against bytes of r/k/v/w/y plus
-// the two states; at rwkv6-3b's prefill (B 4, S 1024, H 40, N 64) the two
-// are close, the operations slightly above.  The kernel is serial over
-// time and runs B·H blocks (160 at B 4, 40 at engine prefill on 132
-// SMs): latency, not either bound, sets its time.  Splitting k over P
-// threads gives each SM P times the warps to hide it; a chunked parallel
-// form over time is later work.
+// * serial (S <= CHUNK, e.g. decode at S 1): one block owns one (batch,
+//   head) and walks every step.  P = 4 neighbouring threads share a v
+//   column j, each holding N/P rows of S[:, j] in registers.  Steps are
+//   staged TC at a time: r_t, k_t, v_t, w_t of TC steps go to shared
+//   memory (u·k premultiplied; rows padded one word per part so the P
+//   parts read different banks), one barrier, then each thread runs the
+//   TC steps from shared-memory broadcasts, and the P partial sums of
+//   y_j and of the bonus meet by two warp shuffles.
+// * chunked (S > CHUNK, prefill): the sequence is cut into chunks of
+//   CHUNK = 64 steps, in three launches (kernel.py::wkv6_cuda):
+//     (i)   chunk_state: per (batch·head, chunk) in parallel, the chunk's
+//           decay P = prod w and its contribution from a zero state,
+//           dS = sum_s (k_s ⊙ prod_{s<tau<end} w_tau) v_s^T, a 64-step
+//           product on the CUDA cores, into a float32 workspace;
+//     (ii)  chunk_scan: per state element, serially over chunks,
+//           S_{c+1} = diag(P_c) S_c + dS_c, writing each chunk's start
+//           state over its dS (read first) and s_final last;
+//     (iii) chunk_out: per (batch·head, chunk) in parallel,
+//           y_t = (r_t ⊙ prod_{start<=tau<t} w)^T S_c
+//                 + sum_{s<t} A[t,s] v_s + v_t (r_t·(u ⊙ k_t)),
+//           as one product [r~ | A] · [S_c ; V] over the chunk.
+//   A's blocks between sub-chunks of SUB = 16 steps are factored at the
+//   boundary of t's sub-chunk: (r_t ⊙ a_t ⊙ prod_{q<m<p} g_m)·(k_s ⊙ b_s)
+//   with a_t, b_s the products of w inside the sub-chunk before t and
+//   after s and g_m a whole sub-chunk's product, every factor at most 1,
+//   so nothing overflows; inside a sub-chunk A is summed with a running
+//   product of w.  Every decay is a sequential product of w and never an
+//   exp of cumulated log w: the model's w reaches 0 (exp(-e^10)) and 1
+//   (exp(-e^-20)), where log w is -inf and differences of large sums
+//   lose digits.  All arithmetic is float32 on the CUDA cores (TF32
+//   keeps ~1e-3; the checks hold y to 1e-6 of its RMS).  In chunk_out,
+//   rows of r, k and w are padded to N + 1 words so the lanes that read
+//   one column of several rows hit distinct banks; r^ and k^ are then
+//   transposed so the blocks of A between sub-chunks are register-tiled
+//   vector products; v and the start state are loaded last, over buffers
+//   dead by then, so a block takes 68 KB and three run on an SM (two an
+//   SM were slower in a trial build).
+//   kernels/wkv6/ref.py::wkv6_chunked_ref is this arithmetic in plain
+//   PyTorch.
+//
+// Bound: every state element takes 3 operations a step (serial form);
+// at rwkv6-3b's prefill (B 4, S 1024, H 40, N 64) they bind, slightly
+// above the bytes.  The serial body runs B·H blocks (160 at B 4, 40 at
+// an engine prefill, on 132 SMs), each a chain of S dependent steps, so
+// latency sets its time (0.678 ms there).  The chunked body does about
+// 3.3 N^2 multiply-adds a step (dS, r~·S_c, the off-diagonal A and A·V
+// over the lower triangle), in register-tiled products over B·H·S/64
+// blocks (2,560 at prefill), plus the workspace of start states (N^2
+// floats a chunk, written twice and read twice).
 //
 // Aliasing: decode passes the cache's own state as s0 and as s_final.
-// Each thread reads its rows of its column before the loop and writes
-// them after, and those (and blocks) are disjoint, so that is safe; the
-// two pointers are therefore not __restrict__.
+// In both bodies each thread reads its state elements before writing
+// the same elements, and those (and blocks) are disjoint, so that is
+// safe; the two pointers are therefore not __restrict__.
 //
-// Plain C interface (no PyTorch headers), loaded with ctypes; the launch
-// goes on the caller's stream and returns cudaGetLastError().
+// Plain C interface (no PyTorch headers), loaded with ctypes; each
+// launch goes on the caller's stream and returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,30 +169,527 @@ int launch(const void* r, const void* k, const void* v, const float* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// ===========================================================================
+// Chunked body
+// ===========================================================================
+namespace chunked {
+
+constexpr int L = 64;                  // steps a chunk
+constexpr int SUB = 16;                // steps a sub-chunk
+constexpr int NSUB = L / SUB;
+constexpr int THREADS = 256;
+
+template <int W>
+__device__ __forceinline__ void ld(float (&d)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    d[0] = v.x; d[1] = v.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void st(float* p, const float (&d)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+}
+
+// offset of (b, step t, head h, column 0) in a (B, S, H, N) tensor
+template <int N>
+__device__ __forceinline__ size_t row_off(int b, int t, int h, int S,
+                                          int H) {
+  return (((size_t)b * S + t) * H + h) * N;
+}
+
+// 4 consecutive values at p (16-byte aligned for float, 8 for bf16) as
+// float32
+__device__ __forceinline__ void load4(float (&o)[4], const float* p) {
+  ld<4>(o, p);
+}
+__device__ __forceinline__ void load4(float (&o)[4],
+                                      const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// (i) dS and P of chunk blockIdx.x of (batch·head) blockIdx.y:
+// ws[bh][c] (N x N) and pw[bh][c] (N).
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS)
+chunk_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ w, float* __restrict__ ws,
+                   float* __restrict__ pw, int S, int H) {
+  constexpr int TM = N / 16;           // rows i and columns j a thread
+  __shared__ __align__(16) float ks[L][N];
+  __shared__ __align__(16) float vs[L][N];
+  __shared__ float gs[NSUB][N];
+  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, t0 = c * L;
+  const int tid = threadIdx.x;
+
+  {
+    constexpr int NG = L * N / 4 / THREADS;
+    float kv[NG][4], vv[NG][4];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS), t = e / N, i = e % N;
+      if (t0 + t < S) {
+        const size_t off = row_off<N>(b, t0 + t, h, S, H) + i;
+        load4(kv[j], k + off);
+        load4(vv[j], v + off);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) kv[j][q] = vv[j][q] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS), t = e / N, i = e % N;
+      st<4>(&ks[t][i], kv[j]);
+      st<4>(&vs[t][i], vv[j]);
+    }
+  }
+  // thread (p, i): the products of w in sub-chunk p, column i
+  const int p = tid / N, i = tid % N;
+  float bsuf[SUB];
+  if (p < NSUB) {
+    float wv[SUB];
+#pragma unroll
+    for (int s = 0; s < SUB; ++s) {
+      const int t = t0 + p * SUB + s;
+      wv[s] = t < S ? w[row_off<N>(b, t, h, S, H) + i] : 1.f;
+    }
+    float a = 1.f;                     // prod of w over the sub-chunk
+#pragma unroll
+    for (int s = 0; s < SUB; ++s) a *= wv[s];
+    gs[p][i] = a;
+    bsuf[SUB - 1] = 1.f;               // prod over (s, end of p)
+#pragma unroll
+    for (int s = SUB - 2; s >= 0; --s) bsuf[s] = bsuf[s + 1] * wv[s + 1];
+  }
+  __syncthreads();
+  if (p < NSUB) {
+    float gsuf = 1.f;
+    for (int q = NSUB - 1; q > p; --q) gsuf *= gs[q][i];
+#pragma unroll
+    for (int s = 0; s < SUB; ++s) {
+      float* kp = &ks[p * SUB + s][i];
+      *kp = (*kp * bsuf[s]) * gsuf;
+    }
+    if (p == 0) {
+      float P = 1.f;
+#pragma unroll
+      for (int q = 0; q < NSUB; ++q) P *= gs[q][i];
+      pw[((size_t)bh * nc + c) * N + i] = P;
+    }
+  }
+  __syncthreads();
+  // dS[i][j] = sum_s ks[s][i] vs[s][j]: a TM x TM tile a thread
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[TM][TM];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int q = 0; q < TM; ++q) acc[a][q] = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < L; ++s) {
+    float x[TM], z[TM];
+    ld<TM>(x, &ks[s][ty * TM]);
+    ld<TM>(z, &vs[s][tx * TM]);
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int q = 0; q < TM; ++q) acc[a][q] = fmaf(x[a], z[q], acc[a][q]);
+  }
+  float* out = ws + ((size_t)bh * nc + c) * N * N;
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+    st<TM>(out + (ty * TM + a) * N + tx * TM, acc[a]);
+}
+
+// (ii) per state element e of (batch·head, i, j): over chunks in order,
+// the start state of chunk c replaces dS_c in ws, and s_final gets the
+// end state.  Each group's reads are issued before its writes.
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+chunk_scan_kernel(float* ws, const float* __restrict__ pw, const float* s0,
+                  float* s_final, int nc, int total) {
+  constexpr int G = 16;                // chunks read ahead
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= total) return;
+  const int bh = e / (N * N), ij = e % (N * N), i = ij / N;
+  float s = s0 ? s0[e] : 0.f;
+  float* base = ws + (size_t)bh * nc * N * N + ij;
+  const float* pb = pw + (size_t)bh * nc * N + i;
+  for (int c0 = 0; c0 < nc; c0 += G) {
+    float d[G], P[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      d[g] = c0 + g < nc ? base[(size_t)(c0 + g) * N * N] : 0.f;
+      P[g] = c0 + g < nc ? pb[(size_t)(c0 + g) * N] : 1.f;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (c0 + g < nc) {
+        base[(size_t)(c0 + g) * N * N] = s;
+        s = P[g] * s + d[g];
+      }
+    }
+  }
+  s_final[e] = s;
+}
+
+// shared memory of chunk_out: r (then r^, then k^ transposed, then the
+// start state), k (then k^, then v) and w (then r^ transposed), with rows
+// padded to NP = N + 1 words so threads reading one column of several
+// rows hit distinct banks; A transposed (At[s][t]), the sub-chunk
+// products g and G_pre, u.  v and the start state are loaded only for
+// the last product, into buffers dead by then, which keeps a block at 68
+// KB and three blocks on an SM.
+template <int N>
+struct OutSmem {
+  static constexpr int NP = N + 1;
+  static constexpr int FLOATS = 3 * L * NP + L * L + 2 * NSUB * N + N;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+// (iii) y of chunk blockIdx.x of (batch·head) blockIdx.y from its start
+// state ws[bh][c].
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS)
+chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ u, const float* __restrict__ ws,
+                 float* __restrict__ y, int S, int H) {
+  static_assert(N == L, "v and the start state share one loop");
+  constexpr int NP = OutSmem<N>::NP;
+  constexpr int TN = N / 16;           // columns j a thread (4 rows t)
+  constexpr int NQ = N / 4;            // columns i a thread in step 1
+  extern __shared__ float4 smem4[];
+  float* rs = reinterpret_cast<float*>(smem4);     // [L][NP]
+  float* ks = rs + L * NP;                         // [L][NP]
+  float* wsh = ks + L * NP;                        // [L][NP], then rT
+  float* At = wsh + L * NP;                        // [L][L], At[s][t]
+  float* gs = At + L * L;                          // [NSUB][N]
+  float* gp = gs + NSUB * N;                       // [NSUB][N]
+  float* us = gp + NSUB * N;                       // [N]
+  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, t0 = c * L;
+  const int tid = threadIdx.x;
+
+  {
+    constexpr int NG = L * N / 4 / THREADS;
+    float rv[NG][4], kv[NG][4], wv[NG][4];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS), t = e / N, i = e % N;
+      if (t0 + t < S) {
+        const size_t off = row_off<N>(b, t0 + t, h, S, H) + i;
+        load4(rv[j], r + off);
+        load4(kv[j], k + off);
+        load4(wv[j], w + off);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          rv[j][q] = kv[j][q] = 0.f;
+          wv[j][q] = 1.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS), t = e / N, i = e % N;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        rs[t * NP + i + q] = rv[j][q];
+        ks[t * NP + i + q] = kv[j][q];
+        wsh[t * NP + i + q] = wv[j][q];
+      }
+    }
+  }
+  for (int e = tid; e < L * L; e += THREADS) At[e] = 0.f;
+  if (tid < N) us[tid] = u[h * N + tid];
+  __syncthreads();
+
+  // 1. A inside each sub-chunk (s < t) and on its diagonal (the bonus):
+  // 4 neighbouring threads split i for one t (part p takes i = 8p + q +
+  // 32m, so the 32 lanes' rows and columns fall on distinct banks) and
+  // meet by shuffles
+  {
+    const int t = tid / 4, part = tid % 4;
+    const int ts = t - t % SUB;        // first step of t's sub-chunk
+    auto col = [&](int qq) { return 8 * part + qq % 8 + 32 * (qq / 8); };
+    float rt[NQ], prod[NQ];
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      rt[qq] = rs[t * NP + col(qq)];
+      prod[qq] = 1.f;
+    }
+    float bonus = 0.f;
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      bonus += rt[qq] * (us[col(qq)] * ks[t * NP + col(qq)]);
+    bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
+    bonus += __shfl_xor_sync(0xffffffffu, bonus, 2);
+    if (part == 0) At[t * L + t] = bonus;
+    for (int j = 1; j < SUB; ++j) {    // s = t - j, the same trip count
+      const int s = t - j;             // for every lane (shuffles)
+      const bool ok = s >= ts;
+      const int sr = ok ? s : t;       // a row in range either way
+      float a = 0.f;
+#pragma unroll
+      for (int qq = 0; qq < NQ; ++qq) {
+        a += rt[qq] * (prod[qq] * ks[sr * NP + col(qq)]);
+        prod[qq] *= wsh[sr * NP + col(qq)];
+      }
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (ok && part == 0) At[s * L + t] = a;
+    }
+  }
+  __syncthreads();
+
+  // 2. thread (p, i): r^ = r ⊙ a and k^ = k ⊙ b in place, and g_p
+  {
+    const int p = tid / N, i = tid % N;
+    if (p < NSUB) {
+      float a = 1.f;
+#pragma unroll
+      for (int s = 0; s < SUB; ++s) {
+        const int t = p * SUB + s;
+        rs[t * NP + i] *= a;
+        a *= wsh[t * NP + i];
+      }
+      gs[p * N + i] = a;
+      float bb = 1.f;
+#pragma unroll
+      for (int s = SUB - 1; s >= 0; --s) {
+        const int t = p * SUB + s;
+        ks[t * NP + i] *= bb;
+        bb *= wsh[t * NP + i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. r^ and k^ transposed to i-major (rT over w, kT over r), so the
+  // products below read a few neighbouring steps of one column i as one
+  // vector that the lanes share; and G_pre of each sub-chunk
+  float* rT = wsh;                                 // [N][L]
+  float* kT = rs;                                  // [N][L]
+  {
+    constexpr int PER = N * L / THREADS;
+    float rv[PER], kv[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = tid + j * THREADS, i = e / L, t = e % L;
+      rv[j] = rs[t * NP + i];
+      kv[j] = ks[t * NP + i];
+    }
+    if (tid < NSUB * N) {
+      const int p = tid / N, i = tid % N;
+      float gpre = 1.f;
+      for (int q = 0; q < p; ++q) gpre *= gs[q * N + i];
+      gp[tid] = gpre;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = tid + j * THREADS;
+      rT[e] = rv[j];
+      kT[e] = kv[j];
+    }
+  }
+  __syncthreads();
+  // the blocks of A between sub-chunks: a task is 4 steps t of sub-chunk
+  // p and 2 steps s of sub-chunk q < p; the 32 tasks of a pair (p, q)
+  // fill one warp, so prod_{q<m<p} g_m is the same for its lanes
+  constexpr int PAIRS = NSUB * (NSUB - 1) / 2;
+  for (int task = tid; task < PAIRS * 32; task += THREADS) {
+    const int pair = task / 32, tq = (task % 32) / 8, sp = task % 8;
+    int p = 1, q = pair;
+    while (q >= p) {
+      q -= p;
+      ++p;
+    }
+    const int ta = p * SUB + 4 * tq, sa = q * SUB + 2 * sp;
+    float acc[4][2] = {};
+#pragma unroll 8
+    for (int i = 0; i < N; ++i) {
+      float mid = 1.f;
+      for (int m = p - 1; m > q; --m) mid *= gs[m * N + i];
+      float x[4], z[2];
+      ld<4>(x, rT + i * L + ta);
+      ld<2>(z, kT + i * L + sa);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xm = x[e] * mid;
+        acc[e][0] = fmaf(xm, z[0], acc[e][0]);
+        acc[e][1] = fmaf(xm, z[1], acc[e][1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      At[sa * L + ta + e] = acc[e][0];
+      At[(sa + 1) * L + ta + e] = acc[e][1];
+    }
+  }
+  __syncthreads();
+
+  // v (over k^) and the start state (over k^ transposed)
+  float* vs = ks;                                  // [L][N]
+  float* Ss = rs;                                  // [N][N]
+  {
+    constexpr int NG = L * N / 4 / THREADS;
+    const float* s_c = ws + ((size_t)bh * nc + c) * N * N;
+    float vv[NG][4], sv[NG][4];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS), t = e / N, i = e % N;
+      if (t0 + t < S) {
+        load4(vv[j], v + row_off<N>(b, t0 + t, h, S, H) + i);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) vv[j][q] = 0.f;
+      }
+      ld<4>(sv[j], s_c + e);
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int e = 4 * (tid + j * THREADS);
+      st<4>(vs + e, vv[j]);
+      st<4>(Ss + e, sv[j]);
+    }
+  }
+  __syncthreads();
+
+  // 4. y[t][j] = sum_i r~[t][i] S[i][j] + sum_s At[s][t] v[s][j]: rows
+  // 4ty..4ty+3, TN columns from tx·TN.  Warp w's rows end before 8w + 8,
+  // so its steps s from there on are zero in A and skipped.
+  const int ty = tid / 16, tx = tid % 16;
+  const int s_end = 8 * (tid / 32) + 8;
+  float acc[4][TN];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int q = 0; q < TN; ++q) acc[a][q] = 0.f;
+  const float* gpt = gp + (ty * 4 / SUB) * N;   // this thread's G_pre
+#pragma unroll 4
+  for (int ii = 0; ii < N; ++ii) {
+    float x[4], z[TN];
+    ld<4>(x, rT + ii * L + ty * 4);
+    ld<TN>(z, Ss + ii * N + tx * TN);
+    const float gpre = gpt[ii];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] *= gpre;       // r~ = r^ ⊙ G_pre
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int q = 0; q < TN; ++q) acc[a][q] = fmaf(x[a], z[q], acc[a][q]);
+  }
+#pragma unroll 4
+  for (int s = 0; s < s_end; ++s) {
+    float x[4], z[TN];
+    ld<4>(x, At + s * L + ty * 4);
+    ld<TN>(z, vs + s * N + tx * TN);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int q = 0; q < TN; ++q) acc[a][q] = fmaf(x[a], z[q], acc[a][q]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int t = t0 + ty * 4 + a;
+    if (t < S) st<TN>(y + row_off<N>(b, t, h, S, H) + tx * TN, acc[a]);
+  }
+}
+
+template <typename T, int N>
+int launch_n(const void* r, const void* k, const void* v, const float* w,
+             const float* u, const float* s0, float* y, float* s_final,
+             float* ws, float* pw, int B, int S, int H,
+             cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      chunk_out_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      OutSmem<N>::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const int nc = (S + L - 1) / L;
+  const dim3 grid(nc, B * H);
+  chunk_state_kernel<T, N><<<grid, THREADS, 0, stream>>>(
+      (const T*)k, (const T*)v, w, ws, pw, S, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = B * H * N * N;
+  chunk_scan_kernel<N><<<(total + THREADS - 1) / THREADS, THREADS, 0,
+                         stream>>>(ws, pw, s0, s_final, nc, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  chunk_out_kernel<T, N><<<grid, THREADS, OutSmem<N>::BYTES, stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, w, u, ws, y, S, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* r, const void* k, const void* v, const float* w,
+           const float* u, const float* s0, float* y, float* s_final,
+           float* ws, float* pw, int B, int S, int H, int n,
+           cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535 || ws == nullptr ||
+      pw == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n == 64)
+    return launch_n<T, 64>(r, k, v, w, u, s0, y, s_final, ws, pw, B, S, H,
+                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace chunked
+
 }  // namespace
 
 extern "C" {
 
 // dtype of r/k/v: 0 = float32, 1 = bfloat16.  w, u, s0, y, s_final are
 // float32; s0 may be null (zero state) and may equal s_final.  n is 32 or
-// 64.  All contiguous.
+// 64.  All contiguous.  body: 0 = serial, 1 = chunked; the chunked body
+// needs float32 workspaces ws (B·H, nc, n, n) and pw (B·H, nc, n), with
+// nc = ceil(S / 64) (mcsa_wkv6_chunk), and ignores them otherwise.
 int mcsa_wkv6_launch(const void* r, const void* k, const void* v,
                      const void* w, const void* u, const void* s0, void* y,
-                     void* s_final, int B, int S, int H, int n, int dtype,
-                     void* stream) {
+                     void* s_final, void* ws, void* pw, int B, int S, int H,
+                     int n, int dtype, int body, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* wf = (const float*)w;
   const float* uf = (const float*)u;
   const float* s0f = (const float*)s0;
   float* yf = (float*)y;
   float* sf = (float*)s_final;
-  if (dtype == 0)
+  float* wsf = (float*)ws;
+  float* pwf = (float*)pw;
+  if (body == 0 && dtype == 0)
     return launch<float>(r, k, v, wf, uf, s0f, yf, sf, B, S, H, n, st);
-  if (dtype == 1)
+  if (body == 0 && dtype == 1)
     return launch<__nv_bfloat16>(r, k, v, wf, uf, s0f, yf, sf, B, S, H, n,
                                  st);
+  if (body == 1 && dtype == 0)
+    return chunked::launch<float>(r, k, v, wf, uf, s0f, yf, sf, wsf, pwf, B,
+                                  S, H, n, st);
+  if (body == 1 && dtype == 1)
+    return chunked::launch<__nv_bfloat16>(r, k, v, wf, uf, s0f, yf, sf, wsf,
+                                          pwf, B, S, H, n, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The chunked body's chunk length (steps).
+int mcsa_wkv6_chunk() { return chunked::L; }
 
 const char* mcsa_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

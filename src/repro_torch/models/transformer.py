@@ -318,6 +318,18 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
+def _assemble_inputs(cfg: ModelConfig, params: Params,
+                     batch: dict) -> torch.Tensor:
+    """The reference's ``_assemble_inputs``: the scaled token embeddings,
+    with a VLM's ``patch_embeds`` (B, P, d) prepended (cast to their
+    dtype) when ``cfg.frontend == "vit"``."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vit" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(device=h.device, dtype=h.dtype)
+        h = torch.cat([pe, h], dim=1)
+    return h
+
+
 def head(cfg: ModelConfig, params: Params, h: torch.Tensor):
     """Final norm, unembedding and greedy pick of (B, 1, d) hidden states:
     (logits (B, Vp), next token (B,))."""
@@ -330,17 +342,16 @@ def head(cfg: ModelConfig, params: Params, h: torch.Tensor):
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict, *,
             cache_len: int, kv_quant: bool = False):
-    """batch = {"tokens": (B, S)}.  Returns (last-position logits (B, Vp),
-    caches)."""
+    """batch = {"tokens": (B, S)}, with ``"patch_embeds"`` (B, P, d) for a
+    ``vit`` frontend: the patches come first and positions run over all
+    P + S.  Returns (last-position logits (B, Vp), caches)."""
     check_supported(cfg)
     if kv_quant:
         raise NotImplementedError(REST_DEFERRED.format(what="the int8 KV "
                                                             "cache"))
-    tokens = batch["tokens"]
-    h = _embed_tokens(cfg, params, tokens)
+    h = _assemble_inputs(cfg, params, batch)
     h, caches = apply_stack(cfg, params, h, mode="prefill",
-                            positions=_positions(tokens),
-                            cache_len=cache_len)
+                            positions=_positions(h), cache_len=cache_len)
     logits, _ = head(cfg, params, h[:, -1:])
     return logits, caches
 

@@ -314,13 +314,14 @@ from repro_torch.kernels import wkv6 as twkv                     # noqa: E402
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,C,d,ff", [
-    (32, 4, 1024, 512),         # granite decode: bf16 splits ff in 8 slices
-    (32, 1280, 1024, 512),      # granite prefill: one slice
+    (32, 4, 1024, 512),         # granite decode: bf16 mma.sync, 8 ff slices
+    (32, 1280, 1024, 512),      # granite prefill: bf16 wgmma
     (4, 37, 1024, 1408),        # ragged C
     (4, 37, 1024, 1000),        # ragged C and ff tail (1000 = 15·64 + 40)
-    (32, 300, 128, 96),         # one slice, ragged ff tail
-    (3, 20, 64, 40),            # CUDA-core path in bf16 too (d % 128)
-    (2, 17, 2048, 96)])         # CUDA-core path (d > 1024)
+    (32, 300, 128, 96),         # ragged ff tail
+    (3, 20, 64, 40),            # d below one wgmma column tile
+    (2, 17, 2048, 96),          # d > 1024
+    (3, 8, 64, 40)])            # CUDA-core path in bf16 too (d % 128)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_moe_swiglu_matches_plain_version(E, C, d, ff, dtype, cuda):
     dt = getattr(torch, dtype)
@@ -328,10 +329,13 @@ def test_cuda_moe_swiglu_matches_plain_version(E, C, d, ff, dtype, cuda):
     wg = (_randn((E, d, ff), torch.float32, cuda, 21) * d ** -0.5).to(dt)
     wu = (_randn((E, d, ff), torch.float32, cuda, 22) * d ** -0.5).to(dt)
     wd = (_randn((E, ff, d), torch.float32, cuda, 23) * ff ** -0.5).to(dt)
-    before = tmoe.LAUNCHES["moe_swiglu"]
+    body = tmoe.kernel.body_for(dt, C, d, ff)
+    before = dict(tmoe.LAUNCHES)
     y = tmoe.moe_swiglu_cuda(x, wg, wu, wd)
     torch.cuda.synchronize()
-    assert tmoe.LAUNCHES["moe_swiglu"] == before + 1
+    assert tmoe.LAUNCHES["moe_swiglu"] == before["moe_swiglu"] + 1
+    assert (tmoe.LAUNCHES["moe_swiglu_" + body]
+            == before["moe_swiglu_" + body] + 1)
     ref = tmoe.moe_swiglu_ref(x, wg, wu, wd).float()
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(y.float(), ref, atol=tol, rtol=tol)
@@ -351,20 +355,89 @@ def _wkv_inputs(B, S, H, n, dt, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,n", [(2, 100, 3, 64), (1, 33, 2, 32),
-                                     (3, 1, 40, 64)])
+                                     (3, 1, 40, 64), (2, 130, 2, 32),
+                                     (1, 65, 3, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wkv6_matches_plain_version(B, S, H, n, dtype, cuda):
     r, k, v, w, u, s0 = _wkv_inputs(B, S, H, n, getattr(torch, dtype), cuda)
-    before = twkv.LAUNCHES["wkv6"]
+    body = twkv.kernel.body_for(S, n)
+    before = dict(twkv.LAUNCHES)
     y, s = twkv.wkv6_cuda(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert twkv.LAUNCHES["wkv6"] == before + 1
+    assert twkv.LAUNCHES["wkv6"] == before["wkv6"] + 1
+    assert twkv.LAUNCHES["wkv6_" + body] == before["wkv6_" + body] + 1
     ry, rs = twkv.wkv6_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(y, ry, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(s, rs, atol=2e-4, rtol=2e-4)
     y0, _ = twkv.wkv6_cuda(r, k, v, w, u)                    # zero state
     torch.testing.assert_close(y0, twkv.wkv6_ref(r, k, v, w, u)[0],
                                atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,ff", [(32, 1280, 512), (32, 320, 512),
+                                    (4, 37, 1408), (4, 37, 1000)])
+def test_cuda_moe_prefill_runs_the_wgmma_body(E, C, ff, cuda, monkeypatch):
+    """bf16 prefill shapes (granite's prefill, an engine prefill, ragged
+    C and ff) through ``ops.moe_swiglu``: the wgmma body launches, as its
+    counter shows, and the plain version is never reached."""
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    d = 1024
+    x = _randn((E, C, d), torch.bfloat16, cuda, 24)
+    wg = (_randn((E, d, ff), torch.float32, cuda, 25) * d ** -0.5).bfloat16()
+    wu = (_randn((E, d, ff), torch.float32, cuda, 26) * d ** -0.5).bfloat16()
+    wd = (_randn((E, ff, d), torch.float32, cuda, 27)
+          * ff ** -0.5).bfloat16()
+    ref = tmoe.moe_swiglu_ref(x, wg, wu, wd).float()
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(moe_ops, "moe_swiglu_ref", no_plain)
+    before = dict(tmoe.LAUNCHES)
+    y = moe_ops.moe_swiglu(x, wg, wu, wd).float()
+    torch.cuda.synchronize()
+    assert tmoe.LAUNCHES["moe_swiglu_wgmma"] == \
+        before["moe_swiglu_wgmma"] + 1
+    assert tmoe.LAUNCHES["moe_swiglu"] == before["moe_swiglu"] + 1
+    torch.testing.assert_close(y, ref, atol=2e-2, rtol=2e-2)
+    rms = lambda t: t.square().mean().sqrt().item()               # noqa: E731
+    assert rms(y - ref) <= 1e-3 * rms(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(4, 1024), (1, 777)])
+def test_cuda_wkv6_chunked_at_the_models_decays(B, S, cuda, monkeypatch):
+    """The chunked body at rwkv6-3b's width, ragged S, decays drawn as
+    the model forms them (some exactly 0), from a state that is also the
+    output (aliased, as decode passes it): 2e-4 elementwise and 1e-6 on
+    the error's RMS over the result's, as ``chip_smoke.py`` holds it; the
+    plain version is never reached for CUDA tensors."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    H, n = 40, 64
+    r, k, v = (_randn((B, S, H, n), torch.bfloat16, cuda, 60 + i)
+               for i in range(3))
+    w = torch.exp(-torch.exp(torch.clamp(
+        _randn((B, S, H, n), torch.float32, cuda, 63) * 6.0 + 1.0,
+        -20.0, 10.0)))
+    assert bool((w == 0).any())
+    u = _randn((H, n), torch.float32, cuda, 64) * 0.5
+    s0 = _randn((B, H, n, n), torch.float32, cuda, 65) * 0.5
+    ry, rs = twkv.wkv6_ref(r, k, v, w, u, s0)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(wkv_ops, "wkv6_ref", no_plain)
+    state = s0.clone()
+    before = dict(twkv.LAUNCHES)
+    y, s = wkv_ops.wkv6(r, k, v, w, u, state, state_out=state)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6_chunked"] == before["wkv6_chunked"] + 1
+    assert twkv.LAUNCHES["wkv6_serial"] == before["wkv6_serial"]
+    assert s.data_ptr() == state.data_ptr()
+    rms = lambda t: t.square().mean().sqrt().item()               # noqa: E731
+    for got, want in ((y, ry), (state, rs)):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+        assert rms(got - want) <= 1e-6 * rms(want)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,10 @@ Tolerances, with their reasons:
 * MoE SwiGLU, float32: 1e-5, the reference kernel tests' figure
   (tests/test_kernels.py); both sides compute the same float32 products,
   summed in another order.  bfloat16 in, bfloat16 out: one bf16 rounding
-  of the same float32 value, 1e-2 (values are below 2).
+  of the same float32 value, 1e-2 (values are below 2).  The prefill
+  body's model (h through bf16 hi + lo): ``chip_smoke.py``'s MOE_TOL and
+  MOE_RMS_TOL, 2e-2 elementwise and 1e-3 on the error's RMS over the
+  output's.
 * WKV6, float32: 2e-5 on y and on the state.  The same per-step float32
   ops as ``wkv6_scan``, whose einsum sums in another order; the
   reference's own kernel bound is 2e-4 (tests/test_kernels.py), which
@@ -29,8 +32,11 @@ from repro.kernels.wkv6.kernel import wkv6_tpu                       # noqa
 from repro.kernels.wkv6.ref import wkv6_ref as j_wkv6_ref            # noqa
 from repro.models import layers as j_layers                          # noqa
 from repro.models.rwkv import wkv6_scan                              # noqa
+from repro_torch.kernels import _build                              # noqa
+from repro_torch.kernels.moe_gemm import kernel as k_moe             # noqa
 from repro_torch.kernels.moe_gemm import ops as t_moe                # noqa
-from repro_torch.kernels.moe_gemm.ref import moe_swiglu_ref          # noqa
+from repro_torch.kernels.moe_gemm.ref import (moe_swiglu_ref,        # noqa
+                                              moe_swiglu_split_ref)
 from repro_torch.kernels.wkv6 import ops as t_wkv                    # noqa
 from repro_torch.kernels.wkv6.ref import wkv6_ref                    # noqa
 from repro_torch.models import layers as t_layers                    # noqa
@@ -83,6 +89,86 @@ def test_moe_swiglu_bf16_rounds_once():
     np.testing.assert_allclose(np_of(got.float()), want, atol=1e-2,
                                rtol=1e-2)
     torch.testing.assert_close(got, moe_swiglu_ref(*tb), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("E,C,d,ff", [
+    (4, 160, 128, 64),              # granite's proportions, cut
+    (2, 37, 64, 1000 // 8),         # ragged C; ff a multiple of 8 only
+    (3, 300, 96, 40)])
+def test_moe_split_model_holds_the_bf16_contract(E, C, d, ff):
+    """The wgmma body's two-kernel split (h written as bf16 hi + lo and
+    read back) against the float32-h plain version, on bf16 inputs at
+    the card's tolerances; h rounded to bf16 alone is measurably worse
+    in RMS."""
+    rng = np.random.default_rng(E * C)
+    x = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32))
+    wg, wu = (torch.from_numpy(
+        (rng.standard_normal((E, d, ff)) * d ** -0.5).astype(np.float32))
+        for _ in range(2))
+    wd = torch.from_numpy((rng.standard_normal((E, ff, d))
+                           * ff ** -0.5).astype(np.float32))
+    xb, gb, ub, db = (t.to(torch.bfloat16) for t in (x, wg, wu, wd))
+    want = moe_swiglu_ref(xb, gb, ub, db).float()
+    got = moe_swiglu_split_ref(xb, gb, ub, db)
+    assert got.dtype == torch.bfloat16
+    got = got.float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    rms = lambda t: t.square().mean().sqrt().item()            # noqa: E731
+    assert rms(got - want) <= 1e-3 * rms(want)
+    # before the output's rounding, hi + lo stays far closer to float32 h
+    # than hi alone
+    x32 = xb.float()
+    h = torch.nn.functional.silu(torch.bmm(x32, gb.float())) \
+        * torch.bmm(x32, ub.float())
+    hi = h.to(torch.bfloat16).float()
+    lo = (h - hi).to(torch.bfloat16).float()
+    y32 = torch.bmm(h, db.float())
+    err_split = rms(torch.bmm(hi, db.float()) + torch.bmm(lo, db.float())
+                    - y32)
+    assert err_split < 0.1 * rms(torch.bmm(hi, db.float()) - y32)
+
+
+def test_moe_body_plan():
+    """bfloat16 prefill shapes (C above 16) take the wgmma body, decode
+    (C 2-16) the mma.sync body, float32 and shapes neither takes the
+    CUDA-core one; each body has its own launch counter."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert k_moe.DECODE_C == 16
+    for C in (17, 37, 40, 320, 1280):                # engine + prefill
+        assert k_moe.body_for(bf, C, 1024, 512) == "wgmma"
+    assert k_moe.body_for(bf, 37, 1024, 1408) == "wgmma"
+    assert k_moe.body_for(bf, 37, 1024, 1000) == "wgmma"
+    assert k_moe.body_for(bf, 300, 2048, 1408) == "wgmma"
+    for C in (2, 4, 16):                             # decode
+        assert k_moe.body_for(bf, C, 1024, 512) == "mma"
+    assert k_moe.body_for(bf, 4, 2048, 512) == "cuda_cores"   # d > 1024
+    assert k_moe.body_for(bf, 4, 64, 40) == "cuda_cores"      # d % 128
+    assert k_moe.body_for(bf, 100, 1024, 100) == "cuda_cores"  # ff % 8
+    for C in (4, 1280):
+        assert k_moe.body_for(f32, C, 1024, 512) == "cuda_cores"
+    assert set(k_moe.LAUNCHES) == {"moe_swiglu"} | {
+        "moe_swiglu_" + b for b in k_moe.BODIES}
+
+
+def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
+    """A source's library name covers the local headers it includes, so
+    editing ``common/csrc/hopper.cuh`` rebuilds both libraries that use
+    it."""
+    from repro_torch.kernels.flash_attention import kernel as k_fa
+    hdr = (_build.Path(k_fa.SOURCE).parents[2] / "common" / "csrc"
+           / "hopper.cuh").resolve()
+    assert _build.local_includes(k_fa.SOURCE) == [hdr]
+    assert _build.local_includes(k_moe.SOURCE) == [hdr]
+    src = tmp_path / "a" / "k.cu"
+    src.parent.mkdir()
+    inc = tmp_path / "h.cuh"
+    inc.write_text('#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    src.write_text('#include <cuda.h>\n#include "../h.cuh"\n')
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "/bin/nvcc")
+    before = _build.library_path("k", src)
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    assert _build.library_path("k", src) != before
 
 
 @pytest.mark.parametrize("bad", ["rank", "wg", "wd"])
@@ -211,3 +297,55 @@ def test_group_norm_heads_matches_reference(dtype):
     np.testing.assert_allclose(np_of(got.float()),
                                np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's build report: instance names, spills, wgmma serialisation
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN46_GLOBAL__N__4ae306ff_13_moe_swiglu_cu_fe11f9479hopper_tc14"
+     "gate_up_kernelE14CUtensorMap_stS1_S1_P13__nv_bfloat16S3_iiii",
+     "gate_up_kernel"),
+    ("_ZN39_GLOBAL__N__910ce58b_7_wkv6_cu_a79acc7311wkv6_kernelI13__nv_"
+     "bfloat16Li64EEEvPKT_S4_S4_PKfS6_S6_PfS7_ii", "wkv6_kernel<bf16,64>"),
+    ("_ZN12_GLOBAL__N_17chunked16chunk_out_kernelIfLi64EEEvPKT_",
+     "chunk_out_kernel<f32,64>"),
+    ("_ZN12_GLOBAL__N_12tc25flash_attention_tc_kernelILi128EEEvv",
+     "flash_attention_tc_kernel<128>"),
+    ("not_a_kernel_name", "not_a_kernel_name")])
+def test_chip_smoke_kernel_label(mangled, label):
+    assert _chip_smoke().kernel_label(mangled) == label
+
+
+def test_chip_smoke_ptxas_report_and_body_of():
+    cs = _chip_smoke()
+    a = "_ZN12_GLOBAL__N_19hopper_tc11down_kernelEv"
+    b = "_ZN12_GLOBAL__N_17chunked16chunk_out_kernelIfLi64EEEvv"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{a}' for 'sm_90a'",
+        "ptxas info    : Used 154 registers, 1024 bytes smem",
+        f"ptxas info    : (C7511) Potential Performance Loss: wgmma.mma_async"
+        f" instructions are serialized in the function '{a}'",
+        f"ptxas info    : Compiling entry function '{b}' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 64 registers"])
+    down, out = cs.ptxas_instances(log)
+    assert down == dict(name="down_kernel", registers=154, spill_bytes=0,
+                        smem_bytes=1024, wgmma_serialized=True)
+    assert out == dict(name="chunk_out_kernel<f32,64>", registers=64,
+                       spill_bytes=8, smem_bytes=0, wgmma_serialized=False)
+    before = {"wkv6": 0, "wkv6_serial": 2, "wkv6_chunked": 5}
+    after = {"wkv6": 1, "wkv6_serial": 2, "wkv6_chunked": 6}
+    assert cs.body_of(after, before, "wkv6_") == "chunked"
+    with pytest.raises(AssertionError, match="exactly one"):
+        cs.body_of(before, before, "wkv6_")

@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Kernel rows 5 (fused expert SwiGLU) and 7 (WKV6) of this checkout
+against the same rows of other checkouts, in one process on one CUDA
+card.
+
+Each ``--other DIR`` is the root of another checkout of this repository
+(for example the parent commit, unpacked with ``git archive``): its
+``src/repro_torch/kernels/moe_gemm`` and ``kernels/wkv6`` packages are
+loaded under names of their own, and their CUDA sources are built beside
+this checkout's libraries (a library's name hashes its source, so the
+versions never mix).
+
+At each shape every version is first held against this checkout's plain
+version (``MOE_TOL``/``MOE_RMS_TOL`` and ``WKV_TOL``/``WKV_RMS_TOL`` of
+``chip_smoke.py``), then timed in rounds ordered this, others, others
+reversed, this (ABBA), each round giving
+
+* ``device_ms``: ``chip_smoke.device_ms``, the calls queued behind a
+  sleep kernel, so only the device's work is inside;
+* ``ms``: ``chip_smoke.timed_ms``, the host's enqueue inside the events;
+
+and, for this checkout's version, ``by_kernel``: device microseconds a
+call of each CUDA kernel it launches (``torch.profiler`` over 5 calls).
+``bound_ms`` is the larger of the operations over the card's peak rate
+and the bytes (each input read once, each output written once) over its
+memory rate, as in ``chip_smoke.py``.
+
+Shapes: MoE at granite-moe-1b-a400m's prefill (E 32, C 1280, d 1024, ff
+512), an engine prefill (C 320) and engine decode (C 4), bf16, with the
+composition of 3 ``torch.bmm`` + silu timed beside them; WKV6 at
+rwkv6-3b's prefill (B 4, S 1024, H 40, n 64, bf16 r/k/v, from a state),
+a ragged S 777 with the model's decays, and decode (B 8, S 1).
+
+    python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
+        [--out report.json]
+
+Needs a CUDA card; prints one JSON line per measurement and the whole
+report as the last line (also written to ``--out`` when given).
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNELS = Path("src/repro_torch/kernels")
+
+MOE_SHAPES = (("prefill", 32, 1280, 1024, 512),
+              ("engine prefill", 32, 320, 1024, 512),
+              ("decode", 32, 4, 1024, 512))
+WKV_SHAPES = (("prefill", 4, 1024, 40, 64, "uniform"),
+              ("ragged, model decays", 1, 777, 40, 64, "model"),
+              ("decode", 8, 1, 40, 64, "uniform"))
+
+
+def load_package(root: Path, sub: str, tag: str):
+    """The kernel package ``sub`` (``moe_gemm`` or ``wkv6``) of the
+    checkout at ``root``, imported as a package named ``tag`` so that its
+    relative imports resolve inside that checkout."""
+    pkg = (root / KERNELS / sub).resolve()
+    spec = importlib.util.spec_from_file_location(
+        tag, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[tag] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def by_kernel(fn, calls: int = 5) -> dict:
+    """Device microseconds a call, by kernel name, over ``calls`` calls
+    of ``fn`` (``torch.profiler``, CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
+def abba(names: list, rounds: int) -> list:
+    order = []
+    for _ in range(rounds):
+        order += names + names[::-1]
+    return order
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", action="append", default=[], type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import moe_gemm, wkv6
+
+    moe = {"this": moe_gemm.moe_swiglu_cuda}
+    wkv = {"this": wkv6.wkv6_cuda}
+    for i, root in enumerate(args.other):
+        tag = f"{root.name}_{i}"
+        moe[tag] = load_package(root, "moe_gemm",
+                                f"other{i}_moe_gemm").moe_swiglu_cuda
+        wkv[tag] = load_package(root, "wkv6", f"other{i}_wkv6").wkv6_cuda
+    report = {"card": cs.card_line(), "moe_swiglu": [], "wkv6": []}
+    print(report["card"], flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    for label, E, C, d, ff in MOE_SHAPES:
+        x = randn((E, C, d)).bfloat16()
+        wg = randn((E, d, ff), d ** -0.5).bfloat16()
+        wu = randn((E, d, ff), d ** -0.5).bfloat16()
+        wd = randn((E, ff, d), ff ** -0.5).bfloat16()
+        want = moe_gemm.moe_swiglu_ref(x, wg, wu, wd).float()
+        tol, rms_tol = cs.MOE_TOL["bfloat16"], cs.MOE_RMS_TOL["bfloat16"]
+        fns = {n: (lambda f=f: f(x, wg, wu, wd)) for n, f in moe.items()}
+        for n, fn in fns.items():
+            got = fn().float()
+            rr = cs.rel_rms(got, want)
+            if not (torch.allclose(got, want, atol=tol, rtol=tol)
+                    and rr <= rms_tol):
+                raise AssertionError(f"moe_swiglu {n} {label}: max "
+                                     f"{(got - want).abs().max().item()}, "
+                                     f"RMS ratio {rr}")
+        fns["composition"] = lambda: torch.bmm(
+            F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+        rec = {"case": label, "E": E, "C": C, "d": d, "ff": ff,
+               "bound_ms": max(6.0 * E * C * d * ff / cs.PEAK_BF16_S,
+                               (2 * E * C * d + 3 * E * d * ff) * 2
+                               / cs.PEAK_BYTES_S) * 1e3,
+               "by_kernel": by_kernel(fns["this"]), "runs": []}
+        print(json.dumps({"kernel": "moe_swiglu", "case": label,
+                          "by_kernel": rec["by_kernel"]}), flush=True)
+        for n in abba(list(moe) + ["composition"], args.rounds):
+            run = {"version": n, "device_ms": cs.device_ms(fns[n], 30, 3),
+                   "ms": cs.timed_ms(fns[n], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "moe_swiglu", "case": label, **run}),
+                  flush=True)
+        report["moe_swiglu"].append(rec)
+        del x, wg, wu, wd, want
+
+    for label, B, S, H, n, decays in WKV_SHAPES:
+        r, k, v = (randn((B, S, H, n)).bfloat16() for _ in range(3))
+        if decays == "model":
+            w = torch.exp(-torch.exp(torch.clamp(
+                randn((B, S, H, n), 6.0) + 1.0, -20.0, 10.0)))
+        else:
+            w = torch.rand((B, S, H, n), generator=g, device=dev) * 0.65 \
+                + 0.3
+        u = randn((H, n), 0.5)
+        s0 = randn((B, H, n, n), 0.5)
+        want_y, want_s = wkv6.wkv6_ref(r, k, v, w, u, s0)
+        fns = {nm: (lambda f=f: f(r, k, v, w, u, s0))
+               for nm, f in wkv.items()}
+        for nm, fn in fns.items():
+            y, s = fn()
+            rr = max(cs.rel_rms(y, want_y), cs.rel_rms(s, want_s))
+            if not (torch.allclose(y, want_y, atol=cs.WKV_TOL,
+                                   rtol=cs.WKV_TOL)
+                    and torch.allclose(s, want_s, atol=cs.WKV_TOL,
+                                       rtol=cs.WKV_TOL)
+                    and rr <= cs.WKV_RMS_TOL):
+                raise AssertionError(f"wkv6 {nm} {label}: RMS ratio {rr}")
+        rec = {"case": label, "B": B, "S": S, "H": H, "n": n,
+               "bound_ms": max(3.0 * B * S * H * n * n / cs.ISSUE_S,
+                               (B * S * H * n * (3 * 2 + 4 + 4)
+                                + 2 * B * H * n * n * 4 + H * n * 4)
+                               / cs.PEAK_BYTES_S) * 1e3,
+               "by_kernel": by_kernel(fns["this"]), "runs": []}
+        print(json.dumps({"kernel": "wkv6", "case": label,
+                          "by_kernel": rec["by_kernel"]}), flush=True)
+        for nm in abba(list(wkv), args.rounds):
+            run = {"version": nm, "device_ms": cs.device_ms(fns[nm], 30, 3),
+                   "ms": cs.timed_ms(fns[nm], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "wkv6", "case": label, **run}),
+                  flush=True)
+        report["wkv6"].append(rec)
+
+    text = json.dumps(report)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text)
+    print(text, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -110,8 +110,11 @@ def _groups(dev: dict) -> dict:
     mine = {"flash_attention": ("flash_attention_kernel",
                                 "flash_attention_tc_kernel"),
             "rmsnorm": ("rmsnorm_kernel",),
-            "moe_swiglu": ("moe_swiglu", "sum_slices_kernel"),
-            "wkv6": ("wkv6_kernel",), "rglru_scan": ("rglru_scan_kernel",),
+            "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
+                           "hopper_tc::gate_up_kernel",
+                           "hopper_tc::down_kernel"),
+            "wkv6": ("wkv6_kernel", "chunked::chunk_"),
+            "rglru_scan": ("rglru_scan_kernel",),
             "sweep": ("sweep_kernel",)}
     out = dict.fromkeys(tuple(mine) + ("matmul", "other"), 0.0)
     for name, v in dev.items():
