@@ -6,8 +6,9 @@ card, over its main paths.
   variants of the sweep kernel against the plain PyTorch version on the
   card, drives ``Session(get_scenario("megafleet_100k")).run()`` at full
   size, holds each variant against the plain version again on the inputs
-  of its first launch there, and checks the card's result against the
-  CPU path.
+  of its first launch there and on the serving plan's one lane
+  (starcoder2-3b's 31 splits, ``max_iters`` 200), and checks the card's
+  result against the CPU path.
 * Split LLM serving of starcoder2-3b at full width and depth (random
   weights from a seed): holds the RMSNorm and flash-attention kernels
   against their plain versions at the model's shapes, runs Li-GD split
@@ -53,10 +54,9 @@ SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 67e12 fp32
 #: FLOP/s outside the tensor cores, which counts a fused multiply-add as
-#: two (128 fp32 lanes per SM per clock).  The kernel is built with
-#: --fmad=false, so each add, mul or compare is an instruction of its own:
-#: ISSUE_S of them per second.  A division, exp2, log2 or sqrt issues at
-#: least one multi-function-unit instruction (RCP, EX2, LG2, RSQ), of
+#: two (128 fp32 lanes per SM per clock): ISSUE_S instructions per second,
+#: an add, mul, multiply-add or compare each.  A reciprocal, exp2 or log2
+#: is at least one multi-function-unit instruction (RCP, EX2, LG2), of
 #: which an SM runs 16 per clock on compute capability 9.0 (CUDA C++
 #: Programming Guide, arithmetic instruction throughput): MUFU_S.
 PEAK_BYTES_S = 3.35e12
@@ -64,8 +64,8 @@ PEAK_FP32_S = 67e12
 ISSUE_S = PEAK_FP32_S / 2
 MUFU_S = PEAK_FP32_S / 16
 
-#: kernel vs plain version on the card (same arithmetic, op for op, both
-#: built without fast math and without FMA contraction)
+#: kernel vs plain version on the card (the same float32 ops in the same
+#: order, each rounded on its own)
 U_RTOL = 1e-5
 X_ATOL = 1e-5
 ITERS_SHARE = 0.01           # lanes whose count may differ, by at most 1
@@ -120,15 +120,20 @@ WKV_RMS_TOL = 1e-6
 #: rtol 0.02, tests/test_split_serving.py); f32 greedy tokens exactly
 CROSS_ATOL, CROSS_RTOL = 0.08, 0.02
 
-#: operations counted from csrc/sweep.cu as (plain, mufu): per objective
-#: evaluation, per GD update besides its evaluation, and per split's
-#: set-up.  A plain op is an add, mul, compare or clamp side; a mufu op is
-#: a division, exp2, log2 or sqrt, and counts one instruction against
-#: ISSUE_S besides its one against MUFU_S (a division's Newton steps are
-#: not counted, so the bound stays a lower one)
+#: the fewest operations the sweep's objective, its gradient and the GD
+#: rule need, as (plain, mufu): per objective evaluation, per GD update
+#: besides its evaluation, and per split's set-up, whatever body computes
+#: them.  A plain op is an add, mul, multiply-add, compare or clamp side;
+#: a mufu op is a reciprocal, exp2 or log2, and counts one instruction
+#: against ISSUE_S besides its one against MUFU_S.  U1 needs 3 log2
+#: (r, 1 + q/B, B/B0), 2 exp2 (r^-a, g(B)) and 4 reciprocals (B, r,
+#: 1 + q/B, L; 1/τ = (1/B)(1/L)) and 26 plain ops; the joint variant adds
+#: U2 (2 log2, 1 exp2, 3 reciprocals, 19 plain) and 6 to combine them;
+#: lane constants (1/c_dev, 1/k, 1/B0, U2's) are set up once a lane and
+#: not counted
 OPS = {
-    "ligd_sweep": {"eval": (34, 14), "update": (22, 1), "split": (24, 6)},
-    "mligd_sweep": {"eval": (64, 24), "update": (38, 1), "split": (43, 14)},
+    "ligd_sweep": {"eval": (26, 9), "update": (18, 0), "split": (13, 0)},
+    "mligd_sweep": {"eval": (51, 15), "update": (30, 0), "split": (13, 0)},
 }
 
 #: the same count for csrc/steps.cu (kernel row 2), built with FMA
@@ -284,24 +289,14 @@ def synthetic_case(profile, X, joint, max_iters, device) -> tuple:
     return feat, x0, tab, kw
 
 
-def compare_sweep(name, label, feat, x0, tab, kw) -> dict:
-    """Kernel vs plain version on the same card inputs (``kw``: the
-    wrapper's keyword arguments); raises on a breach.  Returns the
-    measured numbers."""
+def sweep_errors(kernel_out, plain_out) -> tuple:
+    """Kernel outputs (u, xB, xr, iters, best) against the plain version's
+    (u, x, iters, best_s, best_x, best_u) on the same inputs: (errors,
+    list of breaches of U_RTOL, X_ATOL, ITERS_SHARE and NEAR_TIE_RTOL)."""
     import torch
-    from repro_torch.kernels.ligd_step import (ligd_sweep_ref,
-                                               mligd_sweep_ref, sweep_cuda)
-    kw = dict(kw)
-    joint = kw.pop("joint")
-    K = x0.shape[0]
-    X = feat.shape[1]
-    run_k = lambda: sweep_cuda(feat, x0, tab, joint=joint, **kw)  # noqa: E731
-    ref = mligd_sweep_ref if joint else ligd_sweep_ref
-    run_p = lambda: ref(feat, x0, tab, chunk=1, **kw)              # noqa: E731
-    u_k, xB_k, xr_k, it_k, best_k = run_k()
-    u_p, x_p, it_p, bs_p, bx_p, bu_p = run_p()
-    torch.cuda.synchronize()
-
+    u_k, xB_k, xr_k, it_k, best_k = kernel_out
+    u_p, x_p, it_p, bs_p, bx_p, bu_p = plain_out
+    K = len(bx_p)
     rel_u = ((u_k - u_p).abs() / u_p.abs().clamp_min(1e-30)).max().item()
     rel_bu = ((best_k[1] - bu_p).abs()
               / bu_p.abs().clamp_min(1e-30)).max().item()
@@ -318,21 +313,12 @@ def compare_sweep(name, label, feat, x0, tab, kw) -> dict:
     near_tie = (top2[1] - top2[0]) <= NEAR_TIE_RTOL * top2[0].abs()
     split_diff = best_k[0] != bs_p
     split_bad = int((split_diff & ~near_tie).sum().item())
-
-    ms = timed_ms(run_k, runs=30, warmup=3)
-    plain_ms = timed_ms(run_p, runs=3, warmup=1)
-    M1 = tab.shape[0]
-    b_ms, b_by = bound_ms(name, X, M1, K, it_p)
-    rec = dict(X=X, M1=M1, u_rel=rel_u, best_u_rel=rel_bu, x_abs=err_x,
+    err = dict(u_rel=rel_u, best_u_rel=rel_bu, x_abs=err_x,
                iters_lanes_differ=lanes_it, iters_max_diff=max_dit,
                split_diff=int(split_diff.sum().item()),
                split_diff_outside_near_ties=split_bad,
                near_tie_lanes=int(near_tie.sum().item()),
-               ms=ms, device_ms=device_ms(run_k, 30, 3), plain_ms=plain_ms,
-               mean_iters_per_split=float(it_p.mean().item()),
-               bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(abs_u, err_x))
-    phase("kernel", f"{name} {label} " + json.dumps(rec))
     breaches = []
     if not (rel_u <= U_RTOL and rel_bu <= U_RTOL):
         breaches.append(f"U rel {max(rel_u, rel_bu):.3g} > {U_RTOL}")
@@ -343,6 +329,38 @@ def compare_sweep(name, label, feat, x0, tab, kw) -> dict:
                         f"max {max_dit}")
     if split_bad:
         breaches.append(f"{split_bad} split mismatches outside near-ties")
+    return err, breaches
+
+
+def compare_sweep(name, label, feat, x0, tab, kw) -> dict:
+    """Kernel vs plain version on the same card inputs (``kw``: the
+    wrapper's keyword arguments); raises on a breach.  Returns the
+    measured numbers."""
+    import torch
+    from repro_torch.kernels.ligd_step import (ligd_sweep_ref,
+                                               mligd_sweep_ref, sweep_cuda)
+    kw = dict(kw)
+    joint = kw.pop("joint")
+    K = x0.shape[0]
+    X = feat.shape[1]
+    run_k = lambda: sweep_cuda(feat, x0, tab, joint=joint, **kw)  # noqa: E731
+    ref = mligd_sweep_ref if joint else ligd_sweep_ref
+    run_p = lambda: ref(feat, x0, tab, chunk=1, **kw)              # noqa: E731
+    out_k = run_k()
+    out_p = run_p()
+    torch.cuda.synchronize()
+    err, breaches = sweep_errors(out_k, out_p)
+    it_p = out_p[2]
+
+    ms = timed_ms(run_k, runs=30, warmup=3)
+    plain_ms = timed_ms(run_p, runs=3, warmup=1)
+    M1 = tab.shape[0]
+    b_ms, b_by = bound_ms(name, X, M1, K, it_p)
+    rec = dict(X=X, M1=M1, **err, ms=ms, device_ms=device_ms(run_k, 30, 3),
+               plain_ms=plain_ms,
+               mean_iters_per_split=float(it_p.mean().item()),
+               bound_ms=b_ms, bound_by=b_by)
+    phase("kernel", f"{name} {label} " + json.dumps(rec))
     if breaches:
         raise AssertionError(f"{name} {label} X={X}: " + "; ".join(breaches))
     return rec
@@ -1269,7 +1287,8 @@ def main() -> int:
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
                moe_kernel, rglru_kernel, wkv_kernel),
-              no_spill={rms_kernel.LIB_NAME: None,
+              no_spill={sweep_kernel.LIB_NAME: ("sweep_kernel",),
+                        rms_kernel.LIB_NAME: None,
                         flash_kernel.LIB_NAME: None,
                         moe_kernel.LIB_NAME: ("gate_up_kernel",
                                               "down_kernel"),
@@ -1325,7 +1344,21 @@ def main() -> int:
         errs[name].append(recs[name]["max_abs_err"])
     del recorded
 
-    # 4c. kernel row 2 on the session's users at their planned splits
+    # 4c. the serving plan's launch: one lane, 31 splits, max_iters 200
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_split
+    plan, unspy = record_first_launches(sweep_ops)
+    try:
+        serve_split.plan_split(get_config(serve_split.ARCH), seq=1024,
+                               batch=4, c_dev=serve_split.C_DEV,
+                               device=device)
+    finally:
+        unspy()
+    rec = compare_sweep("ligd_sweep", "starcoder2-3b serving plan",
+                        *plan["ligd_sweep"])
+    errs["ligd_sweep"].append(rec["max_abs_err"])
+
+    # 4d. kernel row 2 on the session's users at their planned splits
     steps = steps_case(sess, device)
     del sess
 

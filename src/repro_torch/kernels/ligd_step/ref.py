@@ -351,3 +351,184 @@ def ligd_steps_ref(feat: torch.Tensor, x0: torch.Tensor, edge: dict, *,
                                      xg)
         x = torch.clamp(x - lr * g, 0.0, 1.0)
     return x, _steps_utility(feat, x, edge).detach()
+
+
+# ---------------------------------------------------------------------------
+# A rehearsal of a sweep body on the card's approximate instructions (only
+# tests use it): the algebra such a body would run — shared reciprocals of
+# B, r and 1 + q/B, r^-a and r^(-a-1) from one log2, multiply-adds fused,
+# ||g|| < eps tested as gsq < eps² — in float32 on whole tensors, with every
+# reciprocal, exp2 and log2 perturbed by a seeded error up to the PTX ISA's
+# stated maximum of the instruction that would compute it: rcp.approx.ftz
+# 1 ulp (2^-23 relative), ex2.approx.ftz 2 ulp (2^-22 relative),
+# lg2.approx.ftz 2^-22 absolute (2 ulp where |log2 x| > 1).  A fused
+# multiply-add is the float64 sum rounded once to float32.
+# tests/test_torch_ligd_sweep.py holds it against the JAX reference at the
+# card's tolerances, which is how it shows where csrc/sweep.cu must stay
+# exact.
+# ---------------------------------------------------------------------------
+class _Approx:
+    """The perturbed instructions, drawing from one seeded generator
+    (``seed=None``: unperturbed)."""
+
+    def __init__(self, seed):
+        self.gen = None if seed is None else torch.Generator().manual_seed(
+            seed)
+
+    def _unit(self, y):
+        if self.gen is None:
+            return torch.zeros_like(y)
+        return torch.rand(y.shape, generator=self.gen) * 2.0 - 1.0
+
+    def lg2(self, a):
+        y = torch.log2(a)
+        return y + self._unit(y) * torch.clamp_min(y.abs(), 1.0) * 2.0 ** -22
+
+    def ex2(self, a):
+        y = torch.exp2(a)
+        return y * (1.0 + self._unit(y) * 2.0 ** -22)
+
+    def rcp(self, a):
+        y = 1.0 / a
+        return y * (1.0 + self._unit(y) * 2.0 ** -23)
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fast_u1(fr, f_l, f_e, w, offl, ap):
+    """(U, grad) closure of U1 in the fast body's algebra."""
+    B_min, Bs = fr["B_min"], fr["B_max"] - fr["B_min"]
+    r_min, rs = fr["r_min"], fr["r_max"] - fr["r_min"]
+    q, inv_B0 = fr["c1"] / fr["N0"], 1.0 / fr["B0"]
+    nla, gam = -fr["lam_a"], fr["gamma_B"]
+    inv_k = 1.0 / fr["k"]
+    ow = offl * (w + fr["m"])
+    uc = _fma(f_l, fr["wT"] / fr["c_dev"] + fr["wE"] * fr["epf"],
+              fr["wT"] * (fr["t_ag"] * inv_k))
+    uc = _fma(ow, fr["wT"] * fr["hops"] / fr["B_bh"], uc)
+    cTs = offl * f_e * (fr["wT"] / fr["c_min"])
+    cTu, cE = fr["wT"] * ow, fr["wE"] * fr["p_tx"] * ow
+    cCr = fr["wC"] * fr["rho_min"] * inv_k * offl
+    cCB = fr["wC"] * fr["rho_B"] * inv_k * offl
+    minus_inv_ln2 = torch.full_like(q, -1.0 / LN2)
+
+    def ug(x):
+        xB, xr = x
+        B, r = _fma(xB, Bs, B_min), _fma(xr, rs, r_min)
+        inv_lam = ap.ex2(nla * ap.lg2(r))
+        inv_r, inv_B = ap.rcp(r), ap.rcp(B)
+        qB = q * inv_B
+        L = ap.lg2(1.0 + qB)
+        inv_tau = inv_B * ap.rcp(L)
+        pw = ap.ex2(gam * ap.lg2(B * inv_B0))
+        U = _fma(cTs, inv_lam, uc)
+        for c, v in ((cTu, inv_B), (cE, inv_tau), (cCr, r), (cCB, pw)):
+            U = _fma(c, v, U)
+        dtau = _fma(minus_inv_ln2, qB * ap.rcp(1.0 + qB), L)
+        dB = _fma(-(cE * dtau) * inv_tau, inv_tau, -(cTu * inv_B) * inv_B)
+        dB = _fma(cCB * gam * pw, inv_B, dB)
+        dr = _fma(nla * cTs * inv_lam, inv_r, cCr)
+        return U, (dB * Bs, dr * rs)
+    return ug
+
+
+def _fast_u2(fr, ap):
+    """(U₂, dU₂/dxB_back) closure in the fast body's algebra."""
+    B_min, Bs = fr["B_min"], fr["B_max"] - fr["B_min"]
+    q, inv_B0, gam = fr["c1"] / fr["N0"], 1.0 / fr["B0"], fr["gamma_B"]
+    wm, inv_k = fr["w_o"] + fr["m"], 1.0 / fr["k"]
+    lam_o = torch.exp2(fr["lam_a"] * torch.log2(fr["r_o"]))
+    u2c = (fr["wT"] * (fr["f_l_o"] / fr["c_dev"]
+                       + fr["f_e_o"] / (lam_o * fr["c_min"])
+                       + fr["hops_bk"] * wm / fr["B_bh"])
+           + fr["wE"] * fr["epf"] * fr["f_l_o"]
+           + fr["wC"] * fr["rent_o"] * inv_k)
+    cT, cE = fr["wT"] * wm, fr["wE"] * fr["p_tx"] * wm
+    cCB = fr["wC"] * fr["rho_B"] * inv_k
+    minus_inv_ln2 = torch.full_like(q, -1.0 / LN2)
+
+    def ug(xBb):
+        B = _fma(xBb, Bs, B_min)
+        inv_B = ap.rcp(B)
+        qB = q * inv_B
+        L = ap.lg2(1.0 + qB)
+        inv_tau = inv_B * ap.rcp(L)
+        pw = ap.ex2(gam * ap.lg2(B * inv_B0))
+        U = _fma(cT, inv_B, u2c)
+        U = _fma(cCB, pw, _fma(cE, inv_tau, U))
+        dtau = _fma(minus_inv_ln2, qB * ap.rcp(1.0 + qB), L)
+        dB = _fma(-(cE * dtau) * inv_tau, inv_tau, -(cT * inv_B) * inv_B)
+        dB = _fma(cCB * gam * pw, inv_B, dB)
+        return U, dB * Bs
+    return ug
+
+
+def _fast_gd(ug_fn, x, *, lr, eps, max_iters):
+    """Projected GD with the paper's rule, in the fast body's algebra:
+    x - lr·g fused, gsq < eps² for ||g|| < eps."""
+    u, g = ug_fn(x)
+    it = torch.zeros_like(u)
+    done = torch.zeros(u.shape, dtype=torch.bool)
+    eps2 = torch.tensor(eps, dtype=torch.float32) ** 2
+    while True:
+        active = torch.logical_not(done) & (it < float(max_iters))
+        if not bool(active.any()):
+            return x, u, it
+        x_new = tuple(torch.clamp(_fma(torch.full_like(gi, -lr), gi, xi),
+                                  0.0, 1.0) for xi, gi in zip(x, g))
+        u_new, g_new = ug_fn(x_new)
+        gsq = g[0] * g[0]
+        for gi in g[1:]:
+            gsq = _fma(gi, gi, gsq)
+        small_dx = functools.reduce(torch.logical_and, [
+            torch.abs(a - b) < eps for a, b in zip(x_new, x)])
+        stop = (gsq < eps2) | (torch.abs(u_new - u) < eps) | small_dx
+        x = tuple(torch.where(active, a, b) for a, b in zip(x_new, x))
+        u = torch.where(active, u_new, u)
+        g = tuple(torch.where(active, a, b) for a, b in zip(g_new, g))
+        done = torch.where(active, stop, done)
+        it = it + active.to(it.dtype)
+
+
+def fast_math_sweep_twin(feat, x0, tables, *, joint, lr=0.15, eps=1e-5,
+                         max_iters=400, warm_start=True, init=None,
+                         seed=None):
+    """The sweep in a fast-math body's algebra (CPU tensors), perturbed
+    from ``seed`` (None: unperturbed).  Returns what :func:`_sweep_ref`
+    returns."""
+    ap = _Approx(seed)
+    fr = _frows(feat)
+    tab = table_tensor(tables, feat.device)
+    x = tuple(x0[i] for i in range(x0.shape[0]))
+    u_b = torch.full_like(x[0], math.inf)
+    s_b = torch.zeros_like(x[0])
+    x_b = x
+    us, xs, its = [], [], []
+    u2 = _fast_u2(fr, ap) if joint else None
+    for s in range(tab.shape[0]):
+        if not warm_start:
+            x = tuple(torch.full_like(x[0], v) for v in init)
+        u1 = _fast_u1(fr, tab[s, 0], tab[s, 1], tab[s, 2], tab[s, 3], ap)
+        if joint:
+            def ug(x, u1=u1):
+                U1, (g1B, g1r) = u1(x[:2])
+                U2, g2 = u2(x[3])
+                R = x[2]
+                omR = 1.0 - R
+                return (_fma(R, U2 - U1, U1),
+                        (omR * g1B, omR * g1r, U2 - U1, R * g2))
+        else:
+            ug = u1
+        x, u, it = _fast_gd(ug, x, lr=lr, eps=eps, max_iters=max_iters)
+        better = u < u_b
+        u_b = torch.where(better, u, u_b)
+        s_b = torch.where(better, float(s), s_b)
+        x_b = tuple(torch.where(better, a, b) for a, b in zip(x, x_b))
+        us.append(u)
+        xs.append(torch.stack(x, 0))
+        its.append(it)
+    x_l = torch.stack(xs, 0)
+    return (torch.stack(us, 0), tuple(x_l[:, i] for i in range(len(x))),
+            torch.stack(its, 0), s_b, x_b, u_b)

@@ -7,10 +7,14 @@ repository's conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-The sweep's two versions evaluate the same float32 ops in the same order
-(the kernel is built without fast math and without FMA contraction), so
-they are held to 1e-5; the language-model kernels' tolerances are given
-beside their tests."""
+The sweep's two versions evaluate the same float32 ops in the same order,
+each rounded on its own (the kernel's divisions take their fast path only
+where it is the correctly rounded quotient, which a test below holds on
+the card), so they are held to 1e-5; the language-model kernels'
+tolerances are given beside their tests."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -48,30 +52,129 @@ def _card_inputs(joint, X, profile, device):
                                          device)
 
 
+def _hold_to_plain_version(feat, x0, tab, joint, **kw):
+    """One launch of the kernel against the plain version on the same card
+    tensors, at this file's tolerances; returns the plain version's
+    per-split iteration counts."""
+    kw = dict(KW, **kw)
+    init = (0.5,) * x0.shape[0]
+    name = "mligd_sweep" if joint else "ligd_sweep"
+    before = tsweep.LAUNCHES[name]
+    u, xB, xr, it, best = tsweep.sweep_cuda(
+        feat, x0, tab, joint=joint, warm_start=True, init=init, **kw)
+    torch.cuda.synchronize()
+    assert tsweep.LAUNCHES[name] == before + 1
+    ref_fn = tsweep.mligd_sweep_ref if joint else tsweep.ligd_sweep_ref
+    ur, xs, itr, bs, bx, bu = ref_fn(feat, x0, tab, init=init, chunk=1,
+                                     **kw)
+    assert_rel(u, ur, "U per layer", rtol=1e-5)
+    assert_rel(best[1], bu, "best U", rtol=1e-5)
+    np.testing.assert_allclose(np_of(xB), np_of(xs[0]), atol=1e-5)
+    np.testing.assert_allclose(np_of(xr), np_of(xs[1]), atol=1e-5)
+    assert_iters(np_of(it).T, np_of(itr).T)
+    ties = near_ties(np_of(ur).T, 1e-5) if ur.shape[0] > 1 else \
+        np.zeros(ur.shape[1], bool)
+    assert_discrete(np_of(best[0]).astype(np.int64),
+                    np_of(bs).astype(np.int64), ties, "best split")
+    return itr
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", [nin, vgg16])
 @pytest.mark.parametrize("joint", [False, True])
 def test_cuda_kernel_matches_plain_version(joint, model, cuda):
     profile = profile_of(model())
     feat, x0, tab = _card_inputs(joint, 4099, profile, cuda)   # ragged
-    init = (0.5,) * x0.shape[0]
-    name = "mligd_sweep" if joint else "ligd_sweep"
-    before = tsweep.LAUNCHES[name]
-    u, xB, xr, it, best = tsweep.sweep_cuda(
-        feat, x0, tab, joint=joint, warm_start=True, init=init, **KW)
-    torch.cuda.synchronize()
-    assert tsweep.LAUNCHES[name] == before + 1
-    ref_fn = tsweep.mligd_sweep_ref if joint else tsweep.ligd_sweep_ref
-    ur, xs, itr, bs, bx, bu = ref_fn(feat, x0, tab, init=init, chunk=1,
-                                     **KW)
-    assert_rel(u, ur, "U per layer", rtol=1e-5)
-    assert_rel(best[1], bu, "best U", rtol=1e-5)
-    np.testing.assert_allclose(np_of(xB), np_of(xs[0]), atol=1e-5)
-    np.testing.assert_allclose(np_of(xr), np_of(xs[1]), atol=1e-5)
-    assert_iters(np_of(it).T, np_of(itr).T)
-    assert_discrete(np_of(best[0]).astype(np.int64),
-                    np_of(bs).astype(np.int64),
-                    near_ties(np_of(ur).T, 1e-5), "best split")
+    _hold_to_plain_version(feat, x0, tab, joint)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_divergent_synthetic_mligd(cuda):
+    """chip_smoke.py's synthetic MLi-GD case (megafleet_100k's topology,
+    random original strategies) at 20,000 lanes: lanes hit the iteration
+    cap on different splits, so threads refill with new lanes at
+    different times."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    feat, x0, tab = chip_smoke.sweep_inputs(profile_of(nin()), 20_000, True,
+                                            seed=7, device=cuda)
+    itr = _hold_to_plain_version(feat, x0, tab, True)
+    assert (itr >= KW["max_iters"]).float().mean().item() > 0.1
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_serving_plan_single_lane(cuda):
+    """X = 1: the serving plan's sweep over starcoder2-3b's 31 split points
+    with ``max_iters`` 200, as launch/serve_split.py plans it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ligd import init_block
+    from repro_torch.core.profile import profile_transformer
+    from repro_torch.launch import serve_split
+    profile = profile_transformer(get_config(serve_split.ARCH), seq=1024,
+                                  batch=4, mode="prefill")
+    devs = tcosts.rows_to_device(tcosts.device_columns(
+        [tcosts.DeviceParams(c_dev=serve_split.C_DEV)]), cuda, 1)
+    feat = tsweep.pack_sweep_features(
+        devs, tcosts.edge_dict(tcosts.EdgeParams(), cuda),
+        float(profile.result_bits), 1)
+    tab = tsweep.table_tensor(tsweep.sweep_tables(profile), cuda)
+    assert tab.shape[0] == 31
+    _hold_to_plain_version(feat, init_block((0.5, 0.5), 1, cuda), tab, False,
+                           max_iters=200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint", [False, True])
+def test_cuda_kernel_ragged_lanes_on_both_division_paths(joint, cuda):
+    """1,037 lanes (not a multiple of 32), every third with a noise floor
+    that puts q/B under 1/16 (those lanes take CUDA's division intrinsics,
+    the others the fast paths), the plain version's answer on all."""
+    profile = profile_of(vgg16())
+    feat, x0, tab = _card_inputs(joint, 1037, profile, cuda)
+    n0 = tsweep.SWEEP_FIELDS.index("N0")
+    feat[n0, ::3] *= 1e6
+    q_over_B = feat[tsweep.SWEEP_FIELDS.index("c1")] / feat[n0] \
+        / feat[tsweep.SWEEP_FIELDS.index("B_max")]
+    assert (q_over_B[::3] < 1 / 16).all() and (q_over_B[1::3] > 1).all()
+    _hold_to_plain_version(feat, x0, tab, joint)
+
+
+@pytest.mark.cuda
+def test_cuda_fast_paths_equal_the_intrinsics(cuda):
+    """The sweep's fast division, reciprocal, exp2 and log2 equal CUDA's
+    div.rn, rcp.rn, exp2f and log2f bit for bit over the ranges the kernel
+    admits them (dividends and divisors 2^-100..2^100, quotients
+    2^-110..2^110, exponents -126..126, logarithms of 2^-100..2^100),
+    including divisors with all-ones and all-zeros mantissas."""
+    from repro_torch.kernels.ligd_step import kernel as sweep_kernel
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 1 << 22
+
+    def uniform(lo, hi):
+        return torch.rand(n, generator=g, device=cuda,
+                          dtype=torch.float64) * (hi - lo) + lo
+
+    def signs():
+        return torch.where(torch.rand(n, generator=g, device=cuda) < 0.5,
+                           -1.0, 1.0).double()
+
+    for mantissa in (None, 0x7fffff, 0):
+        eb = uniform(-100, 100)
+        eq = torch.maximum(torch.minimum(uniform(-110, 110), 100 - eb),
+                           -100 - eb)
+        b = (torch.exp2(eb) * signs()).float()
+        if mantissa is not None:
+            bits = b.view(torch.int32)
+            b = ((bits & ~0x7fffff) | mantissa).view(torch.float32)
+        a = (torch.exp2(eb + eq) * signs()).float()
+        c = uniform(-126, 126).float()
+        out = sweep_kernel.fast_path_check(a, b, c)
+        torch.cuda.synchronize()
+        bits = out.view(torch.int32)
+        for fast, exact, what in ((0, 4, "a/b"), (1, 5, "1/b"),
+                                  (2, 6, "2^c"), (3, 7, "log2|b|")):
+            differ = (bits[fast] != bits[exact]).sum().item()
+            assert differ == 0, f"{what}: {differ} of {n} differ"
 
 
 @pytest.mark.cuda

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Kernel rows 5 (fused expert SwiGLU) and 7 (WKV6) of this checkout
-against the same rows of other checkouts, in one process on one CUDA
-card.
+"""Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 5 (fused expert
+SwiGLU) and 7 (WKV6) of this checkout against the same rows of other
+checkouts, in one process on one CUDA card.
 
 Each ``--other DIR`` is the root of another checkout of this repository
 (for example the parent commit, unpacked with ``git archive``): its
-``src/repro_torch/kernels/moe_gemm`` and ``kernels/wkv6`` packages are
-loaded under names of their own, and their CUDA sources are built beside
-this checkout's libraries (a library's name hashes its source, so the
-versions never mix).
+``src/repro_torch/kernels/ligd_step``, ``moe_gemm`` and ``wkv6``
+packages are loaded under names of their own, and their CUDA sources are
+built beside this checkout's libraries (a library's name hashes its
+source, so the versions never mix).
 
 At each shape every version is first held against this checkout's plain
-version (``MOE_TOL``/``MOE_RMS_TOL`` and ``WKV_TOL``/``WKV_RMS_TOL`` of
+version (the sweep with ``chip_smoke.compare_sweep``'s checks, its
+outputs also compared with this checkout's kernel bit for bit;
+``MOE_TOL``/``MOE_RMS_TOL`` and ``WKV_TOL``/``WKV_RMS_TOL`` of
 ``chip_smoke.py``), then timed in rounds ordered this, others, others
 reversed, this (ABBA), each round giving
 
@@ -25,14 +27,20 @@ call of each CUDA kernel it launches (``torch.profiler`` over 5 calls).
 and the bytes (each input read once, each output written once) over its
 memory rate, as in ``chip_smoke.py``.
 
-Shapes: MoE at granite-moe-1b-a400m's prefill (E 32, C 1280, d 1024, ff
+Shapes: the sweep at megafleet_100k's two main-path launches (the
+static Li-GD plan, X 100,000, and the first step's MLi-GD solve, X
+39,595; inputs recorded from a ``Session`` run on the card), at
+``chip_smoke.py``'s synthetic MLi-GD case (NiN, X 100,000, random
+original strategies) and at the serving plan (X 1, starcoder2-3b's 31
+splits, ``max_iters`` 200), with the plain version timed once beside
+them; MoE at granite-moe-1b-a400m's prefill (E 32, C 1280, d 1024, ff
 512), an engine prefill (C 320) and engine decode (C 4), bf16, with the
 composition of 3 ``torch.bmm`` + silu timed beside them; WKV6 at
 rwkv6-3b's prefill (B 4, S 1024, H 40, n 64, bf16 r/k/v, from a state),
 a ragged S 777 with the model's decays, and decode (B 8, S 1).
 
     python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
-        [--out report.json]
+        [--rows sweep,moe,wkv] [--out report.json]
 
 Needs a CUDA card; prints one JSON line per measurement and the whole
 report as the last line (also written to ``--out`` when given).
@@ -92,6 +100,77 @@ def by_kernel(fn, calls: int = 5) -> dict:
     return out
 
 
+def sweep_cases(device) -> list:
+    """(label, (feat, x0, tables, wrapper keyword arguments)) of the four
+    sweep shapes."""
+    import chip_smoke as cs
+    from repro_torch.api import Session, get_scenario
+    from repro_torch.configs import get_config, nin
+    from repro_torch.core.profile import profile_of
+    from repro_torch.kernels.ligd_step import ops as sweep_ops
+    from repro_torch.launch import serve_split
+    seen, unspy = cs.record_first_launches(sweep_ops)
+    try:
+        Session(get_scenario("megafleet_100k")).run()
+    finally:
+        unspy()
+    plan, unspy = cs.record_first_launches(sweep_ops)
+    try:
+        serve_split.plan_split(get_config(serve_split.ARCH), seq=1024,
+                               batch=4, c_dev=serve_split.C_DEV,
+                               device=device)
+    finally:
+        unspy()
+    return [("1a main path, megafleet_100k Li-GD", seen["ligd_sweep"]),
+            ("1b main path, megafleet_100k first MLi-GD",
+             seen["mligd_sweep"]),
+            ("1b synthetic, NiN random strategies",
+             cs.synthetic_case(profile_of(nin()), 100_000, True, 60,
+                               device)),
+            ("1a serving plan, starcoder2-3b", plan["ligd_sweep"])]
+
+
+def sweep_rows(versions: dict, rounds: int, device) -> list:
+    """Rows 1a/1b: every version against this checkout's plain version
+    (``chip_smoke.sweep_errors``) and kernel, then ABBA rounds of device
+    and host-inclusive ms."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ligd_step
+    out = []
+    for label, (feat, x0, tab, kw) in sweep_cases(device):
+        kw = dict(kw)
+        joint = kw.pop("joint")
+        name = "mligd_sweep" if joint else "ligd_sweep"
+        ref = ligd_step.mligd_sweep_ref if joint else ligd_step.ligd_sweep_ref
+        plain = ref(feat, x0, tab, chunk=1, **kw)
+        fns = {v: (lambda f=f: f(feat, x0, tab, joint=joint, **kw))
+               for v, f in versions.items()}
+        want = fns["this"]()
+        for v, fn in fns.items():
+            got = fn()
+            err, breaches = cs.sweep_errors(got, plain)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(json.dumps({"kernel": name, "case": label, "version": v,
+                              "equal_to_this": same, **err}), flush=True)
+            if breaches:
+                raise AssertionError(f"{name} {v} {label}: "
+                                     + "; ".join(breaches))
+        rec = {"case": label, "X": feat.shape[1], "M1": tab.shape[0],
+               "max_iters": kw["max_iters"],
+               "plain_ms": cs.timed_ms(lambda: ref(feat, x0, tab, chunk=1,
+                                                   **kw), 3, 1),
+               "runs": []}
+        for v in abba(list(versions), rounds):
+            run = {"version": v, "device_ms": cs.device_ms(fns[v], 30, 3),
+                   "ms": cs.timed_ms(fns[v], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": name, "case": label, **run}),
+                  flush=True)
+        out.append(rec)
+    return out
+
+
 def abba(names: list, rounds: int) -> list:
     order = []
     for _ in range(rounds):
@@ -103,6 +182,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], type=Path)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--rows", default="sweep,moe,wkv",
+                    help="comma-separated subset of sweep, moe, wkv")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -113,24 +194,35 @@ def main() -> int:
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from repro_torch.kernels import moe_gemm, wkv6
+    from repro_torch.kernels import ligd_step, moe_gemm, wkv6
 
+    rows = set(args.rows.split(","))
+    sweep = {"this": ligd_step.sweep_cuda}
     moe = {"this": moe_gemm.moe_swiglu_cuda}
     wkv = {"this": wkv6.wkv6_cuda}
     for i, root in enumerate(args.other):
         tag = f"{root.name}_{i}"
-        moe[tag] = load_package(root, "moe_gemm",
-                                f"other{i}_moe_gemm").moe_swiglu_cuda
-        wkv[tag] = load_package(root, "wkv6", f"other{i}_wkv6").wkv6_cuda
-    report = {"card": cs.card_line(), "moe_swiglu": [], "wkv6": []}
+        if "sweep" in rows:
+            sweep[tag] = load_package(root, "ligd_step",
+                                      f"other{i}_ligd_step").sweep_cuda
+        if "moe" in rows:
+            moe[tag] = load_package(root, "moe_gemm",
+                                    f"other{i}_moe_gemm").moe_swiglu_cuda
+        if "wkv" in rows:
+            wkv[tag] = load_package(root, "wkv6",
+                                    f"other{i}_wkv6").wkv6_cuda
+    report = {"card": cs.card_line(), "sweep": [], "moe_swiglu": [],
+              "wkv6": []}
     print(report["card"], flush=True)
     dev = torch.device("cuda")
+    if "sweep" in rows:
+        report["sweep"] = sweep_rows(sweep, args.rounds, dev)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def randn(shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    for label, E, C, d, ff in MOE_SHAPES:
+    for label, E, C, d, ff in MOE_SHAPES if "moe" in rows else ():
         x = randn((E, C, d)).bfloat16()
         wg = randn((E, d, ff), d ** -0.5).bfloat16()
         wu = randn((E, d, ff), d ** -0.5).bfloat16()
@@ -164,7 +256,7 @@ def main() -> int:
         report["moe_swiglu"].append(rec)
         del x, wg, wu, wd, want
 
-    for label, B, S, H, n, decays in WKV_SHAPES:
+    for label, B, S, H, n, decays in WKV_SHAPES if "wkv" in rows else ():
         r, k, v = (randn((B, S, H, n)).bfloat16() for _ in range(3))
         if decays == "model":
             w = torch.exp(-torch.exp(torch.clamp(
