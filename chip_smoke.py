@@ -27,9 +27,10 @@ card, over its main paths.
   scan and windowed hd-256 attention against their plain versions, then
   the same split, engine and card-against-CPU checks (a 3-layer cut with a
   reduced window).
-* Kernel row 2, the single-split Li-GD steps: ``ligd_steps`` for the
-  100,000 users of ``megafleet_100k`` at their planned splits, one launch
-  per edge server's group, held against its plain version (autograd).
+* Kernel row 2, the single-split Li-GD steps: ``ligd_steps_grouped`` for
+  the 100,000 users of ``megafleet_100k`` at their planned splits, one
+  launch for all four servers' groups, and a case built so that the
+  optima are interior, held against the plain version (autograd).
 
     python3 chip_smoke.py
 
@@ -136,11 +137,27 @@ OPS = {
     "mligd_sweep": {"eval": (51, 15), "update": (30, 0), "split": (13, 0)},
 }
 
-#: the same count for csrc/steps.cu (kernel row 2), built with FMA
-#: contraction, so a multiply-add counts one plain op: per GD step (5
-#: divisions, 3 log2, 2 exp2), for the final utility and for each row's
-#: set-up (constants hoisted out of the loop)
-STEPS_OPS = {"step": (28, 10), "final": (22, 13), "setup": (16, 4)}
+#: the same count for kernel row 2 (the single-split steps), whatever
+#: body computes them: per GD step, for the final utility and for each
+#: row's set-up.  One reciprocal serves every quotient: R = 1/P with
+#: P = B·L·(B + q) (a product far inside float range here) gives 1/τ =
+#: 1/(B·L) = (B + q)·R, 1/B = L·(1/τ) and 1/(B + q) = B·L·R.  A step: B
+#: and r (2 multiply-adds); B + q (1); log2 B, log2(B + q) and log2 r;
+#: L = log2(B + q) - log2 B (1); (B/B0)^γ = exp2(γ·log2 B - γ·log2 B0)
+#: (1); r^(-a-1) = exp2((-a-1)·log2 r) (1); B·L and P (2), R; 1/τ, 1/B
+#: and 1/(B + q) (3); dτ/dB = L - (q/ln2)·1/(B + q) (1); dU/dB's three
+#: terms, cT/B², cE·dτ/τ² and cC·γ·(B/B0)^γ/B (7); dU/dr (1); two updates
+#: and their clamps (6): 26 plain, 6 mufu (1 reciprocal, 3 log2, 2 exp2).
+#: The final utility: B, r, B + q, L, the two exp2 arguments, B·L, then
+#: 1/τ = 1/(B·L) (a reciprocal) and 1/B = L·(1/τ), and U as five
+#: multiply-adds on its x-independent part: 13 plain, 6 mufu (1
+#: reciprocal, 3 log2, 2 exp2).  A row's set-up: 1/k and 1/c_dev from
+#: one reciprocal of k·c_dev (3 plain, 1 mufu), q and q/ln2, w + m, the
+#: coefficients of U and of the gradient and U's x-independent part (25
+#: plain); a group's constants (spans, 1/B0, log2 B0, 1/N0, 1/c_min,
+#: 1/B_backhaul) are counted nowhere.  csrc/steps.cu's body issues 8
+#: mufu a step (3 reciprocals), so this bound is below its own MUFU floor
+STEPS_OPS = {"step": (26, 6), "final": (13, 6), "setup": (28, 1)}
 #: ligd_steps, kernel vs plain version (autograd) on the card: the
 #: reference test's tolerances, x atol 1e-5 and U atol 1e-5 / rtol 1e-4
 #: (tests/test_kernels.py; the closed-form gradient against autograd)
@@ -738,34 +755,28 @@ def hybrid_kernel_cases(device) -> dict:
     return out
 
 
-def steps_case(sess, device) -> dict:
-    """Kernel row 2 on the planner's own users: the ``megafleet_100k``
-    session's users at their planned splits and servers (features from
-    its devices, the hops from each user's access point to its server),
-    x0 = 0.5, 64 steps, through ``ligd_steps`` with one launch per edge
-    server's group (the server's constants are the launch's).  Launches
-    are counted from zero over that pass; then each group is held against
-    the plain version (autograd) on the same card inputs, and the pass is
-    timed as a whole (and the largest group's launch alone).  Returns the
-    record; raises on a breach."""
+def steps_groups(sess, device) -> tuple:
+    """Kernel row 2's inputs on the planner's own users: the
+    ``megafleet_100k`` session's users at their planned splits and
+    servers (features from its devices, the hops from each user's access
+    point to its server), x0 = 0.5, rows grouped by server.  Returns
+    (feat (X, NF), x0 (X, 2), offsets (G + 1 ints), edges (G dicts of
+    floats))."""
     import numpy as np
     import torch
     from repro_torch.core.costs import device_columns, edge_dict, \
         rows_to_device
-    from repro_torch.kernels.ligd_step import (edge_tuple_of, ligd_steps,
-                                               ligd_steps_cuda,
-                                               ligd_steps_ref,
-                                               pack_features)
-    from repro_torch.kernels.ligd_step import steps as steps_kernel
+    from repro_torch.kernels.ligd_step import pack_features
     prof, topo, fleet = sess.profile, sess.topo, sess.fleet
     f_l, f_e, w = prof.prefix_tables()
-    s = np.asarray(fleet.split)
     srv = np.asarray(fleet.server)
+    order = np.argsort(srv, kind="stable")
+    s, srv = np.asarray(fleet.split)[order], srv[order]
     X = len(s)
-    aps = topo.nearest_ap(sess.mobility.positions())
-    cols = dict(device_columns(sess.devices),
-                hops=topo.hops[aps, srv].astype(np.float64))
-    dev = rows_to_device(cols, device, X)
+    aps = topo.nearest_ap(sess.mobility.positions())[order]
+    cols = {k: v[order] for k, v in device_columns(sess.devices).items()}
+    dev = rows_to_device(dict(cols, hops=topo.hops[aps, srv].astype(
+        np.float64)), device, X)
 
     def col(v):
         return torch.as_tensor(np.asarray(v, np.float32), device=device)
@@ -773,65 +784,148 @@ def steps_case(sess, device) -> dict:
     feat = pack_features(col(f_l[s]), col(f_e[s]), col(w[s]),
                          col(np.full(X, prof.result_bits)),
                          col(f_e[s] > 0), dev)
-    groups = []
-    for z in np.unique(srv):
-        idx = torch.as_tensor(np.nonzero(srv == z)[0], device=device)
-        groups.append((feat[idx].contiguous(),
-                       torch.full((len(idx), 2), 0.5, device=device),
-                       edge_dict(topo.edges[int(z)], device)))
-    iters, lr = 64, 0.15
-    steps_kernel.LAUNCHES["ligd_steps"] = 0
-    outs = [ligd_steps(f, x0, e, iters=iters, lr=lr) for f, x0, e in groups]
-    torch.cuda.synchronize()
-    launches = steps_kernel.LAUNCHES["ligd_steps"]
-    x_err = u_err = u_rel = 0.0
-    ok = launches == len(groups)
-    for (f, x0, e), (x, u) in zip(groups, outs):
-        xr, ur = ligd_steps_ref(f, x0, e, iters=iters, lr=lr)
-        x_err = max(x_err, (x - xr).abs().max().item())
-        du = (u - ur).abs()
-        u_err = max(u_err, du.max().item())
-        u_rel = max(u_rel, (du / ur.abs().clamp_min(1e-30)).max().item())
-        ok &= bool(torch.allclose(x, xr, atol=STEPS_X_ATOL, rtol=0)
-                   and torch.allclose(u, ur, atol=STEPS_U_ATOL,
-                                      rtol=STEPS_U_RTOL))
-    ets = [edge_tuple_of(e) for _, _, e in groups]
+    servers = np.unique(srv)
+    offsets = [0] + np.searchsorted(srv, servers, side="right").tolist()
+    edges = [{k: float(v) for k, v in
+              edge_dict(topo.edges[int(z)], "cpu").items()}
+             for z in servers]
+    x0 = torch.full((X, 2), 0.5, dtype=torch.float32, device=device)
+    return feat, x0, offsets, edges
 
-    def kernel_pass():
-        for (f, x0, _), et in zip(groups, ets):
-            ligd_steps_cuda(f, x0, et, iters=iters, lr=lr)
 
-    def plain_pass():
-        for f, x0, e in groups:
-            ligd_steps_ref(f, x0, e, iters=iters, lr=lr)
+def steps_errors(x, u, xr, ur, feat, x0) -> dict:
+    """Kernel (x, u) against the plain version (xr, ur): max errors over
+    all lanes and over the interior lanes alone (of the plain version),
+    the interior share, how far the plain version moved x from x0 (a
+    lane that barely moves checks little of the gradient) and whether the
+    reference test's tolerances hold on every lane."""
+    import torch
+    from repro_torch.kernels.ligd_step import interior_lanes
+    inner = interior_lanes(xr, feat)
+    dx = (x - xr).abs().amax(1)
+    du = (u - ur).abs()
+    rel = du / ur.abs().clamp_min(1e-30)
 
-    big = max(range(len(groups)), key=lambda i: len(groups[i][0]))
+    def top(v, mask=None):
+        v = v if mask is None else v[mask]
+        return v.max().item() if v.numel() else 0.0
 
+    ok = bool(torch.allclose(x, xr, atol=STEPS_X_ATOL, rtol=0)
+              and torch.allclose(u, ur, atol=STEPS_U_ATOL,
+                                 rtol=STEPS_U_RTOL))
+    return dict(
+        interior_share=inner.float().mean().item(),
+        x_moved_max=top((xr - x0).abs().amax(1)),
+        x_max_abs_err=top(dx), u_max_abs_err=top(du),
+        u_max_rel_err=top(rel), interior_x_max_abs_err=top(dx, inner),
+        interior_u_max_abs_err=top(du, inner),
+        interior_u_max_rel_err=top(rel, inner), within_tolerance=ok)
+
+
+def steps_bound_ms(X: int, iters: int) -> tuple:
+    """Least time the card could take for ``iters`` steps of X rows: the
+    larger of the bytes (feat, x0 read once; x, U written once) over
+    PEAK_BYTES_S and the operations of STEPS_OPS over the issue and MUFU
+    rates.  Returns (ms, "bytes" or "operations")."""
     count = {"step": iters * X, "final": X, "setup": X}
     plain = sum(n * STEPS_OPS[k][0] for k, n in count.items())
     mufu = sum(n * STEPS_OPS[k][1] for k, n in count.items())
     t_ops = max((plain + mufu) / ISSUE_S, mufu / MUFU_S) * 1e3
     t_bytes = 4.0 * X * (16 + 2 + 2 + 1) / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def steps_case(sess, device) -> dict:
+    """Kernel row 2 on the planner's own users (:func:`steps_groups`), 64
+    steps, through ``ligd_steps_grouped``: one launch for every server's
+    group, counted from zero over that pass.  Then the rows are held
+    against the plain version (autograd) on the same card inputs, on
+    every lane and on the lanes that end interior; the smallest group
+    goes through ``ligd_steps`` alone and must equal its rows of the
+    pass; a second case, built so that the optima are interior
+    (``ref.steps_interior_case``, 100,000 users of 4 servers), is held
+    the same way.  The pass is timed as a whole, and the largest and the
+    smallest group's launch alone.  Returns the record; raises on a
+    breach."""
+    import torch
+    from repro_torch.kernels.ligd_step import (edge_tuple_of, ligd_steps,
+                                               ligd_steps_cuda,
+                                               ligd_steps_grouped,
+                                               ligd_steps_grouped_cuda,
+                                               ligd_steps_grouped_ref,
+                                               steps_interior_case)
+    from repro_torch.kernels.ligd_step import steps as steps_kernel
+    feat, x0, offsets, edges = steps_groups(sess, device)
+    X = feat.shape[0]
+    iters, lr = 64, 0.15
+    steps_kernel.LAUNCHES["ligd_steps"] = 0
+    x, u = ligd_steps_grouped(feat, x0, offsets, edges, iters=iters, lr=lr)
+    torch.cuda.synchronize()
+    launches = steps_kernel.LAUNCHES["ligd_steps"]
+    xr, ur = ligd_steps_grouped_ref(feat, x0, offsets, edges, iters=iters,
+                                    lr=lr)
+    err = steps_errors(x, u, xr, ur, feat, x0)
+    sizes = [b - a for a, b in zip(offsets, offsets[1:])]
+    small = min(range(len(sizes)), key=sizes.__getitem__)
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    rows = slice(offsets[small], offsets[small + 1])
+    xs, us = ligd_steps(feat[rows], x0[rows], edges[small], iters=iters,
+                        lr=lr)
+    alone_equal = bool(torch.equal(xs, x[rows]) and torch.equal(us, u[rows]))
+
+    ifeat, ix0, ioffs, iedges = steps_interior_case(100_000, 4, 18, device)
+    ix, iu = ligd_steps_grouped(ifeat, ix0, ioffs, iedges, iters=iters,
+                                lr=lr)
+    ierr = steps_errors(ix, iu, *ligd_steps_grouped_ref(
+        ifeat, ix0, ioffs, iedges, iters=iters, lr=lr), ifeat, ix0)
+
+    ets = [edge_tuple_of(e) for e in edges]
+
+    def kernel_pass():
+        ligd_steps_grouped_cuda(feat, x0, offsets, ets, iters=iters, lr=lr)
+
+    def group_alone(j):
+        a, b = offsets[j], offsets[j + 1]
+        return lambda: ligd_steps_cuda(feat[a:b], x0[a:b], ets[j],
+                                       iters=iters, lr=lr)
+
+    bound, bound_by = steps_bound_ms(X, iters)
     rec = dict(
-        users=X, groups=[len(g[0]) for g in groups], iters=iters,
-        launches=launches, x_max_abs_err=x_err, u_max_abs_err=u_err,
-        u_max_rel_err=u_rel, max_abs_err=max(x_err, u_err),
+        users=X, groups=sizes, iters=iters, launches=launches, **err,
+        max_abs_err=max(err["x_max_abs_err"], err["u_max_abs_err"]),
+        smallest_group_alone_equal=alone_equal,
+        interior_case={"users": ifeat.shape[0],
+                       "groups": [b - a for a, b in zip(ioffs, ioffs[1:])],
+                       **ierr},
         ms=timed_ms(kernel_pass, 30, 3),
         device_ms=device_ms(kernel_pass, 30, 3),
-        plain_ms=timed_ms(plain_pass, 3, 1),
-        largest_group_ms=timed_ms(lambda: ligd_steps_cuda(
-            groups[big][0], groups[big][1], ets[big], iters=iters, lr=lr),
-            30, 3),
+        plain_ms=timed_ms(lambda: ligd_steps_grouped_ref(
+            feat, x0, offsets, edges, iters=iters, lr=lr), 3, 1),
+        largest_group_ms=timed_ms(group_alone(big), 30, 3),
+        largest_group_device_ms=device_ms(group_alone(big), 30, 3),
+        smallest_group_device_ms=device_ms(group_alone(small), 30, 3),
         library_ms=None, library_call="none: no PyTorch call computes the "
-        "steps", bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes")
+        "steps", bound_ms=bound, bound_by=bound_by)
     phase("ligd-steps", json.dumps(rec))
-    if not ok:
-        raise AssertionError(
-            f"ligd_steps: {launches} launches for {len(groups)} groups; "
-            f"x max abs {x_err:.3g} (tol {STEPS_X_ATOL}), U max abs "
-            f"{u_err:.3g} / rel {u_rel:.3g} (tol {STEPS_U_ATOL} / "
-            f"{STEPS_U_RTOL})")
+    breaches = []
+    if launches != 1:
+        breaches.append(f"{launches} launches for {len(sizes)} groups, "
+                        "expected 1")
+    for name, e in (("megafleet_100k", err), ("interior case", ierr)):
+        if not e["within_tolerance"]:
+            breaches.append(
+                f"{name}: x max abs {e['x_max_abs_err']:.3g} (tol "
+                f"{STEPS_X_ATOL}), U max abs {e['u_max_abs_err']:.3g} / rel "
+                f"{e['u_max_rel_err']:.3g} (tol {STEPS_U_ATOL} / "
+                f"{STEPS_U_RTOL})")
+    if ierr["interior_share"] < 0.9:
+        breaches.append(f"interior case: only {ierr['interior_share']:.3f}"
+                        " of lanes end interior")
+    if not alone_equal:
+        breaches.append("ligd_steps on the smallest group differs from its "
+                        "rows of the grouped launch")
+    if breaches:
+        raise AssertionError("ligd_steps: " + "; ".join(breaches))
     return rec
 
 
@@ -1288,6 +1382,7 @@ def main() -> int:
     build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
                moe_kernel, rglru_kernel, wkv_kernel),
               no_spill={sweep_kernel.LIB_NAME: ("sweep_kernel",),
+                        steps_kernel.LIB_NAME: None,
                         rms_kernel.LIB_NAME: None,
                         flash_kernel.LIB_NAME: None,
                         moe_kernel.LIB_NAME: ("gate_up_kernel",

@@ -2,8 +2,8 @@
 dispatch on the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (:func:`.kernel.sweep_cuda`,
-:func:`.steps.ligd_steps_cuda`) or raises; a CPU tensor goes to the plain
-PyTorch version (:mod:`.ref`).
+:func:`.steps.ligd_steps_grouped_cuda`) or raises; a CPU tensor goes to
+the plain PyTorch version (:mod:`.ref`).
 There is no other route and no fallback.
 
 The batch axis carries no meaning of its own: callers may tile it per
@@ -16,21 +16,39 @@ from typing import NamedTuple
 import torch
 
 from .kernel import sweep_cuda
-from .ref import (edge_tuple_of, ligd_steps_ref, ligd_sweep_ref,
-                  mligd_sweep_ref, table_tensor)
-from .steps import ligd_steps_cuda
+from .ref import (check_groups, edge_tuple_of, ligd_steps_grouped_ref,
+                  ligd_sweep_ref, mligd_sweep_ref, table_tensor)
+from .steps import ligd_steps_grouped_cuda
 
 
 def ligd_steps(feat, x0, edge: dict, *, iters: int = 64, lr: float = 0.15):
     """``iters`` projected-GD steps at one split point per row: feat
     (X, NF), x0 (X, 2), ``edge`` the server's constants (dict of floats
-    or 0-d tensors) -> (x (X, 2), U (X,))."""
-    et = edge_tuple_of(edge)
-    if feat.device.type == "cuda":
-        return ligd_steps_cuda(feat, x0, et, iters=iters, lr=lr)
-    if feat.device.type == "cpu":
-        return ligd_steps_ref(feat, x0, dict(et), iters=iters, lr=lr)
-    raise ValueError(f"ligd_steps: unsupported device {feat.device}")
+    or 0-d tensors) -> (x (X, 2), U (X,)).  The one-group case of
+    :func:`ligd_steps_grouped`."""
+    return ligd_steps_grouped(feat, x0, (0, feat.shape[0]), (edge,),
+                              iters=iters, lr=lr)
+
+
+def ligd_steps_grouped(feats, x0s, offsets, edges, *, iters: int = 64,
+                       lr: float = 0.15):
+    """The steps for G groups of users, each against its own edge server,
+    in one launch on the card: feats (X, NF) and x0s (X, 2) hold the
+    groups' rows concatenated, group j at ``offsets[j]:offsets[j + 1]``
+    (G + 1 non-decreasing host ints from 0 to X), ``edges`` G dicts of
+    constants.  Returns (x (X, 2), U (X,)), each row what
+    :func:`ligd_steps` returns for its group alone.  On the CPU: the
+    plain version, group by group (the same checks of the groups)."""
+    ets = [edge_tuple_of(e) for e in edges]
+    if feats.device.type == "cuda":
+        return ligd_steps_grouped_cuda(feats, x0s, offsets, ets,
+                                       iters=iters, lr=lr)
+    if feats.device.type == "cpu":
+        start = check_groups(offsets, ets, feats.shape[0])
+        return ligd_steps_grouped_ref(feats, x0s, start,
+                                      [dict(et) for et in ets],
+                                      iters=iters, lr=lr)
+    raise ValueError(f"ligd_steps: unsupported device {feats.device}")
 
 
 class SweepResult(NamedTuple):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 LN2 = math.log(2.0)
@@ -286,6 +287,10 @@ STEP_FIELDS = ("f_l", "f_e", "w", "m", "offl", "c_dev", "epf", "p_tx", "c1",
 #: the edge constants a launch takes, in the kernel's argument order
 EDGE_KEYS = ("B_min", "B_max", "r_min", "r_max", "lam_a", "c_min",
              "rho_min", "rho_B", "gamma_B", "B0", "B_backhaul", "N0")
+#: the most groups one grouped call takes: the CUDA launch carries the
+#: offsets and the groups' constants in its parameters (steps.py builds
+#: csrc/steps.cu with this figure as MCSA_STEPS_MAX_GROUPS)
+MAX_GROUPS = 64
 
 
 def pack_features(f_l, f_e, w, m, offl, dev: dict) -> torch.Tensor:
@@ -313,6 +318,35 @@ def edge_tuple_of(edge: dict) -> tuple:
         raise ValueError(f"edge constants missing {missing}; expected "
                          f"{EDGE_KEYS}")
     return tuple((k, float(edge[k])) for k in EDGE_KEYS)
+
+
+def check_groups(offsets, edge_tuples, X: int) -> list:
+    """The offsets as a list of ints, after checking them against X rows
+    and the edge records (from :func:`edge_tuple_of`): both devices hold
+    a grouped call to this."""
+    if torch.is_tensor(offsets):
+        if offsets.device.type != "cpu":
+            raise ValueError(f"offsets: on {offsets.device}; the launch "
+                             "carries them, so they must be host values")
+        offsets = offsets.tolist()
+    start = [int(v) for v in offsets]
+    G = len(start) - 1
+    if not 1 <= G <= MAX_GROUPS:
+        raise ValueError(f"offsets: {G} groups, expected 1..{MAX_GROUPS}")
+    if start[0] != 0 or start[-1] != X:
+        raise ValueError(f"offsets: run {start[0]}..{start[-1]}, expected "
+                         f"0..{X}")
+    if any(b < a for a, b in zip(start, start[1:])):
+        raise ValueError("offsets: not monotone (non-decreasing)")
+    if len(edge_tuples) != G:
+        raise ValueError(f"edge records: {len(edge_tuples)}, expected one "
+                         f"a group ({G})")
+    for et in edge_tuples:
+        names = tuple(k for k, _ in et)
+        if names != EDGE_KEYS:
+            raise ValueError(f"edge_tuple keys {names}, expected "
+                             f"{EDGE_KEYS}")
+    return start
 
 
 def _steps_utility(feat: torch.Tensor, x: torch.Tensor, edge: dict):
@@ -351,6 +385,93 @@ def ligd_steps_ref(feat: torch.Tensor, x0: torch.Tensor, edge: dict, *,
                                      xg)
         x = torch.clamp(x - lr * g, 0.0, 1.0)
     return x, _steps_utility(feat, x, edge).detach()
+
+
+def ligd_steps_grouped_ref(feats, x0s, offsets, edges, *, iters: int = 64,
+                           lr: float = 0.15):
+    """The plain version of the grouped steps: :func:`ligd_steps_ref` on
+    each group's rows ``offsets[j]:offsets[j + 1]`` against ``edges[j]``,
+    concatenated -> (x (X, 2), U (X,))."""
+    outs = [ligd_steps_ref(feats[a:b], x0s[a:b], e, iters=iters, lr=lr)
+            for a, b, e in zip(offsets, offsets[1:], edges)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+# ---------------------------------------------------------------------------
+# Inputs whose optima are interior (tests and chip_smoke.py): on such lanes
+# no clamp decides x, so a check of x and U there checks the gradient.
+# ---------------------------------------------------------------------------
+def steps_interior_case(X: int, n_groups: int, seed: int, device,
+                        lr: float = 0.15) -> tuple:
+    """Kernel row 2's inputs built so that the optima are interior, from
+    a numpy seed: ``n_groups`` edge servers with constants drawn around
+    ``EdgeParams``' defaults, each user a target (xB*, xr*) in
+    [0.15, 0.85]^2 at which dU/dxr = 0 (through f_e and the weights'
+    scale, given lr·d²U/dxr² in [0.1, 1]) and dU/dxB = 0 (through w + m);
+    the weights shrink where lr·d²U/dxB² would pass 1, so every lane's GD
+    converges without bouncing off a clamp.  Returns (feat (X, NF), x0
+    (X, 2) in [0.3, 0.7]^2, offsets, edges (dicts of floats)), all rows
+    offloaded."""
+    rng = np.random.default_rng(seed)
+    edges = [dict(c_min=rng.uniform(30e9, 60e9),
+                  rho_min=rng.uniform(1e-4, 4e-4),
+                  lam_a=rng.uniform(0.7, 0.95),
+                  rho_B=rng.uniform(5e-5, 2e-4),
+                  gamma_B=rng.uniform(1.1, 1.6),
+                  B0=float(rng.choice([1e6, 2e6])),
+                  B_backhaul=rng.uniform(5e8, 2e9), N0=4e-21, B_min=1e6,
+                  B_max=2e7, r_min=1.0, r_max=32.0)
+             for _ in range(n_groups)]
+    grp = np.sort(rng.integers(0, n_groups, X))
+    e = {k: np.array([g[k] for g in edges])[grp] for k in edges[0]}
+    B_span, r_span = e["B_max"] - e["B_min"], e["r_max"] - e["r_min"]
+    B = e["B_min"] + rng.uniform(0.15, 0.85, X) * B_span
+    r = e["r_min"] + rng.uniform(0.15, 0.85, X) * r_span
+    a, gam = e["lam_a"], e["gamma_B"]
+    c_dev = rng.uniform(3e9, 60e9, X)
+    p_tx = rng.uniform(0.2, 1.0, X)
+    c1 = p_tx * 1e-10 * rng.uniform(0.3, 3.0, X)          # pαg
+    k = rng.uniform(1.0, 10.0, X)
+    # dU/dr = 0 at r: wT·f_e·a·r^(-a-1)/c_min = wC·ρ_min/k =: g0, and
+    # lr·d²U/dxr² = lr·r_span²·g0·(a + 1)/r
+    g0 = rng.uniform(0.1, 1.0, X) * r / (lr * r_span ** 2 * (a + 1))
+    d = rng.dirichlet(np.full(3, 4.0), X)
+    wts = d * (g0 * k / (d[:, 2] * e["rho_min"]))[:, None]
+    f_e = g0 * e["c_min"] * r ** (a + 1) / (a * wts[:, 0])
+    q = c1 / e["N0"]
+
+    def dU_dB(Bv, wm, wts):
+        L = np.log2(1.0 + q / Bv)
+        dtau = L - q / (np.log(2.0) * (Bv + q))
+        return (-wts[:, 0] * wm / Bv ** 2
+                - wts[:, 1] * p_tx * wm * dtau / (Bv * L) ** 2
+                + wts[:, 2] * e["rho_B"] * gam * (Bv / e["B0"]) ** gam
+                / (Bv * k))
+
+    # dU/dB = 0 at B through w + m: its terms are linear in w + m
+    wm = (wts[:, 2] * e["rho_B"] * gam * (B / e["B0"]) ** gam / (B * k)
+          / -(dU_dB(B, 1.0, wts * [1.0, 1.0, 0.0])))
+    h = 1e-4 * B
+    hB = lr * B_span ** 2 * (dU_dB(B + h, wm, wts)
+                             - dU_dB(B - h, wm, wts)) / (2 * h)
+    wts = wts / np.maximum(hB, 1.0)[:, None]
+    cols = [rng.uniform(0.0, 5e9, X), f_e, 0.9 * wm, 0.1 * wm, np.ones(X),
+            c_dev, 3e-31 * c_dev ** 2, p_tx, c1,
+            rng.integers(1, 6, X).astype(np.float64), k,
+            rng.uniform(0.0, 5e-3, X), wts[:, 0], wts[:, 1], wts[:, 2]]
+    feat = np.zeros((X, 16), np.float32)
+    for i, v in enumerate(cols):
+        feat[:, i] = v
+    x0 = rng.uniform(0.3, 0.7, (X, 2)).astype(np.float32)
+    offsets = np.searchsorted(grp, np.arange(n_groups + 1)).tolist()
+    return (torch.from_numpy(feat).to(device), torch.from_numpy(x0).to(
+        device), offsets, edges)
+
+
+def interior_lanes(x, feat):
+    """Rows that offload and end with both coordinates strictly inside
+    (0, 1): where no clamp decides x."""
+    return ((x > 0) & (x < 1)).all(1) & (feat[:, 4] > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -532,3 +653,81 @@ def fast_math_sweep_twin(feat, x0, tables, *, joint, lr=0.15, eps=1e-5,
     x_l = torch.stack(xs, 0)
     return (torch.stack(us, 0), tuple(x_l[:, i] for i in range(len(x))),
             torch.stack(its, 0), s_b, x_b, u_b)
+
+
+# ---------------------------------------------------------------------------
+# The same rehearsal for the single-split steps (csrc/steps.cu): one
+# reciprocal of B a step gives q/B, 1/B² and the rent term's quotient;
+# 1/τ = (1/B)·(1/L); q/(ln2·(B + q)) = (q/B)·(1/ln2)·(1/(1 + q/B)); r^(-a-1)
+# and, for the final utility, r^-a from one log2(r); 1/k, 1/c_min, 1/c_dev,
+# 1/B_backhaul and 1/N0 hoisted out of the loop (computed once a row, or
+# once a group, by division).  Every reciprocal, exp2 and log2 of the
+# loop and of the final utility is perturbed as above; multiply-adds are
+# fused.  tests/test_torch_ligd_steps.py holds it against the JAX
+# package's autodiff oracle at the reference test's tolerances, which is
+# how it decides the instructions of csrc/steps.cu's body.
+# ---------------------------------------------------------------------------
+def _steps_consts(feat, edge):
+    """The x-independent terms of a steps body, as csrc/steps.cu computes
+    them once a row (edge constants may be floats or (X,) tensors: one
+    group's, or gathered per row)."""
+    f = feat.float().T
+    e = {k: torch.as_tensor(edge[k], dtype=torch.float32) for k in EDGE_KEYS}
+    f_l, f_e, wm, offl = f[0], f[1], f[2] + f[3], f[4]
+    wT, wE, wC = f[12], f[13], f[14]
+    inv_k = 1.0 / f[10]
+    ow = offl * wm
+    wCo_k = wC * offl * inv_k
+    cTs = wT * offl * f_e * (1.0 / e["c_min"])
+    cCB = wCo_k * e["rho_B"]
+    u_const = _fma(wE * f[6], f_l, wT * (
+        f_l * (1.0 / f[5]) + ow * f[9] * (1.0 / e["B_backhaul"])
+        + f[11] * inv_k))
+    B_span = e["B_max"] - e["B_min"]
+    r_span = e["r_max"] - e["r_min"]
+    return dict(
+        B_min=e["B_min"], B_span=B_span, r_min=e["r_min"], r_span=r_span,
+        q=f[8] * (1.0 / e["N0"]), inv_B0=1.0 / e["B0"], gam=e["gamma_B"],
+        nla=-e["lam_a"], a1=-e["lam_a"] - 1.0, u_const=u_const, cTs=cTs,
+        cT=wT * ow, cE=wE * f[7] * ow, cCr=wCo_k * e["rho_min"], cCB=cCB,
+        cCg=cCB * e["gamma_B"], cR=cTs * -e["lam_a"],
+        inv_ln2=torch.tensor(1.0 / LN2, dtype=torch.float32))
+
+
+def _steps_B_terms(c, xB, ap):
+    """B, 1/B, q/B, L = log2(1 + q/B), 1/τ and g(B)/ρ_B = (B/B0)^γ."""
+    B = _fma(xB, c["B_span"], c["B_min"])
+    inv_B = ap.rcp(B)
+    qB = c["q"] * inv_B
+    one_qB = 1.0 + qB
+    L = ap.lg2(one_qB)
+    inv_tau = inv_B * ap.rcp(L)
+    pw = ap.ex2(c["gam"] * ap.lg2(B * c["inv_B0"]))
+    return inv_B, qB, one_qB, L, inv_tau, pw
+
+
+def fast_math_steps_twin(feat, x0, edge, *, iters=64, lr=0.15, seed=None):
+    """The single-split steps in csrc/steps.cu's fast-math algebra (CPU
+    tensors), perturbed from ``seed`` (None: unperturbed).  feat (X, NF),
+    x0 (X, 2), ``edge`` one group's constants -> (x (X, 2), U (X,))."""
+    ap = _Approx(seed)
+    c = _steps_consts(feat, edge)
+    lrBs = -lr * c["B_span"]
+    lrrs = -lr * c["r_span"]
+    xB, xr = x0[:, 0].float(), x0[:, 1].float()
+    for _ in range(iters):
+        inv_B, qB, one_qB, L, inv_tau, pw = _steps_B_terms(c, xB, ap)
+        r = _fma(xr, c["r_span"], c["r_min"])
+        dtau = _fma(-(qB * ap.rcp(one_qB)), c["inv_ln2"], L)
+        dB = _fma(-(c["cE"] * dtau) * inv_tau, inv_tau,
+                  -(c["cT"] * inv_B) * inv_B)
+        dB = _fma(c["cCg"] * pw, inv_B, dB)
+        dr = _fma(c["cR"], ap.ex2(c["a1"] * ap.lg2(r)), c["cCr"])
+        xB = torch.clamp(_fma(lrBs, dB, xB), 0.0, 1.0)
+        xr = torch.clamp(_fma(lrrs, dr, xr), 0.0, 1.0)
+    inv_B, _, _, _, inv_tau, pw = _steps_B_terms(c, xB, ap)
+    r = _fma(xr, c["r_span"], c["r_min"])
+    U = _fma(c["cTs"], ap.ex2(c["nla"] * ap.lg2(r)), c["u_const"])
+    for k, v in (("cT", inv_B), ("cE", inv_tau), ("cCr", r), ("cCB", pw)):
+        U = _fma(c[k], v, U)
+    return torch.stack([xB, xr], 1), U

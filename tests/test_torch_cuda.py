@@ -653,3 +653,97 @@ def test_cuda_rglru_and_steps_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(TypeError, match="dtype"):
         tsteps.ligd_steps_cuda(feat.double(),
                                torch.rand((10, 2), device=cuda), et)
+
+
+# ---------------------------------------------------------------------------
+# Row 2, every server's group in one launch (ligd_steps_grouped): each group
+# against the plain version at the reference test's tolerances, on
+# ref.steps_interior_case's interior optima (4 servers) and on the random
+# vgg16 fleet of the test above as a fifth group with the default edge.
+# ---------------------------------------------------------------------------
+def _grouped_steps_inputs(cuda):
+    feat, x0, offsets, edges = tsweep.steps_interior_case(20_000, 4, 52,
+                                                          cuda)
+    rng = np.random.default_rng(53)
+    X = 3001
+    profile = profile_of(vgg16())
+    f_l, f_e, w = profile.prefix_tables()
+    s = rng.integers(0, len(f_l), X)
+    dev = tcosts.rows_to_device(tcosts.device_columns(tcosts.DeviceFleet(
+        c_dev=rng.uniform(3e9, 60e9, X),
+        hops=rng.integers(1, 6, X).astype(np.float64))), cuda, X)
+    col = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda)  # noqa
+    vfeat = tsweep.pack_features(col(f_l[s]), col(f_e[s]), col(w[s]),
+                                 col(np.full(X, profile.result_bits)),
+                                 col((f_e[s] > 0).astype(np.float64)), dev)
+    edge = {k: float(v) for k, v in
+            tcosts.edge_dict(tcosts.EdgeParams(), "cpu").items()}
+    return (torch.cat([feat, vfeat]),
+            torch.cat([x0, col(rng.uniform(0, 1, (X, 2)))]),
+            offsets + [offsets[-1] + X], edges + [edge])
+
+
+@pytest.mark.cuda
+def test_cuda_ligd_steps_grouped_matches_plain_version_per_group(cuda):
+    from repro_torch.kernels.ligd_step import steps as tsteps
+    feat, x0, offsets, edges = _grouped_steps_inputs(cuda)
+    before = tsteps.LAUNCHES["ligd_steps"]
+    x, u = tsweep.ligd_steps_grouped(feat, x0, offsets, edges, iters=64)
+    torch.cuda.synchronize()
+    assert tsteps.LAUNCHES["ligd_steps"] == before + 1
+    for a, b, e in zip(offsets, offsets[1:], edges):
+        xr, ur = tsweep.ligd_steps_ref(feat[a:b], x0[a:b], e, iters=64)
+        torch.testing.assert_close(x[a:b], xr, atol=1e-5, rtol=0)
+        torch.testing.assert_close(u[a:b], ur, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ligd_steps_one_group_equals_its_rows_of_the_grouped_launch(
+        cuda):
+    feat, x0, offsets, edges = _grouped_steps_inputs(cuda)
+    x, u = tsweep.ligd_steps_grouped(feat, x0, offsets, edges, iters=48)
+    for j in (0, len(edges) - 1):
+        a, b = offsets[j], offsets[j + 1]
+        xg, ug = tsweep.ligd_steps(feat[a:b], x0[a:b], edges[j], iters=48)
+        assert torch.equal(xg, x[a:b]) and torch.equal(ug, u[a:b])
+
+
+@pytest.mark.cuda
+def test_cuda_ligd_steps_interior_lanes(cuda):
+    """Lanes that end strictly inside (0, 1)^2, where no clamp hides the
+    body's arithmetic: nearly all of the interior case, each within the
+    tolerances."""
+    feat, x0, offsets, edges = _grouped_steps_inputs(cuda)
+    n = offsets[4]                       # the four interior groups
+    x, u = tsweep.ligd_steps_grouped(feat[:n], x0[:n], offsets[:5],
+                                     edges[:4], iters=64)
+    xr, ur = tsweep.ligd_steps_grouped_ref(feat[:n], x0[:n], offsets[:5],
+                                           edges[:4], iters=64)
+    inner = tsweep.interior_lanes(xr, feat[:n])
+    assert inner.float().mean().item() > 0.95
+    torch.testing.assert_close(x[inner], xr[inner], atol=1e-5, rtol=0)
+    torch.testing.assert_close(u[inner], ur[inner], atol=1e-5, rtol=1e-4)
+    assert (xr[inner] - x0[:n][inner]).abs().max().item() > 0.1
+
+
+@pytest.mark.cuda
+def test_cuda_ligd_steps_grouped_wrapper_refuses_bad_input(cuda):
+    from repro_torch.kernels.ligd_step import steps as tsteps
+    feat = torch.rand((10, 16), device=cuda)
+    x0 = torch.rand((10, 2), device=cuda)
+    et = tsweep.edge_tuple_of(tcosts.edge_dict(tcosts.EdgeParams(), cuda))
+    before = tsteps.LAUNCHES["ligd_steps"]
+    with pytest.raises(ValueError, match="monotone"):
+        tsteps.ligd_steps_grouped_cuda(feat, x0, [0, 6, 4, 10], [et] * 3)
+    with pytest.raises(ValueError, match="groups"):
+        tsteps.ligd_steps_grouped_cuda(
+            feat, x0, [0] * (tsteps.MAX_GROUPS + 1) + [10],
+            [et] * (tsteps.MAX_GROUPS + 1))
+    with pytest.raises(ValueError, match="edge records"):
+        tsteps.ligd_steps_grouped_cuda(feat, x0, [0, 4, 10], [et])
+    with pytest.raises(ValueError, match="expected 0..10"):
+        tsteps.ligd_steps_grouped_cuda(feat, x0, [0, 4, 9], [et, et])
+    with pytest.raises(ValueError, match="host"):
+        tsteps.ligd_steps_grouped_cuda(
+            feat, x0, torch.tensor([0, 10], device=cuda), [et])
+    assert tsteps.LAUNCHES["ligd_steps"] == before

@@ -7,7 +7,17 @@ every split of NiN.
 
 Tolerances are the reference test's (``tests/test_kernels.py``): x
 within 1e-5, U within atol 1e-5 / rtol 1e-4 (the Pallas kernel's closed
-form against autograd; the two oracles agree to rounding)."""
+form against autograd; the two oracles agree to rounding).
+
+Also: ``ligd_steps_grouped`` (every server's group in one call) against
+the per-group loop of ``ligd_steps``, and the rehearsal of csrc/steps.cu's
+body, ``ref.fast_math_steps_twin`` (its algebra with every reciprocal,
+exp2 and log2 perturbed up to its PTX maximum error), held against the
+JAX package's ``ligd_steps_ref`` at the same tolerances on the vgg16
+inputs, the random NiN fleet and inputs built so that the optima are
+interior (``ref.steps_interior_case``), at 48 and 64 steps."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,3 +150,133 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_missing_edge_constants():
     with pytest.raises(ValueError, match="missing"):
         tls.ligd_steps(tfeat, torch.from_numpy(x0), {"B_min": 1.0})
     assert tls.steps.LAUNCHES["ligd_steps"] == before
+
+
+# ---------------------------------------------------------------------------
+# Every server's group in one call, and interior optima
+# ---------------------------------------------------------------------------
+def _interior_inputs(X=600, n_groups=4, seed=18):
+    """The interior-optimum case at a small size, CPU tensors."""
+    return tls.steps_interior_case(X, n_groups, seed, "cpu")
+
+
+def _jax_groups(feat, x0, offsets, edges, iters, lr=0.15):
+    """The JAX package's autodiff oracle, group by group."""
+    f, x = np_of(feat), np_of(x0)
+    outs = [jls.ligd_steps_ref(jnp.asarray(f[a:b]), jnp.asarray(x[a:b]),
+                               {k: jnp.float32(v) for k, v in e.items()},
+                               iters=iters, lr=lr)
+            for a, b, e in zip(offsets, offsets[1:], edges)]
+    return (np.concatenate([np.asarray(o[0]) for o in outs]),
+            np.concatenate([np.asarray(o[1]) for o in outs]))
+
+
+def test_ligd_steps_grouped_equals_the_per_group_loop():
+    """Groups of the interior case and of the NiN fleet (its own edge), one
+    of them empty: each row is what ligd_steps returns for its group; the
+    CPU path refuses the groups the card's wrapper refuses."""
+    feat, x0, offsets, edges = _interior_inputs(X=300, n_groups=3)
+    _, ffeat, fx0, fedge = _fleet_inputs(X=120)
+    feat = torch.cat([feat, ffeat])
+    x0 = torch.cat([x0, torch.from_numpy(fx0)])
+    offsets = offsets + [offsets[-1], offsets[-1] + 120]
+    edges = edges + [edges[0], fedge]
+    x, u = tls.ligd_steps_grouped(feat, x0, offsets, edges, iters=64)
+    assert tuple(x.shape) == (feat.shape[0], 2)
+    for a, b, e in zip(offsets, offsets[1:], edges):
+        xg, ug = tls.ligd_steps(feat[a:b], x0[a:b], e, iters=64)
+        assert torch.equal(x[a:b], xg) and torch.equal(u[a:b], ug)
+    with pytest.raises(ValueError, match="one a group"):
+        tls.ligd_steps_grouped(feat, x0, offsets, edges[:-1])
+    with pytest.raises(ValueError, match="monotone"):
+        tls.ligd_steps_grouped(feat, x0, [0, 200, 100, feat.shape[0]],
+                               edges[:3])
+    with pytest.raises(ValueError, match="groups"):
+        tls.ligd_steps_grouped(feat, x0, [0] * (tls.MAX_GROUPS + 1)
+                               + [feat.shape[0]],
+                               edges[:1] * (tls.MAX_GROUPS + 1))
+
+
+@pytest.mark.parametrize("iters", [48, 64])
+def test_ligd_steps_match_reference_on_interior_optima(iters):
+    """The interior case: nearly every lane ends strictly inside (0, 1)^2
+    (no clamp decides it), and the port's plain version matches the JAX
+    package's oracle there."""
+    feat, x0, offsets, edges = _interior_inputs()
+    x, u = tls.ligd_steps_grouped(feat, x0, offsets, edges, iters=iters)
+    xr, ur = _jax_groups(feat, x0, offsets, edges, iters)
+    _check(x, u, xr, ur, "ligd_steps_ref (interior)")
+    inner = np_of(tls.interior_lanes(torch.from_numpy(xr), feat))
+    assert inner.mean() > 0.95
+    assert np.abs(xr - np_of(x0)).max() > 0.1                  # they moved
+
+
+# ---------------------------------------------------------------------------
+# Rehearsal of csrc/steps.cu's body (ref.fast_math_steps_twin)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _rehearsal_case(case: str, iters: int):
+    """(feat, x0, offsets, edges, lr, JAX x, JAX U) of one case."""
+    if case == "vgg16":
+        _, feat, x0 = _vgg_inputs()
+        x0 = torch.from_numpy(x0)
+        edges = [{k: float(v) for k, v in
+                  tcosts.edge_dict(tcosts.EdgeParams(), "cpu").items()}]
+        offsets, lr = [0, feat.shape[0]], 0.15
+    elif case == "nin-fleet":
+        _, feat, x0, edge = _fleet_inputs()
+        x0, edges, offsets, lr = (torch.from_numpy(x0), [edge],
+                                  [0, feat.shape[0]], 0.1)
+    else:
+        feat, x0, offsets, edges = _interior_inputs()
+        lr = 0.15
+    xr, ur = _jax_groups(feat, x0, offsets, edges, iters, lr)
+    return feat, x0, offsets, edges, lr, xr, ur
+
+
+def _twin(case, iters, seed):
+    feat, x0, offsets, edges, lr, _, _ = _rehearsal_case(case, iters)
+    outs = [tls.fast_math_steps_twin(feat[a:b], x0[a:b], e, iters=iters,
+                                     lr=lr, seed=seed)
+            for a, b, e in zip(offsets, offsets[1:], edges)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+CASES = ["vgg16", "nin-fleet", "interior"]
+SEEDS = [None] + list(range(1, 9))
+
+
+#: the rehearsal's verdict needs a margin: every case at every seed keeps
+#: its x and U errors under a quarter of the tolerances (the worst reading
+#: is about 1.1e-6 in x)
+MARGIN = 0.25
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("iters", [48, 64])
+@pytest.mark.parametrize("case", CASES)
+def test_fast_math_steps_twin_meets_reference_tolerances(case, iters, seed):
+    """The body's algebra, unperturbed and under eight seeded
+    perturbations of its approximate instructions, stays within a
+    quarter of the reference test's tolerances of the JAX package's
+    autodiff oracle: the margin that supports route i, the approximate
+    instructions."""
+    x, u = _twin(case, iters, seed)
+    *_, xr, ur = _rehearsal_case(case, iters)
+    _check(x, u, xr, ur, f"ligd_steps_ref ({case}, seed {seed})")
+    err_x = np.abs(np_of(x) - xr).max() / X_ATOL
+    err_u = (np.abs(np_of(u) - ur) / (U_ATOL + U_RTOL * np.abs(ur))).max()
+    assert err_x < MARGIN and err_u < MARGIN, (err_x, err_u)
+
+
+def test_steps_body_takes_the_route_the_rehearsal_supports():
+    """Route i: csrc/steps.cu's loop and final utility run on
+    rcp/ex2/lg2.approx.ftz, the instructions the rehearsal above
+    perturbs, and not on exact divisions, log2f or exp2f."""
+    body = tls.steps.SOURCE.read_text()
+    for insn in ("rcp.approx.ftz.f32", "ex2.approx.ftz.f32",
+                 "lg2.approx.ftz.f32"):
+        assert insn in body
+    loop = body[body.index("for (int it = 0"):body.index("x_out[2 * i]")]
+    for exact in ("__fdiv", "log2f", "exp2f", " / "):
+        assert exact not in loop, exact

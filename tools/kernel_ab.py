@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 5 (fused expert
-SwiGLU) and 7 (WKV6) of this checkout against the same rows of other
-checkouts, in one process on one CUDA card.
+"""Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 2 (the
+single-split Li-GD steps), 5 (fused expert SwiGLU) and 7 (WKV6) of this
+checkout against the same rows of other checkouts, in one process on one
+CUDA card.
 
 Each ``--other DIR`` is the root of another checkout of this repository
 (for example the parent commit, unpacked with ``git archive``): its
@@ -12,7 +13,8 @@ source, so the versions never mix).
 
 At each shape every version is first held against this checkout's plain
 version (the sweep with ``chip_smoke.compare_sweep``'s checks, its
-outputs also compared with this checkout's kernel bit for bit;
+outputs also compared with this checkout's kernel bit for bit; the steps
+with ``chip_smoke.steps_errors``, at the reference test's tolerances;
 ``MOE_TOL``/``MOE_RMS_TOL`` and ``WKV_TOL``/``WKV_RMS_TOL`` of
 ``chip_smoke.py``), then timed in rounds ordered this, others, others
 reversed, this (ABBA), each round giving
@@ -33,14 +35,19 @@ static Li-GD plan, X 100,000, and the first step's MLi-GD solve, X
 ``chip_smoke.py``'s synthetic MLi-GD case (NiN, X 100,000, random
 original strategies) and at the serving plan (X 1, starcoder2-3b's 31
 splits, ``max_iters`` 200), with the plain version timed once beside
-them; MoE at granite-moe-1b-a400m's prefill (E 32, C 1280, d 1024, ff
-512), an engine prefill (C 320) and engine decode (C 4), bf16, with the
-composition of 3 ``torch.bmm`` + silu timed beside them; WKV6 at
+them; the steps on megafleet_100k's 100,000 users at their planned
+splits (``chip_smoke.steps_groups``, 64 steps): the pass over the four
+servers' groups (one launch where the version has
+``ligd_steps_grouped_cuda``, else one a group), the largest group alone
+and the smallest alone; MoE at granite-moe-1b-a400m's prefill (E 32, C
+1280, d 1024, ff 512), an engine prefill (C 320) and engine decode (C 4),
+bf16, with the composition of 3 ``torch.bmm`` + silu timed beside them;
+WKV6 at
 rwkv6-3b's prefill (B 4, S 1024, H 40, n 64, bf16 r/k/v, from a state),
 a ragged S 777 with the model's decays, and decode (B 8, S 1).
 
     python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
-        [--rows sweep,moe,wkv] [--out report.json]
+        [--rows sweep,steps,moe,wkv] [--out report.json]
 
 Needs a CUDA card; prints one JSON line per measurement and the whole
 report as the last line (also written to ``--out`` when given).
@@ -171,6 +178,73 @@ def sweep_rows(versions: dict, rounds: int, device) -> list:
     return out
 
 
+def steps_pass(mod, feat, x0, offsets, ets, iters, lr):
+    """A call of a version's steps over the groups at ``offsets``: one
+    launch through ``ligd_steps_grouped_cuda`` where the version has it,
+    else one ``ligd_steps_cuda`` launch a group.  The call returns the
+    list of (x, U) it got."""
+    if hasattr(mod, "ligd_steps_grouped_cuda"):
+        return lambda: [mod.ligd_steps_grouped_cuda(
+            feat, x0, offsets, ets, iters=iters, lr=lr)]
+    return lambda: [mod.ligd_steps_cuda(feat[a:b], x0[a:b], et, iters=iters,
+                                        lr=lr)
+                    for a, b, et in zip(offsets, offsets[1:], ets)]
+
+
+def steps_rows(versions: dict, rounds: int, device) -> list:
+    """Row 2: every version against this checkout's plain version and
+    kernel, then ABBA rounds of device and host-inclusive ms, at the
+    pass, the largest group and the smallest group."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.api import Session, get_scenario
+    from repro_torch.kernels.ligd_step import (edge_tuple_of,
+                                               ligd_steps_grouped_ref)
+    sess = Session(get_scenario("megafleet_100k"))
+    sess.run()
+    feat, x0, offsets, edges = cs.steps_groups(sess, device)
+    del sess
+    iters, lr = 64, 0.15
+    sizes = [b - a for a, b in zip(offsets, offsets[1:])]
+    cases = [(f"pass, {len(sizes)} groups", list(range(len(sizes))))]
+    for label, pick in (("largest group alone", max),
+                     ("smallest group alone", min)):
+        cases.append((label, [pick(range(len(sizes)),
+                                   key=sizes.__getitem__)]))
+    out = []
+    for label, groups in cases:
+        a, b = offsets[groups[0]], offsets[groups[-1] + 1]
+        f, x, es = feat[a:b], x0[a:b], [edges[j] for j in groups]
+        offs = [offsets[j] - a for j in groups] + [b - a]
+        ets = [edge_tuple_of(e) for e in es]
+        xr, ur = ligd_steps_grouped_ref(f, x, offs, es, iters=iters, lr=lr)
+        fns = {v: steps_pass(m, f, x, offs, ets, iters, lr)
+               for v, m in versions.items()}
+        want = fns["this"]()[0]
+        for v, fn in fns.items():
+            got = fn()
+            gx = torch.cat([g[0] for g in got])
+            gu = torch.cat([g[1] for g in got])
+            err = cs.steps_errors(gx, gu, xr, ur, f, x)
+            same = bool(torch.equal(gx, want[0]) and torch.equal(gu, want[1]))
+            print(json.dumps({"kernel": "ligd_steps", "case": label,
+                              "version": v, "equal_to_this": same, **err}),
+                  flush=True)
+            if not err["within_tolerance"]:
+                raise AssertionError(f"ligd_steps {v} {label}: {err}")
+        bound, by = cs.steps_bound_ms(b - a, iters)
+        rec = {"case": label, "X": b - a, "groups": [sizes[j] for j in groups],
+               "bound_ms": bound, "bound_by": by, "runs": []}
+        for v in abba(list(versions), rounds):
+            run = {"version": v, "device_ms": cs.device_ms(fns[v], 30, 3),
+                   "ms": cs.timed_ms(fns[v], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "ligd_steps", "case": label, **run}),
+                  flush=True)
+        out.append(rec)
+    return out
+
+
 def abba(names: list, rounds: int) -> list:
     order = []
     for _ in range(rounds):
@@ -182,8 +256,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], type=Path)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--rows", default="sweep,moe,wkv",
-                    help="comma-separated subset of sweep, moe, wkv")
+    ap.add_argument("--rows", default="sweep,steps,moe,wkv",
+                    help="comma-separated subset of sweep, steps, moe, wkv")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -198,25 +272,28 @@ def main() -> int:
 
     rows = set(args.rows.split(","))
     sweep = {"this": ligd_step.sweep_cuda}
+    steps = {"this": ligd_step}
     moe = {"this": moe_gemm.moe_swiglu_cuda}
     wkv = {"this": wkv6.wkv6_cuda}
     for i, root in enumerate(args.other):
         tag = f"{root.name}_{i}"
-        if "sweep" in rows:
-            sweep[tag] = load_package(root, "ligd_step",
-                                      f"other{i}_ligd_step").sweep_cuda
+        if rows & {"sweep", "steps"}:
+            other = load_package(root, "ligd_step", f"other{i}_ligd_step")
+            sweep[tag], steps[tag] = other.sweep_cuda, other
         if "moe" in rows:
             moe[tag] = load_package(root, "moe_gemm",
                                     f"other{i}_moe_gemm").moe_swiglu_cuda
         if "wkv" in rows:
             wkv[tag] = load_package(root, "wkv6",
                                     f"other{i}_wkv6").wkv6_cuda
-    report = {"card": cs.card_line(), "sweep": [], "moe_swiglu": [],
-              "wkv6": []}
+    report = {"card": cs.card_line(), "sweep": [], "ligd_steps": [],
+              "moe_swiglu": [], "wkv6": []}
     print(report["card"], flush=True)
     dev = torch.device("cuda")
     if "sweep" in rows:
         report["sweep"] = sweep_rows(sweep, args.rounds, dev)
+    if "steps" in rows:
+        report["ligd_steps"] = steps_rows(steps, args.rounds, dev)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def randn(shape, scale=1.0):
