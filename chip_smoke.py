@@ -9,6 +9,16 @@ card, over its main paths.
   of its first launch there and on the serving plan's one lane
   (starcoder2-3b's 31 splits, ``max_iters`` 200), and checks the card's
   result against the CPU path.
+* Admission control and the fault path: ``Session`` on
+  chaos_singlefail_k3 at 100,000 users x K 3 (300,000 Li-GD rows in the
+  static plan, server 2 killed at t = 30 s and back at t = 150 s),
+  checked step by step (nobody on a down server, no budget exceeded,
+  every user of the dead server evacuated or degraded, the recovery
+  hold), its Li-GD, first MLi-GD and fault-step MLi-GD launches held
+  against the plain version bit for bit; the capacitated and chaos
+  presets card against CPU; every policy (the §6 baselines and MCSA) on
+  megafleet_100k's 100,000 users, and on the capacitated and chaos
+  presets card against CPU under tools/policy_matrix.py's invariants.
 * Split LLM serving of starcoder2-3b at full width and depth (random
   weights from a seed): holds the RMSNorm and flash-attention kernels
   against their plain versions at the model's shapes, runs Li-GD split
@@ -127,14 +137,20 @@ CROSS_ATOL, CROSS_RTOL = 0.08, 0.02
 #: them.  A plain op is an add, mul, multiply-add, compare or clamp side;
 #: a mufu op is a reciprocal, exp2 or log2, and counts one instruction
 #: against ISSUE_S besides its one against MUFU_S.  U1 needs 3 log2
-#: (r, 1 + q/B, B/B0), 2 exp2 (r^-a, g(B)) and 4 reciprocals (B, r,
-#: 1 + q/B, L; 1/τ = (1/B)(1/L)) and 26 plain ops; the joint variant adds
-#: U2 (2 log2, 1 exp2, 3 reciprocals, 19 plain) and 6 to combine them;
-#: lane constants (1/c_dev, 1/k, 1/B0, U2's) are set up once a lane and
-#: not counted
+#: (r, 1 + q/B, B/B0), 2 exp2 (r^-a, g(B)) and the reciprocals of B, r,
+#: 1 + q/B and L (1/τ = (1/B)(1/L)), and 26 plain ops; the joint variant
+#: adds U2 (2 log2, 1 exp2, the reciprocals of B_back, 1 + q/B_back and
+#: L_back, 19 plain) and 6 to combine them.  One reciprocal serves all n
+#: of an evaluation's quotients (their product stays far inside float
+#: range: B, B_back <= 2e7, r <= 32, the rest <= ~30): n - 1 products
+#: build P, R = 1/P, and each 1/x_i comes from R and a prefix product at
+#: 2 multiplies apiece, 3(n - 1) plain ops in all — U1 (n = 4) 26 + 9
+#: plain and 3 + 2 + 1 mufu, the joint variant (n = 7) 51 + 18 plain and
+#: 5 + 3 + 1 mufu.  Lane constants (1/c_dev, 1/k, 1/B0, U2's) are set up
+#: once a lane and not counted
 OPS = {
-    "ligd_sweep": {"eval": (26, 9), "update": (18, 0), "split": (13, 0)},
-    "mligd_sweep": {"eval": (51, 15), "update": (30, 0), "split": (13, 0)},
+    "ligd_sweep": {"eval": (35, 6), "update": (18, 0), "split": (13, 0)},
+    "mligd_sweep": {"eval": (69, 9), "update": (30, 0), "split": (13, 0)},
 }
 
 #: the same count for kernel row 2 (the single-split steps), whatever
@@ -1197,6 +1213,218 @@ def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
                              "reference")
 
 
+#: [admission]: chaos_singlefail_k3 at full fleet size, the preset's 200
+#: compute units a server per 500 users scaled x200; server 2 is the one
+#: its schedule kills at t = 30 s and brings back at t = 150 s
+ADMISSION_USERS = 100_000
+ADMISSION_R_CAPACITY = 40_000.0
+ADMISSION_DEAD = 2
+#: the policy matrix's cross-phase worlds (tools/policy_matrix.py)
+MATRIX_SCENARIOS = ("capacitated_k3", "chaos_singlefail_k3")
+
+
+def zero_sweep_launches(sweep_kernel) -> None:
+    for k in sweep_kernel.LAUNCHES:
+        sweep_kernel.LAUNCHES[k] = 0
+
+
+def check_budgets_and_liveness(sess, where: str, budgets: bool = True
+                               ) -> None:
+    """No user offloads to a down server; with ``budgets`` (a policy
+    that admits), no server's admitted r or B (the live table's
+    offloading rows) exceeds its live budget."""
+    import numpy as np
+    fleet, topo = sess.fleet, sess.topo
+    offl = fleet.split < sess.profile.num_layers
+    up = topo.server_available()
+    stranded = int((~up[fleet.server] & offl).sum())
+    if stranded:
+        raise AssertionError(f"{where}: {stranded} users offload to a "
+                             "down server")
+    for col, cap in ((fleet.r, topo.r_capacity), (fleet.B, topo.B_capacity)):
+        if cap is None or not budgets:
+            continue
+        load = np.bincount(fleet.server[offl], weights=col[offl],
+                           minlength=topo.num_servers)
+        cap = np.asarray(cap, np.float64)
+        if np.any(load > cap * (1 + 1e-9) + 1e-9):
+            raise AssertionError(f"{where}: load {load.tolist()} over the "
+                                 f"budget {cap.tolist()}")
+
+
+def bit_for_bit(rec: dict, what: str) -> None:
+    """The sweep equals its plain version exactly on this launch."""
+    if rec["max_abs_err"] != 0 or rec["split_diff"] or rec["iters_max_diff"]:
+        raise AssertionError(f"{what}: not bit for bit: " + json.dumps(rec))
+
+
+def admission_path(sweep_kernel, sweep_ops) -> tuple:
+    """[admission]: ``Session`` on chaos_singlefail_k3 at 100,000 users
+    x K 3 on the card (device None), its 8 steps one by one, checking
+    after each: nobody offloads to a down server, no budget is exceeded,
+    the fault step's evacuated + degraded equal the users server 2
+    carried, and while server 2's recovery hold lasts no evacuee lands
+    on it.  Then the static plan's Li-GD launch, the first MLi-GD launch
+    and the fault step's MLi-GD launch against the plain version, bit
+    for bit.  Returns (launches, {label: compare_sweep record})."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Session, get_scenario
+    sc = get_scenario("chaos_singlefail_k3").replace(
+        num_users=ADMISSION_USERS, r_capacity=ADMISSION_R_CAPACITY)
+    zero_sweep_launches(sweep_kernel)
+    first, unspy = record_first_launches(sweep_ops)
+    try:
+        t0 = time.perf_counter()
+        sess = Session(sc)                      # device=None -> the card
+        torch.cuda.synchronize()
+        plan_wall = time.perf_counter() - t0
+    finally:
+        unspy()
+    if sess.device.type != "cuda":
+        raise AssertionError(f"admission path ran on {sess.device}")
+    check_budgets_and_liveness(sess, "admission plan")
+    M = sess.profile.num_layers
+    policy = sess.policy
+    records = {"static plan Li-GD": first["ligd_sweep"]}
+    evac = {"carried": None, "evacuated": None, "degraded": None,
+            "hold_checked_evacuees": 0, "hold_after_recovery": None}
+    t0 = time.perf_counter()
+    for k in range(sc.steps):
+        offl = sess.fleet.split < M
+        carried = int((offl & (sess.fleet.server == ADMISSION_DEAD)).sum())
+        seen, unspy = record_first_launches(sweep_ops)
+        try:
+            rep = sess.step()
+        finally:
+            unspy()
+        if k == 0:
+            records["first MLi-GD"] = seen["mligd_sweep"]
+        where = f"admission step {k} (t={rep.t:g})"
+        check_budgets_and_liveness(sess, where)
+        ev = rep.evacuation
+        if rep.faults is not None and ADMISSION_DEAD in rep.faults.server_down:
+            records["fault-step MLi-GD"] = seen["mligd_sweep"]
+            if len(ev.users) != carried or \
+                    ev.evacuated + ev.degraded != carried:
+                raise AssertionError(
+                    f"{where}: server {ADMISSION_DEAD} carried {carried}, "
+                    f"evacuation over {len(ev.users)}: {ev.evacuated} "
+                    f"evacuated + {ev.degraded} degraded")
+            evac.update(carried=carried, evacuated=ev.evacuated,
+                        degraded=ev.degraded)
+        if rep.faults is not None and ADMISSION_DEAD in rep.faults.server_up:
+            evac["hold_after_recovery"] = int(policy._hold[ADMISSION_DEAD])
+            if evac["hold_after_recovery"] != policy.recovery_hold_steps:
+                raise AssertionError(f"{where}: recovery hold "
+                                     f"{evac['hold_after_recovery']}")
+        if ev is not None and policy._hold[ADMISSION_DEAD] > 0:
+            users = ev.users[sess.fleet.split[ev.users] < M]
+            if np.any(sess.fleet.server[users] == ADMISSION_DEAD):
+                raise AssertionError(f"{where}: an evacuee landed on the "
+                                     "held server")
+            evac["hold_checked_evacuees"] += len(ev.users)
+    sess.drain()
+    torch.cuda.synchronize()
+    steps_wall = time.perf_counter() - t0
+    launches = dict(sweep_kernel.LAUNCHES)
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if evac["carried"] is None or evac["hold_after_recovery"] is None:
+        raise AssertionError(f"the scripted fault never fired: {evac}")
+    check_fleet(sess.fleet, M, sess.topo.num_servers)
+    m = sess.metrics()
+    phase("admission", json.dumps({
+        "scenario": sc.name, "users": sc.num_users, "K": sc.candidates_k,
+        "r_capacity": sc.r_capacity, "steps": sc.steps,
+        "static_rows": sc.num_users * sc.candidates_k,
+        "plan_wall_s": plan_wall, "steps_wall_s": steps_wall,
+        "timings": sess.timings, "launches": launches,
+        "handoffs_per_step": m.handoffs.tolist(),
+        "evacuation": evac, "admission": sess.admission,
+        "faults": m.faults, "mean_T": m.mean_T.tolist()}))
+    del sess
+    recs = {}
+    for label, (feat, x0, tab, kw) in records.items():
+        name = "mligd_sweep" if kw["joint"] else "ligd_sweep"
+        recs[label] = compare_sweep(name, f"{sc.name} x{ADMISSION_USERS} "
+                                    f"{label}", feat, x0, tab, kw)
+        bit_for_bit(recs[label], label)
+    return launches, recs
+
+
+def admission_cross() -> None:
+    """[admission-cross]: the capacitated and chaos presets at their own
+    sizes, card against CPU."""
+    from repro_torch.api import Session, get_scenario
+    for name in ("capacitated_k3", "chaos_singlefail_k3", "chaos_churn"):
+        fleets = {}
+        for dev in ("cuda", "cpu"):
+            s = Session(get_scenario(name), device=dev)
+            s.run()
+            check_fleet(s.fleet, s.profile.num_layers, s.topo.num_servers)
+            check_budgets_and_liveness(s, f"{name} on {dev}")
+            fleets[dev] = s.fleet
+        phase("admission-cross", f"{name} " + json.dumps(
+            compare_fleets(fleets["cuda"], fleets["cpu"])))
+
+
+def baselines_phase(sweep_kernel) -> dict:
+    """[baselines]: every policy on megafleet_100k's 100,000 users (the
+    plan and 2 steps) on the card, then the policy matrix's worlds card
+    against CPU under tools/policy_matrix.py's invariants: finite,
+    positive mean delay, nobody offloading to a down server, and MCSA no
+    worse than the worst baseline.  Returns the sweep launches of the
+    100,000-user runs (MCSA's)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import POLICIES, Session, get_scenario
+    big = get_scenario("megafleet_100k").replace(steps=2)
+    zero_sweep_launches(sweep_kernel)
+    cells = {}
+    for policy in sorted(POLICIES):
+        t0 = time.perf_counter()
+        s = Session(big, policy=policy)         # device=None -> the card
+        m = s.run()
+        torch.cuda.synchronize()
+        check_fleet(s.fleet, s.profile.num_layers, s.topo.num_servers)
+        cells[policy] = {"mean_T": float(m.mean_T.mean()),
+                         "wall_s": time.perf_counter() - t0}
+        if not (np.isfinite(cells[policy]["mean_T"])
+                and cells[policy]["mean_T"] > 0):
+            raise AssertionError(f"{policy}: mean delay {cells[policy]}")
+    launches = dict(sweep_kernel.LAUNCHES)
+    phase("baselines", f"{big.name} x{big.num_users} " + json.dumps(cells))
+    for name in MATRIX_SCENARIOS:
+        sc = get_scenario(name)
+        cells = {}
+        for policy in sorted(POLICIES):
+            fleets = {}
+            for dev in ("cuda", "cpu"):
+                s = Session(sc, policy=policy, device=dev)
+                m = s.run()
+                check_fleet(s.fleet, s.profile.num_layers,
+                            s.topo.num_servers)
+                # the baselines admit nobody: budgets bind MCSA only
+                check_budgets_and_liveness(s, f"{name}/{policy} on {dev}",
+                                           budgets=policy == "mcsa")
+                mean_T = float(m.mean_T.mean())
+                if not (np.isfinite(mean_T) and mean_T > 0):
+                    raise AssertionError(f"{name}/{policy} on {dev}: mean "
+                                         f"delay {mean_T}")
+                fleets[dev] = (s.fleet, mean_T)
+            cross = compare_fleets(fleets["cuda"][0], fleets["cpu"][0])
+            cells[policy] = {"mean_T": fleets["cuda"][1],
+                             "server_differ": cross["server_differ"],
+                             "split_differ": cross["split_differ"]}
+        worst = max(c["mean_T"] for p, c in cells.items() if p != "mcsa")
+        if cells["mcsa"]["mean_T"] > worst * (1 + 1e-6):
+            raise AssertionError(f"{name}: MCSA worse than every baseline: "
+                                 + json.dumps(cells))
+        phase("baselines", f"{name} " + json.dumps(cells))
+    return launches
+
+
 def kernel_counters() -> tuple:
     """Every kernel wrapper's launch count (dicts, zeroed in place)."""
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1405,8 +1633,7 @@ def main() -> int:
     from repro_torch.kernels.ligd_step import ops as sweep_ops
     sc = get_scenario("megafleet_100k")
     recorded, unspy = record_first_launches(sweep_ops)
-    for k in sweep_kernel.LAUNCHES:
-        sweep_kernel.LAUNCHES[k] = 0
+    zero_sweep_launches(sweep_kernel)
     try:
         t0 = time.perf_counter()
         sess = Session(sc)                      # device=None -> the card
@@ -1467,6 +1694,16 @@ def main() -> int:
         fleets[dev] = s.fleet
     phase("cross", json.dumps(compare_fleets(fleets["cuda"], fleets["cpu"])))
 
+    # 5b. admission control and the fault path: chaos_singlefail_k3 at
+    # 100,000 users x K 3, the sweep held bit for bit on its launches;
+    # the capacitated and chaos presets card against CPU; the baselines
+    adm_launches, adm_recs = admission_path(sweep_kernel, sweep_ops)
+    for label, r in adm_recs.items():
+        errs["mligd_sweep" if "MLi-GD" in label else "ligd_sweep"].append(
+            r["max_abs_err"])
+    admission_cross()
+    base_launches = baselines_phase(sweep_kernel)
+
     # 6. language-model kernels against plain on the card ---------------
     lm = lm_kernel_cases(device)
     lm.update(moe_wkv_kernel_cases(device))
@@ -1498,7 +1735,9 @@ def main() -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": src,
         "replaces": "src/repro/kernels/ligd_step/kernel.py:189",
-        "launches": launches[name], "max_abs_err": max(errs[name]),
+        "launches": (launches[name] + adm_launches[name]
+                     + base_launches[name]),
+        "max_abs_err": max(errs[name]),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         "device_ms": r["device_ms"],

@@ -7,12 +7,13 @@ The port of the JAX package's ``repro/api/scenario.py``.  A
 dict, so a scenario crosses between the two packages through
 ``to_dict`` / ``from_dict`` (see :mod:`repro_torch.interop`).
 
-What the port's Session supports: chain-CNN models, K = 1, no budgets,
-no faults, no serving.  ``serving`` must stay None (the closed-loop
-serving data plane is not ported: ROADMAP, queue 1, item 3); a
-``faults`` config round-trips but :class:`~repro_torch.api.Session`
-refuses it.  Every reference preset without ``serving`` is registered
-here.
+What the port's Session supports: chain-CNN models, any candidate-set
+size K, per-server budgets (admission control) and fault injection
+(``faults``: a :class:`~repro_torch.core.faults.FaultConfig`, built into
+a seeded :class:`~repro_torch.core.faults.FaultModel` by
+:meth:`Scenario.build_faults`).  ``serving`` must stay None (the
+closed-loop serving data plane is not ported: ROADMAP, queue 1, item
+3).  Every reference preset without ``serving`` is registered here.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 
 from repro_torch.configs import CNN_BUILDERS
 from repro_torch.core.costs import DeviceFleet, LayerProfile
-from repro_torch.core.faults import FaultConfig
+from repro_torch.core.faults import FaultConfig, FaultModel
 from repro_torch.core.ligd import LiGDConfig
 from repro_torch.core.mobility import RandomWaypointMobility, StaticMobility
 from repro_torch.core.network import Topology, build_topology
@@ -165,6 +166,14 @@ class Scenario:
             kw["speed_range"] = self.speed_range
         return model(topo, self.num_users, **kw)
 
+    def build_faults(self, topo: Topology) -> Optional[FaultModel]:
+        """The scenario's seeded fault process over ``topo``'s servers
+        and fiber links, or None when chaos is off."""
+        if self.faults is None:
+            return None
+        return FaultModel(self.faults, topo.num_servers,
+                          len(topo.links()))
+
 
 # ---------------------------------------------------------------------------
 # Preset registry: the reference's presets that carry no ServeConfig,
@@ -213,8 +222,9 @@ register_scenario(Scenario(
     speed_range=(25.0, 40.0), mobility_seed=7,
     ligd=LiGDConfig(max_iters=150), steps=40, dt=10.0))
 
-# Admission-control showcase (K=3 under a compute budget): registered
-# for the round trip; Session refuses it until admission is ported.
+# Admission-control showcase: K=3 candidate servers under a per-server
+# compute budget tight enough to force spills, admission-aware handoff
+# detection auto-on.
 register_scenario(Scenario(
     name="capacitated_k3", num_aps=25, num_servers=4, topo_seed=0,
     model="nin", num_users=500, r_capacity=200.0, candidates_k=3,
@@ -235,8 +245,11 @@ register_scenario(Scenario(
     mobility_seed=2, ligd=LiGDConfig(max_iters=60),
     async_replanning=True, steps=5, dt=30.0))
 
-# Chaos presets: registered for the round trip; Session refuses them
-# until the fault path is ported.
+# Chaos: the capacitated_k3 world with a scripted single-server failure
+# (server 2 dies at t=30 s, recovers at t=150 s): every user on the dead
+# server is re-admitted under the survivors' residual budgets or degraded
+# to device-only within one step, and the recovery hold keeps them off
+# the recovered server for a while.
 register_scenario(Scenario(
     name="chaos_singlefail_k3", num_aps=25, num_servers=4, topo_seed=0,
     model="nin", num_users=500, r_capacity=200.0, candidates_k=3,
@@ -246,6 +259,9 @@ register_scenario(Scenario(
                                  ("server_up", 150.0, 2))),
     steps=8, dt=30.0))
 
+# Chaos: sustained stochastic churn — servers crash and recover on an
+# MTBF/MTTR clock, fiber links are cut and spliced, and the per-server
+# budgets jitter every step.
 register_scenario(Scenario(
     name="chaos_churn", num_aps=25, num_servers=4, topo_seed=0,
     model="nin", num_users=200, r_capacity=250.0, candidates_k=2,

@@ -10,7 +10,7 @@ Beyond the paper's one-server-per-AP assumption, each AP also exposes a
 hop-ordered CANDIDATE SET of the K nearest servers (:meth:`Topology.
 candidates`) and each server may carry a compute / bandwidth budget
 (``r_capacity`` / ``B_capacity``).  The planner's admission control
-(``core/admission.py`` of the JAX package, not yet ported) spills users to their next candidate when a
+(``repro_torch.core.admission``) spills users to their next candidate when a
 server saturates; see docs/ARCHITECTURE.md ("Admission control") for the
 full control-plane dataflow.
 

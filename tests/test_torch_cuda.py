@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels (the sweep and
 the single-split Li-GD steps, RMSNorm, flash attention, the fused expert
 SwiGLU, the RG-LRU scan, WKV6) against their plain PyTorch versions on
-the same card tensors.  They skip without a
+the same card tensors, the sweep also on the fault path's unreachable
+hop counts (bit for bit), and the admission / chaos sessions card
+against CPU.  They skip without a
 card.  On the machine with the card (no JAX there, so without the
 repository's conftest):
 
@@ -38,8 +40,17 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _card_inputs(joint, X, profile, device):
+def _card_inputs(joint, X, profile, device, unreachable=False):
+    """Sweep inputs on the card; ``unreachable`` gives them the fault
+    path's rows: every third lane's hop count clamped to HOP_UNREACHABLE
+    (a dead candidate's), and for MLi-GD every second lane's relay-back
+    hops at HOP_UNREACHABLE (EVACUATE / DRAIN rows)."""
     dev, orig = sweep_columns(joint, X)
+    if unreachable:
+        from repro_torch.core.faults import HOP_UNREACHABLE
+        dev["hops"][::3] = HOP_UNREACHABLE
+        if joint:
+            orig["hops_back"][::2] = HOP_UNREACHABLE
     td = tcosts.rows_to_device(dev, device)
     te = tcosts.edge_dict(tcosts.EdgeParams(), device)
     to = None if orig is None else tcosts.rows_to_device(orig, device)
@@ -198,6 +209,52 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
         tsweep.sweep_cuda(feat.t().contiguous().t(), x0, tab, **kw)
     with pytest.raises(ValueError, match="shape"):
         tsweep.sweep_cuda(feat, x0[:1], tab, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint", [False, True])
+def test_cuda_kernel_unreachable_hops_bit_for_bit(joint, cuda):
+    """Lanes whose relay terms run ~2^20 times a live lane's (their
+    operands leave the fast paths' 2^-50..2^50 range) still give the
+    plain version's answer bit for bit, as every other lane does."""
+    feat, x0, tab = _card_inputs(joint, 3001, profile_of(nin()), cuda,
+                                 unreachable=True)
+    kw = dict(KW, warm_start=True, init=(0.5,) * x0.shape[0])
+    u, xB, xr, it, best = tsweep.sweep_cuda(feat, x0, tab, joint=joint,
+                                            **kw)
+    ref = tsweep.mligd_sweep_ref if joint else tsweep.ligd_sweep_ref
+    ur, xs, itr, bs, bx, bu = ref(feat, x0, tab, chunk=1, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in (("U", u, ur), ("xB", xB, xs[0]), ("xr", xr, xs[1]),
+                       ("iters", it, itr), ("best split", best[0], bs),
+                       ("best U", best[1], bu),
+                       *((f"best x{i}", best[2 + i], bx[i])
+                         for i in range(x0.shape[0]))):
+        assert torch.equal(a, b.to(a.dtype)), name
+    assert torch.isfinite(u).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["capacitated_k3", "chaos_singlefail_k3",
+                                  "chaos_churn"])
+def test_cuda_admission_session_matches_the_cpu(name, cuda):
+    """The capacitated and chaos worlds at their preset sizes, card
+    against CPU, to chip_smoke.py's session tolerances (a lane on the
+    |dU| < eps edge may stop one GD step apart on the two devices)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.api import Session, get_scenario
+    fleets = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(get_scenario(name), device=dev)
+        m = s.run()
+        up = s.topo.server_available()
+        offl = s.fleet.split < s.profile.num_layers
+        assert not np.any(~up[s.fleet.server] & offl)
+        fleets[dev] = (s.fleet, m)
+    chip_smoke.compare_fleets(fleets["cuda"][0], fleets["cpu"][0])
+    np.testing.assert_array_equal(fleets["cuda"][1].handoffs,
+                                  fleets["cpu"][1].handoffs)
 
 
 # ---------------------------------------------------------------------------

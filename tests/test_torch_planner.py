@@ -3,7 +3,8 @@ logic bit for bit (topology, fault trajectories, mobility, handoff
 batches, the dirty set, the ledger), the batched Li-GD / MLi-GD solves
 against the reference's fused path (shared and per-user edges), one
 ``on_events`` step from an identical plan table carried across with
-``repro_torch.interop``, and the deferred paths raising.
+``repro_torch.interop``, and the deferred paths raising (or, for those
+ported since, planning).
 
 Solver tolerances are ``torch_diff``'s (continuous 1e-4 relative,
 discrete exact outside named near-ties, iteration counts ±1 on <= 1%)."""
@@ -299,7 +300,7 @@ def test_on_events_step_from_reference_plan_table(sync, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Deferred paths raise, no stubs
+# Deferred paths raise, no stubs; the paths ported since plan
 # ---------------------------------------------------------------------------
 def _planner(**kw):
     tt = tnet.build_topology(16, 4, seed=0, **kw.pop("topo", {}))
@@ -311,30 +312,45 @@ def _planner(**kw):
                                   "faulted_topology", "env",
                                   "run_baseline", "autodiff"])
 def test_deferred_paths_raise(case):
+    """The sharded plan and the autodiff oracle still raise (ROADMAP,
+    queue 1, item 4).  K > 1, budgets, a fault step, a faulted topology
+    and ``run_baseline`` were deferred until admission, faults and the
+    baselines were ported: they now plan, with finite tables."""
     dev = tcosts.DeviceFleet(c_dev=np.full(8, 4e9))
     aps = np.arange(8) % 16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "candidates_k":
-            _planner(candidates_k=3)
-        elif case == "capacitated":
-            _planner(topo=dict(r_capacity=100.0))
-        elif case == "env":
-            _planner().plan_static(dev, aps, env=object())
-        elif case == "run_baseline":
-            _planner().run_baseline("edge_only", dev, aps)
-        elif case == "autodiff":
-            _planner(cfg=TCfg(solver="autodiff")).plan(dev, aps)
-        else:
-            p = _planner()
-            fleet = p.plan(dev, aps)
-            if case == "faults":
-                p.on_events(tev.StepEvents(
-                    t=0.0, handoffs=tmob.HandoffBatch.empty(),
-                    faults=tfaults.FaultBatch.empty()), dev, fleet)
+    if case in ("env", "autodiff"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            if case == "env":
+                _planner().plan_static(dev, aps, env=object())
             else:
-                p.topo.apply_faults(dataclasses.replace(
-                    tfaults.FaultBatch.empty(), server_down=np.array([1])))
-                p.plan(dev, aps)
+                _planner(cfg=TCfg(solver="autodiff")).plan(dev, aps)
+        return
+    if case == "run_baseline":
+        res = _planner().run_baseline("edge_only", dev, aps)
+        assert np.all(res.split.numpy() == 0)
+        assert np.all(np.isfinite(res.U.numpy()))
+        return
+    if case == "candidates_k":
+        p = _planner(candidates_k=3)
+    elif case == "capacitated":
+        p = _planner(topo=dict(r_capacity=100.0))
+    else:
+        p = _planner()
+    fleet = p.plan(dev, aps)
+    if case in ("candidates_k", "capacitated"):
+        assert p.last_admission is not None
+    elif case == "faults":
+        out = p.on_events(tev.StepEvents(
+            t=0.0, handoffs=tmob.HandoffBatch.empty(),
+            faults=tfaults.FaultBatch.empty()), dev, fleet)
+        assert out.evacuation is not None and p.last_evacuation is not None
+    else:
+        p.topo.apply_faults(dataclasses.replace(
+            tfaults.FaultBatch.empty(), server_down=np.array([1])))
+        fleet = p.plan(dev, aps)
+        offl = fleet.split < p.profile.num_layers
+        assert not np.any(fleet.server[offl] == 1)
+    assert np.all(np.isfinite(fleet.U))
 
 
 def test_device_none_means_cuda_and_never_falls_back(monkeypatch):

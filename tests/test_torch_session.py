@@ -2,7 +2,8 @@
 ``Session`` on ``paper_fig1`` (first 6 steps, sync) and on a 512-user
 ``megafleet_100k`` (3 steps, async), every FleetState column per step and
 the handoff/relay/resplit accounting; ``Scenario.to_dict`` across the two
-packages for every preset the port registers; the refused worlds; and,
+packages for every preset the port registers; the worlds it refused
+before admission and faults were ported, and those it still refuses; and,
 in a fresh interpreter, that the port loads neither JAX nor ``repro``.
 
 Tolerances are ``torch_diff``'s: discrete columns exact outside the
@@ -58,7 +59,7 @@ def test_session_matches_reference(name, changes, steps, monkeypatch):
     for f in ("t", "handoffs", "relays", "resplits"):
         np.testing.assert_array_equal(getattr(mt, f), getattr(mj, f), f)
     assert tap.ties.mean() <= 0.01, np.nonzero(tap.ties)[0].tolist()
-    assert set(ts.timings) == {"plan_s", "steps_s", "drain_s"}
+    assert set(ts.timings) == {"plan_s", "steps_s", "drain_s", "faults_s"}
 
 
 @pytest.mark.parametrize("name", list_scenarios())
@@ -79,15 +80,25 @@ def test_port_registers_every_preset_without_serving():
 @pytest.mark.parametrize("case", ["faults", "candidates_k", "budget",
                                   "serving", "transformer"])
 def test_refused_worlds_raise(case):
+    """The worlds the port refused until admission and the fault path
+    were ported (faults, K > 1, a budget) now build and plan on the CPU;
+    serving and a transformer's fleet still raise (ROADMAP, queue 1,
+    item 3)."""
     base = t_get_scenario("paper_fig1")
+    if case in ("faults", "candidates_k", "budget"):
+        sc = {"faults": t_get_scenario("chaos_churn").replace(num_users=40),
+              "candidates_k": base.replace(candidates_k=3),
+              "budget": base.replace(r_capacity=100.0)}[case]
+        s = TSession(sc, device="cpu")
+        assert s.admission is not None and s._admission_aware
+        assert s.policy.last_admission is not None
+        assert (s.fault_model is not None) == (case == "faults")
+        m = s.run(2)
+        assert np.all(np.isfinite(s.fleet.U))
+        assert (m.faults is not None) == (case == "faults")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "faults":
-            TSession(t_get_scenario("chaos_churn"), device="cpu")
-        elif case == "candidates_k":
-            TSession(base.replace(candidates_k=3), device="cpu")
-        elif case == "budget":
-            TSession(base.replace(r_capacity=100.0), device="cpu")
-        elif case == "serving":
+        if case == "serving":
             base.replace(serving=object())
         else:
             TSession(base.replace(model="starcoder2-3b"), device="cpu")
@@ -112,8 +123,9 @@ def test_session_device_none_means_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh interpreter: import the port, run a CPU session and a
-    reduced CPU split generation, and list every loaded module named
+    """A fresh interpreter: import the port, run CPU sessions (the
+    planner with and without faults, a baseline policy) and a reduced
+    CPU split generation, and list every loaded module named
     jax/jax.* or repro/repro.*."""
     code = (
         "import sys\n"
@@ -129,6 +141,10 @@ def test_port_imports_neither_jax_nor_reference():
         "from repro_torch.models.transformer import init_lm\n"
         "Session(get_scenario('paper_fig1').replace(steps=2),"
         " device='cpu').run()\n"
+        "Session(get_scenario('chaos_singlefail_k3').replace("
+        "num_users=40, steps=2), device='cpu').run()\n"
+        "Session(get_scenario('paper_fig1').replace(steps=1),"
+        " policy='dnn_surgery', device='cpu').run()\n"
         "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
         "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "repro_torch.serving.SplitServer(cfg, params, device='cpu')"

@@ -15,12 +15,26 @@ Tolerances, with their reasons:
 * Iteration counts equal on at least ``ITERS_EQUAL_SHARE`` of lanes and
   within ±1 on the rest: a lane whose |ΔU| sits on the ε threshold can
   stop one step apart.
+* Admission choices (server, spills, rejections) must be equal, except
+  for users the reference's own waterfill names as near-ties: two
+  candidate utilities within ``ADMISSION_RTOL``, or a proposal at a
+  server's water level whose U ties its neighbour's or whose running r /
+  B sum is within ``ADMISSION_RTOL`` of the remaining budget
+  (:class:`ReferenceTap`).  ``ADMISSION_RTOL = 2e-6`` is tighter than
+  ``RTOL``: what the waterfill ranks and sums is the solves' U, r and B,
+  which agree with the reference to at most 2.3e-7 relative over every
+  admission of the ``capacitated_k3``, ``chaos_singlefail_k3`` and
+  ``chaos_churn`` sessions, so two proposals can swap only when they are
+  closer than 4.6e-7; 2e-6 names every pair within four times that.
+  ``RTOL`` would also name users of one AP whose edge-only candidates
+  differ by 2e-5 (2.6 % of ``capacitated_k3``'s fleet).
 """
 from __future__ import annotations
 
 import numpy as np
 
 RTOL = 1e-4
+ADMISSION_RTOL = 2e-6
 NEAR_TIE_SHARE = 0.01
 ITERS_EQUAL_SHARE = 0.99
 
@@ -120,23 +134,128 @@ def jax_joint_ties(profile, devs, edge_new, origs, hops_back, cfg,
                                          <= RTOL * np.abs(u1))
 
 
+def candidate_ties(cand, U, rtol: float = ADMISSION_RTOL) -> np.ndarray:
+    """(X,) bool: rows whose preference order over their candidate
+    columns may flip — two columns on different servers (or the same
+    server with different U) whose utilities are within ``rtol`` of each
+    other.  Exact duplicates (the same server, the same U: the fault
+    path's masked columns) pick the same plan either way."""
+    cand = np.asarray(cand)
+    U = np.asarray(U, np.float64)
+    X, K = U.shape
+    named = np.zeros(X, bool)
+    for i in range(K):
+        for j in range(i + 1, K):
+            dup = (cand[:, i] == cand[:, j]) & (U[:, i] == U[:, j])
+            finite = np.isfinite(U[:, i]) & np.isfinite(U[:, j])
+            with np.errstate(invalid="ignore"):
+                close = np.abs(U[:, i] - U[:, j]) <= rtol * np.abs(U[:, i])
+            named |= close & finite & ~dup
+    return named
+
+
+def waterfill_straddles(cand, U, r_dem, B_dem, num_servers, r_cap=None,
+                        B_cap=None, rtol: float = ADMISSION_RTOL
+                        ) -> np.ndarray:
+    """(X,) bool: rows whose admission may flip under ``rtol``
+    perturbations of U or of the demands — a replay of the reference's
+    ``admit_waterfill`` rounds that names, per server and round, every
+    proposal whose running r or B sum is within ``rtol`` of the
+    server's remaining budget, and both proposals on either side of the
+    water level when their U are within ``rtol``."""
+    from repro.core.admission import _segmented_running_sum
+    cand = np.asarray(cand, np.int64)
+    U = np.asarray(U, np.float64)
+    r_dem = np.asarray(r_dem, np.float64)
+    B_dem = np.asarray(B_dem, np.float64)
+    X, K = cand.shape
+    rem_r = (np.full(num_servers, np.inf) if r_cap is None
+             else np.asarray(r_cap, np.float64).copy())
+    rem_B = (np.full(num_servers, np.inf) if B_cap is None
+             else np.asarray(B_cap, np.float64).copy())
+    pref = np.argsort(U, axis=1, kind="stable")
+    choice = np.full(X, -1, np.int64)
+    rank = np.zeros(X, np.int64)
+    named = np.zeros(X, bool)
+    for _ in range(K):
+        active = np.nonzero((choice < 0) & (rank < K))[0]
+        if active.size == 0:
+            break
+        k_sel = pref[active, rank[active]]
+        srv = cand[active, k_sel]
+        cost = U[active, k_sel]
+        rd = r_dem[active, k_sel]
+        Bd = B_dem[active, k_sel]
+        order = np.lexsort((active, cost, srv))
+        srv_o = srv[order]
+        seg = np.empty(len(order), bool)
+        seg[0] = True
+        seg[1:] = srv_o[1:] != srv_o[:-1]
+        run_r = _segmented_running_sum(seg, rd[order])
+        run_B = _segmented_running_sum(seg, Bd[order])
+        cap_r, cap_B = rem_r[srv_o], rem_B[srv_o]
+        with np.errstate(invalid="ignore"):
+            near = ((np.isfinite(cap_r)
+                     & (np.abs(run_r - cap_r) <= rtol * np.abs(cap_r)))
+                    | (np.isfinite(cap_B)
+                       & (np.abs(run_B - cap_B) <= rtol * np.abs(cap_B))))
+        fits = (run_r <= cap_r) & (run_B <= cap_B)
+        c_o = cost[order]
+        edge = ~seg[1:] & (fits[:-1] != fits[1:])
+        with np.errstate(invalid="ignore"):
+            gap = np.abs(c_o[1:] - c_o[:-1])
+            # equal U are identical inputs (an edge-only optimum does not
+            # depend on the device): the port ties them too, and both
+            # sides then order by user id
+            edge &= (gap > 0) & (gap <= rtol * np.abs(c_o[:-1]))
+        flip = near.copy()
+        flip[:-1] |= edge
+        flip[1:] |= edge
+        named[active[order[flip]]] = True
+        acc = order[fits]
+        choice[active[acc]] = k_sel[acc]
+        np.subtract.at(rem_r, srv[acc], rd[acc])
+        np.subtract.at(rem_B, srv[acc], Bd[acc])
+        rank[active[order[~fits]]] += 1
+    return named
+
+
 class ReferenceTap:
-    """Wraps the reference planner's batched solves (through pytest's
-    ``monkeypatch``, so the JAX package itself is untouched) and records,
-    per user, whether any solve so far saw it as a near-tie — the users
-    whose discrete decisions the port may legitimately flip."""
+    """Wraps the reference planner's batched solves and its admission
+    (through pytest's ``monkeypatch``, so the JAX package itself is
+    untouched) and records, per user, whether any of them so far saw the
+    user as a near-tie — the users whose discrete decisions the port
+    may legitimately flip:
+
+    * solve near-ties (:func:`near_ties`, :func:`jax_joint_ties`) of any
+      of the user's rows; a K-tiled solve (user-major rows, row x·K+k is
+      the user's k-th candidate) is reshaped to (n, K) first;
+    * admission near-ties: candidate utilities within ``ADMISSION_RTOL``
+      (:func:`candidate_ties`) and water-level straddles
+      (:func:`waterfill_straddles`).
+
+    ``solves`` counts the solves, ``admissions`` the waterfills, and
+    ``admission_named`` the users the admission checks named."""
 
     def __init__(self, monkeypatch, num_users: int):
         import repro.core.planner as jplanner
         self.ties = np.zeros(num_users, bool)
         self.solves = 0
+        self.admissions = 0
+        self.admission_named = 0
         orig_static = jplanner.solve_ligd_batch_jit
         orig_dirty = jplanner.solve_mligd_batch_jit
+        orig_admit = jplanner.admit_waterfill
         self._dirty_users = None
+        self._dirty_K = 1
+        self._admit_users = None
 
         def static(profile, devs, edge, cfg):
             res = orig_static(profile, devs, edge, cfg)
-            self.ties |= near_ties(res.U_per_layer)
+            rows = res.U_per_layer.shape[0]
+            assert rows % num_users == 0, (rows, num_users)
+            self._mark(np.arange(num_users), near_ties(res.U_per_layer),
+                       rows // num_users)
             self.solves += 1
             return res
 
@@ -144,21 +263,53 @@ class ReferenceTap:
             res = orig_dirty(profile, devs, edge_new, origs, hops_back, cfg)
             ties = jax_joint_ties(profile, devs, edge_new, origs,
                                   hops_back, cfg, res)
-            users = self._dirty_users
-            self.ties[users] |= ties[:len(users)]
+            self._mark(self._dirty_users, ties, self._dirty_K)
             self.solves += 1
             return res
 
+        def admit(cand, U, r_dem, B_dem, num_servers, r_cap=None,
+                  B_cap=None):
+            rep = orig_admit(cand, U, r_dem, B_dem, num_servers, r_cap,
+                             B_cap)
+            users = self._admit_users
+            assert users is not None and len(users) == len(cand), (
+                "the tap maps admission rows to users only when every "
+                "dirty row is admitted (no hysteresis stays)")
+            named = candidate_ties(cand, U) | waterfill_straddles(
+                cand, U, r_dem, B_dem, num_servers, r_cap, B_cap)
+            self.ties[users[named]] = True
+            self.admissions += 1
+            self.admission_named += int(named.sum())
+            return rep
+
         orig_solve_dirty = jplanner.MCSAPlanner._solve_dirty
+        orig_plan_admission = jplanner.MCSAPlanner._plan_admission
 
         def solve_dirty(planner, dirty_batch, *a, **kw):
             self._dirty_users = np.asarray(dirty_batch.user)
+            self._dirty_K = min(planner.candidates_k,
+                                planner.topo.num_servers)
+            self._admit_users = self._dirty_users
             return orig_solve_dirty(planner, dirty_batch, *a, **kw)
+
+        def plan_admission(planner, devices, user_aps, *a, **kw):
+            self._admit_users = np.arange(len(user_aps))
+            return orig_plan_admission(planner, devices, user_aps, *a, **kw)
 
         monkeypatch.setattr(jplanner, "solve_ligd_batch_jit", static)
         monkeypatch.setattr(jplanner, "solve_mligd_batch_jit", dirty)
+        monkeypatch.setattr(jplanner, "admit_waterfill", admit)
         monkeypatch.setattr(jplanner.MCSAPlanner, "_solve_dirty",
                             solve_dirty)
+        monkeypatch.setattr(jplanner.MCSAPlanner, "_plan_admission",
+                            plan_admission)
+
+    def _mark(self, users, row_ties, K: int) -> None:
+        """OR (n·K,) row near-ties, user-major, into the users' marks
+        (rows past n·K are the reference's padding)."""
+        n = len(users)
+        t = np.asarray(row_ties, bool)[:n * K].reshape(n, K).any(axis=1)
+        self.ties[users] |= t
 
 
 def assert_fleets_agree(port, ref, ties: np.ndarray, where: str) -> None:
@@ -171,6 +322,19 @@ def assert_fleets_agree(port, ref, ties: np.ndarray, where: str) -> None:
     for f in ("B", "r", "U", "T", "E", "C"):
         assert_rel(getattr(port, f), getattr(ref, f), f"{where} {f}",
                    rows=rows)
+
+
+def assert_admission_agree(port: dict, ref: dict, where: str) -> None:
+    """Session admission summaries: counts exact, loads within RTOL."""
+    assert (port is None) == (ref is None), where
+    if ref is None:
+        return
+    assert set(port) == set(ref), (where, sorted(port), sorted(ref))
+    for k in ("users_per_server", "spilled", "rejected", "degraded"):
+        if k in ref:
+            assert port[k] == ref[k], (where, k, port[k], ref[k])
+    for k in ("r_load", "B_load"):
+        assert_rel(port[k], ref[k], f"{where} {k}")
 
 
 NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")

@@ -2,16 +2,22 @@
 """Where the time goes in the port's main paths on the card.
 
 Planner (default): runs ``Session(get_scenario(<scenario>)).run()``
-(default ``megafleet_100k``: 100k users, 5 async steps) twice on one
-CUDA card — the first run warms the CUDA context, the allocator and the
-kernel library — and reports for the second run:
+(default ``megafleet_100k``: 100k users, 5 async steps; ``--users`` and
+``--r-capacity`` resize it, e.g. chaos_singlefail_k3 at 100,000 users
+and 40,000 units a server, chip_smoke.py's [admission] world) twice on
+one CUDA card — the first run warms the CUDA context, the allocator and
+the kernel library — and reports for the second run:
 
-* host wall-clock per phase, from timers wrapped around the planner's and
-  the mobility model's methods: mobility step, applying the previous
-  step's replan (which waits for its solve and copies it to the host),
-  gathering + copying the dirty rows to the device + launching the
-  solve, and the static plan;
-* device time by kernel from ``torch.profiler`` (CUDA activity), and the
+* host wall-clock per phase, from timers wrapped around the planner's,
+  the mobility model's and the fault process's methods: mobility step,
+  applying the previous step's replan (which waits for its solve and
+  copies it to the host), gathering + copying the dirty rows to the
+  device + launching the solve, the static plan, and on admission /
+  fault worlds the fault process, the fault preamble, the admission of
+  the dirty rows, the waterfill, the ledger, and the device-to-host
+  copies of solve results (each of which first waits for its solve);
+* device time by kernel from ``torch.profiler`` (CUDA activity), the
+  sweep's and the copies' (``Memcpy``) device time apart, and the
   device's busy share of the run's wall-clock.
 
 Serving (``--serve [MODEL]``, default starcoder2-3b; also
@@ -25,7 +31,7 @@ wall-clock, device busy share and device time by kernel, grouped into
 the hand-written kernels, matrix products and the rest.
 
     python3 tools/torch_session_profile.py [--scenario megafleet_100k]
-        [--serve [MODEL]] [--out report.json]
+        [--users N] [--r-capacity R] [--serve [MODEL]] [--out report.json]
 
 Needs a CUDA card; prints one JSON object (also written to ``--out``
 when given).
@@ -60,31 +66,50 @@ def _timed(obj, name: str, bucket: dict, key: str) -> None:
 
 def run_once(scenario, profile: bool):
     import torch
+    import repro_torch.core.planner as planner_mod
     from repro_torch.api import Session
     from repro_torch.kernels.ligd_step import LAUNCHES
 
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     host = defaultdict(float)
+    # module functions the planner looks up at call time: wrapped for
+    # this run, restored after it
+    saved = {n: getattr(planner_mod, n) for n in ("admit_waterfill",
+                                                  "_host")}
+    _timed(planner_mod, "admit_waterfill", host, "waterfill_s")
+    _timed(planner_mod, "_host", host, "device_to_host_s")
     prof = None
     if profile:
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sess = Session(scenario)
-    plan_s = time.perf_counter() - t0
-    _timed(sess.mobility, "step", host, "mobility_s")
-    _timed(sess.policy, "_apply_inflight", host, "apply_previous_s")
-    _timed(sess.policy, "_solve_dirty", host, "gather_copy_launch_s")
-    _timed(sess.policy, "on_events", host, "on_events_s")
-    sess.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if prof is not None:
-        prof.__exit__(None, None, None)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = Session(scenario)
+        plan_s = time.perf_counter() - t0
+        pol = sess.policy
+        _timed(sess.mobility, "step", host, "mobility_s")
+        _timed(pol, "_apply_inflight", host, "apply_previous_s")
+        _timed(pol, "_solve_dirty", host, "gather_copy_launch_s")
+        _timed(pol, "on_events", host, "on_events_s")
+        _timed(pol, "_admit_dirty", host, "admit_dirty_s")
+        _timed(pol, "_fault_preamble", host, "fault_preamble_s")
+        for name in ("release_rows", "charge", "reset_from_fleet"):
+            _timed(pol.ledger, name, host, "ledger_s")
+        if sess.fault_model is not None:
+            _timed(sess.fault_model, "step", host, "fault_process_s")
+            _timed(sess.topo, "apply_faults", host, "fault_process_s")
+        sess.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(planner_mod, n, fn)
+        if prof is not None:
+            prof.__exit__(None, None, None)
     return sess, dict(host, plan_s=plan_s, wall_s=wall), dict(LAUNCHES), prof
 
 
@@ -195,6 +220,10 @@ def emit(report: dict, out) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", default="megafleet_100k")
+    ap.add_argument("--users", type=int, default=None,
+                    help="replace the scenario's num_users")
+    ap.add_argument("--r-capacity", type=float, default=None,
+                    help="replace the scenario's per-server r budget")
     ap.add_argument("--serve", nargs="?", const="starcoder2-3b",
                     default=None, metavar="MODEL",
                     help="profile full-width split serving of MODEL "
@@ -217,18 +246,28 @@ def main() -> int:
     if args.serve:
         return emit(dict(serve_profile(args.serve), card=card), args.out)
     sc = get_scenario(args.scenario)
+    changes = {k: v for k, v in (("num_users", args.users),
+                                 ("r_capacity", args.r_capacity))
+               if v is not None}
+    if changes:
+        sc = sc.replace(**changes)
     run_once(sc, profile=False)                       # warm-up
     sess, host, launches, prof = run_once(sc, profile=True)
     dev = device_times(prof)
     busy_us = sum(v["device_us"] for v in dev.values())
     sweep_us = sum(v["device_us"] for k, v in dev.items()
                    if "sweep_kernel" in k)
+    copy_us = sum(v["device_us"] for k, v in dev.items()
+                  if "memcpy" in k.lower())
     report = {
         "card": card, "scenario": sc.name, "users": sc.num_users,
         "steps": sc.steps, "host_s": host, "timings": sess.timings,
         "launches": launches,
         "handoffs_per_step": sess.metrics().handoffs.tolist(),
+        "r_capacity": sc.r_capacity, "candidates_k": sc.candidates_k,
         "device_busy_us": busy_us, "sweep_kernel_us": sweep_us,
+        "copy_us": copy_us, "admission": sess.admission,
+        "faults": sess.metrics().faults,
         "device_busy_share": busy_us * 1e-6 / host["wall_s"],
         "device_by_kernel_top": dict(list(dev.items())[:12]),
     }
