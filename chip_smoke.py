@@ -41,6 +41,18 @@ card, over its main paths.
   the 100,000 users of ``megafleet_100k`` at their planned splits, one
   launch for all four servers' groups, and a case built so that the
   optima are interior, held against the plain version (autograd).
+* The closed loop (planner -> data plane -> telemetry -> planner):
+  ``serve_chaos_k3`` at its own size (500 users, K 3, server 0 down from
+  t = 30 to 150 s, 800 requests) with engine pools of starcoder2-3b at
+  full width and depth, through ``ServingDataPlane(engine_factory=...)``
+  — zero lost requests, a mid-stream failover, every engine on the
+  card; token identity of streams killed mid-decode under forced
+  migration and forced re-prefill (2-layer full-width cut, float32); the
+  feedback loop against the open loop on ``serve_hotspot_k3``; and both
+  presets card against CPU.  In each closed-loop run on the card, every
+  sweep launch is held bit for bit against the plain version, and the
+  first attention and RMSNorm launch at each shape within the kernels'
+  tolerances.
 
     python3 chip_smoke.py
 
@@ -295,6 +307,52 @@ def bound_ms(name: str, X: int, M1: int, K: int, iters) -> tuple:
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = max((plain + mufu) / ISSUE_S, mufu / MUFU_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record_sweep_launches(ops_mod) -> tuple:
+    """Spy on the sweep wrapper that ``ops_mod`` launches: keep a copy of
+    the inputs and arguments of every launch, then launch as before (the
+    wrapper still counts each launch once).  For the closed loop's small
+    worlds, whose launches are few and narrow.  Returns (the list of
+    records, a function that removes the spy)."""
+    seen = []
+    launch = ops_mod.sweep_cuda
+
+    def spy(feat, x0, tables, **kw):
+        if feat.shape[-1]:                  # X = 0 launches nothing
+            seen.append((feat.clone(), x0.clone(), tables.clone(), kw))
+        return launch(feat, x0, tables, **kw)
+
+    ops_mod.sweep_cuda = spy
+    return seen, lambda: setattr(ops_mod, "sweep_cuda", launch)
+
+
+def hold_sweep_launches(seen: list, tag: str) -> dict:
+    """Each recorded sweep launch against the plain version on the same
+    card inputs, bit for bit (as ``[admission]`` holds its launches).
+    Returns {kernel: {"launches": n, "rows": [X, ...], "max_abs_err":
+    x}}; raises on a breach."""
+    from repro_torch.kernels.ligd_step import (ligd_sweep_ref,
+                                               mligd_sweep_ref, sweep_cuda)
+    out = {}
+    for i, (feat, x0, tab, kw) in enumerate(seen):
+        kw = dict(kw)
+        joint = kw.pop("joint")
+        name = "mligd_sweep" if joint else "ligd_sweep"
+        ref = mligd_sweep_ref if joint else ligd_sweep_ref
+        err, breaches = sweep_errors(
+            sweep_cuda(feat, x0, tab, joint=joint, **kw),
+            ref(feat, x0, tab, chunk=1, **kw))
+        rec = out.setdefault(name, {"launches": 0, "rows": [],
+                                    "max_abs_err": 0.0})
+        rec["launches"] += 1
+        rec["rows"].append(int(feat.shape[1]))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err["max_abs_err"])
+        what = f"{tag}: {name} launch {i} (X={feat.shape[1]})"
+        if breaches:
+            raise AssertionError(f"{what}: " + "; ".join(breaches))
+        bit_for_bit(err, what)
+    return out
 
 
 def record_first_launches(ops_mod) -> tuple:
@@ -625,6 +683,11 @@ def lm_kernel_cases(device) -> dict:
     sc2, granite = (24, 2, 128), (16, 8, 64)      # (Hq, Hkv, hd)
     errs = []
     for B, S, causal, window, dtn, heads in (
+            # the closed loop's prefills: a 6-token prompt, and a retry or
+            # re-prefill's context of up to 11, below one 64-key tile
+            (1, 6, True, 0, "bfloat16", sc2),
+            (1, 11, True, 0, "bfloat16", sc2),
+            (1, 11, True, 0, "float32", sc2),
             (1, 2048, True, 0, "bfloat16", sc2),
             (4, 1024, True, 0, "bfloat16", sc2),
             (1, 512, True, 128, "bfloat16", sc2),
@@ -636,6 +699,8 @@ def lm_kernel_cases(device) -> dict:
         errs.append(rec["max_abs_err"])
         if (B, S, window, heads) == (4, 1024, 0, sc2):
             out["flash_attention"] = rec
+        elif (B, S, dtn) == (1, 6, "bfloat16"):
+            out["flash_attention_s6"] = rec
         elif heads == granite:
             out["flash_attention_hd64"] = rec
     out["flash_attention"]["max_abs_err"] = max(errs)
@@ -1579,6 +1644,488 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
     return rec
 
 
+#: [serve-loop]: the serve_chaos_k3 world at its own size, its pools'
+#: engines starcoder2-3b as get_config gives it (30 layers, d 3072, 24/2
+#: heads of 128, bf16), random weights from this seed on the card
+SERVE_LOOP_SEED = 0
+#: card vs CPU serving summaries ([serve-loop-cross]): counts exact,
+#: floats within 1e-6 relative.  A virtual time t sums per-token times
+#: T·scale/max_new, and the card's and the CPU's planners agree on T to
+#: ~1e-7 relative, so a difference of two times (a queue delay: a pool
+#: clock minus a ready time, both ~240 s) keeps ~1e-7·t of absolute
+#: error; such values are held to SERVE_HORIZON_RTOL times the run's
+#: virtual horizon, absolute
+SERVE_CROSS_RTOL = 1e-6
+SERVE_HORIZON_RTOL = 2e-7
+
+
+class FullWidthEngines:
+    """Engine factory for the data plane's ``engine_factory`` seam: the
+    port's ``InferenceEngine`` for ``cfg`` on ``device``, one parameter
+    set (``init_lm`` from a seeded generator on the card) shared by
+    every engine, a revived pool's rebuild included; ``built`` keeps
+    each engine made, ``d_model`` prices the re-prefill relay (16 bits
+    a unit, as the default factory's)."""
+
+    def __init__(self, cfg, cache_len: int, device, seed: int):
+        import torch
+        from repro_torch.models import transformer as tfm
+        self.cfg, self.cache_len, self.device = cfg, cache_len, device
+        self.params = tfm.init_lm(
+            cfg, torch.Generator(device=device).manual_seed(seed), device)
+        self.built = []
+
+    @property
+    def d_model(self) -> int:
+        return int(self.cfg.d_model)
+
+    def __call__(self, slots: int):
+        from repro_torch.serving import InferenceEngine
+        eng = InferenceEngine(self.cfg, self.params, device=self.device,
+                              slots=int(slots), cache_len=self.cache_len)
+        self.built.append(eng)
+        return eng
+
+
+def serving_session(sc, factory, device):
+    """``Session(sc)`` whose data plane builds its engines with
+    ``factory``, through the reference's ``ServingDataPlane(...,
+    engine_factory=...)`` seam: the session's default plane is replaced
+    before the first step, as the reference's tests/test_dataplane.py
+    does (its engines are built lazily, so nothing is thrown away).  A
+    revived pool's slots come from the session's live ledger."""
+    from repro_torch.api import Session
+    from repro_torch.serving import ServingDataPlane
+    sess = Session(sc, device=device)
+    sess.dataplane = ServingDataPlane(
+        sc.serving, sess.topo, num_layers=sess.profile.num_layers,
+        slots=sess._serving_slots(), slots_fn=sess._serving_slots,
+        engine_factory=factory)
+    return sess
+
+
+def record_lm_launches() -> tuple:
+    """Spy on the attention and RMSNorm kernel wrappers the models
+    launch through: keep a copy of the inputs of the first launch at
+    each new shape, then launch as before (each wrapper still counts its
+    launch once).  Returns (records by (kernel, shape), a function that
+    removes the spies)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    seen = {}
+    flash, rms = fops.flash_attention_cuda, rops.rmsnorm_cuda
+
+    def flash_spy(q, k, v, **kw):
+        key = ("flash_attention", tuple(q.shape), q.dtype)
+        if key not in seen:
+            seen[key] = (q.clone(), k.clone(), v.clone(), kw)
+        return flash(q, k, v, **kw)
+
+    def rms_spy(x, w, eps):
+        key = ("rmsnorm", tuple(x.shape), x.dtype)
+        if key not in seen:
+            seen[key] = (x.clone(), w.clone(), eps)
+        return rms(x, w, eps)
+
+    fops.flash_attention_cuda, rops.rmsnorm_cuda = flash_spy, rms_spy
+
+    def unspy():
+        fops.flash_attention_cuda, rops.rmsnorm_cuda = flash, rms
+    return seen, unspy
+
+
+def hold_lm_launches(seen: dict, tag: str) -> dict:
+    """Each recorded launch against its plain version on the same card
+    tensors, at ATTN_TOL / ATTN_RMS_TOL and RMS_TOL.  Returns
+    {kernel: {"shapes": [...], "max_abs_err": x}}; raises on a breach."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    out, breaches = {}, []
+    for (name, shape, dt), args in sorted(seen.items(),
+                                          key=lambda kv: str(kv[0])):
+        dtn = str(dt).replace("torch.", "")
+        if name == "flash_attention":
+            q, k, v, kw = args
+            got = fa.flash_attention_cuda(q, k, v, **kw).float()
+            want = fa.attention_ref(q, k, v, **kw).float()
+            tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
+            rr = rel_rms(got, want)
+            ok = (torch.allclose(got, want, atol=tol, rtol=tol)
+                  and rr <= rms_tol)
+        else:
+            x, w, eps = args
+            got = rn.rmsnorm_cuda(x, w, eps).float()
+            want = rn.rmsnorm_ref(x, w, eps).float()
+            tol = RMS_TOL[dtn]
+            ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
+        err = (got - want).abs().max().item()
+        rec = out.setdefault(name, {"shapes": [], "max_abs_err": 0.0})
+        rec["shapes"].append(list(shape))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if not ok:
+            breaches.append(f"{name} {list(shape)} {dtn}: {err:.3g}")
+    if breaches:
+        raise AssertionError(f"{tag}: recorded launches vs plain: "
+                             + "; ".join(breaches))
+    return out
+
+
+def record_loop_launches() -> tuple:
+    """The closed loop's spies: every sweep launch
+    (``record_sweep_launches``) and the first attention and RMSNorm
+    launch at each shape (``record_lm_launches``).  Returns (sweep
+    records, LM records, a function that removes every spy)."""
+    from repro_torch.kernels.ligd_step import ops as sweep_ops
+    sweeps, unspy_sweep = record_sweep_launches(sweep_ops)
+    lm, unspy_lm = record_lm_launches()
+
+    def unspy():
+        unspy_sweep()
+        unspy_lm()
+    return sweeps, lm, unspy
+
+
+def hold_loop_launches(sweeps: list, lm: dict, launches: dict,
+                       tag: str) -> dict:
+    """``hold_sweep_launches`` and ``hold_lm_launches`` on one run's
+    records; call it after the run's counts (``launches``) were read,
+    since holding launches each kernel again.  Raises unless every sweep
+    launch the counts saw was held.  Returns {kernel: record}."""
+    held = hold_sweep_launches(sweeps, tag)
+    for name in ("ligd_sweep", "mligd_sweep"):
+        n = held.get(name, {}).get("launches", 0)
+        if n != launches[name]:
+            raise AssertionError(f"{tag}: {name} held {n} of "
+                                 f"{launches[name]} launches")
+    held.update(hold_lm_launches(lm, tag))
+    return held
+
+
+def compare_serving(a, b, where: str, atol: float = 0.0) -> float:
+    """Two serving summaries (nested dicts/lists): ints, bools, strings
+    and None equal; floats within SERVE_CROSS_RTOL relative or ``atol``
+    absolute.  Returns the largest relative float difference; raises on
+    a breach."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            raise AssertionError(f"{where}: keys {a} != {b}")
+        return max([compare_serving(a[k], b[k], f"{where}.{k}", atol)
+                    for k in b], default=0.0)
+    if isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {a} != {b}")
+        return max([compare_serving(x, y, f"{where}[{i}]", atol)
+                    for i, (x, y) in enumerate(zip(a, b))], default=0.0)
+    if isinstance(b, float):
+        d = abs(a - b)
+        if d > max(SERVE_CROSS_RTOL * abs(b), atol):
+            raise AssertionError(f"{where}: {a} vs {b}")
+        return d / max(abs(b), 1e-30)
+    if type(a) is not type(b) or a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+    return 0.0
+
+
+def all_launches(counters) -> dict:
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def zero_counters(counters) -> None:
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+
+
+def check_serving(s: dict, where: str, failovers: bool) -> None:
+    """The data plane's invariants on one summary."""
+    bad = []
+    if s["lost"] != 0:
+        bad.append(f"lost {s['lost']}")
+    if s["submitted"] != s["completed"] + s["device"] + s["degraded"]:
+        bad.append("submitted != completed + device + degraded")
+    if s["shed"] > s["degraded"]:
+        bad.append(f"shed {s['shed']} > degraded {s['degraded']}")
+    if s["tokens_emitted"] <= 0:
+        bad.append("no token emitted")
+    if failovers and s["failover_events"] < 1:
+        bad.append("no mid-stream failover")
+    if bad:
+        raise AssertionError(f"{where}: " + "; ".join(bad))
+
+
+def serve_loop(device) -> tuple:
+    """[serve-loop]: ``serve_chaos_k3`` at its own size (500 users, K 3,
+    server 0 down from t = 30 to 150 s, 800 requests) on the card, its
+    pools' engines full-width, full-depth starcoder2-3b in bf16.  Every
+    kernel count is zeroed just before the session is built and read
+    just after its run; every sweep launch and the first attention and
+    RMSNorm launch at each shape are recorded and held against the plain
+    versions after the counts were read.  Returns (record, launches)."""
+    import torch
+    from repro_torch.api import get_scenario
+    from repro_torch.configs import get_config
+    sc = get_scenario("serve_chaos_k3")
+    cfg = get_config("starcoder2-3b")
+    t0 = time.perf_counter()
+    factory = FullWidthEngines(cfg, sc.serving.cache_len, device,
+                               SERVE_LOOP_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
+    sweeps, seen, unspy = record_loop_launches()
+    zero_counters(counters)
+    try:
+        t0 = time.perf_counter()
+        sess = serving_session(sc, factory, device)
+        slots = [p.slots for p in sess.dataplane.pools]
+        m = sess.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = all_launches(counters)
+    finally:
+        unspy()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = m.serving
+    breaches = []
+    try:
+        check_serving(s, "serve-loop", failovers=True)
+    except AssertionError as exc:
+        breaches.append(str(exc))
+    if sess.device.type != "cuda":
+        breaches.append(f"session on {sess.device}")
+    off_card = [i for i, e in enumerate(factory.built)
+                if e.device.type != "cuda"
+                or any(not t.is_cuda for t in tensors_of(e.params))
+                or any(not t.is_cuda for t in tensors_of(e.state.caches))]
+    if not factory.built or off_card:
+        breaches.append(f"engines off the card: {off_card} of "
+                        f"{len(factory.built)}")
+    L = cfg.num_layers
+    for name in ("ligd_sweep", "mligd_sweep", "flash_attention",
+                 "flash_attention_tc", "rmsnorm"):
+        if launches[name] <= 0:
+            breaches.append(f"{name}: no launch")
+    prefills, rem = divmod(launches["flash_attention"], L)
+    forwards, rem2 = divmod(launches["rmsnorm"], 2 * L + 1)
+    if rem or rem2:
+        breaches.append(f"launches not whole forwards: attention "
+                        f"{launches['flash_attention']}, RMSNorm "
+                        f"{launches['rmsnorm']}")
+    held = hold_loop_launches(sweeps, seen, launches, "serve-loop")
+    rec = {
+        "scenario": sc.name, "users": sc.num_users, "steps": sc.steps,
+        "engine": cfg.name, "layers": L, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+        "dtype": cfg.dtype, "init_s": init_s, "wall_s": wall_s,
+        "timings": sess.timings, "engines_built": len(factory.built),
+        "slots": slots, "prefills": prefills,
+        "decode_steps": forwards - prefills,
+        "split": {k: s[k] for k in (
+            "failover_events", "failovers_migrate", "failovers_reprefill",
+            "relays", "relays_migrate", "relays_reprefill",
+            "relay_s_migrate", "relay_s_reprefill", "recompute_s_total")},
+        "relay_bits": [e.relay_bits for e in sess.dataplane.events],
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "held_launches": held,
+        "summary": {k: v for k, v in s.items() if k != "per_server"},
+        "serving_failovers": m.faults["serving_failovers"]}
+    phase("serve-loop", json.dumps(rec))
+    if breaches:
+        raise AssertionError("serve-loop: " + "; ".join(breaches))
+    del sess, factory
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def tensors_of(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors_of(v)
+    else:
+        yield tree
+
+
+def serve_identity(device) -> None:
+    """[serve-identity]: streams killed mid-decode on server 0 and moved
+    to server 1, once with ``failover_mode`` forced to ``migrate`` and
+    once to ``reprefill``, on a 2-layer cut of starcoder2-3b at full
+    width in float32 with TF32 off: each failed-over request's tokens
+    must equal its uninterrupted run's (the reference's
+    tests/test_dataplane.py contract), and each event carries the forced
+    mode.  Raises on a breach."""
+    import dataclasses
+    from types import SimpleNamespace
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import DONE, ServeConfig, ServingDataPlane
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2,
+                              dtype="float32")
+    factory = FullWidthEngines(cfg, 32, device, SERVE_LOOP_SEED + 1)
+    topo = SimpleNamespace(
+        num_servers=2, server_aps=np.arange(2, dtype=np.int64),
+        edges=[SimpleNamespace(B_backhaul=1e6) for _ in range(2)],
+        hops=np.ones((2, 2), np.float64))
+    X, num_layers = 3, 4                  # split 1 < 4: served at the edge
+
+    def fleet(z):
+        return SimpleNamespace(server=np.full(X, z, np.int64),
+                               split=np.ones(X, np.int64), T=np.ones(X))
+
+    down0 = SimpleNamespace(server_down=np.asarray([0], np.int64),
+                            server_up=np.asarray([], np.int64))
+    recs, breaches = {}, []
+    for mode in ("migrate", "reprefill"):
+        scfg = ServeConfig(arrival_rate=5.0, arrival_seed=2, max_requests=4,
+                           prompt_len=6, max_new=6, cache_len=32,
+                           deadline_s=500.0, token_time_scale=6.0,
+                           min_slots=4, max_slots=4, failover_mode=mode)
+
+        def run(kill):
+            plane = ServingDataPlane(scfg, topo, num_layers=num_layers,
+                                     slots=np.asarray([4, 4]),
+                                     engine_factory=factory)
+            plane.step(3.0, 0.0, fleet=fleet(0))
+            in_flight = plane.in_flight()
+            if kill:
+                plane.step(3.0, 3.0, fleet=fleet(1), faults=down0)
+            plane.drain()
+            return plane, in_flight
+
+        (intact, _), (failed, live) = run(False), run(True)
+        a, b = intact.requests, failed.requests
+        equal = sum(b[r].tokens == a[r].tokens for r in b if r in a)
+        modes = [e.mode for e in failed.events]
+        recs[mode] = {"requests": len(b), "in_flight_at_kill": live,
+                      "failovers": len(modes), "modes": sorted(set(modes)),
+                      "relay_bits": [e.relay_bits for e in failed.events],
+                      "tokens_equal": equal,
+                      "tokens": [b[r].tokens for r in sorted(b)]}
+        if set(a) != set(b) or equal != len(b):
+            breaches.append(f"{mode}: {equal} of {len(b)} streams equal "
+                            "their uninterrupted run")
+        if not modes or set(modes) != {mode}:
+            breaches.append(f"{mode}: failover modes {modes}")
+        if any(r.status != DONE for r in b.values()):
+            breaches.append(f"{mode}: a stream did not finish on the edge")
+    phase("serve-identity", json.dumps({
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "tf32": False, **recs}))
+    if breaches:
+        raise AssertionError("serve-identity: " + "; ".join(breaches))
+    del factory
+    torch.cuda.empty_cache()
+
+
+def serve_adaptive(counters) -> tuple:
+    """[serve-adaptive]: ``serve_hotspot_k3`` on the card with its own
+    (reduced) engines, feedback off and on, the same seed: the closed
+    loop must degrade strictly fewer requests and end with a lower p99
+    token latency (tools/serve_smoke.py --adaptive's assertions), and
+    neither run may lose a request.  Each run's sweep launches, and its
+    first attention and RMSNorm launch at each shape, are held against
+    the plain versions after its counts were read.  Returns (the
+    feedback-on run's metrics, launches of both runs, the holds by
+    run)."""
+    import dataclasses
+    from repro_torch.api import Session, get_scenario
+    sc = get_scenario("serve_hotspot_k3")
+    runs, launches, held = {}, {}, {}
+    for fb in (False, True):
+        s_fb = sc.replace(serving=dataclasses.replace(sc.serving,
+                                                      feedback=fb))
+        sweeps, lm, unspy = record_loop_launches()
+        zero_counters(counters)
+        try:
+            t0 = time.perf_counter()
+            sess = Session(s_fb)               # device=None -> the card
+            m = sess.run()
+            wall_s = time.perf_counter() - t0
+            run_launches = all_launches(counters)
+        finally:
+            unspy()
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        held[f"feedback={fb}"] = hold_loop_launches(
+            sweeps, lm, run_launches, f"serve-adaptive feedback={fb}")
+        if sess.dataplane._factory.device.type != "cuda":
+            raise AssertionError("serve-adaptive: engines off the card")
+        check_serving(m.serving, f"serve-adaptive feedback={fb}",
+                      failovers=False)
+        runs[fb] = (m, wall_s, sess.timings)
+    (off, _, _), (on, _, _) = runs[False], runs[True]
+    rec = {("on" if fb else "off"): {
+        "degraded": m.serving["degraded"], "shed": m.serving["shed"],
+        "timeouts": m.serving["timeouts"],
+        "token_latency_p99_s": m.serving["token_latency_p99_s"],
+        "peak_compute_mult": (max(m.telemetry["compute_mult_max"])
+                              if m.telemetry else 1.0),
+        "wall_s": w, "serve_s": t["serve_s"],
+        "telemetry_s": t["telemetry_s"],
+        "held_launches": held[f"feedback={fb}"]}
+        for fb, (m, w, t) in runs.items()}
+    phase("serve-adaptive", json.dumps(rec))
+    a, b = on.serving, off.serving
+    if not (a["degraded"] < b["degraded"]
+            and a["token_latency_p99_s"] is not None
+            and b["token_latency_p99_s"] is not None
+            and a["token_latency_p99_s"] < b["token_latency_p99_s"]):
+        raise AssertionError(f"serve-adaptive: the closed loop must beat "
+                             f"the open loop: {rec}")
+    return on, launches, held
+
+
+def serve_loop_cross(counters, hotspot_card) -> tuple:
+    """[serve-loop-cross]: ``serve_chaos_k3`` and ``serve_hotspot_k3``
+    with their own (reduced) engines, on the card and on the CPU (the
+    hotspot's card run is [serve-adaptive]'s feedback-on run): counts in
+    ``metrics().serving`` equal, floats and the telemetry multipliers
+    within SERVE_CROSS_RTOL (differences of virtual times within
+    SERVE_HORIZON_RTOL of the horizon).  The chaos card run's sweep
+    launches, and its first attention and RMSNorm launch at each shape,
+    are held against the plain versions after its counts were read.
+    Returns (the card runs' launches, the hold)."""
+    from repro_torch.api import Session, get_scenario
+    launches, rec, held = {}, {}, {}
+    for name in ("serve_chaos_k3", "serve_hotspot_k3"):
+        sc = get_scenario(name)
+        if name == "serve_hotspot_k3":
+            card = hotspot_card
+        else:
+            sweeps, lm, unspy = record_loop_launches()
+            zero_counters(counters)
+            try:
+                card = Session(sc, device="cuda").run()
+                launches = all_launches(counters)
+            finally:
+                unspy()
+            held = hold_loop_launches(sweeps, lm, launches,
+                                      f"serve-loop-cross {name}")
+        cpu = Session(sc, device="cpu").run()
+        check_serving(card.serving, f"serve-loop-cross {name}",
+                      failovers=sc.faults is not None)
+        atol = SERVE_HORIZON_RTOL * cpu.serving["virtual_time_s"]
+        rel = {"serving": compare_serving(card.serving, cpu.serving,
+                                          f"{name} serving", atol),
+               "telemetry": compare_serving(card.telemetry, cpu.telemetry,
+                                            f"{name} telemetry", atol),
+               "serving_failovers": compare_serving(
+                   (card.faults or {}).get("serving_failovers"),
+                   (cpu.faults or {}).get("serving_failovers"),
+                   f"{name} serving_failovers", atol)}
+        rec[name] = {"max_rel_diff": rel, **{k: card.serving[k] for k in (
+            "submitted", "completed", "device", "degraded", "shed",
+            "failover_events", "failovers_migrate", "failovers_reprefill",
+            "tokens_emitted")}}
+    phase("serve-loop-cross", json.dumps({**rec, "held_launches": held}))
+    return launches, held
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1730,13 +2277,35 @@ def main() -> int:
     # 64-token prompt and the engine's prompts wrap
     serve_cross(device, "recurrentgemma-9b", layers=3, window=32)
 
+    # 8b. the closed loop: planner -> data plane -> telemetry -> planner.
+    # serve_chaos_k3 at its own size with full-width starcoder2-3b pools,
+    # token identity across forced failover modes, the feedback loop
+    # against the open loop, card against CPU --------------------------
+    loop_rec, loop_launches = serve_loop(device)
+    serve_identity(device)
+    counters = kernel_counters()
+    hotspot_on, adaptive_launches, adaptive_held = serve_adaptive(counters)
+    cross_launches, cross_held = serve_loop_cross(counters, hotspot_on)
+    closed_loop = (loop_launches, adaptive_launches, cross_launches)
+    # every closed-loop launch held against its plain version joins the
+    # kernels line's max_abs_err
+    for held in (loop_rec["held_launches"], *adaptive_held.values(),
+                 cross_held):
+        for name, r in held.items():
+            if name in errs:
+                errs[name].append(r["max_abs_err"])
+            else:
+                lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
+                                              r["max_abs_err"])
+
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
     kernels = [{
         "name": name, "route": "cuda", "source": src,
         "replaces": "src/repro/kernels/ligd_step/kernel.py:189",
         "launches": (launches[name] + adm_launches[name]
-                     + base_launches[name]),
+                     + base_launches[name]
+                     + sum(c.get(name, 0) for c in closed_loop)),
         "max_abs_err": max(errs[name]),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
@@ -1768,7 +2337,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": sum(pth["launches"].get(name, 0) for pth in paths),
+            "launches": (sum(pth["launches"].get(name, 0)
+                             for pth in paths)
+                         + sum(c.get(name, 0) for c in closed_loop)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,16 +1,23 @@
 """The port's front door: declarative :class:`Scenario`, the
 :class:`Policy` protocol (the MCSA planner and the §6 baselines), and
-the stepped :class:`Session` lifecycle, fault injection included.
+the stepped :class:`Session` lifecycle, fault injection, the
+closed-loop serving data plane (:class:`ServeConfig`,
+``serve_chaos_k3``) and the telemetry feedback loop
+(``serve_hotspot_k3``) included.
 
     from repro_torch.api import Session, get_scenario
     metrics = Session(get_scenario("megafleet_100k")).run()   # on the card
     metrics = Session(get_scenario("paper_fig1"), device="cpu").run()
+    metrics = Session(get_scenario("serve_chaos_k3")).run()   # serving
 """
 from repro_torch.core.events import (DirtyBatch, DirtySet, EventOutcome,
                                      StepEvents)
 from repro_torch.core.faults import (EvacuationReport, FaultBatch,
                                      FaultConfig, FaultModel)
 from repro_torch.core.ledger import BudgetLedger
+from repro_torch.serving.dataplane import ServeConfig, ServingDataPlane
+from repro_torch.telemetry import (LoadEstimator, LoadSnapshot,
+                                   TelemetryCollector)
 
 from .policies import (POLICIES, BaselinePolicy, CloudPolicy,
                        DNNSurgeryPolicy, DeviceOnlyPolicy, EdgeOnlyPolicy,
@@ -30,4 +37,6 @@ __all__ = [
     "FaultConfig", "FaultModel", "FaultBatch", "EvacuationReport",
     "StepEvents", "EventOutcome", "DirtyBatch", "DirtySet",
     "BudgetLedger",
+    "ServeConfig", "ServingDataPlane",
+    "TelemetryCollector", "LoadEstimator", "LoadSnapshot",
 ]

@@ -7,13 +7,15 @@ The port of the JAX package's ``repro/api/scenario.py``.  A
 dict, so a scenario crosses between the two packages through
 ``to_dict`` / ``from_dict`` (see :mod:`repro_torch.interop`).
 
-What the port's Session supports: chain-CNN models, any candidate-set
-size K, per-server budgets (admission control) and fault injection
-(``faults``: a :class:`~repro_torch.core.faults.FaultConfig`, built into
-a seeded :class:`~repro_torch.core.faults.FaultModel` by
-:meth:`Scenario.build_faults`).  ``serving`` must stay None (the
-closed-loop serving data plane is not ported: ROADMAP, queue 1, item
-3).  Every reference preset without ``serving`` is registered here.
+What the port's Session supports: chain-CNN models and transformer
+archs (profiled at ``model_seq`` prefill tokens, one split point a
+block), any candidate-set size K, per-server budgets (admission
+control), fault injection (``faults``: a
+:class:`~repro_torch.core.faults.FaultConfig`, built into a seeded
+:class:`~repro_torch.core.faults.FaultModel` by
+:meth:`Scenario.build_faults`) and the closed-loop serving data plane
+(``serving``: a :class:`~repro_torch.serving.dataplane.ServeConfig`).
+Every reference preset is registered here, field for field.
 """
 from __future__ import annotations
 
@@ -22,17 +24,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.configs import CNN_BUILDERS
+from repro_torch.configs import CNN_IDS, get_config
 from repro_torch.core.costs import DeviceFleet, LayerProfile
 from repro_torch.core.faults import FaultConfig, FaultModel
 from repro_torch.core.ligd import LiGDConfig
 from repro_torch.core.mobility import RandomWaypointMobility, StaticMobility
 from repro_torch.core.network import Topology, build_topology
 from repro_torch.core.profile import profile_of
-
-SERVING_DEFERRED = ("Scenario.serving: the closed-loop serving data plane "
-                    "is not ported yet (ROADMAP, queue 1, item 3); it must "
-                    "be None")
+from repro_torch.serving.dataplane import ServeConfig
 
 #: mobility-model registry: name -> class with the
 #: (topo, num_users, *, seed, speed_range-ignorable) constructor surface
@@ -76,15 +75,11 @@ class Scenario:
     admission_aware_handoffs: Optional[bool] = None
     # --- fault injection (None = chaos off) ---
     faults: Optional[FaultConfig] = None
-    # --- closed-loop serving: not ported, must be None ---
-    serving: Optional[object] = None
+    # --- closed-loop serving (None = analytic only) ---
+    serving: Optional[ServeConfig] = None
     # --- schedule ---
     steps: int = 30
     dt: float = 60.0
-
-    def __post_init__(self):
-        if self.serving is not None:
-            raise NotImplementedError(SERVING_DEFERRED)
 
     # ------------------------------------------------------------------
     # serialization
@@ -99,7 +94,8 @@ class Scenario:
         d["ligd"] = {k: (list(v) if isinstance(v, tuple) else v)
                      for k, v in dataclasses.asdict(self.ligd).items()}
         d["faults"] = None if self.faults is None else self.faults.to_dict()
-        d["serving"] = None
+        d["serving"] = (None if self.serving is None
+                        else self.serving.to_dict())
         return d
 
     @classmethod
@@ -120,6 +116,9 @@ class Scenario:
         faults = d.get("faults")
         if isinstance(faults, dict):
             d["faults"] = FaultConfig.from_dict(faults)
+        serving = d.get("serving")
+        if isinstance(serving, dict):
+            d["serving"] = ServeConfig.from_dict(serving)
         for k in ("c_dev_range", "speed_range"):
             if k in d:
                 d[k] = tuple(d[k])
@@ -139,15 +138,10 @@ class Scenario:
             r_capacity=self.r_capacity, B_capacity=self.B_capacity)
 
     def build_profile(self) -> LayerProfile:
-        try:
-            builder = CNN_BUILDERS[self.model]
-        except KeyError:
-            raise NotImplementedError(
-                f"model {self.model!r}: a Session plans the chain CNNs "
-                f"{sorted(CNN_BUILDERS)} only; planning a transformer "
-                "model's fleet waits for ROADMAP, queue 1, item 3"
-            ) from None
-        return profile_of(builder())
+        cfg = get_config(self.model)
+        if self.model in CNN_IDS:
+            return profile_of(cfg)
+        return profile_of(cfg, seq=self.model_seq, mode="prefill")
 
     def build_devices(self) -> DeviceFleet:
         rng = np.random.default_rng(self.device_seed)
@@ -176,8 +170,8 @@ class Scenario:
 
 
 # ---------------------------------------------------------------------------
-# Preset registry: the reference's presets that carry no ServeConfig,
-# field for field (the differential tests pin the to_dict round trip).
+# Preset registry: the reference's presets, field for field (the
+# differential tests pin the to_dict round trip).
 # ---------------------------------------------------------------------------
 _SCENARIOS: Dict[str, Scenario] = {}
 
@@ -258,6 +252,55 @@ register_scenario(Scenario(
     faults=FaultConfig(schedule=(("server_down", 30.0, 2),
                                  ("server_up", 150.0, 2))),
     steps=8, dt=30.0))
+
+# Closed-loop serving under chaos: the chaos_singlefail_k3 schedule with
+# a live data plane.  Seeded Poisson arrivals feed per-server engine
+# pools sized from the admission r-budgets; token_time_scale stretches
+# streams across step boundaries so the kill at t=30 s lands mid-decode.
+# Against chaos_singlefail_k3: slower devices (1-2 GHz) so edge wins and
+# evacuation re-admits, looser budgets (2000) so the survivors hold
+# residual capacity, and the kill takes server 0, the heaviest pool
+# under this plan.  Mid-stream failovers, queue shedding on the hottest
+# pool and the zero-lost audit after drain all fire.
+register_scenario(Scenario(
+    name="serve_chaos_k3", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=500, r_capacity=2000.0, candidates_k=3,
+    c_dev_range=(1e9, 2e9),
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=100),
+    faults=FaultConfig(schedule=(("server_down", 30.0, 0),
+                                 ("server_up", 150.0, 0))),
+    serving=ServeConfig(arrival_rate=4.0, arrival_seed=11,
+                        max_requests=800,
+                        prompt_len=6, max_new=6, cache_len=64,
+                        deadline_s=60.0, max_retries=2, backoff_s=5.0,
+                        queue_limit=32, r_per_slot=8.0, min_slots=4,
+                        max_slots=64, token_time_scale=10_000.0,
+                        failover_mode="auto"),
+    steps=8, dt=30.0))
+
+# Hotspot: the telemetry feedback showcase.  Fault-free but overloaded:
+# tiny decode pools (max_slots=8) under a sustained arrival stream make
+# serving slots the binding resource, and the plan piles most users onto
+# one hot server.  With feedback on (this preset) the dirty-set replans
+# price against the observed queue delay and occupancy and spread load
+# to the quiet pools; with ``feedback=False`` the hot server queues until
+# deadlines blow.
+register_scenario(Scenario(
+    name="serve_hotspot_k3", num_aps=25, num_servers=4, topo_seed=0,
+    model="nin", num_users=400, r_capacity=600.0, candidates_k=3,
+    c_dev_range=(1e9, 2e9),
+    speed_range=(8.0, 25.0), mobility_seed=1,
+    ligd=LiGDConfig(max_iters=100),
+    serving=ServeConfig(arrival_rate=3.0, arrival_seed=13,
+                        max_requests=700,
+                        prompt_len=6, max_new=6, cache_len=64,
+                        deadline_s=60.0, max_retries=1, backoff_s=5.0,
+                        queue_limit=24, r_per_slot=8.0, min_slots=2,
+                        max_slots=8, token_time_scale=10_000.0,
+                        failover_mode="auto", feedback=True,
+                        feedback_alpha=0.35, feedback_interval=1),
+    steps=10, dt=30.0))
 
 # Chaos: sustained stochastic churn — servers crash and recover on an
 # MTBF/MTTR clock, fiber links are cut and spliced, and the per-server

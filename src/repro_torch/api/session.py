@@ -18,9 +18,17 @@ accounting.
 Policies with ``on_events`` (the planner) get a step's handoffs AND
 faults in one :class:`~repro_torch.core.events.StepEvents`; the rest
 get ``on_faults`` or synthesized evacuation handoffs, then
-``on_handoffs``.  The serving data plane and telemetry are not ported
-(ROADMAP, queue 1, item 3).  The policy runs on ``device``: None means
-the card, and a missing card raises.
+``on_handoffs``.
+
+When the scenario carries a
+:class:`~repro_torch.serving.dataplane.ServeConfig` (or a prebuilt
+``dataplane=`` is passed), each step then drives the closed-loop data
+plane over the replanned table (so mid-stream failover lands on the
+planner's evacuation targets), and with ``feedback=True`` harvests its
+telemetry through a :class:`~repro_torch.telemetry.LoadEstimator` into
+``policy.update_load`` every ``feedback_interval`` steps.  The policy
+and the data plane's engines run on ``device``: None means the card,
+and a missing card raises.
 """
 from __future__ import annotations
 
@@ -33,7 +41,12 @@ import numpy as np
 from repro_torch._device import resolve_device
 from repro_torch.core.events import StepEvents
 from repro_torch.core.faults import clamp_hops
+from repro_torch.core.ledger import slots_from_usage
 from repro_torch.core.mobility import HandoffBatch
+from repro_torch.serving.dataplane import (ServingDataPlane,
+                                          default_engine_factory)
+from repro_torch.serving.failover import FailoverReport
+from repro_torch.telemetry import LoadEstimator
 
 from .policies import Policy, make_policy
 from .scenario import Scenario
@@ -53,6 +66,9 @@ class StepReport:
                 something changed this step (None otherwise)
     evacuation: the step's EvacuationReport when the policy ran an
                 evacuation replan (None otherwise)
+    serving   : the data plane's track sample for this step (active /
+                queued / completed streams) when the session serves
+                (None otherwise)
     """
     t: float
     events: HandoffBatch
@@ -60,6 +76,7 @@ class StepReport:
     in_flight: bool = False
     faults: Optional[object] = None
     evacuation: Optional[object] = None
+    serving: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -84,7 +101,18 @@ class SessionMetrics:
                           device-only (None when fault injection is off)
     faults              : summary dict (min availability, totals,
                           per-outage time-to-recover) or None when fault
-                          injection is off
+                          injection is off; when serving-side failovers
+                          happened (the data plane's, or reports folded
+                          in by :meth:`Session.record_failover`) it
+                          carries ``serving_failovers``, even with fault
+                          injection off
+    serving             : the data plane's end-of-run summary
+                          (:meth:`ServingDataPlane.summary`) or None
+                          when the session does not serve
+    telemetry           : the feedback loop's trace (estimator updates,
+                          per-update max multipliers, the last
+                          LoadSnapshot) when the scenario serves with
+                          ``feedback=True``, else None
     """
     t: np.ndarray
     handoffs: np.ndarray
@@ -98,6 +126,8 @@ class SessionMetrics:
     evacuated: Optional[np.ndarray] = None
     degraded: Optional[np.ndarray] = None
     faults: Optional[dict] = None
+    serving: Optional[dict] = None
+    telemetry: Optional[dict] = None
 
 
 def _fleet_mean(fleet, field: str) -> float:
@@ -115,21 +145,26 @@ class Session:
     scenario : the declarative world (see :class:`Scenario`)
     policy   : None (the MCSA planner), a registry name, a Policy class,
                or a prebuilt instance
-    device   : where the policy solves; None means ``cuda`` and raises
-               when CUDA is unavailable — pass ``"cpu"`` for the plain
-               PyTorch path
+    device   : where the policy solves and the data plane's engines
+               run; None means ``cuda`` and raises when CUDA is
+               unavailable — pass ``"cpu"`` for the plain PyTorch path
     topo / profile / devices / mobility : optional prebuilt components
                overriding the scenario's builders
+    dataplane : optional prebuilt ServingDataPlane overriding the one
+               the scenario's ``serving`` config would build (None and
+               no ServeConfig keep the session analytic)
 
     Attributes: ``fleet`` (the live plan table), ``policy``, ``topo``,
     ``profile``, ``devices``, ``mobility``, ``fault_model``, ``device``,
-    ``admission``, ``steps_taken``, ``total_handoffs``, ``timings``
-    ({"plan_s", "steps_s", "drain_s", "faults_s"} cumulative host
-    wall-clock inside the component calls).
+    ``admission``, ``dataplane``, ``estimator``, ``load_snapshot``,
+    ``steps_taken``, ``total_handoffs``, ``timings`` ({"plan_s",
+    "steps_s", "drain_s", "faults_s", "serve_s", "telemetry_s"}
+    cumulative host wall-clock inside the component calls).
     """
 
     def __init__(self, scenario: Scenario, policy=None, *, device=None,
-                 topo=None, profile=None, devices=None, mobility=None):
+                 topo=None, profile=None, devices=None, mobility=None,
+                 dataplane=None):
         self.device = resolve_device(device)
         self.scenario = scenario
         self.topo = topo if topo is not None else scenario.build_topology()
@@ -155,7 +190,9 @@ class Session:
         self.steps_taken = 0
         self.total_handoffs = 0
         self.timings = {"plan_s": 0.0, "steps_s": 0.0, "drain_s": 0.0,
-                        "faults_s": 0.0}
+                        "faults_s": 0.0, "serve_s": 0.0,
+                        "telemetry_s": 0.0}
+        self._failover_reports: list = []   # via record_failover()
         self._log = {k: [] for k in ("t", "handoffs", "resplits", "relays",
                                      "mean_T", "mean_E", "mean_C",
                                      "availability", "evacuated",
@@ -166,6 +203,51 @@ class Session:
         self.fleet = self.policy.plan(self.devices, aps)
         self.timings["plan_s"] = time.perf_counter() - t0
         self.admission = self._admission_summary()
+
+        # closed-loop serving data plane, its engines on this device
+        self.dataplane = dataplane
+        if self.dataplane is None and scenario.serving is not None:
+            self.dataplane = ServingDataPlane(
+                scenario.serving, self.topo,
+                num_layers=self.profile.num_layers,
+                slots=self._serving_slots(),
+                slots_fn=self._serving_slots,
+                engine_factory=default_engine_factory(scenario.serving,
+                                                      self.device))
+
+        # telemetry feedback: only a ServeConfig with feedback=True builds
+        # the estimator, so feedback-off sessions never touch the
+        # planner's pricing
+        self.estimator = None
+        self.load_snapshot = None
+        self._telemetry_log = {"t": [], "compute_mult_max": [],
+                               "backhaul_mult_max": []}
+        sv = scenario.serving
+        if self.dataplane is not None and sv is not None and sv.feedback:
+            self.estimator = LoadEstimator(
+                self.topo.num_servers, alpha=sv.feedback_alpha,
+                max_mult=sv.feedback_max_mult)
+
+    def _serving_slots(self) -> np.ndarray:
+        """(Z,) engine slots per server from the admission r-budgets: the
+        policy's BudgetLedger when it keeps one, else an audit of the
+        live fleet table (both through
+        :func:`repro_torch.core.ledger.slots_from_usage`)."""
+        sv = self.scenario.serving
+        ledger = getattr(self.policy, "ledger", None)
+        if ledger is not None:
+            return ledger.slot_counts(sv.r_per_slot,
+                                      min_slots=sv.min_slots,
+                                      max_slots=sv.max_slots)
+        Z = self.topo.num_servers
+        srv = np.asarray(self.fleet.server)
+        offl = np.asarray(self.fleet.split) < self.profile.num_layers
+        r_used = np.bincount(srv[offl],
+                             weights=np.asarray(self.fleet.r)[offl],
+                             minlength=Z)
+        return slots_from_usage(r_used, sv.r_per_slot,
+                                min_slots=sv.min_slots,
+                                max_slots=sv.max_slots)
 
     # ------------------------------------------------------------------
     def _admission_summary(self) -> Optional[dict]:
@@ -283,6 +365,37 @@ class Session:
             # servers (drain() would no-op, so it can't refresh for us)
             self.refresh_admission()
 
+        serving = None
+        if self.dataplane is not None:
+            # after evacuation and replanning: fleet.server already names
+            # the evacuation targets, so failover lands where the planner
+            # chose
+            t0 = time.perf_counter()
+            serving = self.dataplane.step(sc.dt, t, fleet=self.fleet,
+                                          faults=fault_batch)
+            self.timings["serve_s"] += time.perf_counter() - t0
+
+        if serving is not None and self.estimator is not None:
+            # close the loop: this step's samples -> EWMA state -> the
+            # planner, so NEXT step's replans and admission price against
+            # observed load
+            coll = getattr(self.dataplane, "collector", None)
+            iv = sc.serving.feedback_interval
+            if coll is not None and (self.steps_taken + 1) % iv == 0:
+                t0 = time.perf_counter()
+                snap = self.estimator.update(coll, t + sc.dt)
+                self.load_snapshot = snap
+                upd = getattr(self.policy, "update_load", None)
+                if upd is not None:
+                    upd(snap)
+                tl = self._telemetry_log
+                tl["t"].append(t + sc.dt)
+                tl["compute_mult_max"].append(
+                    float(snap.compute_mult.max()))
+                tl["backhaul_mult_max"].append(
+                    float(snap.backhaul_mult.max()))
+                self.timings["telemetry_s"] += time.perf_counter() - t0
+
         self.steps_taken += 1
         self.total_handoffs += len(batch)
         log = self._log
@@ -313,7 +426,7 @@ class Session:
             self._fault_retried += int(evacuation.retried)
         return StepReport(t=t, events=batch, result=result,
                           in_flight=in_flight, faults=fault_batch,
-                          evacuation=evacuation)
+                          evacuation=evacuation, serving=serving)
 
     def _dispatch_faults(self, batch):
         """Route one applied FaultBatch to a policy without
@@ -370,7 +483,20 @@ class Session:
         for _ in range(n):
             self.step()
         self.drain()
+        if self.dataplane is not None:
+            t0 = time.perf_counter()
+            self.dataplane.drain()   # the zero-lost audit raises here
+            self.timings["serve_s"] += time.perf_counter() - t0
         return self.metrics()
+
+    def record_failover(self, report) -> None:
+        """Fold a caller-side
+        :class:`~repro_torch.serving.failover.FailoverReport` (e.g. from
+        ``SplitServer.generate_with_failover``) into this session's fault
+        accounting: its events surface in
+        ``metrics().faults["serving_failovers"]`` beside the data plane's
+        own failovers."""
+        self._failover_reports.append(report)
 
     def drain(self):
         """Apply any in-flight async replan (no-op for synchronous
@@ -407,6 +533,36 @@ class Session:
                     if self._recovery_times else 0.0),
                 "still_down": sorted(self._down_since),
             }
+        # serving-side failovers: the data plane's events plus the
+        # reports of record_failover(); the entry (and, without chaos,
+        # the faults dict) appears only when failovers happened
+        fo_events = []
+        if self.dataplane is not None:
+            fo_events.extend(self.dataplane.events)
+        for rep in self._failover_reports:
+            fo_events.extend(rep.events)
+        if fo_events:
+            rep = FailoverReport(events=fo_events)
+            if faults is None:
+                faults = {}
+            faults["serving_failovers"] = {
+                "events": rep.retries,
+                "relay_s": rep.relay_s,
+                "tokens_preserved": rep.tokens_preserved,
+                "by_mode": rep.by_mode,
+                "relay_s_by_mode": rep.relay_s_by_mode,
+            }
+        telemetry = None
+        if self.estimator is not None:
+            tl = self._telemetry_log
+            telemetry = {
+                "updates": int(self.estimator.updates),
+                "t": [float(x) for x in tl["t"]],
+                "compute_mult_max": list(tl["compute_mult_max"]),
+                "backhaul_mult_max": list(tl["backhaul_mult_max"]),
+                "last": (self.load_snapshot.to_dict()
+                         if self.load_snapshot is not None else None),
+            }
         return SessionMetrics(
             t=np.asarray(log["t"], np.float64),
             handoffs=np.asarray(log["handoffs"], np.int64),
@@ -419,4 +575,7 @@ class Session:
             availability=avail if chaos else None,
             evacuated=evac if chaos else None,
             degraded=degr if chaos else None,
-            faults=faults)
+            faults=faults,
+            serving=(self.dataplane.summary()
+                     if self.dataplane is not None else None),
+            telemetry=telemetry)

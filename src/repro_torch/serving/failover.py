@@ -1,10 +1,11 @@
 """Failover accounting types of the serving layer.
 
-The port of the JAX package's ``repro/serving/failover.py``:
-:meth:`repro_torch.serving.split.SplitServer.generate_with_failover`
-produces these records (the closed-loop data plane, the reference's
-other producer, is not ported yet: ROADMAP, queue 1, item 3).  Plain
-Python and numpy: no tensor math happens here.
+The port of the JAX package's ``repro/serving/failover.py``.  Two
+producers fill these records: the closed-loop data plane
+(:mod:`repro_torch.serving.dataplane`), which prices each mid-stream
+move as a KV-cache migration or a re-prefill, and
+:meth:`repro_torch.serving.split.SplitServer.generate_with_failover`.
+Plain Python and numpy: no tensor math happens here.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 the single-split Li-GD steps, RMSNorm, flash attention, the fused expert
 SwiGLU, the RG-LRU scan, WKV6) against their plain PyTorch versions on
 the same card tensors, the sweep also on the fault path's unreachable
-hop counts (bit for bit), and the admission / chaos sessions card
-against CPU.  They skip without a
+hop counts (bit for bit), the admission / chaos sessions and the
+closed-loop serving sessions card against CPU.  They skip without a
 card.  On the machine with the card (no JAX there, so without the
 repository's conftest):
 
@@ -257,6 +257,38 @@ def test_cuda_admission_session_matches_the_cpu(name, cuda):
                                   fleets["cpu"][1].handoffs)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, cut", [
+    ("serve_chaos_k3", {"num_users": 150, "steps": 2}),
+    ("serve_hotspot_k3", {"num_users": 64, "steps": 3}),
+])
+def test_cuda_dataplane_matches_the_cpu(name, cut, cuda):
+    """A small closed loop (the serving presets cut as the CPU tests cut
+    them, each with its own reduced engines) on the card against the
+    CPU: the engines run on the card, counts in ``metrics().serving``
+    are equal, floats and the telemetry multipliers within
+    chip_smoke.py's SERVE_CROSS_RTOL (SERVE_HORIZON_RTOL of the virtual
+    horizon for differences of virtual times)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.api import Session, get_scenario
+    sc = get_scenario(name).replace(**cut)
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(sc, device=dev)
+        ms[dev] = s.run()
+        engines = [p.engine for p in s.dataplane.pools
+                   if p.engine is not None]
+        assert engines and all(e.device.type == dev for e in engines)
+        chip_smoke.check_serving(ms[dev].serving, f"{name} {dev}",
+                                 failovers=sc.faults is not None)
+    atol = chip_smoke.SERVE_HORIZON_RTOL * \
+        ms["cpu"].serving["virtual_time_s"]
+    for f in ("serving", "telemetry"):
+        chip_smoke.compare_serving(getattr(ms["cuda"], f),
+                                   getattr(ms["cpu"], f), f, atol)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm (row 4) and flash attention (row 3): kernel against plain
 # version on the card.  RMSNorm: 1e-5 in float32 (another summation
@@ -297,6 +329,8 @@ def test_cuda_rmsnorm_matches_plain_version(rows, d, dtype, cuda):
     (1, 4, 2, 128, 64, True, 0),
     (2, 8, 1, 200, 32, True, 0),        # MQA, ragged
     (1, 24, 2, 333, 128, True, 0),      # starcoder2 heads, ragged
+    (1, 24, 2, 6, 128, True, 0),        # the closed loop's prompt
+    (1, 24, 2, 11, 128, True, 0),       # its longest re-prefill
     (1, 2, 2, 192, 32, True, 32),
     (2, 4, 2, 96, 64, False, 0),
     (1, 4, 4, 160, 128, False, 48),

@@ -100,7 +100,8 @@ def test_session_matches_reference(name, monkeypatch):
     assert mt.faults == mj.faults
     assert_admission_agree(mt.admission, mj.admission, f"{name} metrics")
     assert tap.ties.mean() <= 0.01, np.nonzero(tap.ties)[0].tolist()
-    assert set(ts.timings) == {"plan_s", "steps_s", "drain_s", "faults_s"}
+    assert set(ts.timings) == set(js.timings) == {
+        "plan_s", "steps_s", "drain_s", "faults_s", "serve_s", "telemetry_s"}
     # the path this preset exists for really ran
     if name == "chaos_singlefail_k3":
         assert mt.faults["degraded_total"] > 0

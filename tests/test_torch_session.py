@@ -3,8 +3,8 @@
 ``megafleet_100k`` (3 steps, async), every FleetState column per step and
 the handoff/relay/resplit accounting; ``Scenario.to_dict`` across the two
 packages for every preset the port registers; the worlds it refused
-before admission and faults were ported, and those it still refuses; and,
-in a fresh interpreter, that the port loads neither JAX nor ``repro``.
+before admission, faults and serving were ported; and, in a fresh
+interpreter, that the port loads neither JAX nor ``repro``.
 
 Tolerances are ``torch_diff``'s: discrete columns exact outside the
 users the reference's own solves name as near-ties, continuous columns
@@ -59,7 +59,9 @@ def test_session_matches_reference(name, changes, steps, monkeypatch):
     for f in ("t", "handoffs", "relays", "resplits"):
         np.testing.assert_array_equal(getattr(mt, f), getattr(mj, f), f)
     assert tap.ties.mean() <= 0.01, np.nonzero(tap.ties)[0].tolist()
-    assert set(ts.timings) == {"plan_s", "steps_s", "drain_s", "faults_s"}
+    assert set(ts.timings) == set(js.timings) == {
+        "plan_s", "steps_s", "drain_s", "faults_s", "serve_s", "telemetry_s"}
+    assert ts.timings["serve_s"] == ts.timings["telemetry_s"] == 0.0
 
 
 @pytest.mark.parametrize("name", list_scenarios())
@@ -72,18 +74,21 @@ def test_scenario_dict_round_trips_across_packages(name):
 
 
 def test_port_registers_every_preset_without_serving():
+    """Every reference preset, the serving ones included since the data
+    plane was ported."""
     from repro.api import list_scenarios as j_list
-    want = {n for n in j_list() if j_get_scenario(n).serving is None}
-    assert set(list_scenarios()) == want
+    assert set(list_scenarios()) == set(j_list())
+    assert {n for n in list_scenarios()
+            if t_get_scenario(n).serving is not None} == {
+        "serve_chaos_k3", "serve_hotspot_k3"}
 
 
 @pytest.mark.parametrize("case", ["faults", "candidates_k", "budget",
                                   "serving", "transformer"])
 def test_refused_worlds_raise(case):
-    """The worlds the port refused until admission and the fault path
-    were ported (faults, K > 1, a budget) now build and plan on the CPU;
-    serving and a transformer's fleet still raise (ROADMAP, queue 1,
-    item 3)."""
+    """The worlds the port refused until admission, the fault path and
+    the serving data plane were ported (faults, K > 1, a budget, a
+    ServeConfig, a transformer's fleet) now build and run on the CPU."""
     base = t_get_scenario("paper_fig1")
     if case in ("faults", "candidates_k", "budget"):
         sc = {"faults": t_get_scenario("chaos_churn").replace(num_users=40),
@@ -97,11 +102,19 @@ def test_refused_worlds_raise(case):
         assert np.all(np.isfinite(s.fleet.U))
         assert (m.faults is not None) == (case == "faults")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "serving":
-            base.replace(serving=object())
-        else:
-            TSession(base.replace(model="starcoder2-3b"), device="cpu")
+    if case == "serving":
+        sc = t_get_scenario("serve_chaos_k3").replace(num_users=40,
+                                                      steps=2)
+        s = TSession(sc, device="cpu")
+        assert s.dataplane is not None
+        m = s.run()
+        assert m.serving["lost"] == 0 and m.serving["submitted"] > 0
+        return
+    s = TSession(base.replace(model="starcoder2-3b", num_users=8),
+                 device="cpu")
+    assert s.profile.num_layers == 30
+    s.run(1)
+    assert np.all(np.isfinite(s.fleet.U))
 
 
 def test_async_step_leaves_the_solve_in_flight():
@@ -124,15 +137,19 @@ def test_session_device_none_means_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter: import the port, run CPU sessions (the
-    planner with and without faults, a baseline policy) and a reduced
-    CPU split generation, and list every loaded module named
-    jax/jax.* or repro/repro.*."""
+    planner with and without faults, a baseline policy, both serving
+    presets with their real engines and telemetry) and a reduced CPU
+    split generation, and list every loaded module named jax/jax.* or
+    repro/repro.*."""
     code = (
         "import sys\n"
         "import torch\n"
         "import repro_torch\n"
         "from repro_torch.api import Session, get_scenario\n"
         "import repro_torch.serving, repro_torch.launch.serve_split\n"
+        "import repro_torch.launch.serve, repro_torch.telemetry\n"
+        "import repro_torch.serving.dataplane\n"
+        "import repro_torch.testing.fake_engine\n"
         "import repro_torch.models.moe, repro_torch.models.rwkv\n"
         "import repro_torch.models.rglru, repro_torch.kernels.rglru\n"
         "import repro_torch.kernels.moe_gemm, repro_torch.kernels.wkv6\n"
@@ -145,6 +162,9 @@ def test_port_imports_neither_jax_nor_reference():
         "num_users=40, steps=2), device='cpu').run()\n"
         "Session(get_scenario('paper_fig1').replace(steps=1),"
         " policy='dnn_surgery', device='cpu').run()\n"
+        "for name in ('serve_chaos_k3', 'serve_hotspot_k3'):\n"
+        "    Session(get_scenario(name).replace(num_users=40, steps=2),"
+        " device='cpu').run()\n"
         "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
         "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "repro_torch.serving.SplitServer(cfg, params, device='cpu')"

@@ -30,8 +30,17 @@ generation; for the prefill and for the decode steps apart: host
 wall-clock, device busy share and device time by kernel, grouped into
 the hand-written kernels, matrix products and the rest.
 
+The closed loop (``--serve-loop``): chip_smoke.py's ``[serve-loop]``
+world, ``serve_chaos_k3`` at its own size with full-width starcoder2-3b
+engine pools, one run under the profiler (no warm-up run: it would
+double a minute of host work): host wall-clock, the Session's timings
+(``serve_s``: the data plane; ``steps_s``: mobility and replans), the
+engines' prefills and decode steps, the device's busy share and device
+time by group.
+
     python3 tools/torch_session_profile.py [--scenario megafleet_100k]
-        [--users N] [--r-capacity R] [--serve [MODEL]] [--out report.json]
+        [--users N] [--r-capacity R] [--serve [MODEL]] [--serve-loop]
+        [--out report.json]
 
 Needs a CUDA card; prints one JSON object (also written to ``--out``
 when given).
@@ -196,6 +205,42 @@ def serve_profile(arch: str) -> dict:
     return report
 
 
+def serve_loop_profile() -> dict:
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.api import get_scenario
+    from repro_torch.configs import get_config
+
+    device = torch.device("cuda", 0)
+    sc = get_scenario("serve_chaos_k3")
+    cfg = get_config("starcoder2-3b")
+    factory = cs.FullWidthEngines(cfg, sc.serving.cache_len, device,
+                                  cs.SERVE_LOOP_SEED)
+    counters = cs.kernel_counters()
+    cs.zero_counters(counters)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sess = cs.serving_session(sc, factory, device)
+        m = sess.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = cs.all_launches(counters)
+    L = cfg.num_layers
+    prefills = launches["flash_attention"] // L
+    forwards = launches["rmsnorm"] // (2 * L + 1)
+    rep = _phase_report(prof, wall, 1)
+    rep.update(scenario=sc.name, engine=cfg.name, timings=sess.timings,
+               prefills=prefills, decode_steps=forwards - prefills,
+               launches=launches,
+               summary={k: v for k, v in m.serving.items()
+                        if k != "per_server"})
+    return rep
+
+
 def _phase_report(prof, wall_s: float, steps: int) -> dict:
     dev = device_times(prof)
     busy_us = sum(v["device_us"] for v in dev.values())
@@ -228,6 +273,9 @@ def main() -> int:
                     default=None, metavar="MODEL",
                     help="profile full-width split serving of MODEL "
                          "(default starcoder2-3b) instead")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="profile chip_smoke.py's [serve-loop] closed "
+                         "loop instead")
     ap.add_argument("--out", default=None,
                     help="also write the report to this JSON file")
     args = ap.parse_args()
@@ -245,6 +293,8 @@ def main() -> int:
         timeout=60).stdout.strip()
     if args.serve:
         return emit(dict(serve_profile(args.serve), card=card), args.out)
+    if args.serve_loop:
+        return emit(dict(serve_loop_profile(), card=card), args.out)
     sc = get_scenario(args.scenario)
     changes = {k: v for k, v in (("num_users", args.users),
                                  ("r_capacity", args.r_capacity))
