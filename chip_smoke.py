@@ -53,6 +53,21 @@ card, over its main paths.
   sweep launch is held bit for bit against the plain version, and the
   first attention and RMSNorm launch at each shape within the kernels'
   tolerances.
+* The paths ported last.  ``[enc-dec]``: seamless-m4t-large-v2 at full
+  width and depth (24 + 24 layers, random weights), 4 sources of 1000
+  audio frames, a 16-token prompt, 32 greedy decode steps, held against
+  a teacher-forced prefill, every attention (non-causal encoder, causal
+  decoder, cross at prefill and decode) and RMSNorm launch shape against
+  the plain versions, card against CPU on a 2 + 2-layer cut.
+  ``[kv-int8]``: starcoder2-3b with the int8 KV cache, its codes and
+  scales against ``quantize_kv`` on the CPU, its tokens against the bf16
+  cache's.  ``[cnn-split]``: NiN, YOLOv2 and VGG16 split at every layer,
+  equal to unsplit bit for bit, shipping what the planner prices, card
+  against CPU at both TF32 settings, then megafleet_100k's 100,000 NiN
+  users run at their planned splits.  ``[ligd-oracle]``: the autodiff
+  Li-GD/MLi-GD oracle on the card against rows 1a and 1b, on the
+  reference tests' fleets and on 4,096 megafleet_100k users, with every
+  sweep launch held bit for bit.
 
     python3 chip_smoke.py
 
@@ -66,6 +81,7 @@ version and its times; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -633,16 +649,12 @@ def lm_kernel_cases(device) -> dict:
     (RMSNorm: 4096 prefill rows in bf16; attention: B=4, S=1024, causal,
     bf16) with ``max_abs_err`` the largest over its cases."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.kernels.rmsnorm import kernel as rk
     g = torch.Generator(device=device).manual_seed(11)
 
     def randn(shape, dt):
         return torch.randn(shape, generator=g, device=device).to(dt)
 
     out, breaches = {}, []
-    eps = 1e-6
     errs = []
     # starcoder2-3b's decode and prefill rows in both types, then
     # recurrentgemma-9b's prefill and decode rows and qwen3-8b's qk-norm
@@ -651,31 +663,8 @@ def lm_kernel_cases(device) -> dict:
                          (4096, 3072, "bfloat16"), (4096, 3072, "float32"),
                          (10240, 4096, "bfloat16"), (4, 4096, "bfloat16"),
                          (131072, 128, "bfloat16")):
-        dt = getattr(torch, dtn)
-        x, w = randn((rows, d), dt), randn((d,), dt)
-        got = rn.rmsnorm_cuda(x, w, eps).float()
-        want = rn.rmsnorm_ref(x, w, eps).float()
-        err = (got - want).abs().max().item()
-        errs.append(err)
-        tol = RMS_TOL[dtn]
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
-            breaches.append(f"rmsnorm {rows}x{d} {dtn}: {err:.3g}")
-        w1 = (1.0 + w.float()).to(dt)
-        nbytes = (2 * rows * d + d) * x.element_size()
-        tpr, vecs = rk.launch_shape(d, x.element_size(), rows)
-        rec = dict(
-            rows=rows, d=d, dtype=dtn, max_abs_err=err,
-            body=f"one pass, {tpr} threads x {vecs} vectors a row",
-            ms=timed_ms(lambda: rn.rmsnorm_cuda(x, w, eps), 30, 3),
-            device_ms=device_ms(lambda: rn.rmsnorm_cuda(x, w, eps), 30, 3),
-            plain_ms=timed_ms(lambda: rn.rmsnorm_ref(x, w, eps), 30, 3),
-            library_ms=timed_ms(lambda: F.rms_norm(x, (d,), w1, eps),
-                                30, 3),
-            library_device_ms=device_ms(
-                lambda: F.rms_norm(x, (d,), w1, eps), 30, 3),
-            bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes")
-        rec["device_tb_per_s"] = nbytes / (rec["device_ms"] * 1e-3) / 1e12
-        phase("lm-kernel", "rmsnorm " + json.dumps(rec))
+        rec = rmsnorm_case(randn, rows, d, dtn, breaches)
+        errs.append(rec["max_abs_err"])
         if (rows, d, dtn) == (4096, 3072, "bfloat16"):
             out["rmsnorm"] = rec
     out["rmsnorm"]["max_abs_err"] = max(errs)
@@ -709,21 +698,58 @@ def lm_kernel_cases(device) -> dict:
     return out
 
 
+def rmsnorm_case(randn, rows: int, d: int, dtn: str, breaches) -> dict:
+    """RMSNorm against its plain version on the card at one shape (eps
+    1e-6), with its time, the plain version's, ``F.rms_norm``'s and the
+    bound; a breach is appended to ``breaches``.  Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    eps = 1e-6
+    dt = getattr(torch, dtn)
+    x, w = randn((rows, d), dt), randn((d,), dt)
+    got = rn.rmsnorm_cuda(x, w, eps).float()
+    want = rn.rmsnorm_ref(x, w, eps).float()
+    err = (got - want).abs().max().item()
+    tol = RMS_TOL[dtn]
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        breaches.append(f"rmsnorm {rows}x{d} {dtn}: {err:.3g}")
+    w1 = (1.0 + w.float()).to(dt)
+    nbytes = (2 * rows * d + d) * x.element_size()
+    tpr, vecs = rk.launch_shape(d, x.element_size(), rows)
+    rec = dict(
+        rows=rows, d=d, dtype=dtn, max_abs_err=err,
+        body=f"one pass, {tpr} threads x {vecs} vectors a row",
+        ms=timed_ms(lambda: rn.rmsnorm_cuda(x, w, eps), 30, 3),
+        device_ms=device_ms(lambda: rn.rmsnorm_cuda(x, w, eps), 30, 3),
+        plain_ms=timed_ms(lambda: rn.rmsnorm_ref(x, w, eps), 30, 3),
+        library_ms=timed_ms(lambda: F.rms_norm(x, (d,), w1, eps), 30, 3),
+        library_device_ms=device_ms(
+            lambda: F.rms_norm(x, (d,), w1, eps), 30, 3),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes")
+    rec["device_tb_per_s"] = nbytes / (rec["device_ms"] * 1e-3) / 1e12
+    phase("lm-kernel", "rmsnorm " + json.dumps(rec))
+    return rec
+
+
 def attention_case(device, randn, B, S, causal, window, dtn, heads,
-                   breaches) -> dict:
+                   breaches, Skv=None) -> dict:
     """Flash attention against its plain version on the card at one shape
-    (``heads`` = (Hq, Hkv, hd)), with its time, the plain version's, the
-    library call's (SDPA with ``enable_gqa``; a windowed case passes the
-    boolean window mask) and the bound; a breach is appended to
-    ``breaches``.  Returns the record."""
+    (``heads`` = (Hq, Hkv, hd); ``Skv`` keys, default S, for a
+    non-causal case), with its time, the plain version's, the library
+    call's (SDPA with ``enable_gqa``; a windowed case passes the boolean
+    window mask) and the bound; a breach is appended to ``breaches``.
+    Returns the record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import kernel as fk
     Hq, Hkv, hd = heads
+    Skv = S if Skv is None else Skv
     dt = getattr(torch, dtn)
     q = randn((B, S, Hq, hd), dt)
-    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
+    k, v = randn((B, Skv, Hkv, hd), dt), randn((B, Skv, Hkv, hd), dt)
     kw = dict(causal=causal, window=window)
     body = fk.body_for(dt, hd)
     before = dict(fk.LAUNCHES)
@@ -741,7 +767,8 @@ def attention_case(device, randn, B, S, causal, window, dtn, heads,
     tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
     if not (torch.allclose(got, want, atol=tol, rtol=tol)
             and rr <= rms_tol):
-        breaches.append(f"attention B={B} S={S} heads={heads} {kw} {dtn}: "
+        breaches.append(f"attention B={B} S={S} Skv={Skv} heads={heads} "
+                        f"{kw} {dtn}: "
                         f"max {err:.3g} (tol {tol}), error RMS / output "
                         f"RMS {rr:.3g} (tol {rms_tol})")
     del got, want
@@ -762,12 +789,15 @@ def attention_case(device, randn, B, S, causal, window, dtn, heads,
         lib_device_ms = device_ms(library, 30, 3)
     except TypeError:        # a PyTorch without enable_gqa
         lib_ms = lib_device_ms = None
-    flops = 4.0 * B * Hq * hd * attention_pairs(S, causal, window)
+    pairs = (attention_pairs(S, causal, window) if Skv == S
+             else S * Skv)                  # non-causal, no window
+    flops = 4.0 * B * Hq * hd * pairs
     t_ops = flops / PEAK_BF16_S * 1e3
     t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         / PEAK_BYTES_S * 1e3
     rec = dict(
-        B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, causal=causal, window=window,
+        B=B, S=S, Skv=Skv, Hq=Hq, Hkv=Hkv, hd=hd, causal=causal,
+        window=window,
         dtype=dtn, body=body, max_abs_err=err, rel_rms_err=rr,
         ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 30, 3),
         device_ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
@@ -1187,6 +1217,15 @@ def moe_wkv_kernel_cases(device) -> dict:
     return out
 
 
+def to_tree(tree, **kw):
+    """``.to(**kw)`` on every tensor of a nested dict/list."""
+    if isinstance(tree, dict):
+        return {k: to_tree(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_tree(v, **kw) for v in tree]
+    return tree.to(**kw)
+
+
 def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
                 window: int = 0) -> None:
     """``arch`` at full width, ``layers`` layers (``window``, if given,
@@ -1215,17 +1254,9 @@ def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
     cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
     tok = torch.randint(0, cfg.vocab_size, (1, 64),
                         generator=torch.Generator().manual_seed(seed + 1))
-
-    def to(tree, **kw):
-        if isinstance(tree, dict):
-            return {k: to(v, **kw) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, **kw) for v in tree]
-        return tree.to(**kw)
-
     logits = {}
     for dev in ("cpu", device):
-        p = to(cpu_params, device=dev)
+        p = to_tree(cpu_params, device=dev)
         logits[str(dev)], _ = tfm.prefill(cfg, p, {"tokens": tok.to(dev)},
                                           cache_len=64)
     a = logits[str(device)].float().cpu()
@@ -1235,7 +1266,7 @@ def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     toks, p32 = {}, {}
     for dev in ("cpu", device):
-        p32[dev] = to(cpu_params, device=dev, dtype=torch.float32)
+        p32[dev] = to_tree(cpu_params, device=dev, dtype=torch.float32)
         toks[str(dev)] = unsplit_generate(cfg32, p32[dev], tok.to(dev),
                                           8)[0].cpu()
     same = bool(torch.equal(toks["cpu"], toks[str(device)]))
@@ -1707,16 +1738,20 @@ def serving_session(sc, factory, device):
 def record_lm_launches() -> tuple:
     """Spy on the attention and RMSNorm kernel wrappers the models
     launch through: keep a copy of the inputs of the first launch at
-    each new shape, then launch as before (each wrapper still counts its
-    launch once).  Returns (records by (kernel, shape), a function that
-    removes the spies)."""
+    each new shape (attention: B, Sq, Skv, Hq, Hkv, hd, causal, window),
+    then launch as before (each wrapper still counts its launch once).
+    Returns (records by (kernel, shape), a function that removes the
+    spies)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rmsnorm import ops as rops
     seen = {}
     flash, rms = fops.flash_attention_cuda, rops.rmsnorm_cuda
 
     def flash_spy(q, k, v, **kw):
-        key = ("flash_attention", tuple(q.shape), q.dtype)
+        B, Sq, Hq, hd = q.shape
+        key = ("flash_attention", (B, Sq, k.shape[1], Hq, k.shape[2], hd,
+                                   int(kw.get("causal", True)),
+                                   kw.get("window", 0)), q.dtype)
         if key not in seen:
             seen[key] = (q.clone(), k.clone(), v.clone(), kw)
         return flash(q, k, v, **kw)
@@ -2126,6 +2161,744 @@ def serve_loop_cross(counters, hotspot_card) -> tuple:
     return launches, held
 
 
+#: [enc-dec]: seamless-m4t-large-v2 as get_config gives it (24 encoder
+#: and 24 decoder layers, d 1024, 16/16 heads of 64, ff 8192, vocab
+#: 256,206, bf16), random weights from ENC_DEC_SEED on the card: 4
+#: sources of ENC_FRAMES audio frames from the frontend stub (1000 is off
+#: the 64-key tile), a decoder prompt of ENC_PROMPT tokens, ENC_STEPS
+#: greedy decode steps.  Card against CPU on a cut of 2 encoder and 2
+#: decoder layers at full width, one source of ENC_CROSS_FRAMES frames
+ENC_DEC_SEED = 0
+ENC_FRAMES = 1000
+ENC_PROMPT = 16
+ENC_STEPS = 32
+ENC_CROSS_FRAMES = 250
+#: [kv-int8]: starcoder2-3b at full width, 4 prompts of 1024 tokens into
+#: KV_CACHE_LEN-row caches, KV_STEPS decode steps
+KV_CACHE_LEN = 2048
+KV_STEPS = 32
+#: [cnn-split]: the chain CNNs at CNN_BATCH images; megafleet_100k's NiN
+#: fleet in chunks of at most CNN_CHUNK images (NiN's largest activation
+#: is 786 KB an image, so the 100,000 images at once would need 78 GB).
+#: Card against CPU on CNN_CROSS_IMAGES images, in float32 with cuDNN's
+#: TF32 off (torch.backends.cudnn.allow_tf32 = False) to the CPU tests'
+#: tolerance, rtol 1e-4 / atol 1e-5 (the same float32 products summed in
+#: another order); and under PyTorch's default, TF32 on, where the
+#: convolutions round their inputs to a 10-bit mantissa (~5e-4 a
+#: product): the largest difference within CNN_TF32_TOL of the output's
+#: largest magnitude.  Split against unsplit on the card: bit for bit,
+#: under the default (TF32 on)
+CNN_BATCH = 256
+CNN_CHUNK = 8192
+CNN_CROSS_IMAGES = 16
+CNN_RTOL, CNN_ATOL = 1e-4, 1e-5
+CNN_TF32_TOL = 2e-2
+#: [ligd-oracle]: the autodiff oracle against the sweep at the reference's
+#: own tolerances (tests/test_ligd.py:149-190, tests/test_mligd.py:89-120):
+#: split and R exact, B, r, U (and T, E, C, U_recalc, U_back for MLi-GD)
+#: to ORACLE_RTOL relative, per-split iteration counts within 1; on
+#: megafleet_100k's ORACLE_USERS users, a split may differ only on a
+#: named near-tie (the two best per-split U, or the two R vertices,
+#: within ORACLE_RTOL), as tests/torch_diff.py names them
+ORACLE_RTOL = 1e-4
+ORACLE_USERS = 4096
+#: the reference tests' fleets, drawn as those tests draw them
+ORACLE_CASES = (
+    dict(name="nin_hetero_warm", model="nin", seed=7, X=48, edges="pool",
+         max_iters=150, warm_start=True),
+    dict(name="nin_hetero_cold", model="nin", seed=7, X=48, edges="pool",
+         max_iters=150, warm_start=False),
+    dict(name="vgg16_shared", model="vgg16", seed=11, X=12,
+         edges="shared", max_iters=80, warm_start=True),
+    dict(name="mligd_relay_back", model="nin", seed=5, X=12, joint=True,
+         new_edge=dict(c_min=2e9, rho_min=5e-3, r_max=4.0), hops_back=1.0,
+         vertex=1, max_iters=150),
+    dict(name="mligd_resolve", model="nin", seed=5, X=12, joint=True,
+         new_edge=dict(c_min=500e9, rho_min=1e-5, r_max=64.0),
+         hops_back=10.0, vertex=0, max_iters=150),
+)
+
+
+def release_memory() -> float:
+    """Collect garbage (a reference cycle can keep an earlier phase's
+    tensors alive), return the allocator's cached blocks, and give the GB
+    still allocated: the baseline under a phase's peak memory."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def enc_dec(device, counters) -> tuple:
+    """[enc-dec]: seamless-m4t-large-v2 at full width and depth on the
+    card.  Every kernel count is zeroed just before ``prefill`` and read
+    after the last ``decode_step``; the first attention and RMSNorm
+    launch at each shape (the non-causal encoder, the causal decoder
+    prefill, cross attention at prefill and at every decode step) is
+    held against its plain version.  Decode is held against a
+    teacher-forced prefill of the prompt and the generated tokens: each
+    source's first token must be equal, later tokens are counted.  Then
+    row 3 is timed at the new shapes, and the 2 + 2-layer cut runs card
+    against CPU.  Returns (record, launches, held launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.frontend import audio_frame_embeds
+
+    cfg = get_config("seamless-m4t-large-v2")
+    B = 4
+    live_gb = release_memory()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(ENC_DEC_SEED)
+    params = tfm.init_lm(cfg, gen, device)
+    src = audio_frame_embeds(cfg, gen, B, ENC_FRAMES, device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, ENC_PROMPT),
+                           generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tensors_of(params))
+    # the process's first prefill of this model, timed apart: it pays
+    # for loading the library kernels its shapes need
+    batch = {"tokens": tokens, "src_embeds": src}
+    t0 = time.perf_counter()
+    tfm.prefill(cfg, params, batch, cache_len=ENC_PROMPT + ENC_STEPS)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    lm_seen, unspy = record_lm_launches()
+    zero_counters(counters)
+    try:
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(
+            cfg, params, batch, cache_len=ENC_PROMPT + ENC_STEPS)
+        cur = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [cur]
+        for i in range(ENC_STEPS):
+            _, cur, caches = tfm.decode_step(cfg, params, cur[:, None],
+                                             ENC_PROMPT + i, caches)
+            out.append(cur)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        unspy()
+    launches = all_launches(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in tensors_of(caches)) / 1e9
+    gen_tok = torch.stack(out, dim=1)                     # (B, 1 + steps)
+    del caches
+
+    # teacher forcing: the prompt and every generated token but the last
+    # in one prefill; its greedy pick at each position from S - 1 on
+    full = torch.cat([tokens, gen_tok[:, :-1]], dim=1)
+    kv_memory = tfm._encode(cfg, params, src)
+    h = tfm._assemble_inputs(cfg, params, {"tokens": full})
+    h, _ = tfm.apply_stack(cfg, params, h, mode="prefill",
+                           positions=tfm._positions(h),
+                           cache_len=full.shape[1], kv_memory=kv_memory)
+    forced = torch.stack([tfm.head(cfg, params, h[:, i:i + 1])[1]
+                          for i in range(ENC_PROMPT - 1, full.shape[1])],
+                         dim=1)
+    first_equal = int((forced[:, 0] == gen_tok[:, 0]).sum().item())
+    later_share = (forced[:, 1:] == gen_tok[:, 1:]).float().mean().item()
+    del h, kv_memory, params
+    torch.cuda.empty_cache()
+    held = hold_lm_launches(lm_seen, "[enc-dec]")
+    del lm_seen
+
+    L, E = cfg.num_layers, cfg.num_enc_layers
+    per_prefill = {"flash_attention": E + 2 * L,
+                   "rmsnorm": 2 * E + 1 + 3 * L + 1}
+    per_step = {"flash_attention": L, "rmsnorm": 3 * L + 1}
+    want = {k: per_prefill[k] + ENC_STEPS * per_step[k] for k in per_step}
+    rec = dict(
+        model=cfg.name, encoder_layers=E, decoder_layers=L,
+        d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.head_dim],
+        params_b=cfg.num_params() / 1e9, params_b_counted=n_params / 1e9,
+        batch=B, frames=ENC_FRAMES, prompt=ENC_PROMPT, steps=ENC_STEPS,
+        init_s=init_s, first_prefill_ms=cold_ms, prefill_ms=(t1 - t0) * 1e3,
+        decode_ms_per_step=(t2 - t1) / ENC_STEPS * 1e3,
+        peak_mem_gb=peak_gb, live_gb_before=live_gb, cache_gb=cache_gb,
+        first_tokens_equal=first_equal,
+        later_token_share_equal=later_share,
+        launches=launches, expected_launches=want,
+        held={k: v["shapes"] for k, v in held.items()})
+    phase("enc-dec", json.dumps(rec))
+    breaches = []
+    if first_equal != B:
+        breaches.append(f"{B - first_equal} first tokens differ from "
+                        "teacher-forced prefill")
+    for name, n in want.items():
+        if launches[name] != n:
+            breaches.append(f"{name}: {launches[name]} launches, expected "
+                            f"{n}")
+    if launches["flash_attention_tc"] != launches["flash_attention"]:
+        breaches.append("an attention launch left the tensor-core body")
+    shapes = {tuple(s[1:3]) + (s[6],) for s in
+              held["flash_attention"]["shapes"]}
+    for need in ((ENC_FRAMES, ENC_FRAMES, 0), (ENC_PROMPT, ENC_PROMPT, 1),
+                 (ENC_PROMPT, ENC_FRAMES, 0), (1, ENC_FRAMES, 0)):
+        if need not in shapes:
+            breaches.append(f"no attention launch (Sq, Skv, causal) = "
+                            f"{need} was held")
+    if breaches:
+        raise AssertionError("[enc-dec]: " + "; ".join(breaches))
+
+    # row 3 at the encoder-decoder's shapes, timed beside its plain
+    # version, SDPA and the bound
+    g = torch.Generator(device=device).manual_seed(23)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    cases, errs = {}, []
+    for label, S, Skv, causal in (
+            ("encoder", ENC_FRAMES, ENC_FRAMES, False),
+            ("decoder_prefill", ENC_PROMPT, ENC_PROMPT, True),
+            ("cross_prefill", ENC_PROMPT, ENC_FRAMES, False),
+            ("cross_decode", 1, ENC_FRAMES, False)):
+        cases[label] = attention_case(device, randn, B, S, causal, 0,
+                                      "bfloat16", heads, breaches, Skv=Skv)
+        errs.append(cases[label]["max_abs_err"])
+    # and RMSNorm at its rows: the encoder's, the decoder prefill's and a
+    # decode step's
+    rms_errs = []
+    for label, rows in (("rmsnorm_encoder", B * ENC_FRAMES),
+                        ("rmsnorm_prefill", B * ENC_PROMPT),
+                        ("rmsnorm_decode", B)):
+        cases[label] = rmsnorm_case(randn, rows, cfg.d_model, "bfloat16",
+                                    breaches)
+        rms_errs.append(cases[label]["max_abs_err"])
+    if breaches:
+        raise AssertionError("[enc-dec] kernels vs plain: "
+                             + "; ".join(breaches))
+    enc_dec_cross(device, cfg)
+    torch.cuda.empty_cache()
+    held["flash_attention"]["max_abs_err"] = max(
+        held["flash_attention"]["max_abs_err"], *errs)
+    held["rmsnorm"]["max_abs_err"] = max(held["rmsnorm"]["max_abs_err"],
+                                         *rms_errs)
+    return rec, launches, held, cases
+
+
+def enc_dec_cross(device, cfg) -> None:
+    """seamless-m4t-large-v2 cut to 2 encoder and 2 decoder layers at full
+    width, one source of ENC_CROSS_FRAMES frames and a 16-token prompt:
+    bf16 prefill logits on the card (kernels) against the CPU (plain
+    versions) at CROSS_ATOL / CROSS_RTOL, then 8 greedy tokens in float32
+    (TF32 off), which must be equal.  Raises on a breach."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve_split import _sync
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cut = dataclasses.replace(cfg, num_layers=2, num_enc_layers=2)
+    cpu_params = tfm.init_lm(cut, torch.Generator().manual_seed(3), "cpu")
+    g = torch.Generator().manual_seed(4)
+    src = torch.randn((1, ENC_CROSS_FRAMES, cut.d_model), generator=g)
+    tok = torch.randint(0, cut.vocab_size, (1, ENC_PROMPT), generator=g)
+    logits = {}
+    for dev in ("cpu", device):
+        p = to_tree(cpu_params, device=dev)
+        logits[str(dev)], _ = tfm.prefill(
+            cut, p, {"tokens": tok.to(dev), "src_embeds": src.to(dev)},
+            cache_len=ENC_PROMPT)
+    a, b = logits[str(device)].float().cpu(), logits["cpu"].float()
+    err = (a - b).abs().max().item()
+    bf16_ok = bool(torch.allclose(a, b, atol=CROSS_ATOL, rtol=CROSS_RTOL))
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    toks = {}
+    for dev in ("cpu", device):
+        p = to_tree(cpu_params, device=dev, dtype=torch.float32)
+        lg, caches = tfm.prefill(
+            cut32, p, {"tokens": tok.to(dev), "src_embeds": src.to(dev)},
+            cache_len=ENC_PROMPT + 8)
+        cur = torch.argmax(lg[:, :cut.vocab_size], dim=-1)
+        out = [cur]
+        for i in range(7):
+            _, cur, caches = tfm.decode_step(cut32, p, cur[:, None],
+                                             ENC_PROMPT + i, caches)
+            out.append(cur)
+        _sync(torch.device(dev))
+        toks[str(dev)] = torch.stack(out, dim=1).cpu()
+    same = bool(torch.equal(toks["cpu"], toks[str(device)]))
+    phase("enc-dec-cross", json.dumps({
+        "model": cut.name, "encoder_layers": 2, "decoder_layers": 2,
+        "frames": ENC_CROSS_FRAMES, "prompt": ENC_PROMPT,
+        "bf16_logits_max_abs_err": err, "bf16_within_tol": bf16_ok,
+        "f32_tokens_equal": same, "f32_tokens": toks["cpu"].tolist()}))
+    if not (bf16_ok and same):
+        raise AssertionError(f"[enc-dec] card vs CPU: bf16 logits err "
+                             f"{err:.3g} (tol {CROSS_ATOL}/{CROSS_RTOL}), "
+                             f"f32 tokens equal: {same}")
+
+
+def kv_int8(device, counters) -> tuple:
+    """[kv-int8]: starcoder2-3b at full width and depth, 4 prompts of
+    1024 tokens: ``prefill`` then KV_STEPS ``decode_step`` s into
+    KV_CACHE_LEN-row caches, first with the bf16 cache, then with
+    ``kv_quant=True`` (its kernel counts zeroed just before and read just
+    after).  The int8 run's prompt rows must equal ``quantize_kv`` of the
+    bf16 run's k/v (the same prefill, bit for bit) on the CPU: scales
+    exactly, codes exactly except a code one apart where x / scale sits
+    on a .5 tie (counted); its first token must equal the bf16 run's,
+    later tokens are counted.  Returns (record, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_split
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import quantize_kv
+
+    cfg = get_config("starcoder2-3b")
+    live_gb = release_memory()
+    params, tokens = serve_split.make_inputs(cfg, device=device, batch=4,
+                                             prompt_len=1024)
+    S = tokens.shape[1]
+    runs = {}
+    launches = None
+    for quant in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if quant:
+            zero_counters(counters)
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(cfg, params, {"tokens": tokens},
+                                     cache_len=KV_CACHE_LEN,
+                                     kv_quant=quant)
+        cur = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, first_logits = [cur], None
+        for i in range(KV_STEPS):
+            lg, cur, caches = tfm.decode_step(cfg, params, cur[:, None],
+                                              S + i, caches)
+            first_logits = lg.float() if first_logits is None \
+                else first_logits
+            out.append(cur)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if quant:
+            launches = all_launches(counters)
+        runs[quant] = dict(
+            tokens=torch.stack(out, dim=1).cpu(),
+            first_decode_logits=first_logits,
+            prefill_ms=(t1 - t0) * 1e3,
+            decode_ms_per_step=(t2 - t1) / KV_STEPS * 1e3,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for t in tensors_of(caches)),
+            prompt_rows=[{n: c[n][:, :S].cpu() for n in c} for c in caches])
+        del caches
+    q, f = runs[True], runs[False]
+    scales_equal, ties, off, worst = True, 0, 0, 0
+    for cq, cf in zip(q["prompt_rows"], f["prompt_rows"]):
+        for n in ("k", "v"):
+            codes, scales = quantize_kv(cf[n])
+            scales_equal &= bool(torch.equal(scales, cq[n + "_scale"]))
+            d = (codes.int() - cq[n].int()).abs()
+            r = cf[n].float() / scales[..., None]
+            tie = ((r - r.floor()) - 0.5).abs() <= 1e-6
+            worst = max(worst, int(d.max().item()))
+            ties += int(((d == 1) & tie).sum().item())
+            off += int(((d > 0) & ~((d == 1) & tie)).sum().item())
+    diff = (q["first_decode_logits"] - f["first_decode_logits"]).abs()
+    rec = dict(
+        model=cfg.name, batch=4, prompt=S, cache_len=KV_CACHE_LEN,
+        steps=KV_STEPS, live_gb_before=live_gb,
+        **{f"int8_{k}": q[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                        "peak_mem_gb", "cache_bytes")},
+        **{f"bf16_{k}": f[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                        "peak_mem_gb", "cache_bytes")},
+        cache_ratio=q["cache_bytes"] / f["cache_bytes"],
+        scales_equal=scales_equal, codes_off_by_one_on_ties=ties,
+        codes_differing_otherwise=off, codes_max_abs_diff=worst,
+        first_tokens_equal=int((q["tokens"][:, 0]
+                                == f["tokens"][:, 0]).sum().item()),
+        later_token_share_equal=(q["tokens"][:, 1:] == f["tokens"][:, 1:])
+        .float().mean().item(),
+        first_decode_logits_max_abs_diff=diff.max().item(),
+        launches=launches)
+    phase("kv-int8", json.dumps(rec))
+    bad = []
+    if not scales_equal:
+        bad.append("scales differ from quantize_kv on the CPU")
+    if off:
+        bad.append(f"{off} codes differ from quantize_kv on the CPU off a "
+                   "rounding tie")
+    if rec["first_tokens_equal"] != 4:
+        bad.append("a first token differs from the bf16-cache run")
+    if launches["flash_attention"] != cfg.num_layers or \
+            launches["rmsnorm"] != 2 * cfg.num_layers + 1 + KV_STEPS * (
+                2 * cfg.num_layers + 1):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError("[kv-int8]: " + "; ".join(bad))
+    del params
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """``torch.backends.cudnn.allow_tf32`` set for a ``with`` block and
+    restored after it."""
+    import torch
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def cnn_split(device, counters) -> tuple:
+    """[cnn-split]: NiN, YOLOv2 and VGG16 on their repo configs, random
+    float32 weights and CNN_BATCH images from a seed on the card: at every
+    split s in 0..M, ``split_inference`` equals ``forward`` bit for bit
+    and ships ``out_bits[s-1] / 16`` elements an image (``in_bits / 8``
+    at s = 0), as the planner's profile prices it; card against CPU at
+    both TF32 settings (tolerances above).  Then megafleet_100k's static
+    plan on the card (its sweep launch held bit for bit): its 100,000 NiN
+    users grouped by planned split, each group's device half and edge
+    half in chunks of at most CNN_CHUNK images, images/s and peak memory
+    (every kernel count zeroed before the session, read after the last
+    chunk).  Returns (record, launches, held sweep launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Session, get_scenario
+    from repro_torch.configs import get_config
+    from repro_torch.core.profile import profile_chain_cnn
+    from repro_torch.kernels.ligd_step import ops as sweep_ops
+    from repro_torch.models import chain_cnn as cnn
+
+    nets, bad = {}, []
+    for name in ("nin", "yolov2", "vgg16"):
+        cfg = get_config(name)
+        g = torch.Generator(device=device).manual_seed(5)
+        params = cnn.init_cnn(cfg, g, device)
+        x = torch.randn((CNN_BATCH, cfg.in_hw, cfg.in_hw, cfg.in_ch),
+                        generator=g, device=device)
+        prof = profile_chain_cnn(cfg)
+        full = cnn.forward(cfg, params, x)
+        split_equal, shipped_ok = 0, 0
+        for s in range(cfg.num_layers + 1):
+            inter, out = cnn.split_inference(cfg, params, x, s)
+            split_equal += int(torch.equal(out, full))
+            want = prof.in_bits / 8 if s == 0 else prof.out_bits[s - 1] / 16
+            shipped_ok += int(inter[0].numel() == want)
+        ms = timed_ms(lambda: cnn.forward(cfg, params, x), 10, 2)
+        xs = x[:CNN_CROSS_IMAGES]
+        want = cnn.forward(cfg, to_tree(params, device="cpu"), xs.cpu())
+        scale = want.abs().max().item()
+        errs = {}
+        for tf32 in (False, True):
+            with cudnn_tf32(tf32):
+                got = cnn.forward(cfg, params, xs).cpu()
+            errs[tf32] = ((got - want).abs().max().item(),
+                          bool(torch.allclose(got, want, rtol=CNN_RTOL,
+                                              atol=CNN_ATOL)))
+        rec = dict(layers=cfg.num_layers, in_hw=cfg.in_hw, batch=CNN_BATCH,
+                   splits=cfg.num_layers + 1, split_equal=split_equal,
+                   shipped_equal_profile=shipped_ok, forward_ms=ms,
+                   images_per_s=CNN_BATCH / (ms * 1e-3),
+                   cross_images=CNN_CROSS_IMAGES, out_max_abs=scale,
+                   cross_max_abs_err_tf32_off=errs[False][0],
+                   cross_max_abs_err_tf32_on=errs[True][0])
+        phase("cnn-split", f"{name} " + json.dumps(rec))
+        nets[name] = rec
+        if split_equal != cfg.num_layers + 1:
+            bad.append(f"{name}: split != unsplit at "
+                       f"{cfg.num_layers + 1 - split_equal} splits")
+        if shipped_ok != cfg.num_layers + 1:
+            bad.append(f"{name}: shipped size != profile")
+        if not errs[False][1]:
+            bad.append(f"{name}: card (TF32 off) vs CPU {errs[False][0]:.3g}"
+                       f" (rtol {CNN_RTOL}, atol {CNN_ATOL})")
+        if not errs[True][0] <= CNN_TF32_TOL * scale:
+            bad.append(f"{name}: card (TF32 on) vs CPU {errs[True][0]:.3g} "
+                       f"> {CNN_TF32_TOL} x {scale:.3g}")
+        del params, x, full
+    torch.cuda.empty_cache()
+
+    sc = get_scenario("megafleet_100k")
+    cfg = get_config("nin")
+    params = cnn.init_cnn(cfg, torch.Generator(device=device).manual_seed(6),
+                          device)
+    g = torch.Generator(device=device).manual_seed(7)
+    sweeps, unspy = record_sweep_launches(sweep_ops)
+    torch.cuda.synchronize()
+    live_gb = release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    try:
+        t0 = time.perf_counter()
+        sess = Session(sc)                         # the static plan
+        splits = np.asarray(sess.fleet.split)
+        t1 = time.perf_counter()
+        groups, finite = {}, True
+        for s in np.unique(splits):
+            n = int((splits == s).sum())
+            groups[int(s)] = n
+            for lo in range(0, n, CNN_CHUNK):
+                m = min(CNN_CHUNK, n - lo)
+                x = torch.randn((m, cfg.in_hw, cfg.in_hw, cfg.in_ch),
+                                generator=g, device=device)
+                inter = cnn.forward_range(cfg, params, x, 0, int(s))
+                out = cnn.forward_range(cfg, params, inter, int(s),
+                                        cfg.num_layers)
+                finite &= bool(torch.isfinite(out).all().item())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        unspy()
+    launches = all_launches(counters)
+    held = hold_sweep_launches(sweeps, "[cnn-split]")
+    fleet = dict(
+        scenario=sc.name, users=int(len(splits)), chunk=CNN_CHUNK,
+        users_per_split=groups, plan_s=t1 - t0, run_s=t2 - t1,
+        images_per_s=len(splits) / (t2 - t1),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        live_gb_before=live_gb, launches=launches)
+    phase("cnn-split", "megafleet_100k " + json.dumps(fleet))
+    if not finite:
+        bad.append("megafleet_100k: a non-finite output")
+    if sum(groups.values()) != sc.num_users:
+        bad.append("megafleet_100k: users lost in grouping")
+    if bad:
+        raise AssertionError("[cnn-split]: " + "; ".join(bad))
+    del params, sess
+    torch.cuda.empty_cache()
+    return dict(nets=nets, fleet=fleet), launches, held
+
+
+def oracle_columns(case: dict) -> dict:
+    """The host columns of an ORACLE_CASES fleet, drawn as the reference
+    tests draw them: {"dev": (X,) columns, "edge": (X,) columns or None
+    for the shared default server}."""
+    import numpy as np
+    from repro_torch.core.costs import DeviceFleet, EdgeParams, \
+        stack_edges_np
+    rng = np.random.default_rng(case["seed"])
+    X = case["X"]
+    if case.get("joint"):
+        return {"dev": dict(DeviceFleet(c_dev=rng.uniform(3e9, 60e9, X))
+                            .arrays), "edge": None}
+    w = rng.uniform(0.1, 1.0, (3, X))
+    w /= w.sum(0)
+    dev = DeviceFleet(c_dev=rng.uniform(2e9, 100e9, X),
+                      p_tx=rng.uniform(0.2, 1.0, X),
+                      alpha=rng.uniform(3e-11, 3e-10, X),
+                      k_rounds=rng.uniform(20.0, 200.0, X),
+                      w_T=w[0], w_E=w[1], w_C=w[2],
+                      hops=rng.integers(0, 6, X)).arrays
+    edge = None
+    if case["edges"] == "pool":
+        pool = [EdgeParams(),
+                EdgeParams(c_min=8e9, rho_min=1e-3, r_max=8.0),
+                EdgeParams(c_min=200e9, B_max=4e7, gamma_B=1.5)]
+        idx = rng.integers(0, len(pool), X)
+        edge = {k: v[idx] for k, v in stack_edges_np(pool).items()}
+    return {"dev": dict(dev), "edge": edge}
+
+
+def oracle_args(case: dict, device, origs=None) -> tuple:
+    """(solve function, its arguments but the config, LiGDConfig) of an
+    ORACLE_CASES fleet on ``device``.  MLi-GD's frozen original strategies
+    are ``origs``, or each user's autodiff Li-GD solve against the default
+    server (as the reference test freezes them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costs import EdgeParams, edge_dict, rows_to_device
+    from repro_torch.core.ligd import LiGDConfig, solve_ligd_batch
+    from repro_torch.core.mligd import orig_strategy_dict, solve_mligd_batch
+    from repro_torch.core.profile import profile_of
+    cols = oracle_columns(case)
+    prof = profile_of(get_config(case["model"]))
+    X = case["X"]
+    devs = rows_to_device(cols["dev"], device, X)
+    cfg = LiGDConfig(max_iters=case["max_iters"],
+                     warm_start=case.get("warm_start", True))
+    if not case.get("joint"):
+        edge = (edge_dict(EdgeParams(), device) if cols["edge"] is None
+                else rows_to_device(cols["edge"], device, X))
+        return solve_ligd_batch, (prof, devs, edge), cfg
+    edge_orig = edge_dict(EdgeParams(), device)
+    if origs is None:
+        prev = solve_ligd_batch(prof, devs, edge_orig,
+                                LiGDConfig(solver="autodiff"))
+        origs = orig_strategy_dict(prof, edge_orig, prev)
+    hops = torch.full((X,), float(case["hops_back"]), dtype=torch.float32,
+                      device=device)
+    return solve_mligd_batch, (prof, devs, edge_dict(
+        EdgeParams(**case["new_edge"]), device), origs, hops), cfg
+
+
+def oracle_errors(fused, oracle, ties=None) -> tuple:
+    """The sweep's result against the oracle's (LiGDResult or
+    MLiGDResult, tensors or arrays): (errors, list of breaches of the
+    reference's tolerances).  ``ties``: (X,) bool, the users whose
+    discrete choices may differ (named near-ties); None: none may."""
+    import numpy as np
+
+    def a(t):
+        return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach")
+                          else t, np.float64)
+
+    X = len(a(oracle.split))
+    ties = np.zeros(X, bool) if ties is None else np.asarray(ties)
+    discrete = ("split",) + (("R",) if hasattr(oracle, "R") else ())
+    agree = np.ones(X, bool)
+    err, bad = {}, []
+    for f in discrete:
+        d = a(getattr(fused, f)) != a(getattr(oracle, f))
+        agree &= ~d
+        err[f"{f}_differ"] = int(d.sum())
+        if (d & ~ties).any():
+            bad.append(f"{f} differs at users "
+                       f"{np.nonzero(d & ~ties)[0].tolist()[:20]}")
+    floats = ("B", "r", "U") + (("T", "E", "C", "U_recalc", "U_back")
+                                if hasattr(oracle, "R") else ())
+    for f in floats:
+        x, y = a(getattr(fused, f))[agree], a(getattr(oracle, f))[agree]
+        rel = float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30),
+                           initial=0.0))
+        err[f"{f}_rel"] = rel
+        if not rel <= ORACLE_RTOL:
+            bad.append(f"{f} rel {rel:.3g} > {ORACLE_RTOL}")
+    dit = np.abs(a(fused.iters_per_layer) - a(oracle.iters_per_layer))
+    err["iters_max_diff"] = int(dit.max(initial=0))
+    err["near_ties"] = int(ties.sum())
+    if dit.max(initial=0) > 1:
+        bad.append(f"iteration counts differ by {int(dit.max())}")
+    return err, bad
+
+
+def oracle_ties(launch, oracle) -> "np.ndarray":
+    """(X,) bool named near-ties of one recorded solve: the two best
+    per-split U of its sweep launch (``launch``: the recorded inputs, run
+    through the plain version, which the kernel equals bit for bit) within
+    ORACLE_RTOL, or, for MLi-GD, the oracle's two R vertices within
+    ORACLE_RTOL (tests/torch_diff.py's rule)."""
+    import numpy as np
+    from repro_torch.kernels.ligd_step import ligd_sweep_ref, \
+        mligd_sweep_ref
+    feat, x0, tab, kw = launch
+    kw = dict(kw)
+    ref = mligd_sweep_ref if kw.pop("joint") else ligd_sweep_ref
+    u = np.sort(ref(feat, x0, tab, chunk=1, **kw)[0].double().cpu().numpy(),
+                axis=0)
+    ties = (u[1] - u[0]) <= ORACLE_RTOL * np.abs(u[0])
+    if hasattr(oracle, "R"):
+        u1 = oracle.U_recalc.double().cpu().numpy()
+        u2 = oracle.U_back.double().cpu().numpy()
+        ties |= np.abs(u1 - u2) <= ORACLE_RTOL * np.abs(u1)
+    return ties
+
+
+def ligd_oracle(device, counters) -> tuple:
+    """[ligd-oracle]: the autodiff oracle (``solver="autodiff"``,
+    ``torch.autograd`` on the card) against rows 1a and 1b.  First on the
+    reference tests' fleets (ORACLE_CASES); then on megafleet_100k with
+    ORACLE_USERS users: its Session (the sweep) runs with every
+    Li-GD/MLi-GD solve call recorded, and each is solved again by the
+    oracle on the same card tensors.  Every sweep launch of the phase is
+    held bit for bit against the plain version.  Every kernel count is
+    zeroed at the start and read before the holds.  Returns (record,
+    launches, held sweep launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.api import Session, get_scenario
+    from repro_torch.core import planner as planner_mod
+    from repro_torch.kernels.ligd_step import ops as sweep_ops
+
+    sweeps, unspy_sweep = record_sweep_launches(sweep_ops)
+    zero_counters(counters)
+    cases, bad = {}, []
+    calls = []
+    solve_l, solve_m = planner_mod.solve_ligd_batch, \
+        planner_mod.solve_mligd_batch
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [clone(v) for v in tree]
+        return tree.clone() if torch.is_tensor(tree) else tree
+
+    def spy(fn):
+        def wrapped(profile, *args):
+            first = len(sweeps)
+            res = fn(profile, *args)
+            calls.append((fn, profile, clone(args[:-1]), args[-1], res,
+                          sweeps[first:]))
+            return res
+        return wrapped
+
+    try:
+        for case in ORACLE_CASES:
+            fn, args, cfg = oracle_args(case, device)
+            fused = fn(*args, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            oracle = fn(*args, dataclasses.replace(cfg, solver="autodiff"))
+            torch.cuda.synchronize()
+            err, breaches = oracle_errors(fused, oracle)
+            if "vertex" in case and not bool(
+                    (oracle.R == case["vertex"]).all().item()):
+                breaches.append(f"not every user on vertex R = "
+                                f"{case['vertex']}")
+            cases[case["name"]] = dict(X=case["X"], oracle_s=(
+                time.perf_counter() - t0), **err)
+            bad += [f"{case['name']}: {b}" for b in breaches]
+        sc = get_scenario("megafleet_100k").replace(num_users=ORACLE_USERS)
+        planner_mod.solve_ligd_batch = spy(solve_l)
+        planner_mod.solve_mligd_batch = spy(solve_m)
+        try:
+            sess = Session(sc)
+            sess.run()
+            torch.cuda.synchronize()
+        finally:
+            planner_mod.solve_ligd_batch = solve_l
+            planner_mod.solve_mligd_batch = solve_m
+        mega = []
+        for fn, profile, tensors, cfg, fused, launched in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            oracle = fn(profile, *tensors,
+                        dataclasses.replace(cfg, solver="autodiff"))
+            torch.cuda.synchronize()
+            oracle_s = time.perf_counter() - t0
+            kind = "mligd" if hasattr(oracle, "R") else "ligd"
+            if len(launched) != 1:
+                bad.append(f"megafleet {kind} call: {len(launched)} sweep "
+                           "launches, expected 1")
+                continue
+            err, breaches = oracle_errors(
+                fused, oracle, oracle_ties(launched[0], oracle))
+            mega.append(dict(kind=kind, X=int(fused.split.shape[0]),
+                             oracle_s=oracle_s, **err))
+            bad += [f"megafleet {kind} call {len(mega)}: {b}"
+                    for b in breaches]
+    finally:
+        unspy_sweep()
+    launches = all_launches(counters)
+    held = hold_sweep_launches(sweeps, "[ligd-oracle]")
+    rec = dict(cases=cases, megafleet=dict(users=ORACLE_USERS,
+                                           calls=mega), launches=launches)
+    phase("ligd-oracle", json.dumps(rec))
+    if not mega or not any(m["kind"] == "mligd" for m in mega):
+        bad.append("megafleet_100k made no Li-GD and MLi-GD solve")
+    if bad:
+        raise AssertionError("[ligd-oracle]: " + "; ".join(bad))
+    return rec, launches, held
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2286,11 +3059,29 @@ def main() -> int:
     counters = kernel_counters()
     hotspot_on, adaptive_launches, adaptive_held = serve_adaptive(counters)
     cross_launches, cross_held = serve_loop_cross(counters, hotspot_on)
-    closed_loop = (loop_launches, adaptive_launches, cross_launches)
+    later_paths = (loop_launches, adaptive_launches, cross_launches)
     # every closed-loop launch held against its plain version joins the
     # kernels line's max_abs_err
     for held in (loop_rec["held_launches"], *adaptive_held.values(),
                  cross_held):
+        for name, r in held.items():
+            if name in errs:
+                errs[name].append(r["max_abs_err"])
+            else:
+                lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
+                                              r["max_abs_err"])
+
+    # 8c. the paths ported last: the encoder-decoder stack at full width
+    # and depth, the int8 KV cache, the chain-CNN split executor and the
+    # autodiff oracle; each phase zeroes every count before its run and
+    # reads them after it, and what it held joins max_abs_err ----------
+    enc_rec, enc_launches, enc_held, enc_cases = enc_dec(device, counters)
+    kv_rec, kv_launches = kv_int8(device, counters)
+    cnn_rec, cnn_launches, cnn_held = cnn_split(device, counters)
+    oracle_rec, oracle_launches, oracle_held = ligd_oracle(device, counters)
+    later_paths += (enc_launches, kv_launches, cnn_launches,
+                    oracle_launches)
+    for held in (enc_held, cnn_held, oracle_held):
         for name, r in held.items():
             if name in errs:
                 errs[name].append(r["max_abs_err"])
@@ -2305,7 +3096,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ligd_step/kernel.py:189",
         "launches": (launches[name] + adm_launches[name]
                      + base_launches[name]
-                     + sum(c.get(name, 0) for c in closed_loop)),
+                     + sum(c.get(name, 0) for c in later_paths)),
         "max_abs_err": max(errs[name]),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
@@ -2339,7 +3130,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": (sum(pth["launches"].get(name, 0)
                              for pth in paths)
-                         + sum(c.get(name, 0) for c in closed_loop)),
+                         + sum(c.get(name, 0) for c in later_paths)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

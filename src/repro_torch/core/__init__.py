@@ -12,8 +12,9 @@ from .events import (DRAIN, EVACUATE, HANDOFF, DirtyBatch, DirtySet,
 from .faults import (HOP_UNREACHABLE, EvacuationReport, FaultBatch,
                      FaultConfig, FaultModel, clamp_hops)
 from .ledger import BudgetLedger
-from .ligd import LiGDConfig, LiGDResult, solve_ligd_batch
-from .mligd import MLiGDResult, orig_strategy_dict, solve_mligd_batch
+from .ligd import LiGDConfig, LiGDResult, solve_ligd, solve_ligd_batch
+from .mligd import (MLiGDResult, orig_strategy_dict, solve_mligd,
+                    solve_mligd_batch)
 from .mobility import (HandoffBatch, HandoffEvent, RandomWaypointMobility,
                        StaticMobility)
 from .network import Topology, build_topology

@@ -7,12 +7,13 @@ B_back and H₂ backhaul hops (Eq. 41–43).  R is relaxed to [0,1]; the
 joint U = (1-R)·U₁ + R·U₂ is affine in R, so after the joint GD both
 vertices are evaluated and the smaller wins (Corollary 7).
 
-The joint solve is the 4-variable variant of the fused sweep (CUDA
-kernel on the card, plain PyTorch on the CPU); the vertex pick runs on
-the same device right after it.  Nothing here moves a result to the
-host, so under async replanning the solve stays in flight until the
-planner applies it.  The autodiff oracle is not ported yet (ROADMAP,
-queue 1, item 4).
+The joint solve dispatches on ``LiGDConfig.solver``: ``"fused"`` runs
+the 4-variable variant of the fused sweep (CUDA kernel on the card,
+plain PyTorch on the CPU), and nothing on that path moves a result to
+the host, so under async replanning the solve stays in flight until the
+planner applies it; ``"autodiff"`` runs the oracle, the warm-started
+scan over splits around :func:`.ligd._gd_solve` on the joint utility.
+Either way the vertex pick runs on the same device right after it.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from repro_torch.kernels.ligd_step import (mligd_sweep, pack_sweep_features,
                                            sweep_tables, table_tensor)
 from .costs import (LayerProfile, energy_compute, energy_transmit, rent_cost,
                     t_device, t_server)
-from .ligd import (AUTODIFF_DEFERRED, LiGDConfig, LiGDResult, _denorm,
-                   init_block, make_split_utility)
+from .ligd import (LiGDConfig, LiGDResult, _denorm, _gd_solve, init_block,
+                   lane, make_split_utility, prefix_tensors)
 
 
 class MLiGDResult(NamedTuple):
@@ -61,6 +62,83 @@ def u_transmit_back(dev, edge_new, orig, m_bits, B_back, hops_back):
     return U, (T, E, C)
 
 
+def _vertex_pick(devs, edge_new, origs, hops_back, m_bits, u1_fn, best_s,
+                 x_best, iters) -> MLiGDResult:
+    """Corollary 7: both vertices of R at the solved continuous variables
+    x_best (4, X) and split best_s; the smaller utility wins (relay back
+    only when strictly smaller)."""
+    xB, xr, xR, xBb = x_best
+    u1_star, (T1, E1, C1) = u1_fn(best_s.long(), (xB, xr))
+    B_back = edge_new["B_min"] + xBb * (edge_new["B_max"]
+                                        - edge_new["B_min"])
+    u2_star, (T2, E2, C2) = u_transmit_back(devs, edge_new, origs, m_bits,
+                                            B_back, hops_back)
+    take_back = u2_star < u1_star                       # strict
+    B1, r1 = _denorm(edge_new, (xB, xr))
+    return MLiGDResult(
+        R=take_back.to(torch.int32),
+        split=torch.where(take_back, origs["split"], best_s),
+        B=torch.where(take_back, B_back, B1),
+        r=torch.where(take_back, origs["r"], r1),
+        U=torch.minimum(u1_star, u2_star),
+        T=torch.where(take_back, T2, T1),
+        E=torch.where(take_back, E2, E1),
+        C=torch.where(take_back, C2, C1),
+        U_recalc=u1_star, U_back=u2_star, iters_per_layer=iters)
+
+
+def _solve_mligd_autodiff(profile: LayerProfile, devs, edge_new, origs,
+                          hops_back, cfg: LiGDConfig) -> MLiGDResult:
+    """The oracle for X lanes (the reference's ``solve_mligd`` vmapped
+    over users): x = (B, r, R, B_back) normalised, a scan over the M + 1
+    splits, each a :func:`_gd_solve` of the joint utility (1 - R)·U₁ +
+    R·U₂ from the previous split's optimum (or the cold start), then the
+    argmin split and the vertex pick."""
+    X = devs["c_dev"].shape[0]
+    device = devs["c_dev"].device
+    f_l, f_e, w = prefix_tensors(profile, device)
+    m_bits = torch.tensor(float(profile.result_bits), dtype=torch.float32,
+                          device=device)
+    u1_fn = make_split_utility(devs, edge_new, f_l, f_e, w, m_bits)
+
+    def joint_u(s, x4):
+        u1, _ = u1_fn(s, x4[:2])
+        B_back = edge_new["B_min"] + x4[3] * (edge_new["B_max"]
+                                              - edge_new["B_min"])
+        u2, _ = u_transmit_back(devs, edge_new, origs, m_bits, B_back,
+                                hops_back)
+        R = x4[2]
+        return (1.0 - R) * u1 + R * u2
+
+    x_init = init_block((*cfg.init, 0.5, 0.5), X, device)
+    x = x_init
+    U_all, X_all, iters = [], [], []
+    for s in range(len(f_l)):
+        x0 = x if cfg.warm_start else x_init
+        x, u, it = _gd_solve(lambda xx, s=s: joint_u(s, xx), x0, cfg)
+        U_all.append(u)
+        X_all.append(x)
+        iters.append(it)
+    U_all = torch.stack(U_all, dim=1)                        # (X, M+1)
+    best_s = torch.argmin(U_all, dim=1)
+    x_best = torch.stack(X_all)[best_s, :, torch.arange(X, device=device)]
+    return _vertex_pick(devs, edge_new, origs, hops_back, m_bits, u1_fn,
+                        best_s.to(torch.int32), x_best.T,
+                        torch.stack(iters, dim=1))
+
+
+def solve_mligd(profile: LayerProfile, dev, edge_new, orig, hops_back,
+                cfg: LiGDConfig = LiGDConfig()) -> MLiGDResult:
+    """Joint (s, B, r, R, B_back) solve for one user after a handoff —
+    the autodiff oracle.  dev/edge_new: 0-d leaves (dev's ``hops`` the
+    hop count to the NEW server); orig: the frozen original strategy
+    (:func:`orig_strategy_dict`, 0-d leaves); hops_back: H₂ hops from the
+    new AP back to the ORIGINAL server."""
+    res = _solve_mligd_autodiff(profile, lane(dev), edge_new, lane(orig),
+                                torch.as_tensor(hops_back).reshape(1), cfg)
+    return MLiGDResult(*(f[0] for f in res))
+
+
 def _solve_mligd_fused(profile: LayerProfile, devs, edge_new, origs,
                        hops_back, cfg: LiGDConfig) -> MLiGDResult:
     """Batched fused joint sweep + the Corollary-7 vertex pick.  Every
@@ -80,26 +158,10 @@ def _solve_mligd_fused(profile: LayerProfile, devs, edge_new, origs,
                       chunk=cfg.chunk, warm_start=cfg.warm_start,
                       init=init4)
 
-    xB, xr, xR, xBb = res.best_x
     u1_fn = make_split_utility(devs, edge_new, f_l, f_e, w, m_bits)
-    u1_star, (T1, E1, C1) = u1_fn(res.best_s.long(), (xB, xr))
-    B_back = edge_new["B_min"] + xBb * (edge_new["B_max"]
-                                        - edge_new["B_min"])
-    u2_star, (T2, E2, C2) = u_transmit_back(devs, edge_new, origs, m_bits,
-                                            B_back, hops_back)
-    take_back = u2_star < u1_star                       # strict
-    B1, r1 = _denorm(edge_new, (xB, xr))
-    return MLiGDResult(
-        R=take_back.to(torch.int32),
-        split=torch.where(take_back, origs["split"], res.best_s),
-        B=torch.where(take_back, B_back, B1),
-        r=torch.where(take_back, origs["r"], r1),
-        U=torch.minimum(u1_star, u2_star),
-        T=torch.where(take_back, T2, T1),
-        E=torch.where(take_back, E2, E1),
-        C=torch.where(take_back, C2, C1),
-        U_recalc=u1_star, U_back=u2_star,
-        iters_per_layer=res.iters_layers.T.to(torch.int32))
+    return _vertex_pick(devs, edge_new, origs, hops_back, m_bits, u1_fn,
+                        res.best_s, res.best_x,
+                        res.iters_layers.T.to(torch.int32))
 
 
 def orig_strategy_dict(profile: LayerProfile, edge_orig, res: LiGDResult):
@@ -120,10 +182,12 @@ def orig_strategy_dict(profile: LayerProfile, edge_orig, res: LiGDResult):
 def solve_mligd_batch(profile: LayerProfile, devs, edge_new, origs,
                       hops_back, cfg: LiGDConfig = LiGDConfig()
                       ) -> MLiGDResult:
-    """Batched handoff solve; ``edge_new`` may be shared or per-user."""
+    """Batched handoff solve; ``edge_new`` may be shared or per-user.
+    Dispatches on ``cfg.solver`` (fused sweep vs. the autodiff oracle)."""
     if cfg.solver == "fused":
         return _solve_mligd_fused(profile, devs, edge_new, origs,
                                   hops_back, cfg)
     if cfg.solver == "autodiff":
-        raise NotImplementedError(AUTODIFF_DEFERRED)
+        return _solve_mligd_autodiff(profile, devs, edge_new, origs,
+                                     hops_back, cfg)
     raise ValueError(f"unknown LiGDConfig.solver: {cfg.solver!r}")

@@ -37,7 +37,7 @@ static plan, the admission of the dirty rows (:meth:`_admit_dirty`) and
 the application of a pending replan (:meth:`_apply_one`).
 
 Not ported yet, and raising ``NotImplementedError`` instead: the
-``shard_map`` static path (``env``) — ROADMAP, queue 1, item 4.
+``shard_map`` static path (``env``) — ROADMAP, queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ from .mligd import MLiGDResult, solve_mligd_batch
 from .mobility import HandoffBatch
 
 SHARDED_DEFERRED = ("the sharded static plan (env / shard_map) is not "
-                    "ported yet: ROADMAP, queue 1, item 4")
+                    "ported yet: ROADMAP, queue 1, item 8")
 
 
 def _host(a) -> np.ndarray:

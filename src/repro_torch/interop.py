@@ -7,9 +7,10 @@ them as plain numpy arrays and dicts — what the reference's
 ``init_lm`` leaves and ``prefill`` caches hold — so nothing here imports
 the reference.  A
 differential test seeds the port's planner with the reference's plan
-table through :func:`fleet_from_columns`, or the port's model with the
-reference's weights through :func:`lm_params_from_numpy`, and both
-packages then compute the same step.
+table through :func:`fleet_from_columns`, the port's language model with
+the reference's weights through :func:`lm_params_from_numpy`, or its
+chain CNN through :func:`cnn_params_from_numpy`, and both packages then
+compute the same step.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import torch
 
 from repro_torch.api.scenario import Scenario
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.chain_cnns import ChainCNNConfig
 from repro_torch.core.costs import LayerProfile
 from repro_torch.core.planner import PLAN_FIELDS, FleetState
+from repro_torch.models.transformer import encoder_cfg
 
 _INT_COLUMNS = ("server", "split", "R")
 
@@ -92,12 +95,18 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     per remainder layer, ``scan``: one block per pattern position, each
     leaf stacked on a leading superblock axis}: the stacking of
     :func:`_unstack_blocks`, whatever the blocks hold (attention, MoE,
-    RWKV-6 or RG-LRU leaves)."""
+    RWKV-6 or RG-LRU leaves, an encoder-decoder's ``ln_cross`` and
+    ``cross``).  An encoder-decoder's ``encoder`` stack, stacked the same
+    way, becomes a list of blocks beside ``enc_norm``."""
     params = {"embed": _tensor(tree["embed"]),
               "final_norm": _tensor(tree["final_norm"]),
               "layers": _unstack_blocks(cfg, tree["stack"])}
     if not cfg.tie_embeddings:
         params["unembed"] = _tensor(tree["unembed"])
+    if cfg.enc_dec:
+        params["encoder"] = _unstack_blocks(encoder_cfg(cfg),
+                                            tree["encoder"])
+        params["enc_norm"] = _tensor(tree["enc_norm"])
     return params
 
 
@@ -106,9 +115,33 @@ def lm_caches_from_numpy(cfg: ModelConfig, tree: dict) -> list:
     reference's ``prefill``/``init_caches`` caches as numpy leaves,
     stacked as the parameters are.  An attention block's ``{"mix": {"k",
     "v"}}`` becomes the port's ``{"k", "v"}`` (a sliding-window ring in
-    the same slot order); RWKV-6 and RG-LRU state trees carry over as
-    they are."""
+    the same slot order; int8 codes with their ``k_scale``/``v_scale``),
+    with an encoder-decoder's ``"cross"`` k/v beside them; RWKV-6 and
+    RG-LRU state trees carry over as they are."""
     blocks = _unstack_blocks(cfg, tree)
     types = cfg.layer_types()
-    return [b["mix"] if lt in (ATTN_GLOBAL, ATTN_LOCAL) else b
-            for b, lt in zip(blocks, types)]
+    out = []
+    for b, lt in zip(blocks, types):
+        if lt in (ATTN_GLOBAL, ATTN_LOCAL):
+            b = dict(b["mix"], **{k: v for k, v in b.items() if k != "mix"})
+        out.append(b)
+    return out
+
+
+def cnn_params_from_numpy(cfg: ChainCNNConfig, params: list) -> list:
+    """The port's chain-CNN parameters (CPU float32 tensors) from the
+    reference's ``init_cnn`` list as numpy leaves: a conv's HWIO weight
+    becomes the port's (Cout, Cin, K, K) in channels-last memory, its bias
+    carries over; a pool has none; an fc keeps its (In, Out) weight, rows
+    in the reference's NHWC flatten order, and its bias."""
+    out = []
+    for layer, p in zip(cfg.layers, params):
+        if layer.kind == "conv":
+            w = _tensor(p["w"]).permute(3, 2, 0, 1)
+            out.append({"w": w.contiguous(
+                memory_format=torch.channels_last), "b": _tensor(p["b"])})
+        elif layer.kind == "pool":
+            out.append({})
+        else:
+            out.append({"w": _tensor(p["w"]), "b": _tensor(p["b"])})
+    return out

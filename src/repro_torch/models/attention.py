@@ -16,10 +16,11 @@ widened to Hq heads.
   the reference (a candidate kernel: ROADMAP).
 * :func:`naive_attention` — the reference softmax attention (ends of q
   and k aligned) that tests hold the others against.
+* :func:`quantize_kv` — int8 codes of k or v with one float32 scale a
+  row, for the int8 KV cache.
 
 Sliding-window (local) layers keep a ring-buffer cache: slot ``j``
-holds position ``pos - ((pos - j) mod L)``.  Int8 KV caches are not
-ported: ``models/transformer.py`` refuses them.
+holds position ``pos - ((pos - j) mod L)``.
 """
 from __future__ import annotations
 
@@ -70,18 +71,28 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
     """q (B,1,Hq,hd); cache_k/v (B,L,Hkv,hd); pos: the position of the
     query token, an int or a (B,) tensor of per-sequence positions.
     Global layers (``window`` 0): slots 0..pos are valid.  Local layers:
     the cache is a ring of L slots, slot j holds position
     ``pos - ((pos - j) mod L)``, valid when that position is >= 0 and
-    within ``window`` of ``pos``.  Scores and probabilities in float32."""
+    within ``window`` of ``pos``.  Scores and probabilities in float32.
+
+    ``k_scale``/``v_scale`` (B,L,Hkv): the per-row scales of an int8
+    cache.  They fold into the scores and the probabilities, so no
+    dequantized copy of the cache is made.  The codes enter the products
+    as they are: jnp promotes int8 x bf16 to bf16 and accumulates in
+    float32, and every code and bf16 value is exact in float32, so the
+    float32 products here are the same."""
     B, _, Hq, hd = q.shape
     L, Hkv = cache_k.shape[1], cache_k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     qg = _group(q, Hkv).float()                          # (B,1,Hkv,rep,hd)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache_k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale.transpose(1, 2)[:, :, None, None, :]
     slots = torch.arange(L, device=q.device)
     p = torch.as_tensor(pos, device=q.device)
     if p.dim() == 1:
@@ -94,8 +105,25 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
     bias = _mask_bias(valid)                             # (L,) or (B, L)
     bias = bias[:, None, None, None, :] if bias.dim() == 2 else bias
     probs = torch.softmax(s + bias, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v.float())
     return out.reshape(B, 1, Hq, hd).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "decode_attention", "naive_attention"]
+def quantize_kv(x: torch.Tensor):
+    """(B,S,Hkv,hd) -> (int8 codes, (B,S,Hkv) float32 scales), one scale
+    a row: ``max|x| / 127`` floored at 1e-8, codes rounded half to even
+    (``torch.round``, as ``jnp.round``) and clipped to [-127, 127].
+    Both divisions are true float32 divisions on either device: the
+    divisor 127 is a tensor, since CUDA divides by a Python scalar
+    through its reciprocal, which can miss the quotient by an ulp and
+    move a code across a rounding tie."""
+    xf = x.float()
+    d = torch.full((), 127.0, dtype=torch.float32, device=xf.device)
+    s = torch.clamp(xf.abs().amax(dim=-1) / d, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+__all__ = ["NEG_INF", "decode_attention", "naive_attention", "quantize_kv"]

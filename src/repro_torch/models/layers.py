@@ -95,15 +95,17 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wd"]
 
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   device) -> Params:
+def init_attention(cfg: ModelConfig, gen: torch.Generator, device,
+                   cross: bool = False) -> Params:
+    """{wq, wk, wv, wo}, with qk-norm weights when ``cfg.qk_norm`` unless
+    this is a cross-attention block (``cross``), which has none."""
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = param_dtype(cfg)
     p = {"wq": dense_init(gen, (d, hq, hd), d, dt, device),
          "wk": dense_init(gen, (d, hkv, hd), d, dt, device),
          "wv": dense_init(gen, (d, hkv, hd), d, dt, device),
          "wo": dense_init(gen, (hq, hd, d), hq * hd, dt, device)}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((hd,), dtype=dt, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=dt, device=device)
     return p

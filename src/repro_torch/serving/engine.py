@@ -160,6 +160,10 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params: Params, *, device=None,
                  slots: int = 4, cache_len: int = 512):
         tfm.check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name}: InferenceEngine serves decoder-only "
+                             "stacks (its prefill takes tokens only, as "
+                             "the reference's does)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine "

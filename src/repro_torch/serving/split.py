@@ -88,6 +88,10 @@ class SplitServer:
     def __init__(self, cfg: ModelConfig, params: Params, device=None,
                  name: str = "edge"):
         tfm.check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name}: SplitServer serves decoder-only "
+                             "stacks (its prefill takes tokens only, as "
+                             "the reference's does)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, server "

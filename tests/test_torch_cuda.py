@@ -355,13 +355,16 @@ def test_cuda_flash_attention_matches_plain_version(B, Hq, Hkv, S, hd, causal,
     assert rms(out.float() - ref) <= rms_tol * rms(ref)
 
 
-def _attention_case(B, Hq, Hkv, S, hd, causal, window, dtype, device):
+def _attention_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
+                    Skv=None):
     """One call of the kernel against its plain version, at the tolerances
-    above; returns the launch counts' increments."""
+    above (``Skv`` keys, default S); returns the launch counts'
+    increments."""
     dt = getattr(torch, dtype)
+    Skv = S if Skv is None else Skv
     q = _randn((B, S, Hq, hd), dt, device, 60)
-    k = _randn((B, S, Hkv, hd), dt, device, 61)
-    v = _randn((B, S, Hkv, hd), dt, device, 62)
+    k = _randn((B, Skv, Hkv, hd), dt, device, 61)
+    v = _randn((B, Skv, Hkv, hd), dt, device, 62)
     before = dict(tflash.LAUNCHES)
     out = tflash.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -395,6 +398,18 @@ def test_cuda_flash_attention_ragged_lengths(S, causal, dtype, cuda):
     """S below one kv tile (64 keys), S = 1, and S off the q tile (64 rows
     a warpgroup, 128 or 192 a block) and the kv tile."""
     _attention_case(2, 6, 2, S, 128, causal, 0, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 16, 200])
+@pytest.mark.parametrize("Skv", [129, 1000])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_cross_shapes(Sq, Skv, dtype, cuda):
+    """Non-causal attention with Sq != Skv, as the encoder-decoder's cross
+    attention launches it (seamless-m4t: 16/16 heads of 64): a decode
+    step's one query and a prompt's 16 against ragged source lengths,
+    off the 64-key tile."""
+    _attention_case(2, 16, 16, Sq, 64, False, 0, dtype, cuda, Skv=Skv)
 
 
 @pytest.mark.cuda
@@ -838,3 +853,55 @@ def test_cuda_ligd_steps_grouped_wrapper_refuses_bad_input(cuda):
         tsteps.ligd_steps_grouped_cuda(
             feat, x0, torch.tensor([0, 10], device=cuda), [et])
     assert tsteps.LAUNCHES["ligd_steps"] == before
+
+
+# ---------------------------------------------------------------------------
+# The chain-CNN split executor and the autodiff oracle on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nin", "yolov2", "vgg16"])
+def test_cuda_chain_cnn_split_and_card_against_cpu(name, cuda):
+    """On the card split execution equals unsplit bit for bit at every
+    split; with cuDNN's TF32 off the card equals the CPU to rtol 1e-4 /
+    atol 1e-5 (float32 sums in another order), chip_smoke.py's
+    CNN_RTOL / CNN_ATOL."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import chain_cnn
+    cfg = get_config(name)
+    params = chain_cnn.init_cnn(cfg, torch.Generator().manual_seed(0), cuda)
+    x = torch.randn((8, cfg.in_hw, cfg.in_hw, cfg.in_ch),
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    full = chain_cnn.forward(cfg, params, x)
+    for s in range(cfg.num_layers + 1):
+        assert torch.equal(chain_cnn.split_inference(cfg, params, x, s)[1],
+                           full), f"split {s}"
+    with chip_smoke.cudnn_tf32(False):
+        got = chain_cnn.forward(cfg, params, x).cpu()
+    want = chain_cnn.forward(cfg, chip_smoke.to_tree(params, device="cpu"),
+                             x.cpu())
+    torch.testing.assert_close(got, want, rtol=chip_smoke.CNN_RTOL,
+                               atol=chip_smoke.CNN_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nin_hetero_warm", "nin_hetero_cold",
+                                  "vgg16_shared", "mligd_relay_back",
+                                  "mligd_resolve"])
+def test_cuda_autodiff_oracle_matches_the_sweep(name, cuda):
+    """The oracle (torch.autograd on the card) against the sweep kernel
+    on the reference tests' fleets, at the reference's tolerances (split
+    and R exact, B, r, U to 1e-4, iteration counts within 1)."""
+    import dataclasses
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    case = {c["name"]: c for c in chip_smoke.ORACLE_CASES}[name]
+    fn, args, cfg = chip_smoke.oracle_args(case, cuda)
+    before = dict(tsweep.LAUNCHES)
+    fused = fn(*args, cfg)
+    oracle = fn(*args, dataclasses.replace(cfg, solver="autodiff"))
+    torch.cuda.synchronize()
+    assert sum(tsweep.LAUNCHES.values()) == sum(before.values()) + 1
+    err, breaches = chip_smoke.oracle_errors(fused, oracle)
+    assert not breaches, (err, breaches)

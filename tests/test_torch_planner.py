@@ -45,7 +45,7 @@ from repro_torch.core.profile import profile_of as t_profile_of  # noqa: E402
 
 from torch_diff import (ReferenceTap, assert_discrete,           # noqa: E402
                         assert_fleets_agree, assert_iters, assert_rel,
-                        jax_joint_ties, near_ties)
+                        jax_joint_ties, near_ties, np_of)
 
 TOPOS = [dict(num_aps=25, num_servers=4, seed=0),
          dict(num_aps=64, num_servers=8, area=1600.0, seed=2),
@@ -312,18 +312,31 @@ def _planner(**kw):
                                   "faulted_topology", "env",
                                   "run_baseline", "autodiff"])
 def test_deferred_paths_raise(case):
-    """The sharded plan and the autodiff oracle still raise (ROADMAP,
-    queue 1, item 4).  K > 1, budgets, a fault step, a faulted topology
-    and ``run_baseline`` were deferred until admission, faults and the
-    baselines were ported: they now plan, with finite tables."""
+    """The sharded plan still raises (ROADMAP, queue 1, item 8).  K > 1,
+    budgets, a fault step, a faulted topology, ``run_baseline`` and the
+    autodiff oracle were deferred until admission, faults, the baselines
+    and the oracle were ported: they now plan, with finite tables.  The
+    oracle's plan is the fused sweep's to ``torch_diff``'s tolerances
+    (split exact outside named near-ties, B, r and U to 1e-4)."""
     dev = tcosts.DeviceFleet(c_dev=np.full(8, 4e9))
     aps = np.arange(8) % 16
-    if case in ("env", "autodiff"):
+    if case == "env":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if case == "env":
-                _planner().plan_static(dev, aps, env=object())
-            else:
-                _planner(cfg=TCfg(solver="autodiff")).plan(dev, aps)
+            _planner().plan_static(dev, aps, env=object())
+        return
+    if case == "autodiff":
+        dev = tcosts.DeviceFleet(
+            c_dev=np.random.default_rng(3).uniform(3e9, 6e9, 8))
+        fused = _planner().plan(dev, aps)
+        p = _planner(cfg=TCfg(solver="autodiff"))
+        res, _, fleet = p.plan_static(dev, aps)
+        assert res.iters_per_layer.shape == (8, p.profile.num_layers + 1)
+        ties = near_ties(np_of(res.U_per_layer))
+        assert_discrete(fleet.split, fused.split, ties, "split")
+        np.testing.assert_array_equal(fleet.server, fused.server)
+        for f in ("B", "r", "U"):
+            assert_rel(getattr(fleet, f), getattr(fused, f), f,
+                       rows=~ties)
         return
     if case == "run_baseline":
         res = _planner().run_baseline("edge_only", dev, aps)

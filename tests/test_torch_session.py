@@ -138,9 +138,9 @@ def test_session_device_none_means_cuda(monkeypatch):
 def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter: import the port, run CPU sessions (the
     planner with and without faults, a baseline policy, both serving
-    presets with their real engines and telemetry) and a reduced CPU
-    split generation, and list every loaded module named jax/jax.* or
-    repro/repro.*."""
+    presets with their real engines and telemetry), a reduced CPU
+    split generation, a chain-CNN split and a frontend stub's draw, and
+    list every loaded module named jax/jax.* or repro/repro.*."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -154,6 +154,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.models.rglru, repro_torch.kernels.rglru\n"
         "import repro_torch.kernels.moe_gemm, repro_torch.kernels.wkv6\n"
         "import repro_torch.kernels.ligd_step.steps, repro_torch.interop\n"
+        "import repro_torch.models.chain_cnn, repro_torch.models.frontend\n"
         "from repro_torch.configs import get_config, reduced\n"
         "from repro_torch.models.transformer import init_lm\n"
         "Session(get_scenario('paper_fig1').replace(steps=2),"
@@ -175,6 +176,13 @@ def test_port_imports_neither_jax_nor_reference():
         "    params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
         "    repro_torch.serving.SplitServer(cfg, params, device='cpu')"
         ".generate(torch.zeros((1, 5), dtype=torch.long), 1, 3)\n"
+        "from repro_torch.models import chain_cnn, frontend\n"
+        "ccfg = get_config('nin')\n"
+        "chain_cnn.split_inference(ccfg, chain_cnn.init_cnn(ccfg,"
+        " torch.Generator().manual_seed(0), 'cpu'),"
+        " torch.zeros((1, 32, 32, 3)), 4)\n"
+        "frontend.audio_frame_embeds(get_config('seamless-m4t-large-v2'),"
+        " torch.Generator().manual_seed(0), 1, 3, 'cpu')\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')"
         " or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"

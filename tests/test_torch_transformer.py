@@ -160,10 +160,27 @@ def test_init_lm_shapes_and_seed():
 @pytest.mark.parametrize("arch, what", [
     ("seamless-m4t-large-v2", "encoder-decoder")])
 def test_unported_families_raise(arch, what):
+    """The encoder-decoder stack, refused until its port, now builds: an
+    encoder of ``num_enc_layers`` blocks and ``enc_norm``, a cross
+    attention (no qk-norm) in every decoder block, and one cache tree a
+    block, its cross k/v included."""
     cfg = reduced(get_config(arch), layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as ei:
-        ttfm.init_lm(cfg, torch.Generator().manual_seed(0))
-    assert what in str(ei.value)
+    assert what == "encoder-decoder" and cfg.enc_dec
+    params = ttfm.init_lm(cfg, torch.Generator().manual_seed(0))
+    assert len(params["encoder"]) == cfg.num_enc_layers
+    assert tuple(params["enc_norm"].shape) == (cfg.d_model,)
+    for blk in params["layers"]:
+        assert set(blk) == {"ln1", "mix", "ln_cross", "cross", "ln2", "ffn"}
+        assert set(blk["cross"]) == {"wq", "wk", "wv", "wo"}
+    assert all("cross" not in blk for blk in params["encoder"])
+    caches = ttfm.init_caches(cfg, 2, 16, "cpu", cross_len=9)
+    assert len(caches) == cfg.num_layers
+    for c in caches:
+        assert tuple(c["k"].shape) == (2, 16, cfg.num_kv_heads,
+                                       cfg.head_dim)
+        assert tuple(c["cross"]["k"].shape) == (2, 9, cfg.num_kv_heads,
+                                                cfg.head_dim)
+        assert c["cross"]["v"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch, what", [
@@ -187,9 +204,22 @@ def test_local_and_rglru_families_are_ported(arch, what):
 
 
 def test_int8_kv_cache_raises():
+    """The int8 KV cache, refused until its port, now builds: int8 codes
+    and float32 per-row scales (as tests/test_steps.py holds the
+    reference's), with the reference's shapes and dtypes."""
     cfg = reduced(get_config("starcoder2-3b"), layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.init_caches(cfg, 1, 8, "cpu", kv_quant=True)
+    caches = ttfm.init_caches(cfg, 1, 8, "cpu", kv_quant=True)
+    jc, _ = jtfm.init_caches(j_reduced(j_get_config("starcoder2-3b"),
+                                       layers=2), CPU_ENV, 1, 8,
+                             kv_quant=True)
+    jmix = jc["scan"][0]["mix"]
+    for c in caches:
+        assert set(c) == {"k", "v", "k_scale", "v_scale"}
+        for name in c:
+            assert tuple(c[name].shape) == jmix[name].shape[1:]
+            assert str(c[name].dtype).split(".")[1] == jmix[name].dtype.name
+    assert {c["k"].dtype for c in caches} == {torch.int8}
+    assert {c["k_scale"].dtype for c in caches} == {torch.float32}
 
 
 @pytest.mark.parametrize("arch, entry", [

@@ -337,7 +337,8 @@ def assert_admission_agree(port: dict, ref: dict, where: str) -> None:
         assert_rel(port[k], ref[k], f"{where} {k}")
 
 
-NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "ln_cross",
+         "enc_norm")
 
 
 def _randomise_norms(tree, rng):
