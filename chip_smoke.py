@@ -68,6 +68,17 @@ card, over its main paths.
   Li-GD/MLi-GD oracle on the card against rows 1a and 1b, on the
   reference tests' fleets and on 4,096 megafleet_100k users, with every
   sweep launch held bit for bit.
+* Training of the dense decoder family.  ``[train-kernels]``: rows 3
+  and 4's backward kernels against float32 autograd through their plain
+  versions at starcoder2-3b's, qwen3-8b's, gemma3-27b's and the qk-norm's
+  shapes, bit for bit from run to run, with their times, bounds and the
+  library backward's.  ``[train]``: starcoder2-3b at full width and
+  depth, B 4 x S 1024, remat, 4 AdamW steps through ``make_train_step``,
+  every step's launches counted (no plain version), every parameter leaf
+  with a gradient, the peak memory, step time and model-flops share.
+  ``[train-cross]``: a reduced float32 model card against CPU (loss,
+  gradients, one update), then ``launch.train`` preempted and resumed
+  against a straight run.
 
     python3 chip_smoke.py
 
@@ -210,6 +221,21 @@ STEPS_X_ATOL, STEPS_U_ATOL, STEPS_U_RTOL = 1e-5, 1e-5, 1e-4
 #: kernel tests' figure (the same float32 recurrence; the kernel fuses
 #: a·h + b into one FMA)
 RGLRU_TOL = 1e-5
+
+#: the backward kernels (rows 3 and 4) against float32 autograd through
+#: their plain versions on the float32 upcasts of the same inputs (and
+#: the same output gradient): elementwise ``allclose`` with rtol = tol and
+#: atol = tol x max|want| (a gradient's size varies across a tensor: dK,
+#: dV and dw are sums over many rows, and a sum that cancels is small
+#: beside its terms), and the error's RMS over want's RMS within rms_tol.
+#: float32: the same float32 arithmetic summed in another order (dK over
+#: up to S x Hq/Hkv rows, dw over every row): tol 1e-4, rms 1e-5.
+#: bfloat16: the kernel rounds each float32 gradient to bf16 once (an RMS
+#: of 2^-9/sqrt(3) = 1.1e-3 of the value) and reads the forward's bf16
+#: output for D = rowsum(dO ⊙ O): tol 1e-2, rms 4e-3.  Set before the
+#: first card reading
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+GRAD_RMS_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
 
 def phase(name: str, msg: str) -> None:
@@ -1045,6 +1071,20 @@ def rel_rms(got, want) -> float:
             / want.square().mean().sqrt()).item()
 
 
+def grad_errors(got, want, dtn: str) -> tuple:
+    """One gradient of a backward kernel against its float32 reference:
+    (max abs error, error RMS / reference RMS, within GRAD_TOL and
+    GRAD_RMS_TOL for ``dtn``)."""
+    import torch
+    got, want = got.float(), want.float()
+    tol = GRAD_TOL[dtn]
+    err = (got - want).abs().max().item()
+    rr = rel_rms(got, want)
+    ok = bool(torch.allclose(got, want, rtol=tol,
+                             atol=tol * want.abs().max().item()))
+    return err, rr, ok and rr <= GRAD_RMS_TOL[dtn]
+
+
 def body_of(launches: dict, before: dict, prefix: str) -> str:
     """The one body whose counter (``prefix`` + body) moved since
     ``before``; raises unless exactly one did."""
@@ -1523,15 +1563,17 @@ def baselines_phase(sweep_kernel) -> dict:
 
 def kernel_counters() -> tuple:
     """Every kernel wrapper's launch count (dicts, zeroed in place)."""
+    from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ligd_step import kernel as sk
     from repro_torch.kernels.ligd_step import steps as tk
     from repro_torch.kernels.moe_gemm import kernel as mk
     from repro_torch.kernels.rglru import kernel as gk
+    from repro_torch.kernels.rmsnorm import backward as rb
     from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.wkv6 import kernel as wk
     return (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES, tk.LAUNCHES, mk.LAUNCHES,
-            gk.LAUNCHES, wk.LAUNCHES)
+            gk.LAUNCHES, wk.LAUNCHES, fb.LAUNCHES, rb.LAUNCHES)
 
 
 def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
@@ -2899,6 +2941,440 @@ def ligd_oracle(device, counters) -> tuple:
     return rec, launches, held
 
 
+# ---------------------------------------------------------------------------
+# training: rows 3 and 4's backward kernels, full-width starcoder2-3b
+# ---------------------------------------------------------------------------
+#: [train-kernels]' attention cases: (B, S, (Hq, Hkv, hd), window, dtype);
+#: starcoder2-3b's shape, qwen3-8b's GQA ratio 4, 16/8 heads of 64,
+#: gemma3-27b's window-1024 local layer at S 2048, and float32
+TRAIN_ATTN_CASES = (
+    (4, 1024, (24, 2, 128), 0, "bfloat16"),
+    (4, 1024, (32, 8, 128), 0, "bfloat16"),
+    (4, 1024, (16, 8, 64), 0, "bfloat16"),
+    (2, 2048, (32, 16, 128), 1024, "bfloat16"),
+    (2, 1024, (24, 2, 128), 0, "float32"),
+)
+#: [train-kernels]' RMSNorm cases: starcoder2-3b's norms at B 4 x S 1024,
+#: qwen3-8b's qk-norm rows (4 x 1024 tokens x 32 heads, 128 wide), and
+#: the norms in float32
+TRAIN_RMS_CASES = ((4096, 3072, "bfloat16"), (131072, 128, "bfloat16"),
+                   (4096, 3072, "float32"))
+#: [train]: full-width starcoder2-3b, B 4 x S 1024, remat, 4 AdamW steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
+#: the predicted peak device memory of [train] (GB): bf16
+#: weights and gradients and float32 m and v (12 bytes a parameter,
+#: 51.8 GB), saved block inputs, one block's recompute and the logits
+TRAIN_PEAK_PREDICTED_GB = (55.0, 60.0)
+#: [train-cross]: card against CPU on one reduced float32 model: the loss
+#: to 1e-5 relative; every gradient leaf to 1e-4 in error RMS over the
+#: CPU's RMS (float32 math summed in other orders, as the CPU tests hold
+#: the port to the reference); the updated parameters' change to 1e-2 of
+#: its own RMS per leaf (AdamW's first step moves an element by about
+#: lr x sign(g), so a gradient within rounding of zero may move it the
+#: other way; every other element agrees to the gradients' precision)
+TRAIN_CROSS_LOSS_RTOL = 1e-5
+TRAIN_CROSS_GRAD_RMS = 1e-4
+TRAIN_CROSS_UPDATE_RMS = 1e-2
+#: the launcher's resumed run against its straight-through run on the
+#: card: the final loss to 1e-3 relative (the embedding's backward may
+#: add its rows in another order on a rerun); the phase reports whether
+#: the two are also equal bit for bit
+TRAIN_RESUME_RTOL = 1e-3
+
+
+def train_kernel_cases(device) -> dict:
+    """[train-kernels]: each backward kernel against float32 autograd
+    through its plain version on the card, at GRAD_TOL / GRAD_RMS_TOL,
+    twice (the two runs must give the same bits), with its time (median
+    of 30, CUDA events), the plain backward's, the library backward's
+    (``F.scaled_dot_product_attention`` with ``enable_gqa`` and the
+    window mask; ``F.rms_norm``) and the bound.  Returns the records of
+    the main-path cases (starcoder2-3b's shapes), ``max_abs_err`` the
+    largest over each kernel's cases."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(12)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    out, breaches, errs = {}, [], {"flash_attention_bwd": [],
+                                   "rmsnorm_bwd": []}
+    for B, S, heads, window, dtn in TRAIN_ATTN_CASES:
+        rec = attention_bwd_case(device, randn, B, S, heads, window, dtn,
+                                 breaches)
+        errs["flash_attention_bwd"].append(rec["max_abs_err"])
+        if (B, S, heads, dtn) == (4, 1024, (24, 2, 128), "bfloat16"):
+            out["flash_attention_bwd"] = rec
+    for rows, d, dtn in TRAIN_RMS_CASES:
+        rec = rmsnorm_bwd_case(randn, rows, d, dtn, breaches)
+        errs["rmsnorm_bwd"].append(rec["max_abs_err"])
+        if (rows, d, dtn) == (4096, 3072, "bfloat16"):
+            out["rmsnorm_bwd"] = rec
+    for name, e in errs.items():
+        out[name]["max_abs_err"] = max(e)
+    if breaches:
+        raise AssertionError("[train-kernels]: " + "; ".join(breaches))
+    return out
+
+
+def _hold_grads(label, got, want, dtn, breaches) -> tuple:
+    """grad_errors over pairs of gradients: (max abs error, largest rel
+    RMS); a breach is appended to ``breaches``."""
+    err = rr = 0.0
+    for name, a, b in zip(("d" + n for n in label), got, want):
+        e, r, ok = grad_errors(a, b, dtn)
+        err, rr = max(err, e), max(rr, r)
+        if not ok:
+            breaches.append(f"{name}: max {e:.3g}, rel RMS {r:.3g}")
+    return err, rr
+
+
+def attention_bwd_case(device, randn, B, S, heads, window, dtn,
+                       breaches) -> dict:
+    """The attention backward kernel at one causal shape on the forward
+    kernel's output (``heads`` = (Hq, Hkv, hd))."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import backward as fb
+    Hq, Hkv, hd = heads
+    dt = getattr(torch, dtn)
+    q = randn((B, S, Hq, hd), dt)
+    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
+    dout = randn((B, S, Hq, hd), dt)
+    kw = dict(causal=True, window=window)
+    o = fa.flash_attention_cuda(q, k, v, **kw)
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+    again = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not same:
+        breaches.append(f"attention bwd {B}x{S} {heads} {dtn}: two runs "
+                        "differ")
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_ref(*leaves, **kw), leaves,
+                               dout.float())
+    sub = []
+    err, rr = _hold_grads("qkv", got, want, dtn, sub)
+    breaches.extend(f"attention bwd {B}x{S} {heads} w{window} {dtn} {b}"
+                    for b in sub)
+    del got, again, want, leaves
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(S, device=device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                              < window)
+    lib_ms = None
+    try:
+        lo = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        dh = dout.transpose(1, 2)
+        lib_ms = timed_ms(lambda: torch.autograd.grad(
+            lo, (qh, kh, vh), dh, retain_graph=True), 30, 3)
+        del lo
+    except TypeError:        # a PyTorch without enable_gqa
+        pass
+    pairs = attention_pairs(S, True, window)
+    flops = 2.5 * 4.0 * B * Hq * hd * pairs
+    t_ops = flops / PEAK_BF16_S * 1e3
+    t_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+        / PEAK_BYTES_S * 1e3
+    rec = dict(
+        B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window, dtype=dtn,
+        max_abs_err=err, rel_rms_err=rr, same_bits=same,
+        ms=timed_ms(lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout,
+                                                        **kw), 30, 3),
+        plain_ms=timed_ms(lambda: fa.attention_bwd_ref(q, k, v, o, dout,
+                                                       **kw), 5, 1),
+        library_ms=lib_ms, flops=flops, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+    phase("train-kernels", "flash_attention_bwd " + json.dumps(rec))
+    return rec
+
+
+def rmsnorm_bwd_case(randn, rows: int, d: int, dtn: str, breaches) -> dict:
+    """The RMSNorm backward kernel at one shape (eps 1e-6)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.rmsnorm import backward as rb
+    eps = 1e-6
+    dt = getattr(torch, dtn)
+    x, w, gy = randn((rows, d), dt), randn((d,), dt), randn((rows, d), dt)
+    got = rb.rmsnorm_bwd_cuda(x, w, gy, eps)
+    again = rb.rmsnorm_bwd_cuda(x, w, gy, eps)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not same:
+        breaches.append(f"rmsnorm bwd {rows}x{d} {dtn}: two runs differ")
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    want = torch.autograd.grad(rn.rmsnorm_ref(xf, wf, eps), (xf, wf),
+                               gy.float())
+    sub = []
+    err, rr = _hold_grads(("x", "w"), got, want, dtn, sub)
+    breaches.extend(f"rmsnorm bwd {rows}x{d} {dtn} {b}" for b in sub)
+    xl = x.detach().requires_grad_()
+    wl = (1.0 + w.float()).to(dt).requires_grad_()
+    yl = F.rms_norm(xl, (d,), wl, eps)
+    nbytes = (3 * rows * d + 2 * d) * x.element_size()
+    tpr, nblocks = rb.launch_shape(rows, d)
+    rec = dict(
+        rows=rows, d=d, dtype=dtn, max_abs_err=err, rel_rms_err=rr,
+        same_bits=same, body=f"{tpr} threads a row, {nblocks} blocks",
+        ms=timed_ms(lambda: rb.rmsnorm_bwd_cuda(x, w, gy, eps), 30, 3),
+        plain_ms=timed_ms(lambda: rn.rmsnorm_bwd_ref(x, w, gy, eps), 30,
+                          3),
+        library_ms=timed_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), gy, retain_graph=True), 30, 3),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes")
+    rec["tb_per_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
+    phase("train-kernels", "rmsnorm_bwd " + json.dumps(rec))
+    return rec
+
+
+@contextlib.contextmanager
+def plain_version_calls():
+    """Count calls of the attention and RMSNorm plain versions through
+    their ``ops`` modules (forward and backward) for a ``with`` block;
+    yields the dict of counts."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    names = ((fops, "attention_ref"), (fops, "attention_bwd_ref"),
+             (rops, "rmsnorm_ref"), (rops, "rmsnorm_bwd_ref"))
+    calls = dict.fromkeys((n for _, n in names), 0)
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+
+    def spy(n, fn):
+        def wrapped(*a, **kw):
+            calls[n] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod, n, fn in saved:
+        setattr(mod, n, spy(n, fn))
+    try:
+        yield calls
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+@contextlib.contextmanager
+def grads_seen():
+    """Record, for each AdamW update in a ``with`` block, each gradient
+    leaf's largest magnitude (one device tensor an update, read after
+    the block).  Yields the list of those tensors."""
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.optim import adamw
+    update, seen = adamw.update, []
+
+    def spy(cfg, grads, *a, **kw):
+        seen.append(torch.stack([g.detach().abs().amax().float()
+                                 for g in leaves(grads)]))
+        return update(cfg, grads, *a, **kw)
+
+    adamw.update = spy
+    try:
+        yield seen
+    finally:
+        adamw.update = update
+
+
+def train_full_width(device, counters) -> tuple:
+    """[train]: starcoder2-3b at full width and depth (random weights from
+    a seed), B 4 x S 1024, remat, TRAIN_STEPS AdamW steps through
+    ``make_train_step``, after ``release_memory()``.  Every count is
+    zeroed just before each step and read just after it: attention's
+    forward 2L times (L forward + L recomputed), its backward L times,
+    RMSNorm's forward 2·(2L) + 1 and backward 2L + 1 times (plus the
+    qk-norm's, where the model has one), nothing else, and no
+    plain-version call.  Every loss and grad norm must be finite and
+    every parameter leaf's gradient non-zero on step 1.  Returns
+    (record, launches of the whole run)."""
+    import math
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.data import DataConfig, batch_at
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+
+    cfg = get_config("starcoder2-3b")
+    L = cfg.num_layers
+    norms = 2 + (2 if cfg.qk_norm else 0)            # per block
+    want = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
+            "flash_attention_bwd": L, "rmsnorm": 2 * L * norms + 1,
+            "rmsnorm_bwd": L * norms + 1}
+    live_gb = release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device)
+    opt = adamw.init(params)
+    step_fn = make_train_step(cfg, TrainConfig(remat=True),
+                              lr_schedule=cosine_with_warmup(2, 10))
+    dcfg = DataConfig(seed=0, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps, total_launches, bad = [], {}, []
+    with plain_version_calls() as plain, grads_seen() as seen:
+        for s in range(TRAIN_STEPS):
+            batch = batch_at(cfg, dcfg, s, device)
+            torch.cuda.synchronize()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = all_launches(counters)
+            for k, v in launches.items():
+                total_launches[k] = total_launches.get(k, 0) + v
+            moved = {k: v for k, v in launches.items() if v}
+            if moved != want:
+                bad.append(f"step {s + 1} launches {moved}, want {want}")
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), s=dt))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    zero_grads = int((seen[0] == 0).sum().item())
+    n_leaves = len(leaves(params))
+    if any(v for v in plain.values()):
+        bad.append(f"plain versions called: {plain}")
+    if zero_grads:
+        bad.append(f"{zero_grads} of {n_leaves} parameter leaves got a "
+                   "zero gradient on step 1")
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+               for x in steps):
+        bad.append(f"non-finite loss or grad norm: {steps}")
+    warm = sorted(x["s"] for x in steps[1:])
+    step_s = warm[len(warm) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = cfg.num_params()
+    rec = dict(
+        model=cfg.name, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        remat=True, steps=steps, setup_s=setup_s,
+        step_s_median_after_first=step_s,
+        tokens_per_s=tokens / step_s,
+        model_flops_share=6.0 * n_params * tokens / step_s / PEAK_BF16_S,
+        peak_gb=peak_gb, peak_gb_predicted=list(TRAIN_PEAK_PREDICTED_GB),
+        live_gb_before=live_gb, leaves=n_leaves,
+        leaves_with_zero_grad_step1=zero_grads,
+        launches_per_step=want, plain_version_calls=plain)
+    phase("train", json.dumps(rec))
+    if bad:
+        raise AssertionError("[train]: " + "; ".join(bad))
+    del params, opt, m, batch
+    release_memory()
+    return rec, total_launches
+
+
+def _loss_and_grads(cfg, params, batch):
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.models import transformer as tfm
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    total, _ = tfm.loss_fn(cfg, params, batch)
+    return float(total.detach()), torch.autograd.grad(total, flat)
+
+
+def train_cross(device, counters) -> tuple:
+    """[train-cross]: the card against the CPU on one reduced float32
+    starcoder2 model (2 layers, d 256, 4/2 heads of 64) with the same
+    weights and batch: the loss, every gradient leaf and one AdamW step's
+    update (TRAIN_CROSS_*); then ``launch.train`` on the card at
+    ``--size smoke``: 4 steps straight through, and 2 steps, a simulated
+    preemption (``--stop-after 2``) and a ``--resume`` to 4, the two
+    final losses within TRAIN_RESUME_RTOL.  Returns (record, launches of
+    the card's runs)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.data import DataConfig, batch_at
+    from repro_torch.runtime.train import make_train_step
+
+    cfg = dataclasses.replace(
+        reduced(get_config("starcoder2-3b"), layers=2, d_model=256,
+                heads=4, kv_heads=2, d_ff=1024), dtype="float32")
+    cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(5), "cpu")
+    cpu_batch = batch_at(cfg, DataConfig(seed=5, seq_len=128,
+                                         global_batch=2), 0, "cpu")
+    card_params = to_tree(cpu_params, device=device)
+    card_batch = {k: v.to(device) for k, v in cpu_batch.items()}
+    zero_counters(counters)
+    loss_card, g_card = _loss_and_grads(cfg, card_params, card_batch)
+    loss_cpu, g_cpu = _loss_and_grads(cfg, cpu_params, cpu_batch)
+    grad_rr = max(rel_rms(a.cpu(), b) for a, b in zip(g_card, g_cpu))
+    before = [p.detach().clone() for p in leaves(cpu_params)]
+    step = make_train_step(cfg)
+    card_params, _, _ = step(card_params, adamw.init(card_params),
+                             card_batch)
+    cpu_params, _, _ = step(cpu_params, adamw.init(cpu_params), cpu_batch)
+    update_rr = max(rel_rms(a.detach().cpu() - p0, b.detach() - p0)
+                    for a, b, p0 in zip(leaves(card_params),
+                                        leaves(cpu_params), before))
+    launches = all_launches(counters)
+
+    args = ["--arch", "starcoder2-3b", "--size", "smoke", "--steps", "4",
+            "--seq", "64", "--batch", "2", "--ckpt-every", "2"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        zero_counters(counters)
+        straight = launch_train.run(launch_train.parse_args(args))
+        first = launch_train.run(launch_train.parse_args(
+            args + ["--ckpt-dir", tmp, "--stop-after", "2", "--resume"]))
+        second = launch_train.run(launch_train.parse_args(
+            args + ["--ckpt-dir", tmp, "--resume"]))
+        for k, v in all_launches(counters).items():
+            launches[k] = launches.get(k, 0) + v
+    resumed = {**first["losses"], **second["losses"]}
+    final_straight, final_resumed = straight["losses"][3], resumed[3]
+    rec = dict(
+        model=f"{cfg.name} f32 (2 layers, d 256, 4/2 heads of 64)",
+        loss_card=loss_card, loss_cpu=loss_cpu,
+        loss_rel_diff=abs(loss_card - loss_cpu) / abs(loss_cpu),
+        grad_rel_rms_max=grad_rr, update_rel_rms_max=update_rr,
+        launcher_straight=straight["losses"],
+        launcher_resumed=resumed, resume_start=second["start"],
+        resume_rel_diff=abs(final_resumed - final_straight)
+        / abs(final_straight),
+        resume_bit_for_bit=resumed == straight["losses"],
+        launches=launches)
+    phase("train-cross", json.dumps(rec))
+    bad = []
+    if rec["loss_rel_diff"] > TRAIN_CROSS_LOSS_RTOL:
+        bad.append(f"loss {loss_card} vs CPU {loss_cpu}")
+    if grad_rr > TRAIN_CROSS_GRAD_RMS:
+        bad.append(f"gradient rel RMS {grad_rr:.3g}")
+    if update_rr > TRAIN_CROSS_UPDATE_RMS:
+        bad.append(f"update rel RMS {update_rr:.3g}")
+    if not (first["preempted"] and second["start"] == 2
+            and sorted(resumed) == [0, 1, 2, 3]):
+        bad.append(f"preempt/resume: {first} {second}")
+    if rec["resume_rel_diff"] > TRAIN_RESUME_RTOL:
+        bad.append(f"resumed loss {final_resumed} vs straight "
+                   f"{final_straight}")
+    for k in ("flash_attention_bwd", "rmsnorm_bwd"):
+        if not launches.get(k):
+            bad.append(f"{k} never launched")
+    if bad:
+        raise AssertionError("[train-cross]: " + "; ".join(bad))
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2927,12 +3403,16 @@ def main() -> int:
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
+    from repro_torch.kernels.rmsnorm import backward as rms_bwd
     build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
-               moe_kernel, rglru_kernel, wkv_kernel),
+               moe_kernel, rglru_kernel, wkv_kernel, flash_bwd, rms_bwd),
               no_spill={sweep_kernel.LIB_NAME: ("sweep_kernel",),
                         steps_kernel.LIB_NAME: None,
                         rms_kernel.LIB_NAME: None,
                         flash_kernel.LIB_NAME: None,
+                        flash_bwd.LIB_NAME: None,
+                        rms_bwd.LIB_NAME: None,
                         moe_kernel.LIB_NAME: ("gate_up_kernel",
                                               "down_kernel"),
                         wkv_kernel.LIB_NAME: ("chunk_",)})
@@ -3089,6 +3569,21 @@ def main() -> int:
                 lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
                                               r["max_abs_err"])
 
+    # 8d. training: rows 3 and 4's backward kernels against their plain
+    # versions, full-width starcoder2-3b train steps (each step's counts
+    # zeroed just before it and read just after), the card against the
+    # CPU and the launcher's preempt/resume -----------------------------
+    t0 = time.perf_counter()
+    train_k = train_kernel_cases(device)
+    phase("train-kernels", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, train_launches = train_full_width(device, counters)
+    phase("train", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, train_cross_launches = train_cross(device, counters)
+    phase("train-cross", f"{time.perf_counter() - t0:.1f} s")
+    later_paths += (train_launches, train_cross_launches)
+
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
     kernels = [{
@@ -3136,6 +3631,22 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], **({"body": r["body"]}
                                              if "body" in r else {})})
+    for name, src, replaces in (
+            ("flash_attention_bwd",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:98"),
+            ("rmsnorm_bwd",
+             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:27")):
+        r = train_k[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(c.get(name, 0) for c in later_paths),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

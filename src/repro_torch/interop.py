@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._tree import tree_map
 from repro_torch.api.scenario import Scenario
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.configs.chain_cnns import ChainCNNConfig
@@ -63,12 +64,6 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _unstack_blocks(cfg: ModelConfig, stack: dict) -> list:
     """One tree per block from the reference's ``{"tail", "scan"}``
     stacking: block ``i`` is ``tail[i]`` for the first ``num_layers %
@@ -79,10 +74,10 @@ def _unstack_blocks(cfg: ModelConfig, stack: dict) -> list:
     blocks = []
     for i in range(cfg.num_layers):
         if i < rem:
-            blocks.append(_tree_map(_tensor, stack["tail"][i]))
+            blocks.append(tree_map(_tensor, stack["tail"][i]))
         else:
             j = i - rem
-            blocks.append(_tree_map(
+            blocks.append(tree_map(
                 lambda a, n=j // period: _tensor(np.asarray(a)[n]),
                 stack["scan"][j % period]))
     return blocks

@@ -1,9 +1,12 @@
-"""Plain PyTorch attention: the CPU path of :mod:`.ops` and what the CUDA
-kernel is held against on the card.  The JAX package's
+"""Plain PyTorch attention and its backward: the CPU path of :mod:`.ops`
+and what the CUDA kernels are held against on the card.  The JAX package's
 ``kernels/flash_attention/ref.py::attention_ref`` (naive softmax
 attention, float32 math) in the model layout: q (B, Sq, Hq, hd), k/v
 (B, Skv, Hkv, hd).  Query position i aligns with key position i, as in
-the TPU kernel."""
+the TPU kernel.  :func:`attention_bwd_ref` is the gradient of
+:func:`attention_ref` written out (FA-2's formulas, float32), which is
+what the reference's train step gets from XLA's autodiff of its jnp
+attention."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +18,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
     """-> (B, Sq, Hq, hd) in q's dtype; k/v heads serve Hq // Hkv query
     heads each (GQA), scale hd**-0.5."""
+    _, _, vf, p = _probs(q, k, v, causal, window)
+    return torch.matmul(p, vf).transpose(1, 2).to(q.dtype)
+
+
+def _probs(q, k, v, causal: bool, window: int):
+    """q, k, v in float32 as (B, Hq, S, hd), k/v widened to Hq heads, and
+    the masked softmax probabilities (B, Hq, Sq, Skv)."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -30,5 +40,31 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window > 0:
         mask &= (qp - kp) < window
     s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, vf).transpose(1, 2).to(q.dtype)
+    return qf, kf, vf, torch.softmax(s, dim=-1)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> tuple:
+    """The gradients (dq, dk, dv), each in its input's dtype, of
+    :func:`attention_ref` for the output gradient ``dout`` (B, Sq, Hq,
+    hd), ``out`` being the forward's output: with P the probabilities,
+    dV = Pᵀ·dO, dP = dO·Vᵀ, D = rowsum(dO ⊙ O), dS = P ⊙ (dP − D),
+    dQ = scale·dS·K and dK = scale·dSᵀ·Q, dK and dV summed over the
+    Hq // Hkv query heads of each k/v head."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    qf, kf, vf, p = _probs(q, k, v, causal, window)
+    do = dout.float().transpose(1, 2)                       # (B, Hq, Sq, hd)
+    delta = (do * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale    # (B, Hq, Skv, hd)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+
+    def group(t):                                           # -> (B, Skv, Hkv, hd)
+        return t.reshape(B, Hkv, Hq // Hkv, Skv, hd).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), group(dk).to(k.dtype),
+            group(dv).to(v.dtype))

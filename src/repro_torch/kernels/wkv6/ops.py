@@ -3,12 +3,16 @@ device.
 
 A CUDA tensor goes to the hand-written kernel (:func:`.kernel.wkv6_cuda`)
 or raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`).
-There is no other route and no fallback."""
+There is no other route and no fallback, and on CUDA no gradient: a call
+that autograd records raises
+(:func:`repro_torch.kernels._grad.refuse_grad`)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels._grad import refuse_grad
 
 from .kernel import check_shapes, wkv6_cuda
 from .ref import wkv6_ref
@@ -23,6 +27,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``state_out`` (which may be ``s0``) the final state is written there,
     in place, and returned."""
     if r.device.type == "cuda":
+        refuse_grad("wkv6", r, k, v, w, u, s0)
         return wkv6_cuda(r, k, v, w, u, s0, state_out)
     if r.device.type == "cpu":
         check_shapes(r, k, v, w, u, s0, state_out)

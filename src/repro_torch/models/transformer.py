@@ -1,4 +1,5 @@
-"""Decoder stacks on one card: init, prefill and decode.
+"""Decoder stacks on one card: init, prefill, decode and the training
+loss.
 
 The port of the JAX package's ``repro/models/transformer.py`` for four
 families: the dense decoder (RMSNorm, global or sliding-window causal
@@ -49,17 +50,30 @@ prefill, carried unchanged by decode.
 
 MoE capacity factors are the reference's (``CAPACITY_FACTOR``,
 ``DECODE_CAPACITY_FACTOR``).
+
+Training (:func:`loss_fn`, mode ``train``) covers the dense decoder
+family: causal attention (windowed on local layers) through the
+attention kernel and RMSNorm through its kernel, each a
+``torch.autograd.Function`` with a backward kernel on the card, and
+``remat`` recomputing each block in the backward
+(``torch.utils.checkpoint``, per block where the reference checkpoints
+per superblock: the same arithmetic).  The MoE, RWKV-6, RG-LRU and
+encoder-decoder families raise on both devices: their kernels have no
+backward yet (:data:`TRAIN_DEFERRED`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                       ModelConfig)
+from repro_torch.kernels._grad import TRAIN_DEFERRED
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from . import attention as attn_lib
 from .attention import quantize_kv
@@ -70,8 +84,8 @@ from .rglru import (apply_rglru_decode, apply_rglru_seq, init_rglru,
                     init_rglru_state)
 from .rwkv import (apply_channel_mix, apply_time_mix, init_rwkv_channel_mix,
                    init_rwkv_state, init_rwkv_time_mix)
-from .sharded_ops import (embed_lookup, padded_vocab, sharded_argmax,
-                          unembed_logits)
+from .sharded_ops import (embed_lookup, fused_unembed_xent, padded_vocab,
+                          sharded_argmax, unembed_logits)
 
 Params = dict
 
@@ -80,6 +94,9 @@ Params = dict
 #: ``decode_step`` 2.0
 CAPACITY_FACTOR = 1.25
 DECODE_CAPACITY_FACTOR = 2.0
+#: weight of the MoE load-balancing loss in ``loss_fn``'s total, the
+#: reference's
+MOE_AUX_WEIGHT = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -230,7 +247,9 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ``cache`` in place (quantizing the new rows when the cache holds
     scales).
     mode ``encode``: non-causal attention over the whole sequence (the
-    encoder), no cache."""
+    encoder), no cache.
+    mode ``train``: causal attention over the whole sequence (windowed
+    on a local layer), no cache."""
     B, S, d = x.shape
     W = cfg.window_size if layer_type == ATTN_LOCAL else 0
     if mode == "decode":
@@ -245,9 +264,9 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                                         k_scale=cache.get("k_scale"),
                                         v_scale=cache.get("v_scale"))
         new_cache = cache
-    elif mode in ("prefill", "encode"):
+    elif mode in ("prefill", "encode", "train"):
         q, k, v = _project_qkv(cfg, p, x, positions, layer_type)
-        out = flash_ops.flash_attention(q, k, v, causal=mode == "prefill",
+        out = flash_ops.flash_attention(q, k, v, causal=mode != "encode",
                                         window=W)
         new_cache = None
         if mode == "prefill":
@@ -255,7 +274,8 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             new_cache = {n: _to_ring(t, L) for n, t in
                          _kv_rows(k, v, kv_quant, param_dtype(cfg)).items()}
     else:
-        raise ValueError(f"mode {mode!r}: 'prefill', 'decode' or 'encode'")
+        raise ValueError(f"mode {mode!r}: 'prefill', 'decode', 'encode' or "
+                         "'train'")
     Hq, hd = p["wo"].shape[:2]
     out = out.reshape(B, S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
     return out, new_cache
@@ -298,9 +318,11 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
     cache at decode), then the FFN (SwiGLU MLP, MoE or RWKV-6 channel
     mix), each behind an RMSNorm.
     Returns (h, cache).  The MoE's aux loss is dropped: serving ignores
-    it.  Mode ``encode`` (an encoder block) returns no cache."""
-    if mode not in ("prefill", "decode", "encode"):
-        raise ValueError(f"mode {mode!r}: 'prefill', 'decode' or 'encode'")
+    it, and ``loss_fn`` refuses the MoE family.  Modes ``encode`` (an
+    encoder block) and ``train`` return no cache."""
+    if mode not in ("prefill", "decode", "encode", "train"):
+        raise ValueError(f"mode {mode!r}: 'prefill', 'decode', 'encode' or "
+                         "'train'")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if layer_type == RWKV6:
         st = cache if mode == "decode" else {"mix": None, "ffn": None}
@@ -341,19 +363,28 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
                 cache_len: int = 0, lo: int = 0, hi: Optional[int] = None,
                 capacity_factor: float = CAPACITY_FACTOR,
                 kv_memory: Optional[torch.Tensor] = None,
-                kv_quant: bool = False):
+                kv_quant: bool = False, remat: bool = False):
     """Blocks [lo, hi) (default: all).  ``caches`` holds one cache per
-    block of the range (decode); returns (h, caches of the range)."""
+    block of the range (decode); returns (h, caches of the range).
+    ``remat`` (mode ``train``): each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
+    and recomputes the rest in the backward."""
     hi = cfg.num_layers if hi is None else hi
+    if remat and mode != "train":
+        raise ValueError(f"remat is for mode 'train', not {mode!r}")
     types = cfg.layer_types()
     new_caches = []
     for i in range(lo, hi):
         c = caches[i - lo] if caches is not None else None
-        h, nc = apply_block(cfg, params["layers"][i], h, mode=mode,
-                            positions=positions, cache=c,
-                            cache_len=cache_len, layer_type=types[i],
-                            capacity_factor=capacity_factor,
-                            kv_memory=kv_memory, kv_quant=kv_quant)
+        # bound now: a checkpointed block is recomputed in the backward,
+        # after this loop has moved on
+        block = functools.partial(
+            apply_block, cfg, params["layers"][i], mode=mode,
+            positions=positions, cache=c, cache_len=cache_len,
+            layer_type=types[i], capacity_factor=capacity_factor,
+            kv_memory=kv_memory, kv_quant=kv_quant)
+        h, nc = (checkpoint(block, h, use_reentrant=False) if remat
+                 else block(h))
         new_caches.append(nc)
     return h, new_caches
 
@@ -453,6 +484,51 @@ def head(cfg: ModelConfig, params: Params, h: torch.Tensor):
     return logits, sharded_argmax(logits)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family that :func:`loss_fn`
+    cannot train yet (on either device, so the CPU and the card refuse
+    alike): MoE, RWKV-6, any config with an RG-LRU layer, and the
+    encoder-decoder."""
+    types = set(cfg.layer_types())
+    why = ("a MoE config" if cfg.num_experts else
+           "an RWKV-6 config" if RWKV6 in types else
+           "a config with RG-LRU layers" if RGLRU in types else
+           "an encoder-decoder config" if cfg.enc_dec else None)
+    if why:
+        raise NotImplementedError(f"loss_fn for {why} ({cfg.name}) waits "
+                                  f"for {TRAIN_DEFERRED}")
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
+            remat: bool = True,
+            capacity_factor: float = CAPACITY_FACTOR) -> tuple:
+    """batch = {"tokens": (B, S), "labels": (B, S)}, with ``"patch_embeds"``
+    (B, P, d) for a ``vit`` frontend (prepended; its positions are
+    cropped before the loss).  Returns (total, {"loss", "aux"}): the mean
+    token cross entropy (float32) and the MoE aux loss, 0 for the dense
+    family, with ``total = loss + MOE_AUX_WEIGHT * aux``, as the
+    reference's ``loss_fn``.  ``remat`` recomputes each block in the
+    backward.  ``capacity_factor`` is the MoE's, which this family does
+    not read; it is kept for the reference's signature."""
+    check_supported(cfg)
+    check_trainable(cfg)
+    h = _assemble_inputs(cfg, params, batch)
+    offset = h.shape[1] - batch["tokens"].shape[1]
+    h, _ = apply_stack(cfg, params, h, mode="train",
+                       positions=_positions(h), remat=remat,
+                       capacity_factor=capacity_factor)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if offset:
+        h = h[:, offset:]
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    tok_loss = fused_unembed_xent(h, table, batch["labels"],
+                                  transpose_table=cfg.tie_embeddings,
+                                  valid_vocab=cfg.vocab_size)
+    loss = tok_loss.mean()
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: dict, *,
             cache_len: int, kv_quant: bool = False):
     """batch = {"tokens": (B, S)}, with ``"patch_embeds"`` (B, P, d) for a
@@ -486,7 +562,8 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos,
     return logits, nxt, caches
 
 
-__all__ = ["Params", "apply_attention", "apply_block",
+__all__ = ["MOE_AUX_WEIGHT", "Params", "apply_attention", "apply_block",
            "apply_cross_attention", "apply_stack", "check_supported",
-           "cross_kv", "decode_step", "encoder_cfg", "head", "init_block",
-           "init_caches", "init_layer_cache", "init_lm", "prefill"]
+           "check_trainable", "cross_kv", "decode_step", "encoder_cfg",
+           "head", "init_block", "init_caches", "init_layer_cache",
+           "init_lm", "loss_fn", "prefill"]

@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels (the sweep and
-the single-split Li-GD steps, RMSNorm, flash attention, the fused expert
-SwiGLU, the RG-LRU scan, WKV6) against their plain PyTorch versions on
-the same card tensors, the sweep also on the fault path's unreachable
+the single-split Li-GD steps, RMSNorm and flash attention with their
+backward kernels, the fused expert SwiGLU, the RG-LRU scan, WKV6)
+against their plain PyTorch versions on the same card tensors, a
+reduced model's loss backward with no plain-version call, rows 5-7's
+refusal of a gradient, the sweep also on the fault path's unreachable
 hop counts (bit for bit), the admission / chaos sessions and the
 closed-loop serving sessions card against CPU.  They skip without a
 card.  On the machine with the card (no JAX there, so without the
@@ -905,3 +907,207 @@ def test_cuda_autodiff_oracle_matches_the_sweep(name, cuda):
     assert sum(tsweep.LAUNCHES.values()) == sum(before.values()) + 1
     err, breaches = chip_smoke.oracle_errors(fused, oracle)
     assert not breaches, (err, breaches)
+
+
+# ---------------------------------------------------------------------------
+# Rows 3 and 4's backward kernels against float32 autograd through their
+# plain versions, at chip_smoke.py's GRAD_TOL / GRAD_RMS_TOL (its
+# comment gives the reasons), and bit for bit from one run to the next.
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _attention_bwd_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
+                        Skv=None):
+    """The backward kernel on the forward kernel's output against float32
+    autograd through ``attention_ref``; returns the launch increments."""
+    cs = _chip_smoke()
+    dt = getattr(torch, dtype)
+    Skv = S if Skv is None else Skv
+    q = _randn((B, S, Hq, hd), dt, device, 70)
+    k = _randn((B, Skv, Hkv, hd), dt, device, 71)
+    v = _randn((B, Skv, Hkv, hd), dt, device, 72)
+    dout = _randn((B, S, Hq, hd), dt, device, 73)
+    kw = dict(causal=causal, window=window)
+    out = tflash.flash_attention_cuda(q, k, v, **kw)
+    before = dict(tflash.LAUNCHES)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    counts = {n: tflash.LAUNCHES[n] - before[n] for n in before}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [t.dtype for t in got] == [dt] * 3
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tflash.attention_ref(*leaves, **kw), leaves,
+                               dout.float())
+    for name, g, w in zip("qkv", got, want):
+        if not w.any():
+            # one key a row (S = 1): dS = dP - D = 0, so dq is zero up to
+            # the float32 rounding of dP and D, and has no RMS to compare
+            assert g.abs().max().item() <= 1e-5, f"d{name}"
+            continue
+        err, rr, ok = cs.grad_errors(g, w, dtype)
+        assert ok, f"d{name}: max {err:.3g}, rel RMS {rr:.3g}"
+    return counts
+
+
+from repro_torch.kernels.flash_attention import backward as tflash_bwd  # noqa
+from repro_torch.kernels.rmsnorm import backward as trms_bwd          # noqa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,dtype", [
+    (4, 1024, 24, 2, 128, 0, "bfloat16"),     # starcoder2-3b
+    (4, 1024, 32, 8, 128, 0, "bfloat16"),     # qwen3-8b's ratio 4
+    (4, 1024, 16, 8, 64, 0, "bfloat16"),
+    (1, 2048, 32, 16, 128, 1024, "bfloat16"),  # gemma3-27b's local layer
+    (2, 1024, 24, 2, 128, 0, "float32"),
+])
+def test_cuda_flash_attention_bwd_at_the_train_shapes(B, S, Hq, Hkv, hd,
+                                                      window, dtype, cuda):
+    before = tflash_bwd.LAUNCHES["flash_attention_bwd"]
+    _attention_bwd_case(B, Hq, Hkv, S, hd, True, window, dtype, cuda)
+    assert tflash_bwd.LAUNCHES["flash_attention_bwd"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2), (7, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
+                                           (False, 0), (False, 40)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_bwd_gqa_masks_head_dims(Hq, Hkv, causal,
+                                                      window, hd, dtype,
+                                                      cuda):
+    """GQA ratios 1, 2, 4 and 7, causal, windowed and non-causal, at a
+    ragged length (off the 64-row tiles)."""
+    _attention_bwd_case(2, Hq, Hkv, 150, hd, causal, window, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5, 64, 65, 129])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_bwd_ragged_lengths(S, dtype, cuda):
+    _attention_bwd_case(1, 6, 2, S, 64, True, 0, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(1, 129), (16, 100), (200, 70)])
+def test_cuda_flash_attention_bwd_cross_shapes(Sq, Skv, cuda):
+    """Non-causal Sq != Skv, the encoder-decoder's cross attention."""
+    _attention_bwd_case(2, 4, 4, Sq, 64, False, 0, "float32", cuda,
+                        Skv=Skv)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_refuses_other_head_dims(cuda):
+    q = _randn((1, 8, 2, 256), torch.bfloat16, cuda, 74)
+    with pytest.raises(ValueError, match="item 7c"):
+        tflash.flash_attention_bwd_cuda(q, q, q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 3072, "bfloat16"),           # starcoder2-3b's norms
+    (131072, 128, "bfloat16"),          # qwen3-8b's qk-norm rows
+    (4096, 3072, "float32"),
+    (3, 7168, "bfloat16"),              # yi-34b, fewer rows than blocks
+    (1000, 64, "float32"),              # a smoke model
+    (777, 5376, "bfloat16"),            # gemma3-27b
+])
+def test_cuda_rmsnorm_bwd_matches_plain_version(rows, d, dtype, cuda):
+    cs = _chip_smoke()
+    dt = getattr(torch, dtype)
+    x, w = _randn((rows, d), dt, cuda, 75), _randn((d,), dt, cuda, 76)
+    g = _randn((rows, d), dt, cuda, 77)
+    before = trms_bwd.LAUNCHES["rmsnorm_bwd"]
+    got = trms_bwd.rmsnorm_bwd_cuda(x, w, g, 1e-6)
+    again = trms_bwd.rmsnorm_bwd_cuda(x, w, g, 1e-6)
+    torch.cuda.synchronize()
+    assert trms_bwd.LAUNCHES["rmsnorm_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    want = torch.autograd.grad(trms.rmsnorm_ref(xf, wf, 1e-6), (xf, wf),
+                               g.float())
+    for name, a, b in zip(("dx", "dw"), got, want):
+        err, rr, ok = cs.grad_errors(a, b, dtype)
+        assert ok, f"{name}: max {err:.3g}, rel RMS {rr:.3g}"
+
+
+@pytest.mark.cuda
+def test_cuda_lm_ops_backward_runs_the_kernels(cuda):
+    """A gradient through ``ops.rmsnorm`` and ``ops.flash_attention`` on
+    the card launches the backward kernels, once each."""
+    x = _randn((2, 40, 64), torch.bfloat16, cuda, 78).requires_grad_()
+    w = _randn((64,), torch.bfloat16, cuda, 79).requires_grad_()
+    b_rms = trms_bwd.LAUNCHES["rmsnorm_bwd"]
+    b_att = tflash_bwd.LAUNCHES["flash_attention_bwd"]
+    h = trms.rmsnorm(x, w).reshape(2, 40, 2, 32)
+    out = tflash.flash_attention(h, h[:, :, :1].contiguous(),
+                                 h[:, :, 1:].contiguous())
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert trms_bwd.LAUNCHES["rmsnorm_bwd"] == b_rms + 1
+    assert tflash_bwd.LAUNCHES["flash_attention_bwd"] == b_att + 1
+    assert x.grad is not None and w.grad is not None
+    assert x.grad.abs().sum().item() > 0 and w.grad.abs().sum().item() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_rows_5_to_7_refuse_a_gradient(cuda):
+    x = _randn((2, 8, 64), torch.float32, cuda, 80).requires_grad_()
+    w = _randn((2, 64, 64), torch.float32, cuda, 81)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tmoe.moe_swiglu(x, w, w, w.transpose(1, 2).contiguous())
+    a = torch.rand((1, 5, 32), device=cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        trglru.rglru_scan(a, a)
+    r = _randn((1, 5, 2, 32), torch.float32, cuda, 82).requires_grad_()
+    u = _randn((2, 32), torch.float32, cuda, 83)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        twkv.wkv6(r, r, r, torch.rand_like(r), u)
+    with torch.no_grad():                   # serving: no refusal
+        assert trglru.rglru_scan(a, a).shape == a.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "internvl2-1b"])
+def test_cuda_loss_fn_backward_runs_no_plain_version(arch, cuda):
+    """A reduced bf16 model's loss and gradients on the card (qk-norm,
+    sliding windows, a patch prefix): every attention and RMSNorm forward
+    and backward is a kernel launch, no plain version runs, and every
+    parameter leaf gets a finite, non-zero gradient."""
+    import dataclasses
+    from repro_torch import _tree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as ttfm
+    from repro_torch.runtime.data import DataConfig, batch_at
+    cs = _chip_smoke()
+    cfg = reduced(get_config(arch), layers=2, d_model=256, heads=4,
+                  kv_heads=2)
+    assert cfg.head_dim == 64 and cfg.dtype == "bfloat16"
+    params = ttfm.init_lm(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    batch = batch_at(cfg, DataConfig(seq_len=96, global_batch=2), 0, cuda)
+    flat = _tree.leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    counters = cs.kernel_counters()
+    cs.zero_counters(counters)
+    with cs.plain_version_calls() as plain:
+        total, _ = ttfm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(total, flat)
+        torch.cuda.synchronize()
+    launches = cs.all_launches(counters)
+    assert not any(plain.values()), plain
+    L = cfg.num_layers
+    norms = 2 + (2 if cfg.qk_norm else 0)
+    assert launches["flash_attention"] == 2 * L       # remat: recomputed
+    assert launches["flash_attention_bwd"] == L
+    assert launches["rmsnorm"] == 2 * L * norms + 1
+    assert launches["rmsnorm_bwd"] == L * norms + 1
+    assert torch.isfinite(total)
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max().item() > 0

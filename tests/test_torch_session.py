@@ -139,8 +139,9 @@ def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter: import the port, run CPU sessions (the
     planner with and without faults, a baseline policy, both serving
     presets with their real engines and telemetry), a reduced CPU
-    split generation, a chain-CNN split and a frontend stub's draw, and
-    list every loaded module named jax/jax.* or repro/repro.*."""
+    split generation, a chain-CNN split, a frontend stub's draw and a
+    reduced CPU train step, and list every loaded module named
+    jax/jax.* or repro/repro.*."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -183,6 +184,17 @@ def test_port_imports_neither_jax_nor_reference():
         " torch.zeros((1, 32, 32, 3)), 4)\n"
         "frontend.audio_frame_embeds(get_config('seamless-m4t-large-v2'),"
         " torch.Generator().manual_seed(0), 1, 3, 'cpu')\n"
+        "import repro_torch.optim, repro_torch.launch.train\n"
+        "import repro_torch.runtime.checkpoint, repro_torch.runtime.data\n"
+        "import repro_torch.runtime.compression\n"
+        "from repro_torch.runtime import train as rt\n"
+        "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
+        "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"
+        "batch = repro_torch.runtime.data.batch_at(cfg,"
+        " repro_torch.runtime.data.DataConfig(seq_len=16, global_batch=2),"
+        " 0, 'cpu')\n"
+        "rt.make_train_step(cfg)(params, repro_torch.optim.init(params),"
+        " batch)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')"
         " or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"

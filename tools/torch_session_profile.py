@@ -38,9 +38,16 @@ double a minute of host work): host wall-clock, the Session's timings
 engines' prefills and decode steps, the device's busy share and device
 time by group.
 
+Training (``--train``): chip_smoke.py's ``[train]`` step, starcoder2-3b
+at full width and depth, B 4 x S 1024, remat, AdamW: one warm-up step,
+one step with the AdamW update timed apart (synchronised before and
+after it), then two steps under the profiler: host wall-clock, device
+busy share and device time by group (the forward and backward kernels
+apart).
+
     python3 tools/torch_session_profile.py [--scenario megafleet_100k]
         [--users N] [--r-capacity R] [--serve [MODEL]] [--serve-loop]
-        [--out report.json]
+        [--train] [--out report.json]
 
 Needs a CUDA card; prints one JSON object (also written to ``--out``
 when given).
@@ -143,7 +150,9 @@ def _groups(dev: dict) -> dict:
     products (cuBLAS / CUTLASS kernels) and everything else."""
     mine = {"flash_attention": ("flash_attention_kernel",
                                 "flash_attention_tc_kernel"),
+            "flash_attention_bwd": ("attn_bwd_",),
             "rmsnorm": ("rmsnorm_kernel",),
+            "rmsnorm_bwd": ("rmsnorm_bwd_",),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
                            "hopper_tc::gate_up_kernel",
                            "hopper_tc::down_kernel"),
@@ -241,6 +250,63 @@ def serve_loop_profile() -> dict:
     return rep
 
 
+def train_profile() -> dict:
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.data import DataConfig, batch_at
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+
+    device = torch.device("cuda", 0)
+    cfg = get_config("starcoder2-3b")
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device)
+    opt = adamw.init(params)
+    step_fn = make_train_step(cfg, TrainConfig(remat=True),
+                              lr_schedule=cosine_with_warmup(2, 10))
+    dcfg = DataConfig(seed=0, seq_len=cs.TRAIN_SEQ,
+                      global_batch=cs.TRAIN_BATCH)
+    batches = [batch_at(cfg, dcfg, s, device) for s in range(4)]
+    params, opt, _ = step_fn(params, opt, batches[0])         # warm-up
+
+    update, update_s = adamw.update, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+        return out
+
+    adamw.update = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batches[1])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        adamw.update = update
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            params, opt, _ = step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = _phase_report(prof, wall, 2)
+    rep.update(model=cfg.name, batch=cs.TRAIN_BATCH, seq=cs.TRAIN_SEQ,
+               remat=True, step_s_unprofiled=step_s,
+               adamw_update_s=update_s[0])
+    return rep
+
+
 def _phase_report(prof, wall_s: float, steps: int) -> dict:
     dev = device_times(prof)
     busy_us = sum(v["device_us"] for v in dev.values())
@@ -276,6 +342,8 @@ def main() -> int:
     ap.add_argument("--serve-loop", action="store_true",
                     help="profile chip_smoke.py's [serve-loop] closed "
                          "loop instead")
+    ap.add_argument("--train", action="store_true",
+                    help="profile chip_smoke.py's [train] step instead")
     ap.add_argument("--out", default=None,
                     help="also write the report to this JSON file")
     args = ap.parse_args()
@@ -295,6 +363,8 @@ def main() -> int:
         return emit(dict(serve_profile(args.serve), card=card), args.out)
     if args.serve_loop:
         return emit(dict(serve_loop_profile(), card=card), args.out)
+    if args.train:
+        return emit(dict(train_profile(), card=card), args.out)
     sc = get_scenario(args.scenario)
     changes = {k: v for k, v in (("num_users", args.users),
                                  ("r_capacity", args.r_capacity))
