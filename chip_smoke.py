@@ -71,8 +71,11 @@ card, over its main paths.
 * Training of the dense decoder family.  ``[train-kernels]``: rows 3
   and 4's backward kernels against float32 autograd through their plain
   versions at starcoder2-3b's, qwen3-8b's, gemma3-27b's and the qk-norm's
-  shapes, bit for bit from run to run, with their times, bounds and the
-  library backward's.  ``[train]``: starcoder2-3b at full width and
+  shapes, and with keys that share an offset (randn + 2, randn + 4) at
+  starcoder2-3b's and 32/8 heads of 128, bit for bit from run to run,
+  the training forward's output bit for bit equal to the serving
+  forward's, with each case's body, times, bounds and the library
+  backward's.  ``[train]``: starcoder2-3b at full width and
   depth, B 4 x S 1024, remat, 4 AdamW steps through ``make_train_step``,
   every step's launches counted (no plain version), every parameter leaf
   with a gradient, the peak memory, step time and model-flops share.
@@ -231,9 +234,10 @@ RGLRU_TOL = 1e-5
 #: float32: the same float32 arithmetic summed in another order (dK over
 #: up to S x Hq/Hkv rows, dw over every row): tol 1e-4, rms 1e-5.
 #: bfloat16: the kernel rounds each float32 gradient to bf16 once (an RMS
-#: of 2^-9/sqrt(3) = 1.1e-3 of the value) and reads the forward's bf16
-#: output for D = rowsum(dO ⊙ O): tol 1e-2, rms 4e-3.  Set before the
-#: first card reading
+#: of 2^-9/sqrt(3) = 1.1e-3 of the value), and its tensor-core products
+#: take P and dS in bf16 (dS as hi + lo in dQ) with D from the float32
+#: output (out + out_lo): tol 1e-2, rms 4e-3.  Set before the first card
+#: reading of the first backward kernel, unchanged since
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 GRAD_RMS_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
@@ -603,6 +607,7 @@ def build_all(modules, no_spill) -> None:
     kernels from their libraries), and a spill in any of them fails."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.moe_gemm import kernel as mk
 
@@ -639,6 +644,17 @@ def build_all(modules, no_spill) -> None:
                 body = "tensor_cores" if "_tc_" in rec["name"] \
                     else "cuda_cores"
                 rec["dynamic_smem_bytes"] = fk.smem_bytes(hd, body)
+            if mod is fb and rec["name"].startswith(("attn_bwd_dkdv_tc",
+                                                     "attn_bwd_dq_tc")):
+                hd = int(rec["name"].split("<")[1].rstrip(">"))
+                kind = "dkdv" if "dkdv" in rec["name"] else "dq"
+                rec["dynamic_smem_bytes"] = fb.library_smem_bytes(hd, kind)
+                if rec["dynamic_smem_bytes"] != fb.smem_bytes(hd, kind):
+                    raise AssertionError(
+                        f"{rec['name']}: the library takes "
+                        f"{rec['dynamic_smem_bytes']} bytes of shared "
+                        f"memory, backward.smem_bytes says "
+                        f"{fb.smem_bytes(hd, kind)}")
             if mod is mk and rec["name"] in ("gate_up_kernel",
                                              "down_kernel"):
                 rec["dynamic_smem_bytes"] = mk.wgmma_smem_bytes(
@@ -2944,15 +2960,22 @@ def ligd_oracle(device, counters) -> tuple:
 # ---------------------------------------------------------------------------
 # training: rows 3 and 4's backward kernels, full-width starcoder2-3b
 # ---------------------------------------------------------------------------
-#: [train-kernels]' attention cases: (B, S, (Hq, Hkv, hd), window, dtype);
-#: starcoder2-3b's shape, qwen3-8b's GQA ratio 4, 16/8 heads of 64,
-#: gemma3-27b's window-1024 local layer at S 2048, and float32
+#: [train-kernels]' attention cases: (B, S, (Hq, Hkv, hd), window, dtype,
+#: key offset c: the keys are randn + c); starcoder2-3b's shape, qwen3-8b's
+#: GQA ratio 4, 16/8 heads of 64, gemma3-27b's window-1024 local layer at
+#: S 2048, float32, and keys that share an offset at the first two shapes
+#: (D from the bf16 output breaches GRAD_RMS_TOL in dq there:
+#: tests/test_torch_attn_bwd_rounding.py)
 TRAIN_ATTN_CASES = (
-    (4, 1024, (24, 2, 128), 0, "bfloat16"),
-    (4, 1024, (32, 8, 128), 0, "bfloat16"),
-    (4, 1024, (16, 8, 64), 0, "bfloat16"),
-    (2, 2048, (32, 16, 128), 1024, "bfloat16"),
-    (2, 1024, (24, 2, 128), 0, "float32"),
+    (4, 1024, (24, 2, 128), 0, "bfloat16", 0.0),
+    (4, 1024, (32, 8, 128), 0, "bfloat16", 0.0),
+    (4, 1024, (16, 8, 64), 0, "bfloat16", 0.0),
+    (2, 2048, (32, 16, 128), 1024, "bfloat16", 0.0),
+    (2, 1024, (24, 2, 128), 0, "float32", 0.0),
+    (4, 1024, (24, 2, 128), 0, "bfloat16", 2.0),
+    (4, 1024, (24, 2, 128), 0, "bfloat16", 4.0),
+    (4, 1024, (32, 8, 128), 0, "bfloat16", 2.0),
+    (4, 1024, (32, 8, 128), 0, "bfloat16", 4.0),
 )
 #: [train-kernels]' RMSNorm cases: starcoder2-3b's norms at B 4 x S 1024,
 #: qwen3-8b's qk-norm rows (4 x 1024 tokens x 32 heads, 128 wide), and
@@ -2999,11 +3022,11 @@ def train_kernel_cases(device) -> dict:
 
     out, breaches, errs = {}, [], {"flash_attention_bwd": [],
                                    "rmsnorm_bwd": []}
-    for B, S, heads, window, dtn in TRAIN_ATTN_CASES:
+    for B, S, heads, window, dtn, c in TRAIN_ATTN_CASES:
         rec = attention_bwd_case(device, randn, B, S, heads, window, dtn,
-                                 breaches)
+                                 breaches, key_offset=c)
         errs["flash_attention_bwd"].append(rec["max_abs_err"])
-        if (B, S, heads, dtn) == (4, 1024, (24, 2, 128), "bfloat16"):
+        if (B, S, heads, dtn, c) == (4, 1024, (24, 2, 128), "bfloat16", 0.0):
             out["flash_attention_bwd"] = rec
     for rows, d, dtn in TRAIN_RMS_CASES:
         rec = rmsnorm_bwd_case(randn, rows, d, dtn, breaches)
@@ -3030,34 +3053,53 @@ def _hold_grads(label, got, want, dtn, breaches) -> tuple:
 
 
 def attention_bwd_case(device, randn, B, S, heads, window, dtn,
-                       breaches) -> dict:
-    """The attention backward kernel at one causal shape on the forward
-    kernel's output (``heads`` = (Hq, Hkv, hd))."""
+                       breaches, key_offset: float = 0.0) -> dict:
+    """The attention backward kernel at one causal shape (``heads`` = (Hq,
+    Hkv, hd); keys randn + ``key_offset``) on the forward kernel's output:
+    in bf16 the training forward's (with LSE and residual), whose output
+    must equal the serving forward's bit for bit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import backward as fb
     Hq, Hkv, hd = heads
     dt = getattr(torch, dtn)
+    label = f"attention bwd {B}x{S} {heads} w{window} {dtn} c{key_offset:g}"
     q = randn((B, S, Hq, hd), dt)
-    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
-    dout = randn((B, S, Hq, hd), dt)
+    k = (randn((B, S, Hkv, hd), torch.float32) + key_offset).to(dt)
+    v, dout = randn((B, S, Hkv, hd), dt), randn((B, S, Hq, hd), dt)
     kw = dict(causal=True, window=window)
     o = fa.flash_attention_cuda(q, k, v, **kw)
-    got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
-    again = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+    body = fb.body_for(dt, hd)
+    out_same, kw_b = None, kw
+    if body == "tensor_cores":
+        o_t, lse, o_lo = fa.flash_attention_cuda(q, k, v, stats=True, **kw)
+        out_same = torch.equal(o_t, o)
+        if not out_same:
+            breaches.append(f"{label}: the training forward's output "
+                            "differs from the serving forward's")
+        kw_b = dict(kw, lse=lse, out_lo=o_lo)
+        del o_t
+    before = dict(fb.LAUNCHES)
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
+    again = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
     torch.cuda.synchronize()
+    ran_tc = fb.LAUNCHES["flash_attention_bwd_tc"] - before[
+        "flash_attention_bwd_tc"]
+    if ran_tc != (2 if body == "tensor_cores" else 0):
+        breaches.append(f"{label}: {ran_tc} tensor-core launches for the "
+                        f"{body} body")
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     if not same:
-        breaches.append(f"attention bwd {B}x{S} {heads} {dtn}: two runs "
-                        "differ")
+        breaches.append(f"{label}: two runs differ")
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(fa.attention_ref(*leaves, **kw), leaves,
                                dout.float())
     sub = []
     err, rr = _hold_grads("qkv", got, want, dtn, sub)
-    breaches.extend(f"attention bwd {B}x{S} {heads} w{window} {dtn} {b}"
-                    for b in sub)
+    breaches.extend(f"{label} {b}" for b in sub)
+    rr_by = {f"d{n}": grad_errors(a, b, dtn)[1]
+             for n, a, b in zip("qkv", got, want)}
     del got, again, want, leaves
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -3082,13 +3124,17 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
     t_ops = flops / PEAK_BF16_S * 1e3
     t_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
         / PEAK_BYTES_S * 1e3
+    call = (lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b))
     rec = dict(
         B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window, dtype=dtn,
-        max_abs_err=err, rel_rms_err=rr, same_bits=same,
-        ms=timed_ms(lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout,
-                                                        **kw), 30, 3),
+        key_offset=key_offset, body=body,
+        nsplit=(fb.group_split(B, S, S, Hq, Hkv, True, window)
+                if body == "tensor_cores" else None),
+        max_abs_err=err, rel_rms_err=rr, rel_rms_by_grad=rr_by,
+        same_bits=same, out_same_bits=out_same,
+        ms=timed_ms(call, 30, 3), device_ms=device_ms(call, 30, 3),
         plain_ms=timed_ms(lambda: fa.attention_bwd_ref(q, k, v, o, dout,
-                                                       **kw), 5, 1),
+                                                       **kw_b), 5, 1),
         library_ms=lib_ms, flops=flops, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
@@ -3121,11 +3167,13 @@ def rmsnorm_bwd_case(randn, rows: int, d: int, dtn: str, breaches) -> dict:
     wl = (1.0 + w.float()).to(dt).requires_grad_()
     yl = F.rms_norm(xl, (d,), wl, eps)
     nbytes = (3 * rows * d + 2 * d) * x.element_size()
-    tpr, nblocks = rb.launch_shape(rows, d)
+    tpr, v, nblocks = rb.launch_shape(rows, d, x.element_size())
+    call = (lambda: rb.rmsnorm_bwd_cuda(x, w, gy, eps))
     rec = dict(
         rows=rows, d=d, dtype=dtn, max_abs_err=err, rel_rms_err=rr,
-        same_bits=same, body=f"{tpr} threads a row, {nblocks} blocks",
-        ms=timed_ms(lambda: rb.rmsnorm_bwd_cuda(x, w, gy, eps), 30, 3),
+        same_bits=same, body=f"{tpr} threads a row x {v} vectors, "
+        f"{nblocks} blocks",
+        ms=timed_ms(call, 30, 3), device_ms=device_ms(call, 30, 3),
         plain_ms=timed_ms(lambda: rn.rmsnorm_bwd_ref(x, w, gy, eps), 30,
                           3),
         library_ms=timed_ms(lambda: torch.autograd.grad(
@@ -3190,7 +3238,8 @@ def train_full_width(device, counters) -> tuple:
     a seed), B 4 x S 1024, remat, TRAIN_STEPS AdamW steps through
     ``make_train_step``, after ``release_memory()``.  Every count is
     zeroed just before each step and read just after it: attention's
-    forward 2L times (L forward + L recomputed), its backward L times,
+    forward 2L times (L forward + L recomputed), its backward L times, all
+    on the tensor-core bodies,
     RMSNorm's forward 2·(2L) + 1 and backward 2L + 1 times (plus the
     qk-norm's, where the model has one), nothing else, and no
     plain-version call.  Every loss and grad norm must be finite and
@@ -3210,8 +3259,8 @@ def train_full_width(device, counters) -> tuple:
     L = cfg.num_layers
     norms = 2 + (2 if cfg.qk_norm else 0)            # per block
     want = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
-            "flash_attention_bwd": L, "rmsnorm": 2 * L * norms + 1,
-            "rmsnorm_bwd": L * norms + 1}
+            "flash_attention_bwd": L, "flash_attention_bwd_tc": L,
+            "rmsnorm": 2 * L * norms + 1, "rmsnorm_bwd": L * norms + 1}
     live_gb = release_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3646,7 +3695,8 @@ def main() -> int:
             "launches": sum(c.get(name, 0) for c in later_paths),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "body": r["body"]})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

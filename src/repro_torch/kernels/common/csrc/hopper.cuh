@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, moe_swiglu.cu): mbarriers, TMA copies, wgmma
+// (moe_swiglu.cu, and flash_attention.cu and flash_attention_bwd.cu through
+// flash_attention/csrc/attention_tc.cuh): mbarriers, TMA copies, wgmma
 // fences and shared-memory descriptors, register fences, and CUDA's
 // tensor-map encoder, found through the runtime.  sm_90a only.
 //
 // kernels/_build.py hashes this header with every source that includes
-// it, so an edit here rebuilds both libraries.
+// it, so an edit here rebuilds every library that includes it.
 #pragma once
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)

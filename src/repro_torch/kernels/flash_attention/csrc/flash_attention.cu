@@ -70,6 +70,15 @@
 //   * Shared memory: Q 64·NWG·HDP·2 + 2 stages · 2 · 64·HDP·2 bytes (+1
 //     KiB to align the swizzle atoms): 49 KiB at HD 64, 113 KiB at 128,
 //     193 KiB at 256.
+//   * A training forward (ops.py's autograd.Function, bf16) passes two more
+//     outputs, null on the serving path, so serving launches and writes
+//     what it did: each row's log-sum-exp in base 2, m + log2(l) (the
+//     scores are exponentiated in base 2 here and in the backward), and
+//     out_lo = bf16(o - out), what out's bf16 rounding left out, so that
+//     out + out_lo carries ~16 bits of o.  out's bits do not change: the
+//     epilogue stores out exactly as before and the residual after it.
+//     The backward takes D = rowsum(dO ⊙ (out + out_lo)) from these
+//     (flash_attention_bwd.cu says why D needs more than out's 8 bits).
 //
 // CUDA-core body (float32; the first design): 64 q rows x 32 keys a tile,
 // 128 threads, each owning 4 q rows x 4 keys of the score tile and 4 rows
@@ -86,7 +95,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "../../common/csrc/hopper.cuh"
+#include "attention_tc.cuh"   // wgmma products, bf16 packing, tensor maps
 
 namespace {
 
@@ -269,9 +278,11 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv,
+           float scale, int causal, int window, cudaStream_t stream) {
+  // its float32 output needs no residual, and its backward recomputes LSE
+  if (lse != nullptr || out_lo != nullptr) return (int)cudaErrorInvalidValue;
   constexpr int QP = HD + 4;
   constexpr size_t smem = sizeof(float) *
       (size_t)(BQ * QP + BK * QP + BK * HD + BQ * PS);
@@ -293,139 +304,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // ---------------------------------------------------------------------
 namespace tc {
 
-using namespace hopper;
-using bf16 = __nv_bfloat16;
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem,
-// K-major)^T; D is overwritten when scale_d == 0.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64,
-// smem, MN-major: imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128,
-// smem, MN-major: imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256, f32) += A (64 x 16, bf16 in registers) * B (16 x 256,
-// smem, MN-major: imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+using namespace attn_tc;
 
 constexpr int BK = 64;             // keys per kv tile
-
-// 2^x by the multi-function unit alone (ex2.approx.ftz: about 2 ulp of
-// float32, far inside the bf16 output's 2^-9; exp2f adds range handling
-// around the same instruction).  On the H100 the body ran measurably
-// faster with it.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Per head_dim: consumer warpgroups (64 q rows each) and K/V stages.  At
 // HD 128 a thread needs about 160 registers, so three warpgroups fit one
@@ -449,35 +330,13 @@ struct Cfg {
   static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 4 * STAGES + 1024;
 };
 
-template <int HDP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HDP == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n256(o, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// hi = bf16(a, b); lo = bf16 of what hi leaves out
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(a - f.x, b - f.y);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                           const __grid_constant__ CUtensorMap tmK,
                           const __grid_constant__ CUtensorMap tmV,
-                          bf16* __restrict__ out, int Sq, int Skv, int Hq,
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          bf16* __restrict__ out_lo, int Sq, int Skv, int Hq,
                           int Hkv, float scale_log2, int causal,
                           int window) {
   using C = Cfg<HD>;
@@ -687,34 +546,34 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
       *reinterpret_cast<uint32_t*>(o1 + 8 * jj) =
           pack_bf16(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
   }
-}
-
-// Tensor map of a (B, S, H, hd) bf16 tensor read in boxes of {64 columns,
-// 1 head, rows, 1 batch} with the 128-byte swizzle.  Columns past hd
-// (HD 32) and rows past S read as zeros.
-int tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
-               int hd, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
-                                 (cuuint64_t)S * H * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (out_lo == nullptr) return;               // serving: out alone
+  // training: what out's bf16 rounding left out, and each row's
+  // log-sum-exp in base 2 (the domain of x and of the backward's exp2)
+  bf16* lo0 = out_lo + (((size_t)b * Sq + r0) * Hq + h) * HD + c2;
+  bf16* lo1 = out_lo + (((size_t)b * Sq + r1) * Hq + h) * HD + c2;
+  uint32_t hi, lo;
+#pragma unroll
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    if (r0 < Sq) {
+      split_bf16(o[4 * jj] * inv0, o[4 * jj + 1] * inv0, hi, lo);
+      *reinterpret_cast<uint32_t*>(lo0 + 8 * jj) = lo;
+    }
+    if (r1 < Sq) {
+      split_bf16(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1, hi, lo);
+      *reinterpret_cast<uint32_t*>(lo1 + 8 * jj) = lo;
+    }
+  }
+  if ((lane & 3) == 0) {
+    float* row = lse + ((size_t)b * Hq + h) * Sq;
+    if (r0 < Sq) row[r0] = m0 + log2f(fmaxf(l0, 1e-30f));
+    if (r1 < Sq) row[r1] = m1 + log2f(fmaxf(l1, 1e-30f));
+  }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv,
+           float scale, int causal, int window, cudaStream_t stream) {
   using C = Cfg<HD>;
   auto kern = flash_attention_tc_kernel<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -726,16 +585,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (!err) err = tensor_map(&tv, v, B, Skv, Hkv, HD, BK);
   if (err) return err;
   dim3 grid((Sq + C::BQ - 1) / C::BQ, Hq, B), block(C::THREADS);
-  kern<<<grid, block, C::BYTES, stream>>>(tq, tk, tv, (bf16*)out, Sq, Skv,
-                                          Hq, Hkv, scale * LOG2E, causal,
-                                          window);
+  kern<<<grid, block, C::BYTES, stream>>>(tq, tk, tv, (bf16*)out, lse,
+                                          (bf16*)out_lo, Sq, Skv, Hq, Hkv,
+                                          scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-using LaunchFn = int (*)(const void*, const void*, const void*, void*, int,
-                        int, int, int, int, float, int, int, cudaStream_t);
+using LaunchFn = int (*)(const void*, const void*, const void*, void*,
+                        float*, void*, int, int, int, int, int, float, int,
+                        int, cudaStream_t);
 
 // the instance of a body for head_dim hd in {32, 64, 128, 256}, else null
 LaunchFn pick(int hd, const LaunchFn (&fns)[4]) {
@@ -756,12 +616,18 @@ extern "C" {
 // cores.  The only pairings taken are (float32, CUDA cores) and
 // (bfloat16, tensor cores); anything else returns cudaErrorInvalidValue.
 // All tensors contiguous in the model layout; Hq % Hkv == 0; hd in {32,
-// 64, 128, 256}.
+// 64, 128, 256}.  lse (B, Hq, Sq) float32 and out_lo (out's shape, bf16)
+// are both null (serving) or both given (the tensor-core body of a
+// training forward: base-2 log-sum-exp of each row's scaled scores, and
+// bf16(o - out) of the float32 output o); the CUDA-core body takes
+// neither.
 int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
-                                void* out, int B, int Sq, int Skv, int Hq,
-                                int Hkv, int hd, float scale, int causal,
-                                int window, int dtype, int body,
-                                void* stream) {
+                                void* out, float* lse, void* out_lo, int B,
+                                int Sq, int Skv, int Hq, int Hkv, int hd,
+                                float scale, int causal, int window,
+                                int dtype, int body, void* stream) {
+  if ((lse == nullptr) != (out_lo == nullptr))
+    return (int)cudaErrorInvalidValue;
   static const LaunchFn cc_fns[4] = {cc::launch<32>, cc::launch<64>,
                                      cc::launch<128>, cc::launch<256>};
   static const LaunchFn tc_fns[4] = {tc::launch<32>, tc::launch<64>,
@@ -770,8 +636,8 @@ int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 0 && body == 0) fn = pick(hd, cc_fns);
   if (dtype == 1 && body == 1) fn = pick(hd, tc_fns);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, out, B, Sq, Skv, Hq, Hkv, scale, causal, window,
-            (cudaStream_t)stream);
+  return fn(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, scale, causal,
+            window, (cudaStream_t)stream);
 }
 
 // Dynamic shared memory a block of body `body` takes at head_dim hd

@@ -1,87 +1,146 @@
 // Flash attention backward for Hopper (sm_90a): the gradients dq, dk, dv
 // of the forward in csrc/flash_attention.cu (online-softmax GQA attention,
 // causal and sliding-window masks) for an output gradient dout, in the
-// model layout q (B, Sq, Hq, HD), k/v (B, Skv, Hkv, HD), HD 32, 64 or 128,
-// float32 or bfloat16 in and out, float32 arithmetic throughout.
+// model layout q (B, Sq, Hq, HD), k/v (B, Skv, Hkv, HD), HD 32, 64 or 128.
 //
-// The JAX package has no backward kernel: its train step differentiates
-// the jnp flash_attention (src/repro/models/transformer.py:250) with XLA,
-// and its forward kernel is flash_attention_tpu
+// What it replaces: no Pallas kernel.  The JAX package's train step
+// differentiates its jnp flash_attention (src/repro/models/transformer.py:
+// 250) with XLA; its forward kernel is flash_attention_tpu
 // (src/repro/kernels/flash_attention/kernel.py:98).  The port's model
-// reaches the forward through its CUDA kernel, so the backward of that
-// call is this file: FA-2's algorithm, on the CUDA cores.
+// reaches the forward through its CUDA kernel, so the backward of that call
+// is this file: FA-2's algorithm, with P = exp(s − LSE), dV = Pᵀ·dO, dP =
+// dO·Vᵀ, D = rowsum(dO ⊙ O), dS = P ⊙ (dP − D), dQ = scale·dS·K, dK =
+// scale·dSᵀ·Q, dK and dV summed over the Hq/Hkv query heads of a k/v head.
 //
-// The softmax statistics are recomputed, not taken from the forward: the
-// forward's output bits stay what the inference path has always had, and
-// its kernel stays as it is.  Three launches, no atomics, so two runs on
-// the same inputs give the same bits:
-//   1. prep: grid (q tiles, Hq, B).  LSE = m + log(l) of each q row over
-//      the keys its masks leave (the forward's online softmax without the
-//      P·V product), and D = rowsum(dout ⊙ out), both float32 (B, Hq, Sq).
-//   2. dkdv: grid (kv tiles, Hkv, B).  A block holds its 64 keys' K and V
-//      and walks the Hq/Hkv query heads of its group and, for each, the q
-//      tiles of the causal/window band: P = exp(scale·q·k − LSE), dV +=
-//      Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − D), dK += dSᵀ·Q; the whole
-//      group's contributions are summed in registers and stored once
-//      (dK times scale).
-//   3. dq: grid (q tiles, Hq, B).  A block holds its 64 query rows' Q,
-//      dO, LSE and D and walks the band's kv tiles: dQ += dS·K (times
-//      scale at the end).
+// What bounds it: operations.  Per unmasked (query, key) pair the design
+// runs 8 products of 2·HD flops (S and dP twice, once for dK/dV and once
+// for dQ; dV, dK, and dQ's two), against the bound's 2.5x the forward's
+// 4·HD (chip_smoke.py counts it so).  At starcoder2-3b's shape the bytes
+// (q, k, v, out, dout in; dq, dk, dv out) are a few percent of that time.
+// So the products belong on the bf16 tensor cores, and the design keeps
+// every tile in shared memory, fed by TMA, as the forward's body does.
+//
+// Two bodies, chosen by the type, never by a fallback:
+//   * bfloat16 -> the tensor-core body (namespace tc), four launches:
+//       1. delta: one pass over dout, out and out_lo (the forward's
+//          rounding residual) packs (LSE, D) a row into stats (B, Hq,
+//          Sq_pad) float2, Sq_pad = Sq rounded up to 64 (rows past Sq get
+//          zeros), D = rowsum(dO ⊙ (out + out_lo)) in float32.  LSE comes
+//          from the forward (base 2), so no pass recomputes the scores.
+//       2. dkdv: grid (B·Hkv·nsplit, kv tiles), one warpgroup a block.  K
+//          and V of 64 keys stay in shared memory (TMA, the forward's
+//          128-byte swizzle); the block walks hps = Hq/Hkv/nsplit query
+//          heads and, for each, the q tiles of the causal/window band,
+//          through a two-stage TMA ring of (Q, dO, stats) tiles.  Per q
+//          tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma, both operands in shared
+//          memory; dPᵀ runs while Pᵀ = 2^(x − LSE) is formed in
+//          registers); dV += Pᵀ·dO with Pᵀ as the bf16 register A operand;
+//          dSᵀ = Pᵀ ⊙ (dPᵀ − D) in float32 while dV's product runs; dK +=
+//          dSᵀ·Q with dSᵀ as plain bf16.  Q and dO serve as K-major B
+//          operands in the first two products and as MN-major ones in the
+//          last two, from the same swizzled tile.  dK and dV stay in
+//          float32 registers over the block's heads and are stored once.
+//       3. sum (only when nsplit > 1): the nsplit float32 partials of dK
+//          and dV summed in split order into bf16.
+//       4. dq: grid (B·Hq, q tiles), one warpgroup a block.  Q, dO and the
+//          rows' (LSE, D) stay; K and V tiles come through the ring.  Per
+//          kv tile: S = Q·Kᵀ and dP = dO·Vᵀ, dS in float32 registers, then
+//          dQ += dS_hi·K + dS_lo·K with K as the MN-major B operand.
+//     No atomics: a block owns its outputs, and the split count follows
+//     the shape alone (backward.py::group_split), so two runs on the same
+//     inputs give the same bits.
+//   * float32 -> the CUDA-core body (namespace cc, the first design): fp32
+//     FMAs, so the exact 1e-5 checks keep full float32 products; a pre-pass
+//     recomputes LSE and takes D from the float32 out.
+//
+// Why D in float32, and dS as hi + lo only in dQ.  An error δD_i enters dQ_i
+// as −δD_i·Σ_j P_ij k_j.  When the keys share a common component c (a bias,
+// as trained keys often have), Σ_j P_ij k_j carries c whatever P is, so
+// dQ's error grows with c; D from bf16 out breaches the bf16 checks at c =
+// 2 (tests/test_torch_attn_bwd_rounding.py simulates every rounding here).
+// Hence D = rowsum(dO ⊙ (out + out_lo)), with ~16 bits of O.  dQ's own
+// product sums dS_ij·k_j over the same keys, so bf16 rounding of dS adds
+// errors that c scales in the same way: dS goes in as hi + lo (hi =
+// bf16(dS), lo = bf16(dS − hi)), two products a k step.  dK = dSᵀ·Q and
+// dV = Pᵀ·dO sum over query rows, which share no such component: plain
+// bf16 dSᵀ and Pᵀ keep them at one bf16 rounding (the same simulation).
+//
+// Register budget (tensor-core body).  At HD 128 the dK and dV
+// accumulators are 128 float32 registers a thread (64 keys x 128 columns
+// each over a warpgroup), and a q tile adds Sᵀ/Pᵀ and dPᵀ/dSᵀ (32 each)
+// and their bf16 fragments (16 each): about 210 live at the peak (ptxas:
+// 234 registers at HD 128, 170 at 64 and 32, no spill).  So a block is one
+// warpgroup of 64 keys (not the forward's two or three of 64 rows each),
+// and two blocks share an SM (2 x 128 x 240 registers fit its 64 K).  The
+// dQ kernel (ptxas: 155 at HD 128) takes the same shape.  With one
+// warpgroup a block, the stage it finishes is refilled by its own thread
+// 0 after a barrier, with no release counter.
+//
+// Splitting a k/v head's query heads (GQA).  starcoder2-3b's 24/2 heads
+// give 2 k/v heads, so one block per (kv tile, k/v head, batch) is 128
+// blocks, and a causal kv tile 0 walks 16 q tiles x 12 heads while tile 15
+// walks 12.  backward.py::group_split splits the 12 heads over nsplit
+// blocks (4 at that shape: 512 blocks) until the heaviest block is no
+// longer than the mean work of the card's 264 two-block slots; their
+// float32 partials are summed by launch 3.  Causal blocks run heaviest
+// first: the kv tile (dK/dV) or q tile (dQ) is the grid's slowest axis.
+//
 // Semantics kept from the forward (and so from attention_ref): q position
 // i aligns with key i (the caller refuses causal Sq != Skv); a pair is
 // kept when k < Skv and, if causal, q >= k and, with a window, q - k <
-// window; rows past Sq and keys past Skv are zeros and get p = 0.
+// window; rows past Sq and keys past Skv come in as zeros and get P = 0.
 //
-// Bound: operations.  The masks' pairs times 2.5x the forward's 4·HD
-// flops (chip_smoke.py counts it so); this first design spends about 16·HD
-// flops a pair (two recomputed score products and the four gradient
-// products), in float32 on the CUDA cores, so it sits far from the bf16
-// tensor-core bound.  Speed is later work (ROADMAP: wgmma and TMA, as the
-// forward's tensor-core body).
-//
-// Layout of a block: 256 threads as 16 x 16 (ty, tx).  A 64 x 64 score
-// tile gives thread (ty, tx) rows ty + 16a and columns tx + 16b (a, b <
-// 4); a 64 x HD accumulator gives it rows ty + 16a and VW-wide column
-// groups VW·tx + 16·VW·e (VW = 4, or 2 at HD 32).  Tiles live in shared
-// memory as float32 with a row pitch of HD + 4 (q, k, v, dout) or 80 (the
-// P / dS tile), which keeps the reads below free of bank conflicts.
+// Shared memory (tensor-core body), bytes at HD 128 (HD 32 pads to 64):
+// dkdv K, V + 2 stages x (Q, dO) of 64 x 128 bf16 + 2 x 512 of stats =
+// 97 KiB; dq Q, dO + 2 x (K, V) = 96 KiB; + mbarriers and 1 KiB to align
+// the swizzle atoms (backward.py::smem_bytes mirrors Cfg).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; the launches
 // go on the caller's stream and return cudaGetLastError().
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"   // wgmma products, bf16 packing, tensor maps
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ bool keep(int qp, int kp, int Sq, int Skv,
+                                     int causal, int window) {
+  bool ok = qp < Sq && kp < Skv;
+  if (causal) ok = ok && qp >= kp;
+  if (window > 0) ok = ok && (qp - kp) < window;
+  return ok;
+}
+
+template <typename K>
+int set_smem(K kern, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------
+// CUDA-core body, float32
+// ---------------------------------------------------------------------
+namespace cc {
+
 constexpr int BQ = 64;          // q rows a tile
 constexpr int BK = 64;          // keys a tile
 constexpr int THREADS = 256;    // 16 x 16
 constexpr int PS = 80;          // pitch of the P / dS tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
-// 4 consecutive elements of src as floats (src 8- or 16-byte aligned)
+// 4 consecutive floats of src (16-byte aligned)
 __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // Copy `rows` rows of one head (HD elements each, `stride` elements apart)
@@ -197,14 +256,6 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][Acc<HD>::NC],
   }
 }
 
-__device__ __forceinline__ bool keep(int qp, int kp, int Sq, int Skv,
-                                     int causal, int window) {
-  bool ok = qp < Sq && kp < Skv;
-  if (causal) ok = ok && qp >= kp;
-  if (window > 0) ok = ok && (qp - kp) < window;
-  return ok;
-}
-
 // The kv tiles [kt_begin, kt_end) that q rows [q0, q_last] meet.
 __device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
                                         int causal, int window,
@@ -216,9 +267,7 @@ __device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
   kt_end = (k_end + BK - 1) / BK;
 }
 
-// ---------------------------------------------------------------------
 // 1. LSE and D
-// ---------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
@@ -305,9 +354,7 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------
 // 2. dK and dV
-// ---------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
@@ -392,9 +439,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   store_acc<T, HD>(dva, dv + kv_off, kv_stride, Skv - k0, 1.f, ty, tx);
 }
 
-// ---------------------------------------------------------------------
 // 3. dQ
-// ---------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
@@ -471,12 +516,6 @@ constexpr size_t grad_smem() {
          ((size_t)(2 * BQ + 2 * BK) * (HD + 4) + BQ * PS + 2 * BQ);
 }
 
-template <typename K>
-int set_smem(K kern, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, void* dq, void* dk, void* dv, float* lse,
@@ -511,49 +550,634 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// the float32 instance for head_dim hd; scratch holds LSE, then D
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               const void* out, const void* dout, void* dq, void* dk, void* dv,
-              float* lse, float* delta, int B, int Sq, int Skv, int Hq,
-              int Hkv, float scale, int causal, int window, cudaStream_t s) {
+              float* scratch, int B, int Sq, int Skv, int Hq, int Hkv,
+              float scale, int causal, int window, cudaStream_t s) {
+  float* lse = scratch;
+  float* delta = scratch + (size_t)B * Hq * Sq;
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, Sq,
-                           Skv, Hq, Hkv, scale, causal, window, s);
+      return launch<float, 32>(q, k, v, out, dout, dq, dk, dv, lse, delta,
+                               B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, Sq,
-                           Skv, Hq, Hkv, scale, causal, window, s);
+      return launch<float, 64>(q, k, v, out, dout, dq, dk, dv, lse, delta,
+                               B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                            Sq, Skv, Hq, Hkv, scale, causal, window, s);
+      return launch<float, 128>(q, k, v, out, dout, dq, dk, dv, lse, delta,
+                                B, Sq, Skv, Hq, Hkv, scale, causal, window,
+                                s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace cc
+
+// ---------------------------------------------------------------------
+// Tensor-core body, bfloat16
+// ---------------------------------------------------------------------
+namespace tc {
+
+using namespace attn_tc;
+
+constexpr int TILE_ROWS = 64;      // q rows and keys a tile
+constexpr int THREADS = 128;       // one warpgroup a block
+constexpr int STAGES = 2;
+
+template <int HD>
+struct Cfg {
+  static constexpr int HDP = HD < 64 ? 64 : HD;    // padded width in smem
+  static constexpr int NCB = HDP / 64;             // 128-byte column blocks
+  static constexpr int TILE = TILE_ROWS * HDP * 2; // one bf16 tile
+  static constexpr int STATS = TILE_ROWS * 8;      // 64 (LSE, D) pairs
+  // dkdv: K, V, STAGES x (Q, dO), STAGES stats rows, then the mbarriers
+  // (K/V, then one a stage)
+  static constexpr int KV_BAR = (2 + 2 * STAGES) * TILE + STAGES * STATS;
+  static constexpr int KV_BYTES = KV_BAR + 8 * (1 + STAGES) + 1024;
+  // dq: Q, dO, STAGES x (K, V), then the mbarriers (Q/dO, then a stage)
+  static constexpr int Q_BAR = (2 + 2 * STAGES) * TILE;
+  static constexpr int Q_BYTES = Q_BAR + 8 * (1 + STAGES) + 1024;
+};
+
+// the bf16 A fragments of a 64 x 64 accumulator (k steps of 16 columns:
+// groups 2kb and 2kb + 1 of its registers, as the forward feeds P·V)
+__device__ __forceinline__ void a_frags(const float (&s)[32],
+                                        uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    const int g0 = 8 * kb, g1 = 8 * kb + 4;
+    a[kb][0] = pack_bf16(s[g0], s[g0 + 1]);
+    a[kb][1] = pack_bf16(s[g0 + 2], s[g0 + 3]);
+    a[kb][2] = pack_bf16(s[g1], s[g1 + 1]);
+    a[kb][3] = pack_bf16(s[g1 + 2], s[g1 + 3]);
+  }
+}
+
+// the same as hi + lo fragments
+__device__ __forceinline__ void a_frags_split(const float (&s)[32],
+                                              uint32_t (&hi)[4][4],
+                                              uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    const int g0 = 8 * kb, g1 = 8 * kb + 4;
+    split_bf16(s[g0], s[g0 + 1], hi[kb][0], lo[kb][0]);
+    split_bf16(s[g0 + 2], s[g0 + 3], hi[kb][1], lo[kb][1]);
+    split_bf16(s[g1], s[g1 + 1], hi[kb][2], lo[kb][2]);
+    split_bf16(s[g1 + 2], s[g1 + 3], hi[kb][3], lo[kb][3]);
+  }
+}
+
+// d (64 x 64) = A (64 rows of tile a) · B (64 rows of tile b)ᵀ over HD
+// columns, both K-major in shared memory (swizzled, 64-row column blocks)
+template <int HD>
+__device__ __forceinline__ void nt_product(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * TILE_ROWS * 128 + (ks & 3) * 32;
+    wgmma_ss_n64(d, desc_sw128(a + off, 16, 1024),
+                 desc_sw128(b + off, 16, 1024), ks > 0);
+  }
+}
+
+// d (64 x HDP) += A (bf16 fragments, 64 x 64) · tile b (64 rows x HDP,
+// MN-major B)
+template <int HDP>
+__device__ __forceinline__ void nn_product(float (&d)[HDP / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    wgmma_pv<HDP>(d, a[kb],
+                  desc_sw128(b + kb * 16 * 128, TILE_ROWS * 128, 1024));
+}
+
+// Store a thread's rows r0 and r0 + 8 of a 64 x HDP accumulator times
+// `mul` (columns < HD) as bf16 pairs, or as float32 pairs when f32 is
+// given; row r lives at dst + r * stride; rows at or past `valid` skipped.
+template <int HD, int HDP>
+__device__ __forceinline__ void store_rows(const float (&acc)[HDP / 2],
+                                           bf16* dst, float* f32,
+                                           size_t stride, int r0, int c2,
+                                           int valid, float mul) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const float a = acc[4 * jj + 2 * half] * mul;
+      const float b = acc[4 * jj + 2 * half + 1] * mul;
+      const size_t off = r * stride + 8 * jj + c2;
+      if (f32 != nullptr)
+        *reinterpret_cast<float2*>(f32 + off) = make_float2(a, b);
+      else
+        *reinterpret_cast<uint32_t*>(dst + off) = pack_bf16(a, b);
+    }
+  }
+}
+
+// 1. (LSE, D) a row.  TPR threads a row, one 16-byte vector each.
+template <int HD>
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const bf16* __restrict__ out,
+                      const bf16* __restrict__ out_lo,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float2* __restrict__ stats, int Sq, int Sq_pad, int Hq,
+                      int n_rows) {
+  constexpr int TPR = HD / 8;
+  const int row = blockIdx.x * (256 / TPR) + threadIdx.x / TPR;
+  const int lane = threadIdx.x % TPR;
+  const bool live = row < n_rows;
+  const int r = row % Sq_pad, bh = row / Sq_pad;  // stats row (b·Hq + h, r)
+  float s = 0.f;
+  if (live && r < Sq) {
+    const int h = bh % Hq, b = bh / Hq;
+    const size_t off = (((size_t)b * Sq + r) * Hq + h) * HD + 8 * lane;
+    const uint4 o = *reinterpret_cast<const uint4*>(out + off);
+    const uint4 l = *reinterpret_cast<const uint4*>(out_lo + off);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&l);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fo = __bfloat1622float2(o2[i]);
+      const float2 fl = __bfloat1622float2(l2[i]);
+      const float2 fg = __bfloat1622float2(g2[i]);
+      s = fmaf(fo.x + fl.x, fg.x, s);             // out + out_lo is exact
+      s = fmaf(fo.y + fl.y, fg.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (live && lane == 0)
+    stats[row] = make_float2(r < Sq ? lse[(size_t)bh * Sq + r] : 0.f, s);
+}
+
+// 2. dK and dV of 64 keys over hps query heads
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
+                        const __grid_constant__ CUtensorMap tmK,
+                        const __grid_constant__ CUtensorMap tmV,
+                        const __grid_constant__ CUtensorMap tmG,
+                        const float2* __restrict__ stats,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        float* __restrict__ partial, int Sq, int Sq_pad,
+                        int Skv, int Hq, int Hkv, int nsplit, float scale,
+                        float scale_log2, int causal, int window) {
+  using C = Cfg<HD>;
+  constexpr int HDP = C::HDP, NCB = C::NCB, NA = HDP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + C::TILE;
+  const uint32_t sRing = base + 2 * C::TILE;       // stage s: Q, then dO
+  const uint32_t sStats = base + (2 + 2 * STAGES) * C::TILE;
+  const uint32_t barKV = base + C::KV_BAR;         // then full[0..STAGES)
+  const float2* stats_s =
+      reinterpret_cast<const float2*>(smem_raw + (sStats - raw));
+
+  const int kt = blockIdx.y;                       // heaviest (causal) first
+  const int groups = Hkv * nsplit;
+  const int b = blockIdx.x / groups, hs = blockIdx.x % groups;
+  const int hk = hs / nsplit, split = hs % nsplit;
+  const int hps = Hq / Hkv / nsplit;               // query heads a block
+  const int h_first = hk * (Hq / Hkv) + split * hps;
+  const int k0 = kt * TILE_ROWS, k_last = min(k0 + TILE_ROWS, Skv) - 1;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int kr0 = k0 + 16 * warp + (lane >> 2), kr1 = kr0 + 8;
+  const int c2 = 2 * (lane & 3);
+
+  // the q tiles whose rows meet keys [k0, k_last]; iteration it visits
+  // head h_first + it / n_qt, q tile qt_begin + it % n_qt
+  const int qt_begin = causal ? k0 / TILE_ROWS : 0;
+  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int n_qt = max(0, (q_end + TILE_ROWS - 1) / TILE_ROWS - qt_begin);
+  const int n_it = hps * n_qt;
+
+  auto sQ_of = [&](int it) { return sRing + 2 * (it % STAGES) * C::TILE; };
+  auto full_of = [&](int it) { return barKV + 8 + 8 * (it % STAGES); };
+  auto load_qg = [&](int it) {                     // one thread issues it
+    const int h = h_first + it / n_qt;
+    const int q0 = (qt_begin + it % n_qt) * TILE_ROWS;
+    const uint32_t sQ = sQ_of(it), bar = full_of(it);
+    mbar_expect(bar, 2 * C::TILE + C::STATS);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(sQ + cb * TILE_ROWS * 128, &tmQ, bar, 64 * cb, h, q0, b);
+      tma_load(sQ + C::TILE + cb * TILE_ROWS * 128, &tmG, bar, 64 * cb, h,
+               q0, b);
+    }
+    bulk_load(sStats + (it % STAGES) * C::STATS,
+              stats + ((size_t)b * Hq + h) * Sq_pad + q0, C::STATS, bar);
+  };
+  if (t == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(barKV + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect(barKV, 2 * C::TILE);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(sK + cb * TILE_ROWS * 128, &tmK, barKV, 64 * cb, hk, k0, b);
+      tma_load(sV + cb * TILE_ROWS * 128, &tmV, barKV, 64 * cb, hk, k0, b);
+    }
+    for (int it = 0; it < n_it && it < STAGES; ++it) load_qg(it);
+  }
+
+  float dka[NA], dva[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(barKV, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    mbar_wait(full_of(it), (it / STAGES) & 1);
+    const int q0 = (qt_begin + it % n_qt) * TILE_ROWS;
+    const uint32_t sQ = sQ_of(it), sG = sQ + C::TILE;
+    const float2* st = stats_s + (it % STAGES) * TILE_ROWS;
+
+    // Sᵀ = K·Qᵀ, then dPᵀ = V·dOᵀ, as two groups
+    float s[32], dp[32];
+    wgmma_fence();
+    nt_product<HD>(s, sK, sQ);
+    wgmma_commit();
+    nt_product<HD>(dp, sV, sG);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // Pᵀ = 2^(x − LSE) of column (query) c, zero where masked; a thread
+    // holds keys kr0 (registers 4jj + e) and kr1 (4jj + 2 + e) of columns
+    // 8jj + c2 + e
+    const bool edge = (causal && q0 < k0 + TILE_ROWS - 1) ||
+                      (window > 0 && q0 + TILE_ROWS - 1 - k0 >= window) ||
+                      k0 + TILE_ROWS > Skv || q0 + TILE_ROWS > Sq;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jj + c2 + e;
+        const float L = st[c].x;
+        float p0 = fast_exp2(s[4 * jj + e] * scale_log2 - L);
+        float p1 = fast_exp2(s[4 * jj + 2 + e] * scale_log2 - L);
+        if (edge) {
+          p0 = keep(q0 + c, kr0, Sq, Skv, causal, window) ? p0 : 0.f;
+          p1 = keep(q0 + c, kr1, Sq, Skv, causal, window) ? p1 : 0.f;
+        }
+        s[4 * jj + e] = p0;
+        s[4 * jj + 2 + e] = p1;
+      }
+    }
+    uint32_t pa[4][4];
+    a_frags(s, pa);
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dV += Pᵀ·dO (Pᵀ plain bf16), and meanwhile dSᵀ = Pᵀ ⊙ (dPᵀ − D)
+    wgmma_fence();
+    fence_regs(dva);
+    nn_product<HDP>(dva, pa, sG);
+    wgmma_commit();
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float D = st[8 * jj + c2 + e].y;
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - D);
+        dp[4 * jj + 2 + e] = s[4 * jj + 2 + e] * (dp[4 * jj + 2 + e] - D);
+      }
+    }
+    uint32_t da[4][4];
+    a_frags(dp, da);
+
+    // dK += dSᵀ·Q (dSᵀ plain bf16)
+    wgmma_fence();
+    fence_regs(dka);
+    nn_product<HDP>(dka, da, sQ);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(da);
+
+    // the stage is consumed: refill it with iteration it + STAGES
+    __syncthreads();
+    if (t == 0 && it + STAGES < n_it) load_qg(it + STAGES);
+  }
+
+  const size_t stride = (size_t)Hkv * HD;
+  const size_t off = ((size_t)b * Skv + k0) * Hkv * HD + (size_t)hk * HD;
+  const int r0 = 16 * warp + (lane >> 2), valid = Skv - k0;
+  if (nsplit == 1) {
+    store_rows<HD, HDP>(dka, dk + off, nullptr, stride, r0, c2, valid,
+                        scale);
+    store_rows<HD, HDP>(dva, dv + off, nullptr, stride, r0, c2, valid,
+                        1.f);
+  } else {
+    const size_t n = (size_t)gridDim.x / groups * Skv * stride;  // dK's size
+    store_rows<HD, HDP>(dka, nullptr, partial + split * n + off, stride, r0,
+                        c2, valid, scale);
+    store_rows<HD, HDP>(dva, nullptr, partial + (nsplit + split) * n + off,
+                        stride, r0, c2, valid, 1.f);
+  }
+}
+
+// 3. dK and dV from their nsplit float32 partials, summed in split order:
+// element i of the 2n (dK's n, then dV's), 4 a thread
+__global__ void __launch_bounds__(256)
+attn_bwd_sum_kernel(const float* __restrict__ partial, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int nsplit, size_t n) {
+  size_t i = ((size_t)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  if (is_v) i -= n;
+  const float* src = partial + (is_v ? (size_t)nsplit * n : 0) + i;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int sp = 1; sp < nsplit; ++sp) {
+    const float4 p = *reinterpret_cast<const float4*>(src + sp * n);
+    a.x += p.x;
+    a.y += p.y;
+    a.z += p.z;
+    a.w += p.w;
+  }
+  *reinterpret_cast<uint2*>((is_v ? dv : dk) + i) =
+      make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+}
+
+// 4. dQ of 64 query rows
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
+                      const __grid_constant__ CUtensorMap tmK,
+                      const __grid_constant__ CUtensorMap tmV,
+                      const __grid_constant__ CUtensorMap tmG,
+                      const float2* __restrict__ stats, bf16* __restrict__ dq,
+                      int Sq, int Sq_pad, int Skv, int Hq, int Hkv,
+                      float scale, float scale_log2, int causal, int window) {
+  using C = Cfg<HD>;
+  constexpr int HDP = C::HDP, NCB = C::NCB, NA = HDP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sG = base + C::TILE;
+  const uint32_t sRing = base + 2 * C::TILE;       // stage s: K, then V
+  const uint32_t barQ = base + C::Q_BAR;           // then full[0..STAGES)
+
+  const int n_qtiles = (Sq + TILE_ROWS - 1) / TILE_ROWS;
+  const int qt = causal ? n_qtiles - 1 - blockIdx.y : blockIdx.y;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * TILE_ROWS, q_last = min(q0 + TILE_ROWS, Sq) - 1;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const int c2 = 2 * (lane & 3);
+
+  int k_begin = 0, k_end = Skv;
+  if (causal) k_end = min(Skv, q_last + 1);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int kt_begin = k_begin / TILE_ROWS;
+  const int kt_end = (k_end + TILE_ROWS - 1) / TILE_ROWS;
+
+  auto sK_of = [&](int kt) {
+    return sRing + 2 * ((kt - kt_begin) % STAGES) * C::TILE;
+  };
+  auto full_of = [&](int kt) {
+    return barQ + 8 + 8 * ((kt - kt_begin) % STAGES);
+  };
+  auto load_kv = [&](int kt) {                     // one thread issues it
+    const uint32_t sK = sK_of(kt), bar = full_of(kt);
+    mbar_expect(bar, 2 * C::TILE);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(sK + cb * TILE_ROWS * 128, &tmK, bar, 64 * cb, hk,
+               kt * TILE_ROWS, b);
+      tma_load(sK + C::TILE + cb * TILE_ROWS * 128, &tmV, bar, 64 * cb, hk,
+               kt * TILE_ROWS, b);
+    }
+  };
+  if (t == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(barQ + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect(barQ, 2 * C::TILE);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(sQ + cb * TILE_ROWS * 128, &tmQ, barQ, 64 * cb, h, q0, b);
+      tma_load(sG + cb * TILE_ROWS * 128, &tmG, barQ, 64 * cb, h, q0, b);
+    }
+    for (int kt = kt_begin; kt < kt_end && kt < kt_begin + STAGES; ++kt)
+      load_kv(kt);
+  }
+  // this thread's rows' (LSE, D); rows past Sq read the zeros of the pad
+  const float2* srow = stats + ((size_t)b * Hq + h) * Sq_pad;
+  const float2 st0 = srow[r0], st1 = srow[r1];
+
+  float dqa[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dqa[i] = 0.f;
+  mbar_wait(barQ, 0);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    mbar_wait(full_of(kt), ((kt - kt_begin) / STAGES) & 1);
+    const uint32_t sK = sK_of(kt), sV = sK + C::TILE;
+    const int k0 = kt * TILE_ROWS;
+
+    // S = Q·Kᵀ, then dP = dO·Vᵀ, as two groups
+    float s[32], dp[32];
+    wgmma_fence();
+    nt_product<HD>(s, sQ, sK);
+    wgmma_commit();
+    nt_product<HD>(dp, sG, sV);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P = 2^(x − LSE), zero where masked: rows r0 (registers 4jj + e) and
+    // r1 (4jj + 2 + e), keys k0 + 8jj + c2 + e
+    const bool edge = (causal && k0 + TILE_ROWS - 1 > q0) ||
+                      (window > 0 && k0 <= q_last - window) ||
+                      k0 + TILE_ROWS > Skv;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = fast_exp2(s[4 * jj + e] * scale_log2 - st0.x);
+        float p1 = fast_exp2(s[4 * jj + 2 + e] * scale_log2 - st1.x);
+        if (edge) {
+          const int kp = k0 + 8 * jj + c2 + e;
+          p0 = keep(r0, kp, Sq, Skv, causal, window) ? p0 : 0.f;
+          p1 = keep(r1, kp, Sq, Skv, causal, window) ? p1 : 0.f;
+        }
+        s[4 * jj + e] = p0;
+        s[4 * jj + 2 + e] = p1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS = P ⊙ (dP − D) in float32; dQ += dS_hi·K + dS_lo·K
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - st0.y);
+        dp[4 * jj + 2 + e] = s[4 * jj + 2 + e] * (dp[4 * jj + 2 + e] - st1.y);
+      }
+    }
+    uint32_t dsh[4][4], dsl[4][4];
+    a_frags_split(dp, dsh, dsl);
+    wgmma_fence();
+    fence_regs(dqa);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const uint64_t db =
+          desc_sw128(sK + kb * 16 * 128, TILE_ROWS * 128, 1024);
+      wgmma_pv<HDP>(dqa, dsh[kb], db);
+      wgmma_pv<HDP>(dqa, dsl[kb], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(dsh);
+    fence_regs(dsl);
+
+    // the stage is consumed: refill it with tile kt + STAGES
+    __syncthreads();
+    if (t == 0 && kt + STAGES < kt_end) load_kv(kt + STAGES);
+  }
+
+  store_rows<HD, HDP>(dqa,
+                      dq + (((size_t)b * Sq + q0) * Hq + h) * HD, nullptr,
+                      (size_t)Hq * HD, 16 * warp + (lane >> 2), c2, Sq - q0,
+                      scale);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* out_lo, const void* dout, const float* lse, void* dq,
+           void* dk, void* dv, float2* stats, float* partial, int B, int Sq,
+           int Skv, int Hq, int Hkv, float scale, int causal, int window,
+           int nsplit, cudaStream_t s) {
+  using C = Cfg<HD>;
+  auto dkdv = attn_bwd_dkdv_tc_kernel<HD>;
+  auto dqk = attn_bwd_dq_tc_kernel<HD>;
+  static const int attr = [&] {
+    int e = set_smem(dkdv, C::KV_BYTES);
+    if (!e) e = set_smem(dqk, C::Q_BYTES);
+    return e;
+  }();
+  if (attr) return attr;
+  if (out_lo == nullptr || lse == nullptr || nsplit < 1 ||
+      (Hq / Hkv) % nsplit || (nsplit > 1) != (partial != nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tg;
+  int err = tensor_map(&tq, q, B, Sq, Hq, HD, TILE_ROWS);
+  if (!err) err = tensor_map(&tk, k, B, Skv, Hkv, HD, TILE_ROWS);
+  if (!err) err = tensor_map(&tv, v, B, Skv, Hkv, HD, TILE_ROWS);
+  if (!err) err = tensor_map(&tg, dout, B, Sq, Hq, HD, TILE_ROWS);
+  if (err) return err;
+  const int Sq_pad = (Sq + TILE_ROWS - 1) / TILE_ROWS * TILE_ROWS;
+  const int n_rows = B * Hq * Sq_pad;
+  constexpr int RPB = 256 / (HD / 8);
+  attn_bwd_delta_kernel<HD><<<(n_rows + RPB - 1) / RPB, 256, 0, s>>>(
+      (const bf16*)out, (const bf16*)out_lo, (const bf16*)dout, lse, stats,
+      Sq, Sq_pad, Hq, n_rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = scale * LOG2E;
+  const dim3 kgrid(B * Hkv * nsplit, (Skv + TILE_ROWS - 1) / TILE_ROWS);
+  dkdv<<<kgrid, THREADS, C::KV_BYTES, s>>>(
+      tq, tk, tv, tg, stats, (bf16*)dk, (bf16*)dv, partial, Sq, Sq_pad, Skv,
+      Hq, Hkv, nsplit, scale, scale_log2, causal, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (nsplit > 1) {
+    const size_t n = (size_t)B * Skv * Hkv * HD;
+    attn_bwd_sum_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, s>>>(
+        partial, (bf16*)dk, (bf16*)dv, nsplit, n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 qgrid(B * Hq, (Sq + TILE_ROWS - 1) / TILE_ROWS);
+  dqk<<<qgrid, THREADS, C::Q_BYTES, s>>>(tq, tk, tv, tg, stats, (bf16*)dq,
+                                         Sq, Sq_pad, Skv, Hq, Hkv, scale,
+                                         scale_log2, causal, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dout, dq, dk, dv all of
-// it); all contiguous in the model layout, 16-byte aligned; Hq % Hkv == 0;
-// hd in {32, 64, 128}.  lse, delta: (B, Hq, Sq) float32 scratch.
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor
+// cores.  The only pairings taken are (float32, CUDA cores) and (bfloat16,
+// tensor cores); anything else returns cudaErrorInvalidValue.  q, k, v,
+// out, dout, dq, dk, dv: that dtype, contiguous in the model layout,
+// 16-byte aligned; Hq % Hkv == 0; hd in {32, 64, 128}.
+//   * CUDA cores: out_lo, lse and partial null, nsplit 1; scratch (2, B,
+//     Hq, Sq) float32 (LSE, then D).
+//   * tensor cores: out_lo (out's shape) and lse (B, Hq, Sq) float32 from
+//     the training forward; scratch (B, Hq, Sq_pad, 2) float32, Sq_pad =
+//     Sq rounded up to 64; nsplit divides Hq / Hkv; partial (2, nsplit, B,
+//     Skv, Hkv, hd) float32 when nsplit > 1, else null.
 int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
-                              const void* out, const void* dout, void* dq,
-                              void* dk, void* dv, float* lse, float* delta,
-                              int B, int Sq, int Skv, int Hq, int Hkv,
-                              int hd, float scale, int causal, int window,
-                              int dtype, void* stream) {
+                              const void* out, const void* out_lo,
+                              const void* dout, const float* lse, void* dq,
+                              void* dk, void* dv, void* scratch,
+                              float* partial, int B, int Sq, int Skv, int Hq,
+                              int Hkv, int hd, float scale, int causal,
+                              int window, int dtype, int body, int nsplit,
+                              void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                            Sq, Skv, Hq, Hkv, scale, causal, window, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, out, dout, dq, dk, dv, lse,
-                                    delta, B, Sq, Skv, Hq, Hkv, scale, causal,
-                                    window, s);
+  if (dtype == 0 && body == 0) {
+    if (out_lo != nullptr || lse != nullptr || partial != nullptr ||
+        nsplit != 1)
+      return (int)cudaErrorInvalidValue;
+    return cc::launch_hd(hd, q, k, v, out, dout, dq, dk, dv, (float*)scratch,
+                         B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
+  }
+  if (dtype == 1 && body == 1) {
+    float2* stats = (float2*)scratch;
+    switch (hd) {
+      case 32:
+        return tc::launch<32>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
+                              stats, partial, B, Sq, Skv, Hq, Hkv, scale,
+                              causal, window, nsplit, s);
+      case 64:
+        return tc::launch<64>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
+                              stats, partial, B, Sq, Skv, Hq, Hkv, scale,
+                              causal, window, nsplit, s);
+      case 128:
+        return tc::launch<128>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
+                               stats, partial, B, Sq, Skv, Hq, Hkv, scale,
+                               causal, window, nsplit, s);
+    }
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a tensor-core block at head_dim hd: kernel 0 =
+// dK/dV, 1 = dQ (bytes), or -1 for a pair that has no instance.
+int mcsa_attention_bwd_smem(int hd, int kernel) {
+  int kv = -1, qb = -1;
+  switch (hd) {
+    case 32: kv = tc::Cfg<32>::KV_BYTES; qb = tc::Cfg<32>::Q_BYTES; break;
+    case 64: kv = tc::Cfg<64>::KV_BYTES; qb = tc::Cfg<64>::Q_BYTES; break;
+    case 128: kv = tc::Cfg<128>::KV_BYTES; qb = tc::Cfg<128>::Q_BYTES; break;
+  }
+  return kernel == 0 ? kv : kernel == 1 ? qb : -1;
 }
 
 const char* mcsa_cuda_error_string(int code) {

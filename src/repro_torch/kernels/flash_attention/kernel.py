@@ -7,7 +7,10 @@ inputs, allocates the output with ``torch.empty``, launches on the
 current stream without synchronising, and raises if the launch was
 refused.  ``LAUNCHES["flash_attention"]`` counts every successful launch
 and ``LAUNCHES["flash_attention_tc"]`` those of the tensor-core body,
-nowhere else.
+nowhere else.  A training forward (``stats=True``, bfloat16) also
+returns each row's log-sum-exp and the output's rounding residual, what
+the tensor-core backward (``backward.py``) takes; ``out``'s bits do not
+change.
 
 The body follows the dtype, explicitly (:func:`body_for`): bfloat16 runs
 the tensor-core body (wgmma, bf16 tiles), float32 the CUDA-core body
@@ -59,7 +62,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load(LIB_NAME, SOURCE, FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mcsa_flash_attention_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+        p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
     lib.mcsa_flash_attention_launch.restype = ctypes.c_int
     lib.mcsa_flash_attention_smem.argtypes = [i, i]
     lib.mcsa_flash_attention_smem.restype = ctypes.c_int
@@ -100,11 +103,17 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         stats: bool = False):
     """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), one dtype (float32 or
     bfloat16), contiguous and 16-byte aligned, on one CUDA device ->
-    (B, Sq, Hq, hd) in that dtype."""
+    (B, Sq, Hq, hd) in that dtype.
+
+    ``stats=True`` (bfloat16 only: what the tensor-core backward needs)
+    returns ``(out, lse, out_lo)``: ``out`` with the same bits, each row's
+    log-sum-exp of the scaled scores in base 2 (B, Hq, Sq) float32, and
+    ``out_lo`` = bf16(o − out) of the float32 output o; see
+    ``ref.attention_ref``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name}: expected a tensor")
@@ -121,19 +130,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     body = body_for(q.dtype, hd)
+    if stats and body != "tensor_cores":
+        raise TypeError(f"attention: stats=True is the bfloat16 body's; "
+                        f"{q.dtype}'s backward recomputes them")
     out = torch.empty_like(q)
+    lse = out_lo = None
+    if stats:
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                          device=q.device)
+        out_lo = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return (out, lse, out_lo) if stats else out
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mcsa_flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-        Skv, Hq, Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),
-        DTYPES[q.dtype], BODIES[body], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if stats else None,
+        out_lo.data_ptr() if stats else None, B, Sq, Skv, Hq, Hkv, hd,
+        float(hd ** -0.5), int(bool(causal)), int(window), DTYPES[q.dtype],
+        BODIES[body], stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash attention launch failed: {msg} ({rc})")
     LAUNCHES["flash_attention"] += 1
     if body == "tensor_cores":
         LAUNCHES["flash_attention_tc"] += 1
-    return out
+    return (out, lse, out_lo) if stats else out

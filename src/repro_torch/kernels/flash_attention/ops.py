@@ -22,43 +22,50 @@ from .kernel import check_shapes, flash_attention_cuda
 from .ref import attention_bwd_ref, attention_ref
 
 
-def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, window: int, stats: bool = False):
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    stats=stats)
     if q.device.type == "cpu":
         check_shapes(q, k, v, causal, window)
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             stats=stats)
     raise ValueError(f"flash attention: unsupported device {q.device}")
 
 
-def _backward(q, k, v, out, dout, causal: bool, window: int) -> tuple:
+def _backward(q, k, v, out, dout, causal: bool, window: int, lse,
+              out_lo) -> tuple:
+    kw = dict(causal=causal, window=window, lse=lse, out_lo=out_lo)
     if q.device.type == "cuda":
-        return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal,
-                                        window=window)
+        return flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                                 window=window)
+        return attention_bwd_ref(q, k, v, out, dout, **kw)
     raise ValueError(f"flash attention: unsupported device {q.device}")
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with the backward kernel (CUDA) or its plain version
-    (CPU); saves q, k, v and the output, and recomputes the softmax
-    statistics in the backward."""
+    (CPU); saves q, k, v and the output.  In bfloat16 the forward also
+    returns, and saves, each row's log-sum-exp and the output's rounding
+    residual (the tensor-core backward's LSE and float32 D); in float32
+    the backward recomputes the statistics."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        if q.dtype == torch.bfloat16:
+            out, lse, out_lo = _forward(q, k, v, causal, window, stats=True)
+        else:
+            out, lse, out_lo = _forward(q, k, v, causal, window), None, None
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out,
                                dout.to(out.dtype).contiguous(), ctx.causal,
-                               ctx.window)
+                               ctx.window, lse, out_lo)
         return dq, dk, dv, None, None
 
 

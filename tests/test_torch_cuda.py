@@ -921,23 +921,35 @@ def _chip_smoke():
 
 
 def _attention_bwd_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
-                        Skv=None):
-    """The backward kernel on the forward kernel's output against float32
-    autograd through ``attention_ref``; returns the launch increments."""
+                        Skv=None, key_offset=0.0):
+    """The backward kernel on the forward kernel's output (bf16: with the
+    training forward's LSE and residual, whose ``out`` must equal the
+    serving forward's bit for bit) against float32 autograd through
+    ``attention_ref``, twice for the same bits; the keys are randn +
+    ``key_offset`` (a component they share, which D from bf16 out would
+    let into dq).  Returns the backward's launch increments."""
     cs = _chip_smoke()
     dt = getattr(torch, dtype)
     Skv = S if Skv is None else Skv
     q = _randn((B, S, Hq, hd), dt, device, 70)
-    k = _randn((B, Skv, Hkv, hd), dt, device, 71)
+    k = (_randn((B, Skv, Hkv, hd), torch.float32, device, 71)
+         + key_offset).to(dt)
     v = _randn((B, Skv, Hkv, hd), dt, device, 72)
     dout = _randn((B, S, Hq, hd), dt, device, 73)
     kw = dict(causal=causal, window=window)
+    stats = {}
     out = tflash.flash_attention_cuda(q, k, v, **kw)
-    before = dict(tflash.LAUNCHES)
-    got = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-    again = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    if dtype == "bfloat16":
+        out_t, lse, lo = tflash.flash_attention_cuda(q, k, v, stats=True,
+                                                     **kw)
+        assert torch.equal(out_t, out)
+        stats = dict(lse=lse, out_lo=lo)
+    before = dict(tflash_bwd.LAUNCHES)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw, **stats)
+    again = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, **kw,
+                                            **stats)
     torch.cuda.synchronize()
-    counts = {n: tflash.LAUNCHES[n] - before[n] for n in before}
+    counts = {n: tflash_bwd.LAUNCHES[n] - before[n] for n in before}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert [t.dtype for t in got] == [dt] * 3
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
@@ -958,6 +970,11 @@ from repro_torch.kernels.flash_attention import backward as tflash_bwd  # noqa
 from repro_torch.kernels.rmsnorm import backward as trms_bwd          # noqa
 
 
+def _bwd_counts(dtype, calls=2):
+    tc = calls if dtype == "bfloat16" else 0
+    return {"flash_attention_bwd": calls, "flash_attention_bwd_tc": tc}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,dtype", [
     (4, 1024, 24, 2, 128, 0, "bfloat16"),     # starcoder2-3b
@@ -968,9 +985,23 @@ from repro_torch.kernels.rmsnorm import backward as trms_bwd          # noqa
 ])
 def test_cuda_flash_attention_bwd_at_the_train_shapes(B, S, Hq, Hkv, hd,
                                                       window, dtype, cuda):
-    before = tflash_bwd.LAUNCHES["flash_attention_bwd"]
-    _attention_bwd_case(B, Hq, Hkv, S, hd, True, window, dtype, cuda)
-    assert tflash_bwd.LAUNCHES["flash_attention_bwd"] == before + 2
+    counts = _attention_bwd_case(B, Hq, Hkv, S, hd, True, window, dtype,
+                                 cuda)
+    assert counts == _bwd_counts(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(24, 2), (32, 8)])
+@pytest.mark.parametrize("key_offset", [2.0, 4.0])
+def test_cuda_flash_attention_bwd_keys_with_an_offset(Hq, Hkv, key_offset,
+                                                      cuda):
+    """Keys randn + c at starcoder2-3b's shape and at 32/8 heads of 128:
+    with D from bf16 out, dq breaches GRAD_RMS_TOL at c = 2 and 4
+    (tests/test_torch_attn_bwd_rounding.py); the float32 D and dS as hi +
+    lo in dS·K hold it."""
+    counts = _attention_bwd_case(4, Hq, Hkv, 1024, 128, True, 0, "bfloat16",
+                                 cuda, key_offset=key_offset)
+    assert counts == _bwd_counts("bfloat16")
 
 
 @pytest.mark.cuda
@@ -988,10 +1019,30 @@ def test_cuda_flash_attention_bwd_gqa_masks_head_dims(Hq, Hkv, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
+                                           (False, 40)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("key_offset", [2.0, 4.0])
+def test_cuda_flash_attention_bwd_bf16_offset_keys(causal, window, hd,
+                                                   key_offset, cuda):
+    """The bf16 grid with keys randn + c: GQA 16/1 (the widest ratio the
+    port's configurations have), causal, windowed and non-causal, ragged."""
+    _attention_bwd_case(2, 16, 1, 150, hd, causal, window, "bfloat16", cuda,
+                        key_offset=key_offset)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 5, 64, 65, 129])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_flash_attention_bwd_ragged_lengths(S, dtype, cuda):
     _attention_bwd_case(1, 6, 2, S, 64, True, 0, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 65, 129])
+def test_cuda_flash_attention_bwd_ragged_offset_keys(S, cuda):
+    _attention_bwd_case(1, 6, 2, S, 128, True, 0, "bfloat16", cuda,
+                        key_offset=4.0)
 
 
 @pytest.mark.cuda
@@ -1003,26 +1054,49 @@ def test_cuda_flash_attention_bwd_cross_shapes(Sq, Skv, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(1, 129), (16, 100), (200, 70)])
+@pytest.mark.parametrize("key_offset", [0.0, 4.0])
+def test_cuda_flash_attention_bwd_cross_shapes_bf16(Sq, Skv, key_offset,
+                                                    cuda):
+    _attention_bwd_case(2, 4, 4, Sq, 64, False, 0, "bfloat16", cuda,
+                        Skv=Skv, key_offset=key_offset)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_bwd_refuses_other_head_dims(cuda):
     q = _randn((1, 8, 2, 256), torch.bfloat16, cuda, 74)
-    with pytest.raises(ValueError, match="item 7c"):
+    with pytest.raises(ValueError, match="item 7b"):
         tflash.flash_attention_bwd_cuda(q, q, q, q, q)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype", [
-    (4096, 3072, "bfloat16"),           # starcoder2-3b's norms
-    (131072, 128, "bfloat16"),          # qwen3-8b's qk-norm rows
-    (4096, 3072, "float32"),
-    (3, 7168, "bfloat16"),              # yi-34b, fewer rows than blocks
-    (1000, 64, "float32"),              # a smoke model
-    (777, 5376, "bfloat16"),            # gemma3-27b
-])
-def test_cuda_rmsnorm_bwd_matches_plain_version(rows, d, dtype, cuda):
+def test_cuda_flash_attention_bwd_takes_the_stats_its_body_needs(cuda):
+    """bf16 refuses a call without the training forward's LSE and
+    residual, float32 one with them, and the forward gives them for bf16
+    only."""
+    q = _randn((1, 8, 2, 64), torch.bfloat16, cuda, 74)
+    with pytest.raises(ValueError, match="lse"):
+        tflash.flash_attention_bwd_cuda(q, q, q, q, q)
+    f = q.float()
+    with pytest.raises(ValueError, match="float32"):
+        tflash.flash_attention_bwd_cuda(f, f, f, f, f, lse=f, out_lo=f)
+    with pytest.raises(TypeError, match="stats"):
+        tflash.flash_attention_cuda(f, f, f, stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_flash_attention_bwd_smem_matches_the_library(hd, cuda):
+    for kernel in ("dkdv", "dq"):
+        assert tflash_bwd.library_smem_bytes(hd, kernel) == \
+            tflash_bwd.smem_bytes(hd, kernel)
+
+
+def _rms_bwd_case(rows, d, dtype, device):
     cs = _chip_smoke()
     dt = getattr(torch, dtype)
-    x, w = _randn((rows, d), dt, cuda, 75), _randn((d,), dt, cuda, 76)
-    g = _randn((rows, d), dt, cuda, 77)
+    x, w = _randn((rows, d), dt, device, 75), _randn((d,), dt, device, 76)
+    g = _randn((rows, d), dt, device, 77)
     before = trms_bwd.LAUNCHES["rmsnorm_bwd"]
     got = trms_bwd.rmsnorm_bwd_cuda(x, w, g, 1e-6)
     again = trms_bwd.rmsnorm_bwd_cuda(x, w, g, 1e-6)
@@ -1038,6 +1112,37 @@ def test_cuda_rmsnorm_bwd_matches_plain_version(rows, d, dtype, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 3072, "bfloat16"),           # starcoder2-3b's norms
+    (131072, 128, "bfloat16"),          # qwen3-8b's qk-norm rows
+    (4096, 3072, "float32"),
+    (3, 7168, "bfloat16"),              # yi-34b, fewer rows than blocks
+    (1000, 64, "float32"),              # a smoke model
+    (777, 5376, "bfloat16"),            # gemma3-27b
+])
+def test_cuda_rmsnorm_bwd_matches_plain_version(rows, d, dtype, cuda):
+    _rms_bwd_case(rows, d, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", _rms_widths())
+@pytest.mark.parametrize("rows", [1, 3, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_bwd_at_every_model_width(d, rows, dtype, cuda):
+    _rms_bwd_case(rows, d, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(8, "bfloat16"), (4, "float32"),
+                                     (40, "bfloat16"), (14336, "bfloat16"),
+                                     (7168, "float32")])
+def test_cuda_rmsnorm_bwd_at_the_forwards_extreme_widths(d, dtype, cuda):
+    """One vector a row, a row that ends inside a thread's vectors, and the
+    widest rows the forward takes (256 threads x 7 vectors)."""
+    _rms_bwd_case(33, d, dtype, cuda)
+
+
+@pytest.mark.cuda
 def test_cuda_lm_ops_backward_runs_the_kernels(cuda):
     """A gradient through ``ops.rmsnorm`` and ``ops.flash_attention`` on
     the card launches the backward kernels, once each."""
@@ -1045,6 +1150,7 @@ def test_cuda_lm_ops_backward_runs_the_kernels(cuda):
     w = _randn((64,), torch.bfloat16, cuda, 79).requires_grad_()
     b_rms = trms_bwd.LAUNCHES["rmsnorm_bwd"]
     b_att = tflash_bwd.LAUNCHES["flash_attention_bwd"]
+    b_tc = tflash_bwd.LAUNCHES["flash_attention_bwd_tc"]
     h = trms.rmsnorm(x, w).reshape(2, 40, 2, 32)
     out = tflash.flash_attention(h, h[:, :, :1].contiguous(),
                                  h[:, :, 1:].contiguous())
@@ -1052,6 +1158,7 @@ def test_cuda_lm_ops_backward_runs_the_kernels(cuda):
     torch.cuda.synchronize()
     assert trms_bwd.LAUNCHES["rmsnorm_bwd"] == b_rms + 1
     assert tflash_bwd.LAUNCHES["flash_attention_bwd"] == b_att + 1
+    assert tflash_bwd.LAUNCHES["flash_attention_bwd_tc"] == b_tc + 1
     assert x.grad is not None and w.grad is not None
     assert x.grad.abs().sum().item() > 0 and w.grad.abs().sum().item() > 0
 
@@ -1106,6 +1213,7 @@ def test_cuda_loss_fn_backward_runs_no_plain_version(arch, cuda):
     norms = 2 + (2 if cfg.qk_norm else 0)
     assert launches["flash_attention"] == 2 * L       # remat: recomputed
     assert launches["flash_attention_bwd"] == L
+    assert launches["flash_attention_bwd_tc"] == L    # bf16: tensor cores
     assert launches["rmsnorm"] == 2 * L * norms + 1
     assert launches["rmsnorm_bwd"] == L * norms + 1
     assert torch.isfinite(total)

@@ -151,13 +151,18 @@ def test_moe_body_plan():
 
 
 def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
-    """A source's library name covers the local headers it includes, so
-    editing ``common/csrc/hopper.cuh`` rebuilds both libraries that use
-    it."""
+    """A source's library name covers the local headers it includes,
+    followed recursively, so editing ``common/csrc/hopper.cuh`` rebuilds
+    every library that uses it (attention's two through
+    ``attention_tc.cuh``)."""
+    from repro_torch.kernels.flash_attention import backward as k_fa_bwd
     from repro_torch.kernels.flash_attention import kernel as k_fa
     hdr = (_build.Path(k_fa.SOURCE).parents[2] / "common" / "csrc"
            / "hopper.cuh").resolve()
-    assert _build.local_includes(k_fa.SOURCE) == [hdr]
+    attn_hdr = (_build.Path(k_fa.SOURCE).parent / "attention_tc.cuh") \
+        .resolve()
+    assert _build.local_includes(k_fa.SOURCE) == [attn_hdr, hdr]
+    assert _build.local_includes(k_fa_bwd.SOURCE) == [attn_hdr, hdr]
     assert _build.local_includes(k_moe.SOURCE) == [hdr]
     src = tmp_path / "a" / "k.cu"
     src.parent.mkdir()

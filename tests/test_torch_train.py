@@ -148,6 +148,15 @@ def test_attention_bwd_ref_matches_jax_grad(ratio, mask):
                                  causal=causal, window=window)
     for a, b in zip(got, want):
         _assert_grad(a, b)
+    # the training forward's LSE and residual, as the bf16 kernel takes
+    # them: P from the LSE, D from out + out_lo in float32
+    out, lse, lo = fref.attention_ref(tq, tk, tv, causal=causal,
+                                      window=window, stats=True)
+    got = fref.attention_bwd_ref(tq, tk, tv, out, torch.from_numpy(g),
+                                 causal=causal, window=window, lse=lse,
+                                 out_lo=lo)
+    for a, b in zip(got, want):
+        _assert_grad(a, b)
 
 
 @pytest.mark.parametrize("shape", [(4, 7, 64), (33, 128), (2, 3, 5, 256)])

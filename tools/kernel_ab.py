@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 2 (the
-single-split Li-GD steps), 5 (fused expert SwiGLU) and 7 (WKV6) of this
-checkout against the same rows of other checkouts, in one process on one
-CUDA card.
+single-split Li-GD steps), 5 (fused expert SwiGLU), 7 (WKV6) and the
+backward kernels of rows 3 (attention) and 4 (RMSNorm) of this checkout
+against the same rows of other checkouts, in one process on one CUDA
+card.
 
 Each ``--other DIR`` is the root of another checkout of this repository
 (for example the parent commit, unpacked with ``git archive``): its
-``src/repro_torch/kernels/ligd_step``, ``moe_gemm`` and ``wkv6``
-packages are loaded under names of their own, and their CUDA sources are
-built beside this checkout's libraries (a library's name hashes its
-source, so the versions never mix).
+``src/repro_torch/kernels/ligd_step``, ``moe_gemm``, ``wkv6``,
+``flash_attention`` and ``rmsnorm`` packages are loaded under names of
+their own, and their CUDA sources are built beside this checkout's
+libraries (a library's name hashes its source, so the versions never
+mix).
 
 At each shape every version is first held against this checkout's plain
 version (the sweep with ``chip_smoke.compare_sweep``'s checks, its
@@ -44,10 +46,19 @@ and the smallest alone; MoE at granite-moe-1b-a400m's prefill (E 32, C
 bf16, with the composition of 3 ``torch.bmm`` + silu timed beside them;
 WKV6 at
 rwkv6-3b's prefill (B 4, S 1024, H 40, n 64, bf16 r/k/v, from a state),
-a ragged S 777 with the model's decays, and decode (B 8, S 1).
+a ragged S 777 with the model's decays, and decode (B 8, S 1); the
+attention backward (``attn-bwd``) at every bf16 case of
+``chip_smoke.TRAIN_ATTN_CASES`` (keys randn + c where the case has an
+offset), each version on its own forward's output (a version whose
+backward takes the forward's LSE and residual gets them from its
+forward, which is also timed with and without them), held at
+``GRAD_TOL``/``GRAD_RMS_TOL`` (a breach of another version is reported,
+one of this checkout's raises), with SDPA's backward timed beside them;
+the RMSNorm backward (``rms-bwd``) at ``chip_smoke.TRAIN_RMS_CASES``,
+with ``F.rms_norm``'s backward beside it.
 
     python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
-        [--rows sweep,steps,moe,wkv] [--out report.json]
+        [--rows sweep,steps,moe,wkv,attn-bwd,rms-bwd] [--out report.json]
 
 Needs a CUDA card; prints one JSON line per measurement and the whole
 report as the last line (also written to ``--out`` when given).
@@ -245,6 +256,152 @@ def steps_rows(versions: dict, rounds: int, device) -> list:
     return out
 
 
+def attn_bwd_rows(versions: dict, rounds: int, device) -> list:
+    """Row 3's backward: every version against float32 autograd through
+    this checkout's plain version, then ABBA rounds with SDPA's backward
+    (``enable_gqa``, the window mask) as the library."""
+    import inspect
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(12)
+    out = []
+    for B, S, (Hq, Hkv, hd), window, dtn, c in cs.TRAIN_ATTN_CASES:
+        if dtn != "bfloat16":
+            continue
+        dt = torch.bfloat16
+        q = torch.randn((B, S, Hq, hd), generator=g, device=device).to(dt)
+        k = (torch.randn((B, S, Hkv, hd), generator=g, device=device)
+             + c).to(dt)
+        v = torch.randn((B, S, Hkv, hd), generator=g, device=device).to(dt)
+        dout = torch.randn((B, S, Hq, hd), generator=g,
+                           device=device).to(dt)
+        kw = dict(causal=True, window=window)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(fa.attention_ref(*leaves, **kw), leaves,
+                                   dout.float())
+        del leaves
+        label = f"B {B}, S {S}, {Hq}/{Hkv} x {hd}, window {window}, c {c:g}"
+        fns, held, fwd = {}, {}, {}
+        for name, mod in versions.items():
+            takes_stats = "lse" in inspect.signature(
+                mod.flash_attention_bwd_cuda).parameters
+            if takes_stats:
+                o, lse, lo = mod.flash_attention_cuda(q, k, v, stats=True,
+                                                      **kw)
+                extra = dict(lse=lse, out_lo=lo)
+                fwd[name] = {
+                    "fwd_ms": cs.timed_ms(
+                        lambda m=mod: m.flash_attention_cuda(q, k, v, **kw),
+                        30, 3),
+                    "fwd_stats_ms": cs.timed_ms(
+                        lambda m=mod: m.flash_attention_cuda(
+                            q, k, v, stats=True, **kw), 30, 3)}
+            else:
+                o, extra = mod.flash_attention_cuda(q, k, v, **kw), {}
+            fns[name] = (lambda m=mod, o=o, e=extra:
+                         m.flash_attention_bwd_cuda(q, k, v, o, dout, **kw,
+                                                    **e))
+            got = fns[name]()
+            again = fns[name]()
+            torch.cuda.synchronize()
+            errs = [cs.grad_errors(a, b, dtn) for a, b in zip(got, want)]
+            held[name] = {
+                "same_bits": all(torch.equal(a, b)
+                                 for a, b in zip(got, again)),
+                "rel_rms": {f"d{n}": e[1] for n, e in zip("qkv", errs)},
+                "within_tolerance": all(e[2] for e in errs)}
+            print(json.dumps({"kernel": "flash_attention_bwd",
+                              "case": label, "version": name,
+                              **held[name]}), flush=True)
+            if name == "this" and not (held[name]["within_tolerance"]
+                                       and held[name]["same_bits"]):
+                raise AssertionError(f"flash_attention_bwd {label}: "
+                                     f"{held[name]}")
+            del got, again
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(S, device=device)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                  < window)
+        lib = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        dh = dout.transpose(1, 2)
+        fns["library"] = lambda: torch.autograd.grad(
+            lib, (qh, kh, vh), dh, retain_graph=True)
+        pairs = cs.attention_pairs(S, True, window)
+        flops = 2.5 * 4.0 * B * Hq * hd * pairs
+        rec = {"case": label, "held": held, "forward": fwd,
+               "flops": flops,
+               "bound_ms": max(flops / cs.PEAK_BF16_S, 4 * (q.numel()
+                               + k.numel()) * 2 / cs.PEAK_BYTES_S) * 1e3,
+               "by_kernel": by_kernel(fns["this"]), "runs": []}
+        for name in abba(list(versions) + ["library"], rounds):
+            run = {"version": name,
+                   "device_ms": cs.device_ms(fns[name], 30, 3),
+                   "ms": cs.timed_ms(fns[name], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "flash_attention_bwd",
+                              "case": label, **run}), flush=True)
+        out.append(rec)
+        del q, k, v, dout, want, fns, lib
+    return out
+
+
+def rms_bwd_rows(versions: dict, rounds: int, device) -> list:
+    """Row 4's backward: every version against float32 autograd through
+    this checkout's plain version, then ABBA rounds with ``F.rms_norm``'s
+    backward as the library."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device=device).manual_seed(13)
+    out = []
+    for rows, d, dtn in cs.TRAIN_RMS_CASES:
+        dt = getattr(torch, dtn)
+        x, w, gy = (torch.randn(shape, generator=g, device=device).to(dt)
+                    for shape in ((rows, d), (d,), (rows, d)))
+        xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+        want = torch.autograd.grad(rn.rmsnorm_ref(xf, wf, 1e-6), (xf, wf),
+                                   gy.float())
+        label = f"{rows} x {d} {dtn}"
+        fns = {name: (lambda f=f: f(x, w, gy, 1e-6))
+               for name, f in versions.items()}
+        for name, fn in fns.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            errs = [cs.grad_errors(a, b, dtn) for a, b in zip(got, want)]
+            ok = all(e[2] for e in errs) and all(
+                torch.equal(a, b) for a, b in zip(got, again))
+            print(json.dumps({"kernel": "rmsnorm_bwd", "case": label,
+                              "version": name, "held": ok}), flush=True)
+            if not ok:
+                raise AssertionError(f"rmsnorm_bwd {name} {label}")
+        xl = x.detach().requires_grad_()
+        wl = (1.0 + w.float()).to(dt).requires_grad_()
+        yl = F.rms_norm(xl, (d,), wl, 1e-6)
+        fns["library"] = lambda: torch.autograd.grad(yl, (xl, wl), gy,
+                                                     retain_graph=True)
+        rec = {"case": label,
+               "bound_ms": (3 * rows * d + 2 * d) * x.element_size()
+               / cs.PEAK_BYTES_S * 1e3,
+               "by_kernel": by_kernel(fns["this"]), "runs": []}
+        for name in abba(list(versions) + ["library"], rounds):
+            run = {"version": name,
+                   "device_ms": cs.device_ms(fns[name], 30, 3),
+                   "ms": cs.timed_ms(fns[name], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "rmsnorm_bwd", "case": label,
+                              **run}), flush=True)
+        out.append(rec)
+    return out
+
+
 def abba(names: list, rounds: int) -> list:
     order = []
     for _ in range(rounds):
@@ -257,7 +414,8 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[], type=Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--rows", default="sweep,steps,moe,wkv",
-                    help="comma-separated subset of sweep, steps, moe, wkv")
+                    help="comma-separated subset of sweep, steps, moe, "
+                    "wkv, attn-bwd, rms-bwd")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -268,13 +426,16 @@ def main() -> int:
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from repro_torch.kernels import ligd_step, moe_gemm, wkv6
+    from repro_torch.kernels import (flash_attention, ligd_step, moe_gemm,
+                                     rmsnorm, wkv6)
 
     rows = set(args.rows.split(","))
     sweep = {"this": ligd_step.sweep_cuda}
     steps = {"this": ligd_step}
     moe = {"this": moe_gemm.moe_swiglu_cuda}
     wkv = {"this": wkv6.wkv6_cuda}
+    attn = {"this": flash_attention}
+    rms = {"this": rmsnorm.rmsnorm_bwd_cuda}
     for i, root in enumerate(args.other):
         tag = f"{root.name}_{i}"
         if rows & {"sweep", "steps"}:
@@ -286,14 +447,25 @@ def main() -> int:
         if "wkv" in rows:
             wkv[tag] = load_package(root, "wkv6",
                                     f"other{i}_wkv6").wkv6_cuda
+        if "attn-bwd" in rows:
+            attn[tag] = load_package(root, "flash_attention",
+                                     f"other{i}_flash_attention")
+        if "rms-bwd" in rows:
+            rms[tag] = load_package(root, "rmsnorm",
+                                    f"other{i}_rmsnorm").rmsnorm_bwd_cuda
     report = {"card": cs.card_line(), "sweep": [], "ligd_steps": [],
-              "moe_swiglu": [], "wkv6": []}
+              "moe_swiglu": [], "wkv6": [], "flash_attention_bwd": [],
+              "rmsnorm_bwd": []}
     print(report["card"], flush=True)
     dev = torch.device("cuda")
     if "sweep" in rows:
         report["sweep"] = sweep_rows(sweep, args.rounds, dev)
     if "steps" in rows:
         report["ligd_steps"] = steps_rows(steps, args.rounds, dev)
+    if "attn-bwd" in rows:
+        report["flash_attention_bwd"] = attn_bwd_rows(attn, args.rounds, dev)
+    if "rms-bwd" in rows:
+        report["rmsnorm_bwd"] = rms_bwd_rows(rms, args.rounds, dev)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def randn(shape, scale=1.0):

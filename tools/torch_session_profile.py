@@ -150,9 +150,16 @@ def _groups(dev: dict) -> dict:
     products (cuBLAS / CUTLASS kernels) and everything else."""
     mine = {"flash_attention": ("flash_attention_kernel",
                                 "flash_attention_tc_kernel"),
-            "flash_attention_bwd": ("attn_bwd_",),
+            # the bf16 body's four kernels, then the f32 body's three
+            "flash_attention_bwd": ("attn_bwd_delta_kernel",
+                                    "attn_bwd_dkdv_tc_kernel",
+                                    "attn_bwd_sum_kernel",
+                                    "attn_bwd_dq_tc_kernel",
+                                    "attn_bwd_prep", "attn_bwd_dkdv",
+                                    "attn_bwd_dq"),
             "rmsnorm": ("rmsnorm_kernel",),
-            "rmsnorm_bwd": ("rmsnorm_bwd_",),
+            "rmsnorm_bwd": ("rmsnorm_bwd_rows_kernel",
+                            "rmsnorm_bwd_dw_kernel"),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
                            "hopper_tc::gate_up_kernel",
                            "hopper_tc::down_kernel"),
