@@ -1583,13 +1583,17 @@ def kernel_counters() -> tuple:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ligd_step import kernel as sk
     from repro_torch.kernels.ligd_step import steps as tk
+    from repro_torch.kernels.moe_gemm import backward as mb
     from repro_torch.kernels.moe_gemm import kernel as mk
+    from repro_torch.kernels.rglru import backward as gb
     from repro_torch.kernels.rglru import kernel as gk
     from repro_torch.kernels.rmsnorm import backward as rb
     from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.wkv6 import backward as wb
     from repro_torch.kernels.wkv6 import kernel as wk
     return (fk.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES, tk.LAUNCHES, mk.LAUNCHES,
-            gk.LAUNCHES, wk.LAUNCHES, fb.LAUNCHES, rb.LAUNCHES)
+            gk.LAUNCHES, wk.LAUNCHES, fb.LAUNCHES, rb.LAUNCHES, mb.LAUNCHES,
+            gb.LAUNCHES, wb.LAUNCHES)
 
 
 def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
@@ -2976,7 +2980,31 @@ TRAIN_ATTN_CASES = (
     (4, 1024, (24, 2, 128), 0, "bfloat16", 4.0),
     (4, 1024, (32, 8, 128), 0, "bfloat16", 2.0),
     (4, 1024, (32, 8, 128), 0, "bfloat16", 4.0),
+    (2, 2560, (16, 1, 256), 2048, "bfloat16", 2.0),
 )
+#: non-causal attention (the encoder-decoder's encoder and cross
+#: attention): seamless-m4t-large-v2's 16/16 heads of 64 at 1024 frames
+TRAIN_ATTN_NONCAUSAL = ((4, 1024, (16, 16, 64), "bfloat16", 0.0),)
+#: [train-kernels]' expert SwiGLU backward cases (E, C, d, ff, dtype):
+#: granite-moe-1b-a400m's training shape (C = capacity_for(4096)), a
+#: decode-sized capacity, and float32
+TRAIN_MOE_CASES = ((32, 1280, 1024, 512, "bfloat16"),
+                   (32, 4, 1024, 512, "bfloat16"),
+                   (4, 100, 256, 128, "float32"))
+#: the RG-LRU scan backward at recurrentgemma-9b's training shape (B, S,
+#: C), with a near 1 and a near 0
+TRAIN_RGLRU_CASES = ((2, 2560, 4096, 1.0), (2, 2560, 4096, 0.0))
+#: the WKV6 backward at rwkv6-3b's training shape (B, S, H, n, dtype,
+#: from a nonzero state with its gradient), w = 0 and w = 1 entries in
+#: every case
+TRAIN_WKV_CASES = ((4, 1024, 40, 64, "bfloat16", False),
+                   (4, 1024, 40, 64, "bfloat16", True))
+#: operations a state element a step that the WKV6 backward needs: the
+#: recurrence's re-run (a multiply and a multiply-add), Ĝ's update (the
+#: same two) and one multiply-add each for S·dy, Ĝ·v, Ĝᵀ·k and Ĝ ⊙ S
+#: (the forward's count is 3); csrc/wkv6_bwd.cu issues 12 (it re-runs
+#: the recurrence twice, and both thread halves update Ĝ)
+WKV_BWD_OPS = 8
 #: [train-kernels]' RMSNorm cases: starcoder2-3b's norms at B 4 x S 1024,
 #: qwen3-8b's qk-norm rows (4 x 1024 tokens x 32 heads, 128 wide), and
 #: the norms in float32
@@ -2988,6 +3016,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 #: weights and gradients and float32 m and v (12 bytes a parameter,
 #: 51.8 GB), saved block inputs, one block's recompute and the logits
 TRAIN_PEAK_PREDICTED_GB = (55.0, 60.0)
+#: the four families' full-width training phases: (tag, config, layers
+#: kept (None: all), batch, sequence, AdamW steps, predicted peak GB).
+#: The peaks were predicted before the first run as 12 bytes a parameter
+#: (bf16 weights and gradients, float32 m and v) plus the loss head
+#: (about three float32 copies of the B·S x vocab logits) or AdamW's
+#: float32 temporaries on the largest leaf, whichever is larger, plus
+#: saved block inputs and one block's recompute.  recurrentgemma-9b
+#: keeps 12 of its 38 layers (4 periods of rglru, rglru, local at full
+#: width): all 38 would need 103 GB for weights and optimiser state
+#: alone.  Its 2560-token sequences pass its 2048-token window.
+TRAIN_FAMILIES = (
+    ("train-moe", "granite-moe-1b-a400m", None, 4, 1024, 3, (17.0, 24.0)),
+    ("train-rwkv", "rwkv6-3b", None, 4, 1024, 3, (38.0, 46.0)),
+    ("train-hybrid", "recurrentgemma-9b", 12, 2, 2560, 3, (50.0, 66.0)),
+    ("train-enc-dec", "seamless-m4t-large-v2", None, 4, 1024, 3,
+     (28.0, 42.0)),
+)
 #: [train-cross]: card against CPU on one reduced float32 model: the loss
 #: to 1e-5 relative; every gradient leaf to 1e-4 in error RMS over the
 #: CPU's RMS (float32 math summed in other orders, as the CPU tests hold
@@ -3003,6 +3048,22 @@ TRAIN_CROSS_UPDATE_RMS = 1e-2
 #: add its rows in another order on a rerun); the phase reports whether
 #: the two are also equal bit for bit
 TRAIN_RESUME_RTOL = 1e-3
+#: [train-cross]'s reduced float32 model of each later family (kwargs of
+#: ``configs.reduced``): granite-moe's experts (4, top 2; the float32
+#: expert SwiGLU backward), rwkv6's 64-wide heads (its 128-token
+#: sequences run the chunked forward), recurrentgemma's (rglru, rglru,
+#: local) with heads of 256 (the float32 attention backward at head_dim
+#: 256) and an 8-token window, and seamless-m4t's encoder and cross
+#: attention
+TRAIN_CROSS_FAMILIES = (
+    ("granite-moe-1b-a400m", dict(layers=2, d_model=256, heads=4,
+                                  kv_heads=2, d_ff=128)),
+    ("rwkv6-3b", dict(layers=2, d_model=256, heads=4, d_ff=512)),
+    ("recurrentgemma-9b", dict(layers=3, d_model=512, heads=2, kv_heads=1,
+                               d_ff=512)),
+    ("seamless-m4t-large-v2", dict(layers=2, d_model=256, heads=4,
+                                   kv_heads=4, d_ff=512)),
+)
 
 
 def train_kernel_cases(device) -> dict:
@@ -3020,14 +3081,36 @@ def train_kernel_cases(device) -> dict:
     def randn(shape, dt):
         return torch.randn(shape, generator=g, device=device).to(dt)
 
-    out, breaches, errs = {}, [], {"flash_attention_bwd": [],
-                                   "rmsnorm_bwd": []}
+    out, breaches = {}, []
+    errs = {"flash_attention_bwd": [], "rmsnorm_bwd": [],
+            "moe_swiglu_bwd": [], "rglru_scan_bwd": [], "wkv6_bwd": []}
     for B, S, heads, window, dtn, c in TRAIN_ATTN_CASES:
         rec = attention_bwd_case(device, randn, B, S, heads, window, dtn,
                                  breaches, key_offset=c)
         errs["flash_attention_bwd"].append(rec["max_abs_err"])
         if (B, S, heads, dtn, c) == (4, 1024, (24, 2, 128), "bfloat16", 0.0):
             out["flash_attention_bwd"] = rec
+        if heads[2] == 256:
+            out["flash_attention_bwd_hd256"] = rec
+    for B, S, heads, dtn, c in TRAIN_ATTN_NONCAUSAL:
+        rec = attention_bwd_case(device, randn, B, S, heads, 0, dtn,
+                                 breaches, key_offset=c, causal=False)
+        errs["flash_attention_bwd"].append(rec["max_abs_err"])
+    for E, C, d, ff, dtn in TRAIN_MOE_CASES:
+        rec = moe_bwd_case(randn, E, C, d, ff, dtn, breaches)
+        errs["moe_swiglu_bwd"].append(rec["max_abs_err"])
+        if (C, dtn) == (1280, "bfloat16"):
+            out["moe_swiglu_bwd"] = rec
+    for B, S, C, a_near in TRAIN_RGLRU_CASES:
+        rec = rglru_bwd_case(device, g, B, S, C, a_near, breaches)
+        errs["rglru_scan_bwd"].append(rec["max_abs_err"])
+        if a_near == 1.0:
+            out["rglru_scan_bwd"] = rec
+    for B, S, H, n, dtn, with_s0 in TRAIN_WKV_CASES:
+        rec = wkv6_bwd_case(device, g, B, S, H, n, dtn, with_s0, breaches)
+        errs["wkv6_bwd"].append(rec["max_abs_err"])
+        if not with_s0:
+            out["wkv6_bwd"] = rec
     for rows, d, dtn in TRAIN_RMS_CASES:
         rec = rmsnorm_bwd_case(randn, rows, d, dtn, breaches)
         errs["rmsnorm_bwd"].append(rec["max_abs_err"])
@@ -3053,26 +3136,29 @@ def _hold_grads(label, got, want, dtn, breaches) -> tuple:
 
 
 def attention_bwd_case(device, randn, B, S, heads, window, dtn,
-                       breaches, key_offset: float = 0.0) -> dict:
-    """The attention backward kernel at one causal shape (``heads`` = (Hq,
-    Hkv, hd); keys randn + ``key_offset``) on the forward kernel's output:
-    in bf16 the training forward's (with LSE and residual), whose output
-    must equal the serving forward's bit for bit."""
+                       breaches, key_offset: float = 0.0,
+                       causal: bool = True) -> dict:
+    """The attention backward kernel at one shape (``heads`` = (Hq, Hkv,
+    hd); keys randn + ``key_offset``; causal unless ``causal`` is False)
+    on the forward kernel's output: in bf16 the training forward's (with
+    LSE and residual), whose output must equal the serving forward's bit
+    for bit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import backward as fb
     Hq, Hkv, hd = heads
     dt = getattr(torch, dtn)
-    label = f"attention bwd {B}x{S} {heads} w{window} {dtn} c{key_offset:g}"
+    label = (f"attention bwd {B}x{S} {heads} w{window} {dtn} "
+             f"c{key_offset:g}{'' if causal else ' non-causal'}")
     q = randn((B, S, Hq, hd), dt)
     k = (randn((B, S, Hkv, hd), torch.float32) + key_offset).to(dt)
     v, dout = randn((B, S, Hkv, hd), dt), randn((B, S, Hq, hd), dt)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     o = fa.flash_attention_cuda(q, k, v, **kw)
     body = fb.body_for(dt, hd)
     out_same, kw_b = None, kw
-    if body == "tensor_cores":
+    if dt == torch.bfloat16:
         o_t, lse, o_lo = fa.flash_attention_cuda(q, k, v, stats=True, **kw)
         out_same = torch.equal(o_t, o)
         if not out_same:
@@ -3111,7 +3197,7 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
     lib_ms = None
     try:
         lo = F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
         dh = dout.transpose(1, 2)
         lib_ms = timed_ms(lambda: torch.autograd.grad(
@@ -3119,7 +3205,7 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
         del lo
     except TypeError:        # a PyTorch without enable_gqa
         pass
-    pairs = attention_pairs(S, True, window)
+    pairs = attention_pairs(S, causal, window)
     flops = 2.5 * 4.0 * B * Hq * hd * pairs
     t_ops = flops / PEAK_BF16_S * 1e3
     t_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
@@ -3127,8 +3213,8 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
     call = (lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b))
     rec = dict(
         B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window, dtype=dtn,
-        key_offset=key_offset, body=body,
-        nsplit=(fb.group_split(B, S, S, Hq, Hkv, True, window)
+        causal=causal, key_offset=key_offset, body=body,
+        nsplit=(fb.group_split(B, S, S, Hq, Hkv, causal, window)
                 if body == "tensor_cores" else None),
         max_abs_err=err, rel_rms_err=rr, rel_rms_by_grad=rr_by,
         same_bits=same, out_same_bits=out_same,
@@ -3139,6 +3225,170 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
     phase("train-kernels", "flash_attention_bwd " + json.dumps(rec))
+    return rec
+
+
+def moe_bwd_case(randn, E: int, C: int, d: int, ff: int, dtn: str,
+                 breaches) -> dict:
+    """The fused expert SwiGLU backward kernel at one shape against
+    float32 autograd through the plain forward, twice for the same bits;
+    its bound counts the function's 12·E·C·d·ff operations (dH, dWd, dx's
+    two, dWg, dWu), not the kernel's recomputation of x·Wg and x·Wu."""
+    import torch
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels.moe_gemm import backward as mb
+    dt = getattr(torch, dtn)
+    label = f"moe bwd E{E} C{C} d{d} ff{ff} {dtn}"
+    x, dy = randn((E, C, d), torch.float32).to(dt), \
+        randn((E, C, d), torch.float32).to(dt)
+    wg = (randn((E, d, ff), torch.float32) * d ** -0.5).to(dt)
+    wu = (randn((E, d, ff), torch.float32) * d ** -0.5).to(dt)
+    wd = (randn((E, ff, d), torch.float32) * ff ** -0.5).to(dt)
+    got = mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy)
+    again = mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not same:
+        breaches.append(f"{label}: two runs differ")
+    leaves = [t.float().requires_grad_() for t in (x, wg, wu, wd)]
+    want = torch.autograd.grad(mg.moe_swiglu_ref(*leaves), leaves,
+                               dy.float())
+    sub = []
+    err, rr = _hold_grads(("x", "wg", "wu", "wd"), got, want, dtn, sub)
+    breaches.extend(f"{label} {b}" for b in sub)
+    del got, again, want, leaves
+    flops = 12.0 * E * C * d * ff
+    peak = PEAK_BF16_S if dtn == "bfloat16" else PEAK_FP32_S
+    t_ops = flops / peak * 1e3
+    t_bytes = 2 * (2 * x.numel() + 3 * wg.numel()) * x.element_size() \
+        / PEAK_BYTES_S * 1e3
+    xl, gl, ul, dl = (t.detach().requires_grad_() for t in (x, wg, wu, wd))
+
+    def library():
+        import torch.nn.functional as F
+        yl = torch.bmm(F.silu(torch.bmm(xl, gl)) * torch.bmm(xl, ul), dl)
+        return torch.autograd.grad(yl, (xl, gl, ul, dl), dy)
+
+    call = (lambda: mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy))
+    rec = dict(
+        E=E, C=C, d=d, ff=ff, dtype=dtn, body=("mma.sync" if dtn ==
+                                               "bfloat16" else "cuda_cores"),
+        max_abs_err=err, rel_rms_err=rr, same_bits=same, flops=flops,
+        ms=timed_ms(call, 30, 3), device_ms=device_ms(call, 30, 3),
+        plain_ms=timed_ms(lambda: mg.moe_swiglu_bwd_ref(x, wg, wu, wd, dy),
+                          10, 2),
+        library_ms=timed_ms(library, 30, 3),
+        library_call="composition: autograd of 3 torch.bmm + silu (no "
+        "single call)",
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+    phase("train-kernels", "moe_swiglu_bwd " + json.dumps(rec))
+    return rec
+
+
+def rglru_bwd_case(device, g, B: int, S: int, C: int, a_near: float,
+                   breaches) -> dict:
+    """The RG-LRU scan backward kernel at one shape (a within 1e-3 of 1 or
+    of 0) against float32 autograd through the plain scan, twice for the
+    same bits; bound by its 20 bytes an element."""
+    import torch
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels.rglru import backward as gb
+    label = f"rglru bwd {B}x{S}x{C} a~{a_near:g}"
+    jitter = torch.rand((B, S, C), generator=g, device=device) * 1e-3
+    a = 1.0 - jitter if a_near == 1.0 else jitter
+    b = torch.randn((B, S, C), generator=g, device=device)
+    dh = torch.randn((B, S, C), generator=g, device=device)
+    h = rg.rglru_scan_cuda(a, b)
+    got = gb.rglru_scan_bwd_cuda(a, h, dh)
+    again = gb.rglru_scan_bwd_cuda(a, h, dh)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    if not same:
+        breaches.append(f"{label}: two runs differ")
+    leaves = [a.clone().requires_grad_(), b.clone().requires_grad_()]
+    want = torch.autograd.grad(rg.rglru_scan_ref(*leaves), leaves, dh)
+    sub = []
+    err, rr = _hold_grads(("a", "b"), got, want, "float32", sub)
+    breaches.extend(f"{label} {x}" for x in sub)
+    del got, again, want, leaves
+    nbytes = 20 * a.numel()
+    call = (lambda: gb.rglru_scan_bwd_cuda(a, h, dh))
+    rec = dict(
+        B=B, S=S, C=C, a_near=a_near, max_abs_err=err, rel_rms_err=rr,
+        same_bits=same, ms=timed_ms(call, 30, 3),
+        device_ms=device_ms(call, 30, 3),
+        plain_ms=timed_ms(lambda: rg.rglru_scan_bwd_ref(a, h, dh), 3, 1),
+        library_ms=None, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+        bound_by="bytes")
+    rec["tb_per_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
+    phase("train-kernels", "rglru_scan_bwd " + json.dumps(rec))
+    return rec
+
+
+def wkv6_bwd_case(device, g, B: int, S: int, H: int, n: int, dtn: str,
+                  with_s0: bool, breaches) -> dict:
+    """The WKV6 backward kernel at one shape against float32 autograd
+    through the plain recurrence, twice for the same bits: bf16 r/k/v,
+    float32 w with entries exactly 0 and 1, from a nonzero state with the
+    final state's gradient (and ds0) when ``with_s0``; bound by
+    WKV_BWD_OPS operations a state element a step."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.wkv6 import backward as wb
+    dt = getattr(torch, dtn)
+    label = f"wkv6 bwd {B}x{S}x{H}x{n} {dtn}{' s0' if with_s0 else ''}"
+
+    def rn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    r, k, v = (rn((B, S, H, n), 0.5).to(dt) for _ in range(3))
+    w = torch.rand((B, S, H, n), generator=g, device=device)
+    w[..., ::7] = 0.0
+    w[..., 3::11] = 1.0
+    u, dy = rn((H, n), 0.5), rn((B, S, H, n))
+    s0 = rn((B, H, n, n), 0.5) if with_s0 else None
+    ds = rn((B, H, n, n)) if with_s0 else None
+    got = wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    again = wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    same = all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(got, again))
+    if not same:
+        breaches.append(f"{label}: two runs differ")
+    leaves = [t.float().requires_grad_() for t in (r, k, v, w, u)]
+    if with_s0:
+        leaves.append(s0.clone().requires_grad_())
+    y, s_fin = wk.wkv6_ref(*leaves[:5], leaves[5] if with_s0 else None)
+    outs, grads = ([y, s_fin], [dy, ds]) if with_s0 else ([y], [dy])
+    want = torch.autograd.grad(outs, leaves, grads)
+    del y, s_fin, outs
+    names = ("r", "k", "v", "w", "u", "s0")
+    sub = []
+    err, rr = _hold_grads(names, [t for t in got if t is not None], want,
+                          dtn, sub)
+    breaches.extend(f"{label} {x}" for x in sub)
+    del got, again, want, leaves
+    ops = float(WKV_BWD_OPS) * B * S * H * n * n
+    t_ops = ops / ISSUE_S * 1e3
+    t_bytes = (r.numel() * (6 * r.element_size() + 12)
+               + (4 * s0.numel() * 4 if with_s0 else 0)
+               + 2 * u.numel() * 4) / PEAK_BYTES_S * 1e3
+    call = (lambda: wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds))
+    rec = dict(
+        B=B, S=S, H=H, n=n, dtype=dtn, with_s0=with_s0,
+        w_zero_share=(w == 0).float().mean().item(),
+        w_one_share=(w == 1).float().mean().item(), max_abs_err=err,
+        rel_rms_err=rr, same_bits=same, state_ops=ops,
+        workspace_mb=wb.workspace_bytes(B, S, H, n) / 1e6,
+        ms=timed_ms(call, 10, 2), device_ms=device_ms(call, 10, 2),
+        plain_ms=timed_ms(lambda: wk.wkv6_bwd_ref(r, k, v, w, u, s0, dy,
+                                                  ds), 2, 1),
+        library_ms=None, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
+    phase("train-kernels", "wkv6_bwd " + json.dumps(rec))
     return rec
 
 
@@ -3186,13 +3436,20 @@ def rmsnorm_bwd_case(randn, rows: int, d: int, dtn: str, breaches) -> dict:
 
 @contextlib.contextmanager
 def plain_version_calls():
-    """Count calls of the attention and RMSNorm plain versions through
+    """Count calls of every language-model kernel's plain versions
+    (attention, RMSNorm, the expert SwiGLU, the RG-LRU scan, WKV6) through
     their ``ops`` modules (forward and backward) for a ``with`` block;
     yields the dict of counts."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.moe_gemm import ops as mops
+    from repro_torch.kernels.rglru import ops as gops
     from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.wkv6 import ops as wops
     names = ((fops, "attention_ref"), (fops, "attention_bwd_ref"),
-             (rops, "rmsnorm_ref"), (rops, "rmsnorm_bwd_ref"))
+             (rops, "rmsnorm_ref"), (rops, "rmsnorm_bwd_ref"),
+             (mops, "moe_swiglu_ref"), (mops, "moe_swiglu_bwd_ref"),
+             (gops, "rglru_scan_ref"), (gops, "rglru_scan_bwd_ref"),
+             (wops, "wkv6_ref"), (wops, "wkv6_bwd_ref"))
     calls = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
 
@@ -3209,6 +3466,77 @@ def plain_version_calls():
     finally:
         for mod, n, fn in saved:
             setattr(mod, n, fn)
+
+
+def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
+                            src_len: int = 0) -> dict:
+    """The kernel launches (the non-zero counts of ``kernel_counters``)
+    that one ``loss_fn`` forward and backward makes for ``cfg`` at batch
+    B x S tokens (an encoder-decoder's source ``src_len`` frames, S if
+    0): each block's kernels forward twice under ``remat`` (its own run
+    and the recompute) and backward once, the encoder's too, with each
+    forward body's count (attention's tensor cores for bf16, the MoE's by
+    capacity, WKV6's by S); the final norm (and an encoder's enc_norm)
+    once each way."""
+    import torch
+    from repro_torch.configs.base import RGLRU, RWKV6
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.moe_gemm import kernel as mk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import CAPACITY_FACTOR, encoder_cfg
+    dt = getattr(torch, cfg.dtype)
+    f = 2 if remat else 1
+    n = {}
+
+    def add(name, times):
+        n[name] = n.get(name, 0) + times
+
+    def attention(c):
+        add("flash_attention", f)
+        if dt == torch.bfloat16:
+            add("flash_attention_tc", f)
+        add("flash_attention_bwd", 1)
+        if fb.body_for(dt, c.head_dim) == "tensor_cores":
+            add("flash_attention_bwd_tc", 1)
+
+    def norms(k):
+        add("rmsnorm", f * k)
+        add("rmsnorm_bwd", k)
+
+    stacks = [(cfg, S)]
+    if cfg.enc_dec:
+        stacks.insert(0, (encoder_cfg(cfg), src_len or S))
+        add("rmsnorm", 1)                   # enc_norm, outside the blocks
+        add("rmsnorm_bwd", 1)
+    for c, length in stacks:
+        for lt in c.layer_types():
+            norms(2)
+            if lt == RWKV6:
+                body = wk.body_for(length, c.rwkv_head_dim)
+                add("wkv6", f)
+                add("wkv6_" + body, f)
+                add("wkv6_bwd", 1)
+                continue
+            if lt == RGLRU:
+                add("rglru_scan", f)
+                add("rglru_scan_bwd", 1)
+            else:
+                attention(c)
+                if c.qk_norm:
+                    norms(2)
+            if c.enc_dec:                   # a decoder block's cross
+                attention(c)
+                norms(1)
+            if c.num_experts:
+                cap = capacity_for(B * length, c, CAPACITY_FACTOR)
+                add("moe_swiglu", f)
+                add("moe_swiglu_" + mk.body_for(dt, cap, c.d_model, c.d_ff),
+                    f)
+                add("moe_swiglu_bwd", 1)
+    add("rmsnorm", 1)                       # final_norm, outside them
+    add("rmsnorm_bwd", 1)
+    return n
 
 
 @contextlib.contextmanager
@@ -3233,18 +3561,24 @@ def grads_seen():
         adamw.update = update
 
 
-def train_full_width(device, counters) -> tuple:
-    """[train]: starcoder2-3b at full width and depth (random weights from
-    a seed), B 4 x S 1024, remat, TRAIN_STEPS AdamW steps through
-    ``make_train_step``, after ``release_memory()``.  Every count is
-    zeroed just before each step and read just after it: attention's
-    forward 2L times (L forward + L recomputed), its backward L times, all
-    on the tensor-core bodies,
-    RMSNorm's forward 2·(2L) + 1 and backward 2L + 1 times (plus the
-    qk-norm's, where the model has one), nothing else, and no
-    plain-version call.  Every loss and grad norm must be finite and
-    every parameter leaf's gradient non-zero on step 1.  Returns
-    (record, launches of the whole run)."""
+def train_full_width(device, counters, tag: str = "train",
+                     arch: str = "starcoder2-3b", layers=None,
+                     batch_size: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                     n_steps: int = TRAIN_STEPS,
+                     predicted_gb=TRAIN_PEAK_PREDICTED_GB) -> tuple:
+    """[train] (and each of TRAIN_FAMILIES): ``arch`` at full width (and
+    full depth unless ``layers`` cuts it; random weights from a seed),
+    batch_size x seq tokens (an encoder-decoder as many source frames),
+    remat, ``n_steps`` AdamW steps through ``make_train_step``, after
+    ``release_memory()``.  Every count is zeroed just before each step
+    and read just after it, and must equal ``train_launches_per_step``:
+    each block's kernels forward twice (its own run and the recompute)
+    and backward once, every forward and backward body the one the shape
+    picks, and no plain-version call.  Every loss and grad norm must be
+    finite and every parameter leaf's gradient non-zero on step 1 (the
+    MoE router's through the aux loss among them).  Returns (record,
+    launches of the whole run)."""
+    import dataclasses
     import math
     import torch
     from repro_torch._tree import leaves
@@ -3255,12 +3589,10 @@ def train_full_width(device, counters) -> tuple:
     from repro_torch.runtime.data import DataConfig, batch_at
     from repro_torch.runtime.train import TrainConfig, make_train_step
 
-    cfg = get_config("starcoder2-3b")
-    L = cfg.num_layers
-    norms = 2 + (2 if cfg.qk_norm else 0)            # per block
-    want = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
-            "flash_attention_bwd": L, "flash_attention_bwd_tc": L,
-            "rmsnorm": 2 * L * norms + 1, "rmsnorm_bwd": L * norms + 1}
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    want = train_launches_per_step(cfg, batch_size, seq)
     live_gb = release_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3269,12 +3601,12 @@ def train_full_width(device, counters) -> tuple:
     opt = adamw.init(params)
     step_fn = make_train_step(cfg, TrainConfig(remat=True),
                               lr_schedule=cosine_with_warmup(2, 10))
-    dcfg = DataConfig(seed=0, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    dcfg = DataConfig(seed=0, seq_len=seq, global_batch=batch_size)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     steps, total_launches, bad = [], {}, []
     with plain_version_calls() as plain, grads_seen() as seen:
-        for s in range(TRAIN_STEPS):
+        for s in range(n_steps):
             batch = batch_at(cfg, dcfg, s, device)
             torch.cuda.synchronize()
             zero_counters(counters)
@@ -3288,7 +3620,7 @@ def train_full_width(device, counters) -> tuple:
             moved = {k: v for k, v in launches.items() if v}
             if moved != want:
                 bad.append(f"step {s + 1} launches {moved}, want {want}")
-            steps.append(dict(loss=float(m["loss"]),
+            steps.append(dict(loss=float(m["loss"]), aux=float(m["aux"]),
                               grad_norm=float(m["grad_norm"]), s=dt))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     zero_grads = int((seen[0] == 0).sum().item())
@@ -3301,23 +3633,26 @@ def train_full_width(device, counters) -> tuple:
     if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
                for x in steps):
         bad.append(f"non-finite loss or grad norm: {steps}")
+    if cfg.num_experts and not all(x["aux"] > 0 for x in steps):
+        bad.append(f"MoE aux loss not positive: {steps}")
     warm = sorted(x["s"] for x in steps[1:])
     step_s = warm[len(warm) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     n_params = cfg.num_params()
     rec = dict(
-        model=cfg.name, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        remat=True, steps=steps, setup_s=setup_s,
-        step_s_median_after_first=step_s,
+        model=cfg.name, layers=cfg.num_layers,
+        layers_of_config=get_config(arch).num_layers, params=n_params,
+        batch=batch_size, seq=seq, remat=True, steps=steps,
+        setup_s=setup_s, step_s_median_after_first=step_s,
         tokens_per_s=tokens / step_s,
         model_flops_share=6.0 * n_params * tokens / step_s / PEAK_BF16_S,
-        peak_gb=peak_gb, peak_gb_predicted=list(TRAIN_PEAK_PREDICTED_GB),
+        peak_gb=peak_gb, peak_gb_predicted=list(predicted_gb),
         live_gb_before=live_gb, leaves=n_leaves,
         leaves_with_zero_grad_step1=zero_grads,
         launches_per_step=want, plain_version_calls=plain)
-    phase("train", json.dumps(rec))
+    phase(tag, json.dumps(rec))
     if bad:
-        raise AssertionError("[train]: " + "; ".join(bad))
+        raise AssertionError(f"[{tag}]: " + "; ".join(bad))
     del params, opt, m, batch
     release_memory()
     return rec, total_launches
@@ -3334,36 +3669,28 @@ def _loss_and_grads(cfg, params, batch):
     return float(total.detach()), torch.autograd.grad(total, flat)
 
 
-def train_cross(device, counters) -> tuple:
-    """[train-cross]: the card against the CPU on one reduced float32
-    starcoder2 model (2 layers, d 256, 4/2 heads of 64) with the same
-    weights and batch: the loss, every gradient leaf and one AdamW step's
-    update (TRAIN_CROSS_*); then ``launch.train`` on the card at
-    ``--size smoke``: 4 steps straight through, and 2 steps, a simulated
-    preemption (``--stop-after 2``) and a ``--resume`` to 4, the two
-    final losses within TRAIN_RESUME_RTOL.  Returns (record, launches of
-    the card's runs)."""
-    import dataclasses
-    import tempfile
+def _cross_one(device, counters, cfg, seed: int = 5) -> tuple:
+    """One reduced float32 model, card against CPU on the same weights
+    and batch (2 x 128 tokens): the loss, every gradient leaf and one
+    AdamW step's update; the card's loss-and-gradient launches must be
+    ``train_launches_per_step``'s.  Returns (record, launches, problems)."""
     import torch
     from repro_torch._tree import leaves
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     from repro_torch.runtime.data import DataConfig, batch_at
     from repro_torch.runtime.train import make_train_step
 
-    cfg = dataclasses.replace(
-        reduced(get_config("starcoder2-3b"), layers=2, d_model=256,
-                heads=4, kv_heads=2, d_ff=1024), dtype="float32")
-    cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(5), "cpu")
-    cpu_batch = batch_at(cfg, DataConfig(seed=5, seq_len=128,
+    cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                             "cpu")
+    cpu_batch = batch_at(cfg, DataConfig(seed=seed, seq_len=128,
                                          global_batch=2), 0, "cpu")
     card_params = to_tree(cpu_params, device=device)
     card_batch = {k: v.to(device) for k, v in cpu_batch.items()}
     zero_counters(counters)
     loss_card, g_card = _loss_and_grads(cfg, card_params, card_batch)
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in all_launches(counters).items() if v}
     loss_cpu, g_cpu = _loss_and_grads(cfg, cpu_params, cpu_batch)
     grad_rr = max(rel_rms(a.cpu(), b) for a, b in zip(g_card, g_cpu))
     before = [p.detach().clone() for p in leaves(cpu_params)]
@@ -3375,6 +3702,52 @@ def train_cross(device, counters) -> tuple:
                     for a, b, p0 in zip(leaves(card_params),
                                         leaves(cpu_params), before))
     launches = all_launches(counters)
+    want = train_launches_per_step(cfg, 2, 128)
+    rec = dict(loss_card=loss_card, loss_cpu=loss_cpu,
+               loss_rel_diff=abs(loss_card - loss_cpu) / abs(loss_cpu),
+               grad_rel_rms_max=grad_rr, update_rel_rms_max=update_rr,
+               launches_loss_and_grads=moved)
+    bad = []
+    if rec["loss_rel_diff"] > TRAIN_CROSS_LOSS_RTOL:
+        bad.append(f"loss {loss_card} vs CPU {loss_cpu}")
+    if grad_rr > TRAIN_CROSS_GRAD_RMS:
+        bad.append(f"gradient rel RMS {grad_rr:.3g}")
+    if update_rr > TRAIN_CROSS_UPDATE_RMS:
+        bad.append(f"update rel RMS {update_rr:.3g}")
+    if moved != want:
+        bad.append(f"launches {moved}, want {want}")
+    return rec, launches, [f"{cfg.name}: {b}" for b in bad]
+
+
+def train_cross(device, counters) -> tuple:
+    """[train-cross]: the card against the CPU on one reduced float32
+    starcoder2 model (2 layers, d 256, 4/2 heads of 64) and on one
+    reduced float32 model of each later family (TRAIN_CROSS_FAMILIES),
+    each with the same weights and batch: the loss, every gradient leaf
+    and one AdamW step's update (TRAIN_CROSS_*); then ``launch.train`` on
+    the card at ``--size smoke``: 4 steps straight through, and 2 steps,
+    a simulated preemption (``--stop-after 2``) and a ``--resume`` to 4,
+    the two final losses within TRAIN_RESUME_RTOL.  Returns (record,
+    launches of the card's runs)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as launch_train
+
+    cfg = dataclasses.replace(
+        reduced(get_config("starcoder2-3b"), layers=2, d_model=256,
+                heads=4, kv_heads=2, d_ff=1024), dtype="float32")
+    base, launches, bad = _cross_one(device, counters, cfg)
+    families = {}
+    for arch, kw in TRAIN_CROSS_FAMILIES:
+        fcfg = dataclasses.replace(reduced(get_config(arch), **kw),
+                                   dtype="float32")
+        frec, flaunch, fbad = _cross_one(device, counters, fcfg)
+        frec["head_dim"] = fcfg.head_dim
+        families[fcfg.name] = frec
+        bad.extend(fbad)
+        for k, v in flaunch.items():
+            launches[k] = launches.get(k, 0) + v
 
     args = ["--arch", "starcoder2-3b", "--size", "smoke", "--steps", "4",
             "--seq", "64", "--batch", "2", "--ckpt-every", "2"]
@@ -3393,9 +3766,7 @@ def train_cross(device, counters) -> tuple:
     final_straight, final_resumed = straight["losses"][3], resumed[3]
     rec = dict(
         model=f"{cfg.name} f32 (2 layers, d 256, 4/2 heads of 64)",
-        loss_card=loss_card, loss_cpu=loss_cpu,
-        loss_rel_diff=abs(loss_card - loss_cpu) / abs(loss_cpu),
-        grad_rel_rms_max=grad_rr, update_rel_rms_max=update_rr,
+        **base, families=families,
         launcher_straight=straight["losses"],
         launcher_resumed=resumed, resume_start=second["start"],
         resume_rel_diff=abs(final_resumed - final_straight)
@@ -3403,20 +3774,14 @@ def train_cross(device, counters) -> tuple:
         resume_bit_for_bit=resumed == straight["losses"],
         launches=launches)
     phase("train-cross", json.dumps(rec))
-    bad = []
-    if rec["loss_rel_diff"] > TRAIN_CROSS_LOSS_RTOL:
-        bad.append(f"loss {loss_card} vs CPU {loss_cpu}")
-    if grad_rr > TRAIN_CROSS_GRAD_RMS:
-        bad.append(f"gradient rel RMS {grad_rr:.3g}")
-    if update_rr > TRAIN_CROSS_UPDATE_RMS:
-        bad.append(f"update rel RMS {update_rr:.3g}")
     if not (first["preempted"] and second["start"] == 2
             and sorted(resumed) == [0, 1, 2, 3]):
         bad.append(f"preempt/resume: {first} {second}")
     if rec["resume_rel_diff"] > TRAIN_RESUME_RTOL:
         bad.append(f"resumed loss {final_resumed} vs straight "
                    f"{final_straight}")
-    for k in ("flash_attention_bwd", "rmsnorm_bwd"):
+    for k in ("flash_attention_bwd", "rmsnorm_bwd", "moe_swiglu_bwd",
+              "rglru_scan_bwd", "wkv6_bwd"):
         if not launches.get(k):
             bad.append(f"{k} never launched")
     if bad:
@@ -3454,14 +3819,21 @@ def main() -> int:
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.rmsnorm import backward as rms_bwd
+    from repro_torch.kernels.moe_gemm import backward as moe_bwd
+    from repro_torch.kernels.rglru import backward as rglru_bwd
+    from repro_torch.kernels.wkv6 import backward as wkv_bwd
     build_all((sweep_kernel, steps_kernel, rms_kernel, flash_kernel,
-               moe_kernel, rglru_kernel, wkv_kernel, flash_bwd, rms_bwd),
+               moe_kernel, rglru_kernel, wkv_kernel, flash_bwd, rms_bwd,
+               moe_bwd, rglru_bwd, wkv_bwd),
               no_spill={sweep_kernel.LIB_NAME: ("sweep_kernel",),
                         steps_kernel.LIB_NAME: None,
                         rms_kernel.LIB_NAME: None,
                         flash_kernel.LIB_NAME: None,
                         flash_bwd.LIB_NAME: None,
                         rms_bwd.LIB_NAME: None,
+                        moe_bwd.LIB_NAME: None,
+                        rglru_bwd.LIB_NAME: None,
+                        wkv_bwd.LIB_NAME: None,
                         moe_kernel.LIB_NAME: ("gate_up_kernel",
                                               "down_kernel"),
                         wkv_kernel.LIB_NAME: ("chunk_",)})
@@ -3618,20 +3990,29 @@ def main() -> int:
                 lm[name]["max_abs_err"] = max(lm[name]["max_abs_err"],
                                               r["max_abs_err"])
 
-    # 8d. training: rows 3 and 4's backward kernels against their plain
-    # versions, full-width starcoder2-3b train steps (each step's counts
-    # zeroed just before it and read just after), the card against the
-    # CPU and the launcher's preempt/resume -----------------------------
+    # 8d. training: every backward kernel against its plain version,
+    # full-width train steps of starcoder2-3b and of the MoE, RWKV-6,
+    # hybrid and encoder-decoder families (each step's counts zeroed just
+    # before it and read just after), the card against the CPU on a
+    # reduced model of each family and the launcher's preempt/resume ----
     t0 = time.perf_counter()
     train_k = train_kernel_cases(device)
     phase("train-kernels", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _, train_launches = train_full_width(device, counters)
     phase("train", f"{time.perf_counter() - t0:.1f} s")
+    later_paths += (train_launches,)
+    for tag, arch, layers, batch, seq, n_steps, gb in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        _, fam_launches = train_full_width(
+            device, counters, tag=tag, arch=arch, layers=layers,
+            batch_size=batch, seq=seq, n_steps=n_steps, predicted_gb=gb)
+        phase(tag, f"{time.perf_counter() - t0:.1f} s")
+        later_paths += (fam_launches,)
     t0 = time.perf_counter()
     _, train_cross_launches = train_cross(device, counters)
     phase("train-cross", f"{time.perf_counter() - t0:.1f} s")
-    later_paths += (train_launches, train_cross_launches)
+    later_paths += (train_cross_launches,)
 
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"
@@ -3687,7 +4068,15 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:98"),
             ("rmsnorm_bwd",
              "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
-             "src/repro/kernels/rmsnorm/kernel.py:27")):
+             "src/repro/kernels/rmsnorm/kernel.py:27"),
+            ("moe_swiglu_bwd",
+             "src/repro_torch/kernels/moe_gemm/csrc/moe_swiglu_bwd.cu",
+             "src/repro/kernels/moe_gemm/kernel.py:59"),
+            ("rglru_scan_bwd",
+             "src/repro_torch/kernels/rglru/csrc/rglru_scan_bwd.cu",
+             "src/repro/kernels/rglru/kernel.py:59"),
+            ("wkv6_bwd", "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+             "src/repro/kernels/wkv6/kernel.py:66")):
         r = train_k[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -3696,7 +4085,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "body": r["body"]})
+            "device_ms": r["device_ms"], **({"body": r["body"]}
+                                             if "body" in r else {})})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

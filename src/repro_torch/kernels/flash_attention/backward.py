@@ -10,11 +10,12 @@ without synchronising, and raises if a launch was refused.
 launches once) and ``LAUNCHES["flash_attention_bwd_tc"]`` those of the
 tensor-core body, nowhere else.
 
-The body follows the dtype, explicitly (:func:`body_for`): bfloat16 runs
-the tensor-core body (wgmma, TMA), which takes the training forward's
-LSE and output residual (``kernel.flash_attention_cuda(stats=True)``);
-float32 runs the CUDA-core body, which recomputes LSE and takes D from
-its float32 output.  :func:`group_split` and :func:`smem_bytes` are the
+The body follows the dtype and head_dim, explicitly (:func:`body_for`):
+bfloat16 at head_dim 32-128 runs the tensor-core body (wgmma, TMA), which
+takes the training forward's LSE and output residual
+(``kernel.flash_attention_cuda(stats=True)``); bfloat16 at head_dim 256
+runs the CUDA-core body with the same two; float32 runs the CUDA-core
+body, which recomputes LSE and takes D from its float32 output.  :func:`group_split` and :func:`smem_bytes` are the
 tensor-core body's launch shape, from the shape alone.
 """
 from __future__ import annotations
@@ -36,13 +37,12 @@ FLAGS = _build.NVCC_FLAGS
 LAUNCHES = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+#: head_dims the tensor-core body is built for; bfloat16 at the others
+#: (256: recurrentgemma-9b's) runs the CUDA-core body
+TC_HEAD_DIMS = (32, 64, 128)
 #: the library's body codes
 BODIES = {"cuda_cores": 0, "tensor_cores": 1}
-#: where the shapes this kernel refuses are queued: head_dim 256 is
-#: recurrentgemma-9b's alone, which trains with the hybrid family
-DEFERRED = ("ROADMAP item 7b (training for the hybrid family: "
-            "recurrentgemma-9b, the one configuration with head_dim 256)")
 
 #: q rows and keys a tile of the tensor-core body
 TILE = 64
@@ -56,13 +56,14 @@ SMEM_LIMIT = 232_448
 
 def body_for(dtype: torch.dtype, hd: int) -> str:
     """The backward body that runs ``dtype`` at head_dim ``hd``:
-    ``"tensor_cores"`` for bfloat16, ``"cuda_cores"`` for float32; raises
-    for any other dtype or head_dim (no fallback)."""
+    ``"tensor_cores"`` for bfloat16 at TC_HEAD_DIMS, ``"cuda_cores"`` for
+    bfloat16 at head_dim 256 and for float32; raises for any other dtype
+    or head_dim (no fallback)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"attention backward: head_dim {hd}; the kernel "
-                         f"takes {HEAD_DIMS}, the rest waits for {DEFERRED}")
+                         f"takes {HEAD_DIMS}")
     if dtype == torch.bfloat16:
-        return "tensor_cores"
+        return "tensor_cores" if hd in TC_HEAD_DIMS else "cuda_cores"
     if dtype == torch.float32:
         return "cuda_cores"
     raise TypeError(f"attention backward: dtype {dtype}, expected float32 "
@@ -157,7 +158,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     device, ``out`` the forward's output for (q, k, v) -> (dq, dk, dv) in
     that dtype.  bfloat16 also takes the training forward's ``lse``
     (B, Hq, Sq) float32 and ``out_lo`` (out's shape and dtype); float32
-    takes neither.  hd 32, 64 or 128; any other raises."""
+    takes neither.  hd 32, 64, 128 or 256; any other raises."""
     if not torch.is_tensor(q):
         raise TypeError("q: expected a tensor")
     if q.dtype not in DTYPES:
@@ -174,7 +175,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     Skv, Hkv = k.shape[1], k.shape[2]
     body = body_for(q.dtype, hd)
     tc = body == "tensor_cores"
-    if tc:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         if lse is None or out_lo is None:
             raise ValueError("attention backward: bfloat16 takes the "
                              "forward's lse and out_lo "
@@ -200,14 +202,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             partial = torch.empty((2, nsplit, B, Skv, Hkv, hd),
                                   dtype=torch.float32, device=q.device)
     else:
-        scratch = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
-                              device=q.device)
+        scratch = torch.empty((1 if bf16 else 2, B, Hq, Sq),
+                              dtype=torch.float32, device=q.device)
     lib = library()
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     rc = lib.mcsa_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        out_lo.data_ptr() if tc else None, dout.data_ptr(),
-        lse.data_ptr() if tc else None, dq.data_ptr(), dk.data_ptr(),
+        out_lo.data_ptr() if bf16 else None, dout.data_ptr(),
+        lse.data_ptr() if bf16 else None, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr(),
         partial.data_ptr() if partial is not None else None, B, Sq, Skv, Hq,
         Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),

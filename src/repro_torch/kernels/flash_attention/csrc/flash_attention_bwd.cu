@@ -1,7 +1,8 @@
 // Flash attention backward for Hopper (sm_90a): the gradients dq, dk, dv
 // of the forward in csrc/flash_attention.cu (online-softmax GQA attention,
 // causal and sliding-window masks) for an output gradient dout, in the
-// model layout q (B, Sq, Hq, HD), k/v (B, Skv, Hkv, HD), HD 32, 64 or 128.
+// model layout q (B, Sq, Hq, HD), k/v (B, Skv, Hkv, HD), HD 32, 64, 128 or
+// 256.
 //
 // What it replaces: no Pallas kernel.  The JAX package's train step
 // differentiates its jnp flash_attention (src/repro/models/transformer.py:
@@ -52,6 +53,15 @@
 //   * float32 -> the CUDA-core body (namespace cc, the first design): fp32
 //     FMAs, so the exact 1e-5 checks keep full float32 products; a pre-pass
 //     recomputes LSE and takes D from the float32 out.
+//   * bfloat16 at HD 256 (recurrentgemma-9b's local layers) -> the same
+//     CUDA-core body, its tiles converted to float32 in shared memory, with
+//     the training forward's base-2 LSE and D = rowsum(dO ⊙ (out +
+//     out_lo)) in float32 from a pre-pass, as the tensor-core body takes
+//     them.  At HD 256 the body's tiles are 32 rows, not 64, in both types:
+//     four float32 tiles of 64 x 260 would need 266 KB of shared memory, a
+//     block may take 227 KB.  A tensor-core body at HD 256 needs its own
+//     register plan (dK and dV alone would be 256 float32 registers a
+//     thread of one warpgroup) and is later work (ROADMAP).
 //
 // Why D in float32, and dS as hi + lo only in dQ.  An error δD_i enters dQ_i
 // as −δD_i·Σ_j P_ij k_j.  When the keys share a common component c (a bias,
@@ -127,20 +137,46 @@ int set_smem(K kern, size_t bytes) {
 // ---------------------------------------------------------------------
 namespace cc {
 
-constexpr int BQ = 64;          // q rows a tile
-constexpr int BK = 64;          // keys a tile
+// R (q rows and keys a tile) is 64, or 32 at HD 256, where four float32
+// tiles of 64 rows would need 266 KB of shared memory, more than a block
+// may take (227 KB); 32-row tiles take 133 KB.  A thread owns rows (or
+// keys) ty + 16a and tx + 16b, a, b < R / 16.
 constexpr int THREADS = 256;    // 16 x 16
 constexpr int PS = 80;          // pitch of the P / dS tile
 
-__device__ __forceinline__ float to_f(float v) { return v; }
+template <int HD>
+constexpr int rows_for() { return HD > 128 ? 32 : 64; }
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
-// 4 consecutive floats of src (16-byte aligned)
+// 4 consecutive elements of src (16-byte aligned for float, 8 for bf16)
+// as float32
 __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// P from a scaled score: float32 takes the natural-log LSE this body's
+// pre-pass recomputes, exp(x·scale − L); bfloat16 the training forward's
+// base-2 LSE, 2^(x·scale·log2 e − L) (se is the exponent's scale)
+template <typename T>
+__device__ __forceinline__ float prob(float x, float se, float L) {
+  if constexpr (sizeof(T) == 2) return exp2f(x * se - L);
+  else return expf(x * se - L);
 }
 
 // Copy `rows` rows of one head (HD elements each, `stride` elements apart)
@@ -159,27 +195,27 @@ __device__ void load_tile(float* dst, const T* src, size_t stride, int rows,
 }
 
 // s[a][b] = sum_d A[ty + 16a][d] * B[tx + 16b][d] (A, B: pitch HD + 4)
-template <int HD>
-__device__ __forceinline__ void nt_tile(float (&s)[4][4],
+template <int HD, int RA>
+__device__ __forceinline__ void nt_tile(float (&s)[RA][RA],
                                         const float* __restrict__ A,
                                         const float* __restrict__ B, int ty,
                                         int tx) {
   constexpr int P = HD + 4;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+    for (int b = 0; b < RA; ++b) s[a][b] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[RA], bv[RA];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = load4(A + (ty + 16 * a) * P + d);
+    for (int a = 0; a < RA; ++a) av[a] = load4(A + (ty + 16 * a) * P + d);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = load4(B + (tx + 16 * b) * P + d);
+    for (int b = 0; b < RA; ++b) bv[b] = load4(B + (tx + 16 * b) * P + d);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
+      for (int b = 0; b < RA; ++b) {
         float t = s[a][b];
         t = fmaf(av[a].x, bv[b].x, t);
         t = fmaf(av[a].y, bv[b].y, t);
@@ -200,21 +236,21 @@ struct Acc {
   __device__ static int col(int tx, int e) { return VW * tx + 16 * VW * e; }
 };
 
-// acc[a][..] += sum_k M(ty + 16a, k) * B[k][cols of tx], k over 64: M(r, k)
-// is Ms[k * PS + r] when TRANS (Pᵀ or dSᵀ: r is a key) and Ms[r * PS + k]
-// otherwise (dS: r is a q row); B has pitch HD + 4.
-template <int HD, bool TRANS>
-__device__ __forceinline__ void acc_tile(float (&acc)[4][Acc<HD>::NC],
+// acc[a][..] += sum_k M(ty + 16a, k) * B[k][cols of tx], k over 16·RA:
+// M(r, k) is Ms[k * PS + r] when TRANS (Pᵀ or dSᵀ: r is a key) and
+// Ms[r * PS + k] otherwise (dS: r is a q row); B has pitch HD + 4.
+template <int HD, bool TRANS, int RA>
+__device__ __forceinline__ void acc_tile(float (&acc)[RA][Acc<HD>::NC],
                                          const float* __restrict__ Ms,
                                          const float* __restrict__ B,
                                          int ty, int tx) {
   using C = Acc<HD>;
   constexpr int P = HD + 4;
 #pragma unroll 2
-  for (int k = 0; k < 64; ++k) {
-    float m[4];
+  for (int k = 0; k < 16 * RA; ++k) {
+    float m[RA];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
       m[a] = TRANS ? Ms[k * PS + ty + 16 * a] : Ms[(ty + 16 * a) * PS + k];
 #pragma unroll
     for (int e = 0; e < C::NG; ++e) {
@@ -228,7 +264,7 @@ __device__ __forceinline__ void acc_tile(float (&acc)[4][Acc<HD>::NC],
         bv[0] = t.x; bv[1] = t.y;
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
         for (int j = 0; j < C::VW; ++j)
           acc[a][e * C::VW + j] = fmaf(m[a], bv[j], acc[a][e * C::VW + j]);
@@ -238,13 +274,13 @@ __device__ __forceinline__ void acc_tile(float (&acc)[4][Acc<HD>::NC],
 
 // Store 4 rows (ty + 16a) of an accumulator times `mul` to dst (row r at
 // dst + r * stride), rows at or past `valid` skipped.
-template <typename T, int HD>
-__device__ __forceinline__ void store_acc(const float (&acc)[4][Acc<HD>::NC],
+template <typename T, int HD, int RA>
+__device__ __forceinline__ void store_acc(const float (&acc)[RA][Acc<HD>::NC],
                                           T* dst, size_t stride, int valid,
                                           float mul, int ty, int tx) {
   using C = Acc<HD>;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int r = ty + 16 * a;
     if (r >= valid) continue;
 #pragma unroll
@@ -256,7 +292,8 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][Acc<HD>::NC],
   }
 }
 
-// The kv tiles [kt_begin, kt_end) that q rows [q0, q_last] meet.
+// The kv tiles [kt_begin, kt_end) of BK keys that q rows [q0, q_last] meet.
+template <int BK>
 __device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
                                         int causal, int window,
                                         int& kt_begin, int& kt_end) {
@@ -267,15 +304,16 @@ __device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
   kt_end = (k_end + BK - 1) / BK;
 }
 
-// 1. LSE and D
-template <typename T, int HD>
+// 1. LSE and D (float32): D = rowsum(dO ⊙ out), TPR threads a row
+template <typename T, int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ out, const T* __restrict__ dout,
               float* __restrict__ lse, float* __restrict__ delta, int Sq,
               int Skv, int Hq, int Hkv, float scale, int causal,
               int window) {
-  constexpr int P = HD + 4;
+  constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
+  constexpr int TPR = THREADS / R;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + BQ * P;
@@ -286,29 +324,31 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
   const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;   // into lse / delta
 
-  // D: 4 threads a row, HD / 4 columns each
+  // D: TPR threads a row, every (4·TPR)-th group of 4 columns each
   {
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
     float s = 0.f;
     if (q0 + r < Sq) {
       const T* o = out + q_off + r * q_stride;
       const T* g = dout + q_off + r * q_stride;
-      for (int c = part * 4; c < HD; c += 16) {
+      for (int c = part * 4; c < HD; c += 4 * TPR) {
         const float4 ov = load4(o + c), gv = load4(g + c);
         s += ov.x * gv.x + ov.y * gv.y + ov.z * gv.z + ov.w * gv.w;
       }
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
     if (part == 0 && q0 + r < Sq) delta[row0 + r] = s;
   }
 
   load_tile<T, HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
   int kt_begin, kt_end;
-  kv_band(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin, kt_end);
-  float m[4], l[4];
+  kv_band<BK>(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin,
+              kt_end);
+  float m[RA], l[RA];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     m[a] = NEG_INF;
     l[a] = 0.f;
   }
@@ -318,14 +358,14 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, HD>(Ks, k + (((size_t)b * Skv + k0) * Hkv + hk) * HD,
                      kv_stride, BK, Skv - k0);
     __syncthreads();
-    float s[4][4];
-    nt_tile<HD>(s, Qs, Ks, ty, tx);
+    float s[RA][RA];
+    nt_tile<HD, RA>(s, Qs, Ks, ty, tx);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       const int qp = q0 + ty + 16 * a;
       float mt = NEG_INF;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
+      for (int bb = 0; bb < RA; ++bb) {
         const bool ok = keep(qp, k0 + tx + 16 * bb, Sq, Skv, causal, window);
         s[a][bb] = ok ? s[a][bb] * scale : NEG_INF;
         mt = fmaxf(mt, s[a][bb]);
@@ -336,7 +376,7 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
       const float mn = fmaxf(m[a], mt);
       float rs = 0.f;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
+      for (int bb = 0; bb < RA; ++bb)
         rs += s[a][bb] > 0.5f * NEG_INF ? expf(s[a][bb] - mn) : 0.f;
 #pragma unroll
       for (int off = 1; off < 16; off <<= 1)
@@ -347,23 +387,52 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tx == 0) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       const int r = ty + 16 * a;
       if (q0 + r < Sq) lse[row0 + r] = m[a] + logf(fmaxf(l[a], 1e-30f));
     }
   }
 }
 
+// 1'. D (bfloat16, the forward's LSE taken as it is): D = rowsum(dO ⊙
+// (out + out_lo)) in float32, out_lo being what out's rounding left out,
+// TPR threads a row
+template <int HD, int R>
+__global__ void __launch_bounds__(THREADS)
+attn_bwd_delta(const __nv_bfloat16* __restrict__ out,
+               const __nv_bfloat16* __restrict__ out_lo,
+               const __nv_bfloat16* __restrict__ dout,
+               float* __restrict__ delta, int Sq, int Hq) {
+  constexpr int TPR = THREADS / R;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
+  const size_t off = (((size_t)b * Sq + q0 + r) * Hq + h) * HD;
+  float s = 0.f;
+  if (q0 + r < Sq) {
+    for (int c = part * 4; c < HD; c += 4 * TPR) {
+      const float4 ov = load4(out + off + c), lv = load4(out_lo + off + c);
+      const float4 gv = load4(dout + off + c);
+      s += (ov.x + lv.x) * gv.x + (ov.y + lv.y) * gv.y +
+           (ov.z + lv.z) * gv.z + (ov.w + lv.w) * gv.w;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (part == 0 && q0 + r < Sq)
+    delta[((size_t)b * Hq + h) * Sq + q0 + r] = s;
+}
+
 // 2. dK and dV
-template <typename T, int HD>
+template <typename T, int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
-              int Hq, int Hkv, float scale, int causal, int window) {
+              int Hq, int Hkv, float scale, float se, int causal,
+              int window) {
   using C = Acc<HD>;
-  constexpr int P = HD + 4;
+  constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + BK * P;
@@ -386,9 +455,9 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
   const int qt_begin = q_begin / BQ, qt_end = (q_end + BQ - 1) / BQ;
 
-  float dka[4][C::NC], dva[4][C::NC];
+  float dka[RA][C::NC], dva[RA][C::NC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int c = 0; c < C::NC; ++c) dka[a][c] = dva[a][c] = 0.f;
 
@@ -407,48 +476,48 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         Ds[i] = in ? delta[row0 + i] : 0.f;
       }
       __syncthreads();
-      float p[4][4], dp[4][4];
-      nt_tile<HD>(p, Qs, Ks, ty, tx);
+      float p[RA][RA], dp[RA][RA];
+      nt_tile<HD, RA>(p, Qs, Ks, ty, tx);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < RA; ++a) {
         const int r = ty + 16 * a;
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
+        for (int bb = 0; bb < RA; ++bb) {
           const int c = tx + 16 * bb;
           const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
-          p[a][bb] = ok ? expf(p[a][bb] * scale - Ls[r]) : 0.f;
+          p[a][bb] = ok ? prob<T>(p[a][bb], se, Ls[r]) : 0.f;
           Ps[r * PS + c] = p[a][bb];
         }
       }
-      nt_tile<HD>(dp, Gs, Vs, ty, tx);
+      nt_tile<HD, RA>(dp, Gs, Vs, ty, tx);
       __syncthreads();                     // P is whole
-      acc_tile<HD, true>(dva, Ps, Gs, ty, tx);
+      acc_tile<HD, true, RA>(dva, Ps, Gs, ty, tx);
       __syncthreads();                     // P is read: dS takes its place
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < RA; ++a) {
         const int r = ty + 16 * a;
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb)
+        for (int bb = 0; bb < RA; ++bb)
           Ps[r * PS + tx + 16 * bb] = p[a][bb] * (dp[a][bb] - Ds[r]);
       }
       __syncthreads();
-      acc_tile<HD, true>(dka, Ps, Qs, ty, tx);
+      acc_tile<HD, true, RA>(dka, Ps, Qs, ty, tx);
     }
   }
-  store_acc<T, HD>(dka, dk + kv_off, kv_stride, Skv - k0, scale, ty, tx);
-  store_acc<T, HD>(dva, dv + kv_off, kv_stride, Skv - k0, 1.f, ty, tx);
+  store_acc<T, HD, RA>(dka, dk + kv_off, kv_stride, Skv - k0, scale, ty, tx);
+  store_acc<T, HD, RA>(dva, dv + kv_off, kv_stride, Skv - k0, 1.f, ty, tx);
 }
 
 // 3. dQ
-template <typename T, int HD>
+template <typename T, int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-            float scale, int causal, int window) {
+            float scale, float se, int causal, int window) {
   using C = Acc<HD>;
-  constexpr int P = HD + 4;
+  constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Gs = Qs + BQ * P;
@@ -471,11 +540,12 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     Ds[i] = in ? delta[row0 + i] : 0.f;
   }
   int kt_begin, kt_end;
-  kv_band(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin, kt_end);
+  kv_band<BK>(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin,
+              kt_end);
 
-  float dqa[4][C::NC];
+  float dqa[RA][C::NC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int c = 0; c < C::NC; ++c) dqa[a][c] = 0.f;
 
@@ -486,90 +556,115 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, HD>(Ks, k + kv_off, kv_stride, BK, Skv - k0);
     load_tile<T, HD>(Vs, v + kv_off, kv_stride, BK, Skv - k0);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    nt_tile<HD>(s, Qs, Ks, ty, tx);
-    nt_tile<HD>(dp, Gs, Vs, ty, tx);
+    float s[RA][RA], dp[RA][RA];
+    nt_tile<HD, RA>(s, Qs, Ks, ty, tx);
+    nt_tile<HD, RA>(dp, Gs, Vs, ty, tx);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       const int r = ty + 16 * a;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
+      for (int bb = 0; bb < RA; ++bb) {
         const int c = tx + 16 * bb;
         const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
-        const float pv = ok ? expf(s[a][bb] * scale - Ls[r]) : 0.f;
+        const float pv = ok ? prob<T>(s[a][bb], se, Ls[r]) : 0.f;
         Ps[r * PS + c] = pv * (dp[a][bb] - Ds[r]);
       }
     }
     __syncthreads();
-    acc_tile<HD, false>(dqa, Ps, Ks, ty, tx);
+    acc_tile<HD, false, RA>(dqa, Ps, Ks, ty, tx);
   }
-  store_acc<T, HD>(dqa, dq + q_off, q_stride, Sq - q0, scale, ty, tx);
+  store_acc<T, HD, RA>(dqa, dq + q_off, q_stride, Sq - q0, scale, ty, tx);
 }
 
-template <int HD>
+template <int HD, int R>
 constexpr size_t prep_smem() {
-  return sizeof(float) * (size_t)(BQ + BK) * (HD + 4);
+  return sizeof(float) * (size_t)(2 * R) * (HD + 4);
 }
-template <int HD>
+template <int HD, int R>
 constexpr size_t grad_smem() {
-  return sizeof(float) *
-         ((size_t)(2 * BQ + 2 * BK) * (HD + 4) + BQ * PS + 2 * BQ);
+  return sizeof(float) * ((size_t)(4 * R) * (HD + 4) + R * PS + 2 * R);
 }
 
+// float32: the pre-pass recomputes LSE (natural log) into `lse` and D
+// from out.  bfloat16: `lse` is the training forward's (base 2) and D
+// comes from out + out_lo.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
-           float* delta, int B, int Sq, int Skv, int Hq, int Hkv,
-           float scale, int causal, int window, cudaStream_t s) {
-  auto prep = attn_bwd_prep<T, HD>;
-  auto dkdv = attn_bwd_dkdv<T, HD>;
-  auto dqk = attn_bwd_dq<T, HD>;
+           const void* out_lo, const void* dout, void* dq, void* dk,
+           void* dv, float* lse, float* delta, int B, int Sq, int Skv,
+           int Hq, int Hkv, float scale, int causal, int window,
+           cudaStream_t s) {
+  constexpr int R = rows_for<HD>();
+  constexpr bool BF16 = sizeof(T) == 2;
+  auto prep = attn_bwd_prep<T, HD, R>;
+  auto dkdv = attn_bwd_dkdv<T, HD, R>;
+  auto dqk = attn_bwd_dq<T, HD, R>;
   static const int attr = [&] {
-    int e = set_smem(prep, prep_smem<HD>());
-    if (!e) e = set_smem(dkdv, grad_smem<HD>());
-    if (!e) e = set_smem(dqk, grad_smem<HD>());
+    int e = BF16 ? 0 : set_smem(prep, prep_smem<HD, R>());
+    if (!e) e = set_smem(dkdv, grad_smem<HD, R>());
+    if (!e) e = set_smem(dqk, grad_smem<HD, R>());
     return e;
   }();
   if (attr) return attr;
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v;
-  const dim3 qgrid((Sq + BQ - 1) / BQ, Hq, B), kgrid((Skv + BK - 1) / BK, Hkv,
-                                                     B);
-  prep<<<qgrid, THREADS, prep_smem<HD>(), s>>>(
-      tq, tk, (const T*)out, (const T*)dout, lse, delta, Sq, Skv, Hq, Hkv,
-      scale, causal, window);
+  const dim3 qgrid((Sq + R - 1) / R, Hq, B), kgrid((Skv + R - 1) / R, Hkv,
+                                                   B);
+  if constexpr (BF16) {
+    attn_bwd_delta<HD, R><<<qgrid, THREADS, 0, s>>>(
+        (const T*)out, (const T*)out_lo, (const T*)dout, delta, Sq, Hq);
+  } else {
+    prep<<<qgrid, THREADS, prep_smem<HD, R>(), s>>>(
+        tq, tk, (const T*)out, (const T*)dout, lse, delta, Sq, Skv, Hq, Hkv,
+        scale, causal, window);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dkdv<<<kgrid, THREADS, grad_smem<HD>(), s>>>(
+  const float se = BF16 ? scale * 1.4426950408889634f : scale;
+  dkdv<<<kgrid, THREADS, grad_smem<HD, R>(), s>>>(
       tq, tk, tv, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Sq, Skv, Hq,
-      Hkv, scale, causal, window);
+      Hkv, scale, se, causal, window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dqk<<<qgrid, THREADS, grad_smem<HD>(), s>>>(
+  dqk<<<qgrid, THREADS, grad_smem<HD, R>(), s>>>(
       tq, tk, tv, (const T*)dout, lse, delta, (T*)dq, Sq, Skv, Hq, Hkv,
-      scale, causal, window);
+      scale, se, causal, window);
   return (int)cudaGetLastError();
 }
 
-// the float32 instance for head_dim hd; scratch holds LSE, then D
-int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* out, const void* dout, void* dq, void* dk, void* dv,
-              float* scratch, int B, int Sq, int Skv, int Hq, int Hkv,
-              float scale, int causal, int window, cudaStream_t s) {
+// float32 at head_dim hd (32, 64, 128, 256): scratch holds LSE, then D
+int launch_f32(int hd, const void* q, const void* k, const void* v,
+               const void* out, const void* dout, void* dq, void* dk,
+               void* dv, float* scratch, int B, int Sq, int Skv, int Hq,
+               int Hkv, float scale, int causal, int window, cudaStream_t s) {
   float* lse = scratch;
   float* delta = scratch + (size_t)B * Hq * Sq;
+#define MCSA_CC_F32(HD)                                                     \
+  case HD:                                                                  \
+    return launch<float, HD>(q, k, v, out, nullptr, dout, dq, dk, dv, lse,  \
+                             delta, B, Sq, Skv, Hq, Hkv, scale, causal,     \
+                             window, s);
   switch (hd) {
-    case 32:
-      return launch<float, 32>(q, k, v, out, dout, dq, dk, dv, lse, delta,
-                               B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
-    case 64:
-      return launch<float, 64>(q, k, v, out, dout, dq, dk, dv, lse, delta,
-                               B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
-    case 128:
-      return launch<float, 128>(q, k, v, out, dout, dq, dk, dv, lse, delta,
-                                B, Sq, Skv, Hq, Hkv, scale, causal, window,
-                                s);
+    MCSA_CC_F32(32)
+    MCSA_CC_F32(64)
+    MCSA_CC_F32(128)
+    MCSA_CC_F32(256)
   }
+#undef MCSA_CC_F32
   return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16 at head_dim 256 (the tensor-core body takes 32-128): lse (B,
+// Hq, Sq) and out_lo from the training forward; scratch (B, Hq, Sq)
+// float32 takes D
+int launch_bf16(int hd, const void* q, const void* k, const void* v,
+                const void* out, const void* out_lo, const void* dout,
+                const float* lse, void* dq, void* dk, void* dv,
+                float* scratch, int B, int Sq, int Skv, int Hq, int Hkv,
+                float scale, int causal, int window, cudaStream_t s) {
+  if (hd != 256) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16, 256>(q, k, v, out, out_lo, dout, dq, dk, dv,
+                                    (float*)lse, scratch, B, Sq, Skv, Hq,
+                                    Hkv, scale, causal, window, s);
 }
 
 }  // namespace cc
@@ -1120,12 +1215,15 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor
-// cores.  The only pairings taken are (float32, CUDA cores) and (bfloat16,
-// tensor cores); anything else returns cudaErrorInvalidValue.  q, k, v,
+// cores.  The pairings taken are (float32, CUDA cores) at hd 32, 64, 128
+// or 256, (bfloat16, CUDA cores) at hd 256 and (bfloat16, tensor cores) at
+// hd 32, 64 or 128; anything else returns cudaErrorInvalidValue.  q, k, v,
 // out, dout, dq, dk, dv: that dtype, contiguous in the model layout,
-// 16-byte aligned; Hq % Hkv == 0; hd in {32, 64, 128}.
-//   * CUDA cores: out_lo, lse and partial null, nsplit 1; scratch (2, B,
-//     Hq, Sq) float32 (LSE, then D).
+// 16-byte aligned; Hq % Hkv == 0.
+//   * CUDA cores, float32: out_lo, lse and partial null, nsplit 1; scratch
+//     (2, B, Hq, Sq) float32 (LSE, then D).
+//   * CUDA cores, bfloat16: out_lo and lse as for the tensor cores,
+//     partial null, nsplit 1; scratch (B, Hq, Sq) float32 (D).
 //   * tensor cores: out_lo (out's shape) and lse (B, Hq, Sq) float32 from
 //     the training forward; scratch (B, Hq, Sq_pad, 2) float32, Sq_pad =
 //     Sq rounded up to 64; nsplit divides Hq / Hkv; partial (2, nsplit, B,
@@ -1145,8 +1243,17 @@ int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
     if (out_lo != nullptr || lse != nullptr || partial != nullptr ||
         nsplit != 1)
       return (int)cudaErrorInvalidValue;
-    return cc::launch_hd(hd, q, k, v, out, dout, dq, dk, dv, (float*)scratch,
-                         B, Sq, Skv, Hq, Hkv, scale, causal, window, s);
+    return cc::launch_f32(hd, q, k, v, out, dout, dq, dk, dv,
+                          (float*)scratch, B, Sq, Skv, Hq, Hkv, scale, causal,
+                          window, s);
+  }
+  if (dtype == 1 && body == 0) {
+    if (out_lo == nullptr || lse == nullptr || partial != nullptr ||
+        nsplit != 1)
+      return (int)cudaErrorInvalidValue;
+    return cc::launch_bf16(hd, q, k, v, out, out_lo, dout, lse, dq, dk, dv,
+                           (float*)scratch, B, Sq, Skv, Hq, Hkv, scale,
+                           causal, window, s);
   }
   if (dtype == 1 && body == 1) {
     float2* stats = (float2*)scratch;

@@ -1,6 +1,8 @@
 """Plain PyTorch WKV6 recurrence: the CPU path of :mod:`.ops` and what the
 CUDA kernel is held against on the card.  The JAX package's
-``models/rwkv.py::wkv6_scan``, step for step, in the model layout."""
+``models/rwkv.py::wkv6_scan``, step for step, in the model layout, and
+its gradient (:func:`wkv6_bwd_ref`), what the backward kernel is held
+against."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -30,6 +32,48 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((B, 0, H, n), dtype=torch.float32, device=r.device))
     return y, s
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+                 dy: torch.Tensor, ds: Optional[torch.Tensor] = None
+                 ) -> tuple:
+    """The gradients (dr, dk, dv, dw, du, ds0) of :func:`wkv6_ref` for
+    the output gradients ``dy`` (B, S, H, n) and ``ds`` (the final
+    state's, or None for zeros), each in its input's dtype (ds0 float32,
+    None when s0 is None).  With S_t the state after step t (S_{-1} =
+    s0) and Ĝ_t = ∂L/∂S_t carried backwards from Ĝ_{S-1} = ds:
+    Ĝ_{t-1} = diag(w_t) Ĝ_t + r_t dy_tᵀ, dr_t = S_{t-1} dy_t + u ⊙ k_t
+    (v_t·dy_t), dk_t = Ĝ_t v_t + u ⊙ r_t (v_t·dy_t), dv_t = Ĝ_tᵀ k_t +
+    (r_t·(u ⊙ k_t)) dy_t, dw_t = rowsum(Ĝ_t ⊙ S_{t-1}), du = Σ_t r_t ⊙
+    k_t (v_t·dy_t), ds0 = Ĝ_{-1}.  No division by w (it may be 0): the
+    states come from a forward re-run."""
+    B, S, H, n = r.shape
+    r32, k32, v32, w32, dy32 = (t.float() for t in (r, k, v, w, dy))
+    u32 = u.float()
+    s = (torch.zeros((B, H, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    prev = []                                     # S_{t-1} for each t
+    for t in range(S):
+        prev.append(s)
+        s = w32[:, t, ..., None] * s + k32[:, t, ..., None] * v32[:, t, :,
+                                                                  None, :]
+    G = (torch.zeros_like(s) if ds is None else ds.float().clone())
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r32, k32, v32, w32))
+    du = torch.zeros_like(u32)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (r32, k32, v32, w32, dy32))
+        sp = prev[t]
+        vdy = torch.sum(vt * dyt, dim=-1, keepdim=True)         # (B, H, 1)
+        ruk = torch.sum(rt * (u32 * kt), dim=-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + u32 * kt * vdy
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + u32 * rt * vdy
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + dyt * ruk
+        dw[:, t] = torch.sum(G * sp, dim=-1)
+        du = du + torch.sum(rt * kt * vdy, dim=0)
+        G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), None if s0 is None else G)
 
 
 #: the chunked kernel's chunk and sub-chunk lengths (``csrc/wkv6.cu``)

@@ -11,8 +11,8 @@ The port of the JAX package's ``repro/launch/train.py`` on one card:
   of this run).
 
 It prints the reference's lines (``step … loss … gnorm …``,
-``[resume]``, ``[preempt]``, ``done: …``).  The dense decoder family
-trains (``loss_fn`` refuses the others).  ``--device`` defaults to the
+``[resume]``, ``[preempt]``, ``done: …``).  Every family trains (dense,
+MoE, RWKV-6, RecurrentGemma, encoder-decoder).  ``--device`` defaults to the
 card; ``--device cpu`` takes the plain PyTorch path.  ``--mesh host``
 raises: the mesh waits for ROADMAP item 8.
 
@@ -82,7 +82,6 @@ def run(args: argparse.Namespace) -> dict:
     cfg = {"smoke": lambda: reduced(full),
            "100m": lambda: build_reduced_100m(full),
            "full": lambda: full}[args.size]()
-    tfm.check_trainable(cfg)
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_lm(cfg, gen, device)

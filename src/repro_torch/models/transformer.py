@@ -51,15 +51,14 @@ prefill, carried unchanged by decode.
 MoE capacity factors are the reference's (``CAPACITY_FACTOR``,
 ``DECODE_CAPACITY_FACTOR``).
 
-Training (:func:`loss_fn`, mode ``train``) covers the dense decoder
-family: causal attention (windowed on local layers) through the
-attention kernel and RMSNorm through its kernel, each a
-``torch.autograd.Function`` with a backward kernel on the card, and
-``remat`` recomputing each block in the backward
+Training (:func:`loss_fn`, mode ``train``) covers every family: each
+kernel on the path (attention, RMSNorm, the fused expert SwiGLU, the
+RG-LRU scan, WKV6) is a ``torch.autograd.Function`` with a backward
+kernel on the card; the MoE's load-balance loss is summed over the
+blocks into ``aux``; an encoder-decoder encodes ``src_embeds`` under the
+same remat; and ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, per block where the reference checkpoints
-per superblock: the same arithmetic).  The MoE, RWKV-6, RG-LRU and
-encoder-decoder families raise on both devices: their kernels have no
-backward yet (:data:`TRAIN_DEFERRED`).
+per superblock: the same arithmetic).
 """
 from __future__ import annotations
 
@@ -73,7 +72,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                       ModelConfig)
-from repro_torch.kernels._grad import TRAIN_DEFERRED
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from . import attention as attn_lib
 from .attention import quantize_kv
@@ -317,9 +315,10 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
     output (its k/v built from ``kv_memory`` at prefill, read from the
     cache at decode), then the FFN (SwiGLU MLP, MoE or RWKV-6 channel
     mix), each behind an RMSNorm.
-    Returns (h, cache).  The MoE's aux loss is dropped: serving ignores
-    it, and ``loss_fn`` refuses the MoE family.  Modes ``encode`` (an
-    encoder block) and ``train`` return no cache."""
+    Returns (h, cache); mode ``train`` returns (h, aux) instead: the
+    mean of the MoE's per-token load-balance loss (float32; 0 for a block
+    without experts), as the reference's ``apply_block``.  Serving drops
+    the aux.  Mode ``encode`` (an encoder block) returns no cache."""
     if mode not in ("prefill", "decode", "encode", "train"):
         raise ValueError(f"mode {mode!r}: 'prefill', 'decode', 'encode' or "
                          "'train'")
@@ -330,6 +329,8 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
         h = h + out
         x = rms_norm(h, p["ln2"], cfg.norm_eps)
         out, ffn_state = apply_channel_mix(cfg, p["ffn"], x, st["ffn"])
+        if mode == "train":
+            return h + out, _no_aux(h)
         return h + out, {"mix": mix_state, "ffn": ffn_state}
     if layer_type == RGLRU:
         if mode == "decode":
@@ -349,13 +350,23 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
                  else cross_kv(cfg, p["cross"], kv_memory))
         h = h + apply_cross_attention(
             cfg, p["cross"], rms_norm(h, p["ln_cross"], cfg.norm_eps), cross)
-        new_cache["cross"] = cross
+        if new_cache is not None:
+            new_cache["cross"] = cross
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
+    aux = None
     if cfg.num_experts:
-        out, _ = apply_moe(cfg, p["ffn"], x, capacity_factor=capacity_factor)
+        out, aux_tok = apply_moe(cfg, p["ffn"], x,
+                                 capacity_factor=capacity_factor)
+        aux = torch.mean(aux_tok)
     else:
         out = apply_mlp(p["ffn"], x)
+    if mode == "train":
+        return h + out, _no_aux(h) if aux is None else aux
     return h + out, new_cache
+
+
+def _no_aux(h: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
@@ -365,15 +376,19 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
                 kv_memory: Optional[torch.Tensor] = None,
                 kv_quant: bool = False, remat: bool = False):
     """Blocks [lo, hi) (default: all).  ``caches`` holds one cache per
-    block of the range (decode); returns (h, caches of the range).
-    ``remat`` (mode ``train``): each block runs under
+    block of the range (decode); returns (h, caches of the range), or in
+    mode ``train`` (h, aux): the blocks' MoE aux losses summed in block
+    order (float32).  ``remat`` (modes ``train`` and ``encode``, the
+    encoder under training): each block runs under
     ``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
     and recomputes the rest in the backward."""
     hi = cfg.num_layers if hi is None else hi
-    if remat and mode != "train":
-        raise ValueError(f"remat is for mode 'train', not {mode!r}")
+    if remat and mode not in ("train", "encode"):
+        raise ValueError(f"remat is for modes 'train' and 'encode', not "
+                         f"{mode!r}")
     types = cfg.layer_types()
     new_caches = []
+    aux = _no_aux(h) if mode == "train" else None
     for i in range(lo, hi):
         c = caches[i - lo] if caches is not None else None
         # bound now: a checkpointed block is recomputed in the backward,
@@ -385,8 +400,11 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
             kv_memory=kv_memory, kv_quant=kv_quant)
         h, nc = (checkpoint(block, h, use_reentrant=False) if remat
                  else block(h))
-        new_caches.append(nc)
-    return h, new_caches
+        if aux is not None:
+            aux = aux + nc
+        else:
+            new_caches.append(nc)
+    return h, (aux if aux is not None else new_caches)
 
 
 # ===========================================================================
@@ -462,15 +480,16 @@ def _assemble_inputs(cfg: ModelConfig, params: Params,
     return h
 
 
-def _encode(cfg: ModelConfig, params: Params,
-            src_embeds: torch.Tensor) -> torch.Tensor:
+def _encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
     """The encoder: src_embeds (B, Ss, d), cast to the model dtype,
     through the non-causal encoder blocks (positions 0..Ss-1) and
-    ``enc_norm``."""
+    ``enc_norm``; ``remat`` recomputes each block in the backward (the
+    training loss)."""
     h = src_embeds.to(device=params["embed"].device,
                       dtype=params["embed"].dtype)
     h, _ = apply_stack(encoder_cfg(cfg), {"layers": params["encoder"]}, h,
-                       mode="encode", positions=_positions(h))
+                       mode="encode", positions=_positions(h), remat=remat)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -484,39 +503,28 @@ def head(cfg: ModelConfig, params: Params, h: torch.Tensor):
     return logits, sharded_argmax(logits)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family that :func:`loss_fn`
-    cannot train yet (on either device, so the CPU and the card refuse
-    alike): MoE, RWKV-6, any config with an RG-LRU layer, and the
-    encoder-decoder."""
-    types = set(cfg.layer_types())
-    why = ("a MoE config" if cfg.num_experts else
-           "an RWKV-6 config" if RWKV6 in types else
-           "a config with RG-LRU layers" if RGLRU in types else
-           "an encoder-decoder config" if cfg.enc_dec else None)
-    if why:
-        raise NotImplementedError(f"loss_fn for {why} ({cfg.name}) waits "
-                                  f"for {TRAIN_DEFERRED}")
-
-
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
             remat: bool = True,
             capacity_factor: float = CAPACITY_FACTOR) -> tuple:
     """batch = {"tokens": (B, S), "labels": (B, S)}, with ``"patch_embeds"``
     (B, P, d) for a ``vit`` frontend (prepended; its positions are
-    cropped before the loss).  Returns (total, {"loss", "aux"}): the mean
-    token cross entropy (float32) and the MoE aux loss, 0 for the dense
-    family, with ``total = loss + MOE_AUX_WEIGHT * aux``, as the
-    reference's ``loss_fn``.  ``remat`` recomputes each block in the
-    backward.  ``capacity_factor`` is the MoE's, which this family does
-    not read; it is kept for the reference's signature."""
+    cropped before the loss) and ``"src_embeds"`` (B, Ss, d) for an
+    encoder-decoder (encoded, then read by every decoder block's cross
+    attention).  Returns (total, {"loss", "aux"}): the mean token cross
+    entropy (float32) and the MoE aux loss summed over the blocks (0
+    without experts), with ``total = loss + MOE_AUX_WEIGHT * aux``, as the
+    reference's ``loss_fn``.  ``remat`` recomputes each block, the
+    encoder's included, in the backward.  ``capacity_factor`` is the
+    MoE's."""
     check_supported(cfg)
-    check_trainable(cfg)
+    kv_memory = (_encode(cfg, params, batch["src_embeds"], remat=remat)
+                 if cfg.enc_dec else None)
     h = _assemble_inputs(cfg, params, batch)
     offset = h.shape[1] - batch["tokens"].shape[1]
-    h, _ = apply_stack(cfg, params, h, mode="train",
-                       positions=_positions(h), remat=remat,
-                       capacity_factor=capacity_factor)
+    h, aux = apply_stack(cfg, params, h, mode="train",
+                         positions=_positions(h), remat=remat,
+                         capacity_factor=capacity_factor,
+                         kv_memory=kv_memory)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if offset:
         h = h[:, offset:]
@@ -525,7 +533,6 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
                                   transpose_table=cfg.tie_embeddings,
                                   valid_vocab=cfg.vocab_size)
     loss = tok_loss.mean()
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
 
 
@@ -564,6 +571,6 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos,
 
 __all__ = ["MOE_AUX_WEIGHT", "Params", "apply_attention", "apply_block",
            "apply_cross_attention", "apply_stack", "check_supported",
-           "check_trainable", "cross_kv", "decode_step", "encoder_cfg",
+           "cross_kv", "decode_step", "encoder_cfg",
            "head", "init_block", "init_caches", "init_layer_cache",
            "init_lm", "loss_fn", "prefill"]

@@ -242,17 +242,32 @@ def test_plain_backward_with_the_forward_stats_matches_jax_in_float32(mask):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("hd", fb.HEAD_DIMS)
 def test_backward_body_follows_the_dtype(hd):
-    assert fb.body_for(torch.bfloat16, hd) == "tensor_cores"
+    """bf16 runs the tensor cores up to head_dim 128 and the CUDA cores at
+    256 (recurrentgemma-9b's); float32 the CUDA cores."""
+    assert fb.body_for(torch.bfloat16, hd) == (
+        "tensor_cores" if hd in fb.TC_HEAD_DIMS else "cuda_cores")
     assert fb.body_for(torch.float32, hd) == "cuda_cores"
     with pytest.raises(TypeError, match="dtype"):
         fb.body_for(torch.float16, hd)
 
 
-def test_backward_refuses_head_dim_256_naming_the_hybrid_family():
+@pytest.mark.parametrize("hd", [16, 96, 512])
+def test_backward_refuses_other_head_dims(hd):
     for dt in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="item 7b"):
-            fb.body_for(dt, 256)
-    assert "recurrentgemma-9b" in fb.DEFERRED
+        with pytest.raises(ValueError, match=f"head_dim {hd}"):
+            fb.body_for(dt, hd)
+
+
+def test_backward_cuda_core_tiles_fit_at_head_dim_256():
+    """The CUDA-core body's tiles, as the source counts them
+    (grad_smem: four float32 tiles of R rows x (hd + 4), the P / dS tile
+    of R x 80 and two stats rows): 64-row tiles would not fit a block's
+    232,448 bytes at head_dim 256, 32-row ones do."""
+    def grad_smem(hd, rows):
+        return 4 * (4 * rows * (hd + 4) + rows * 80 + 2 * rows)
+    assert grad_smem(256, 64) > fb.SMEM_LIMIT >= grad_smem(256, 32)
+    assert grad_smem(128, 64) <= fb.SMEM_LIMIT
+    assert "HD > 128 ? 32 : 64" in fb.SOURCE.read_text()
 
 
 def test_backward_body_codes_match_the_library():
@@ -261,10 +276,12 @@ def test_backward_body_codes_match_the_library():
     assert pairs == {(str(fb.DTYPES[torch.float32]),
                       str(fb.BODIES["cuda_cores"])),
                      (str(fb.DTYPES[torch.bfloat16]),
+                      str(fb.BODIES["cuda_cores"])),
+                     (str(fb.DTYPES[torch.bfloat16]),
                       str(fb.BODIES["tensor_cores"]))}
 
 
-@pytest.mark.parametrize("hd", fb.HEAD_DIMS)
+@pytest.mark.parametrize("hd", fb.TC_HEAD_DIMS)
 @pytest.mark.parametrize("kernel", ["dkdv", "dq"])
 def test_backward_blocks_fit_two_to_an_sm(hd, kernel):
     """Each tensor-core block fits the H100's 232,448 bytes, and two fit

@@ -282,12 +282,6 @@ def test_launcher_preempts_resumes_and_matches_straight_through(tmp_path):
                        for s, v in straight["losses"].items()}
 
 
-def test_launcher_refuses_the_families_without_backward_kernels():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        t_launch.main(["--device", "cpu", "--arch", "rwkv6-3b",
-                       "--steps", "1"])
-
-
 def test_launcher_mesh_waits_for_the_mesh():
     with pytest.raises(NotImplementedError, match="item 8"):
         t_launch.main(["--device", "cpu", "--mesh", "host", "--steps", "1"])

@@ -35,14 +35,12 @@ from repro.runtime.data import DataConfig as JDataConfig            # noqa
 from repro.runtime.data import batch_at as j_batch_at               # noqa
 from repro.runtime.meshenv import CPU_ENV                           # noqa
 from repro_torch import _tree, interop                              # noqa
-from repro_torch.configs import get_config, reduced                 # noqa
 from repro_torch.kernels.flash_attention import ref as fref         # noqa
 from repro_torch.kernels.rmsnorm import ref as rref                 # noqa
 from repro_torch.models import sharded_ops as t_sharded             # noqa
 from repro_torch.models import transformer as ttfm                  # noqa
 from repro_torch.optim import adamw as t_adamw                      # noqa
 from repro_torch.optim import schedules as t_sched                  # noqa
-from repro_torch.runtime import data as t_data                      # noqa
 from repro_torch.runtime import train as t_train                    # noqa
 
 from torch_diff import model_pair, np_of                            # noqa
@@ -174,7 +172,7 @@ def test_rmsnorm_bwd_ref_matches_jax_grad(shape):
 
 
 # ---------------------------------------------------------------------------
-# the loss head, the train step, the refused families
+# the loss head, the train step
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("tied", [False, True])
 def test_fused_unembed_xent_matches_reference(tied):
@@ -224,18 +222,3 @@ def test_train_step_trajectory_matches_reference(arch):
             assert float(tm[key]) == pytest.approx(float(jm[key]),
                                                    rel=1e-4), (s, key)
     assert int(to.step) == 4
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-3b",
-                                  "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
-def test_loss_fn_refuses_the_families_without_backward_kernels(arch):
-    cfg = reduced(get_config(arch), layers=2)
-    params = ttfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = t_data.batch_at(cfg, t_data.DataConfig(seq_len=8,
-                                                   global_batch=1), 0,
-                            "cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ttfm.loss_fn(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        t_train.make_train_step(cfg)(params, t_adamw.init(params), batch)

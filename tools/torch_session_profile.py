@@ -38,8 +38,11 @@ double a minute of host work): host wall-clock, the Session's timings
 engines' prefills and decode steps, the device's busy share and device
 time by group.
 
-Training (``--train``): chip_smoke.py's ``[train]`` step, starcoder2-3b
-at full width and depth, B 4 x S 1024, remat, AdamW: one warm-up step,
+Training (``--train [MODEL]``): chip_smoke.py's ``[train]`` step
+(starcoder2-3b by default) or that of one of its TRAIN_FAMILIES phases
+(granite-moe-1b-a400m, rwkv6-3b, recurrentgemma-9b at 12 layers,
+seamless-m4t-large-v2), at that phase's width, depth, batch and
+sequence, remat, AdamW: one warm-up step,
 one step with the AdamW update timed apart (synchronised before and
 after it), then two steps under the profiler: host wall-clock, device
 busy share and device time by group (the forward and backward kernels
@@ -47,7 +50,7 @@ apart).
 
     python3 tools/torch_session_profile.py [--scenario megafleet_100k]
         [--users N] [--r-capacity R] [--serve [MODEL]] [--serve-loop]
-        [--train] [--out report.json]
+        [--train [MODEL]] [--out report.json]
 
 Needs a CUDA card; prints one JSON object (also written to ``--out``
 when given).
@@ -151,7 +154,7 @@ def _groups(dev: dict) -> dict:
     mine = {"flash_attention": ("flash_attention_kernel",
                                 "flash_attention_tc_kernel"),
             # the bf16 body's four kernels, then the f32 body's three
-            "flash_attention_bwd": ("attn_bwd_delta_kernel",
+            "flash_attention_bwd": ("attn_bwd_delta",
                                     "attn_bwd_dkdv_tc_kernel",
                                     "attn_bwd_sum_kernel",
                                     "attn_bwd_dq_tc_kernel",
@@ -160,10 +163,13 @@ def _groups(dev: dict) -> dict:
             "rmsnorm": ("rmsnorm_kernel",),
             "rmsnorm_bwd": ("rmsnorm_bwd_rows_kernel",
                             "rmsnorm_bwd_dw_kernel"),
+            "moe_swiglu_bwd": ("bwd_hidden", "bwd_dx", "bwd_dw"),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
                            "hopper_tc::gate_up_kernel",
                            "hopper_tc::down_kernel"),
+            "wkv6_bwd": ("wkv6_bwd_kernel",),
             "wkv6": ("wkv6_kernel", "chunked::chunk_"),
+            "rglru_scan_bwd": ("rglru_scan_bwd_kernel",),
             "rglru_scan": ("rglru_scan_kernel",),
             "sweep": ("sweep_kernel",)}
     out = dict.fromkeys(tuple(mine) + ("matmul", "other"), 0.0)
@@ -257,7 +263,8 @@ def serve_loop_profile() -> dict:
     return rep
 
 
-def train_profile() -> dict:
+def train_profile(arch: str) -> dict:
+    import dataclasses
     import torch
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -269,14 +276,21 @@ def train_profile() -> dict:
     from repro_torch.runtime.train import TrainConfig, make_train_step
 
     device = torch.device("cuda", 0)
-    cfg = get_config("starcoder2-3b")
+    shapes = {a: (layers, batch, seq) for _, a, layers, batch, seq, _, _
+              in cs.TRAIN_FAMILIES}
+    shapes["starcoder2-3b"] = (None, cs.TRAIN_BATCH, cs.TRAIN_SEQ)
+    if arch not in shapes:
+        raise SystemExit(f"--train takes one of {sorted(shapes)}")
+    layers, batch, seq = shapes[arch]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
                          device)
     opt = adamw.init(params)
     step_fn = make_train_step(cfg, TrainConfig(remat=True),
                               lr_schedule=cosine_with_warmup(2, 10))
-    dcfg = DataConfig(seed=0, seq_len=cs.TRAIN_SEQ,
-                      global_batch=cs.TRAIN_BATCH)
+    dcfg = DataConfig(seed=0, seq_len=seq, global_batch=batch)
     batches = [batch_at(cfg, dcfg, s, device) for s in range(4)]
     params, opt, _ = step_fn(params, opt, batches[0])         # warm-up
 
@@ -308,7 +322,7 @@ def train_profile() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rep = _phase_report(prof, wall, 2)
-    rep.update(model=cfg.name, batch=cs.TRAIN_BATCH, seq=cs.TRAIN_SEQ,
+    rep.update(model=cfg.name, layers=cfg.num_layers, batch=batch, seq=seq,
                remat=True, step_s_unprofiled=step_s,
                adamw_update_s=update_s[0])
     return rep
@@ -349,8 +363,10 @@ def main() -> int:
     ap.add_argument("--serve-loop", action="store_true",
                     help="profile chip_smoke.py's [serve-loop] closed "
                          "loop instead")
-    ap.add_argument("--train", action="store_true",
-                    help="profile chip_smoke.py's [train] step instead")
+    ap.add_argument("--train", nargs="?", const="starcoder2-3b",
+                    default=None, metavar="MODEL",
+                    help="profile chip_smoke.py's [train] step of MODEL "
+                         "(default starcoder2-3b) instead")
     ap.add_argument("--out", default=None,
                     help="also write the report to this JSON file")
     args = ap.parse_args()
@@ -371,7 +387,7 @@ def main() -> int:
     if args.serve_loop:
         return emit(dict(serve_loop_profile(), card=card), args.out)
     if args.train:
-        return emit(dict(train_profile(), card=card), args.out)
+        return emit(dict(train_profile(args.train), card=card), args.out)
     sc = get_scenario(args.scenario)
     changes = {k: v for k, v in (("num_users", args.users),
                                  ("r_capacity", args.r_capacity))
