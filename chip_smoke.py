@@ -609,6 +609,7 @@ def build_all(modules, no_spill) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.moe_gemm import backward as mb
     from repro_torch.kernels.moe_gemm import kernel as mk
 
     def one(mod):
@@ -659,6 +660,14 @@ def build_all(modules, no_spill) -> None:
                                              "down_kernel"):
                 rec["dynamic_smem_bytes"] = mk.wgmma_smem_bytes(
                     rec["name"][:-len("_kernel")])
+            if mod is mb and rec["name"] in ("hidden_kernel", "dx_kernel",
+                                             "dw_kernel"):
+                rec["dynamic_smem_bytes"] = mb.library_wgmma_smem_bytes()
+                if rec["dynamic_smem_bytes"] != mb.WGMMA_SMEM:
+                    raise AssertionError(
+                        f"{rec['name']}: the library takes "
+                        f"{rec['dynamic_smem_bytes']} bytes of shared "
+                        f"memory, backward.WGMMA_SMEM says {mb.WGMMA_SMEM}")
             if rec["spill_bytes"]:
                 spills.append(f"{mod.LIB_NAME} {rec['name']}")
         phase("build", f"{mod.LIB_NAME}: {sec:.2f} s ({lib.name}) "
@@ -3214,7 +3223,7 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
     rec = dict(
         B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window, dtype=dtn,
         causal=causal, key_offset=key_offset, body=body,
-        nsplit=(fb.group_split(B, S, S, Hq, Hkv, causal, window)
+        nsplit=(fb.group_split(B, S, S, Hq, Hkv, causal, window, hd)
                 if body == "tensor_cores" else None),
         max_abs_err=err, rel_rms_err=rr, rel_rms_by_grad=rr_by,
         same_bits=same, out_same_bits=out_same,
@@ -3244,9 +3253,15 @@ def moe_bwd_case(randn, E: int, C: int, d: int, ff: int, dtn: str,
     wg = (randn((E, d, ff), torch.float32) * d ** -0.5).to(dt)
     wu = (randn((E, d, ff), torch.float32) * d ** -0.5).to(dt)
     wd = (randn((E, ff, d), torch.float32) * ff ** -0.5).to(dt)
+    body = mb.body_for(dt, C, d, ff)
+    before = dict(mb.LAUNCHES)
     got = mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy)
     again = mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy)
     torch.cuda.synchronize()
+    ran_tc = mb.LAUNCHES["moe_swiglu_bwd_tc"] - before["moe_swiglu_bwd_tc"]
+    if ran_tc != (2 if body == "wgmma" else 0):
+        breaches.append(f"{label}: {ran_tc} wgmma launches for the {body} "
+                        "body")
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     if not same:
         breaches.append(f"{label}: two runs differ")
@@ -3271,8 +3286,7 @@ def moe_bwd_case(randn, E: int, C: int, d: int, ff: int, dtn: str,
 
     call = (lambda: mb.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy))
     rec = dict(
-        E=E, C=C, d=d, ff=ff, dtype=dtn, body=("mma.sync" if dtn ==
-                                               "bfloat16" else "cuda_cores"),
+        E=E, C=C, d=d, ff=ff, dtype=dtn, body=body,
         max_abs_err=err, rel_rms_err=rr, same_bits=same, flops=flops,
         ms=timed_ms(call, 30, 3), device_ms=device_ms(call, 30, 3),
         plain_ms=timed_ms(lambda: mg.moe_swiglu_bwd_ref(x, wg, wu, wd, dy),
@@ -3475,12 +3489,13 @@ def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
     B x S tokens (an encoder-decoder's source ``src_len`` frames, S if
     0): each block's kernels forward twice under ``remat`` (its own run
     and the recompute) and backward once, the encoder's too, with each
-    forward body's count (attention's tensor cores for bf16, the MoE's by
-    capacity, WKV6's by S); the final norm (and an encoder's enc_norm)
-    once each way."""
+    body's count (attention's tensor cores for bf16, forward and
+    backward; the MoE's by capacity, forward and backward; WKV6's by S);
+    the final norm (and an encoder's enc_norm) once each way."""
     import torch
     from repro_torch.configs.base import RGLRU, RWKV6
     from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.moe_gemm import backward as mb
     from repro_torch.kernels.moe_gemm import kernel as mk
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.models.moe import capacity_for
@@ -3534,6 +3549,8 @@ def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
                 add("moe_swiglu_" + mk.body_for(dt, cap, c.d_model, c.d_ff),
                     f)
                 add("moe_swiglu_bwd", 1)
+                if mb.body_for(dt, cap, c.d_model, c.d_ff) == "wgmma":
+                    add("moe_swiglu_bwd_tc", 1)
     add("rmsnorm", 1)                       # final_norm, outside them
     add("rmsnorm_bwd", 1)
     return n

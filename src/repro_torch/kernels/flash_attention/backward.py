@@ -10,13 +10,14 @@ without synchronising, and raises if a launch was refused.
 launches once) and ``LAUNCHES["flash_attention_bwd_tc"]`` those of the
 tensor-core body, nowhere else.
 
-The body follows the dtype and head_dim, explicitly (:func:`body_for`):
-bfloat16 at head_dim 32-128 runs the tensor-core body (wgmma, TMA), which
-takes the training forward's LSE and output residual
-(``kernel.flash_attention_cuda(stats=True)``); bfloat16 at head_dim 256
-runs the CUDA-core body with the same two; float32 runs the CUDA-core
-body, which recomputes LSE and takes D from its float32 output.  :func:`group_split` and :func:`smem_bytes` are the
-tensor-core body's launch shape, from the shape alone.
+The body follows the dtype, explicitly (:func:`body_for`): bfloat16 runs
+the tensor-core body (wgmma, TMA) at every head_dim, one warpgroup a
+block up to head_dim 128 and two at 256; it takes the training forward's
+LSE and output residual (``kernel.flash_attention_cuda(stats=True)``).
+float32 runs the CUDA-core body, which recomputes LSE and takes D from
+its float32 output.  :func:`group_split`, :func:`slots` and
+:func:`smem_bytes` are the tensor-core body's launch shape, from the
+shape alone.
 """
 from __future__ import annotations
 
@@ -38,36 +39,44 @@ LAUNCHES = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-#: head_dims the tensor-core body is built for; bfloat16 at the others
-#: (256: recurrentgemma-9b's) runs the CUDA-core body
-TC_HEAD_DIMS = (32, 64, 128)
 #: the library's body codes
 BODIES = {"cuda_cores": 0, "tensor_cores": 1}
 
 #: q rows and keys a tile of the tensor-core body
 TILE = 64
-#: two-block slots of the dK/dV kernel on the H100 (132 SMs x 2); a
-#: constant, never read from the card, so the split, and the bits, follow
-#: the shape alone
-SLOTS = 264
+#: the H100's streaming multiprocessors; a constant, never read from the
+#: card, so the split, and the bits, follow the shape alone
+SMS = 132
 #: the H100's shared memory a block may take
 SMEM_LIMIT = 232_448
 
 
 def body_for(dtype: torch.dtype, hd: int) -> str:
     """The backward body that runs ``dtype`` at head_dim ``hd``:
-    ``"tensor_cores"`` for bfloat16 at TC_HEAD_DIMS, ``"cuda_cores"`` for
-    bfloat16 at head_dim 256 and for float32; raises for any other dtype
-    or head_dim (no fallback)."""
+    ``"tensor_cores"`` for bfloat16, ``"cuda_cores"`` for float32; raises
+    for any other dtype or head_dim (no fallback)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"attention backward: head_dim {hd}; the kernel "
                          f"takes {HEAD_DIMS}")
     if dtype == torch.bfloat16:
-        return "tensor_cores" if hd in TC_HEAD_DIMS else "cuda_cores"
+        return "tensor_cores"
     if dtype == torch.float32:
         return "cuda_cores"
     raise TypeError(f"attention backward: dtype {dtype}, expected float32 "
                     "or bfloat16")
+
+
+def blocks_per_sm(hd: int) -> int:
+    """Tensor-core blocks an SM holds at head_dim ``hd`` (``tc::Cfg::
+    BLOCKS_PER_SM``, the kernels' launch bounds): two of one warpgroup up
+    to 128, one of two warpgroups (``tc::Cfg::NWG``) at 256."""
+    return 1 if hd > 128 else 2
+
+
+def slots(hd: int) -> int:
+    """The card's dK/dV block slots at head_dim ``hd``: SMS x
+    :func:`blocks_per_sm` (264 up to 128, 132 at 256)."""
+    return SMS * blocks_per_sm(hd)
 
 
 def smem_bytes(hd: int, kernel: str) -> int:
@@ -97,17 +106,17 @@ def band_q_tiles(Sq: int, Skv: int, causal: bool, window: int) -> list:
 
 
 def group_split(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, causal: bool,
-                window: int) -> int:
+                window: int, hd: int) -> int:
     """How many dK/dV blocks share one (kv tile, k/v head, batch): the
     smallest divisor n of Hq // Hkv for which the heaviest block (its kv
     tile's q tiles x Hq // Hkv // n heads) is no longer than the mean work
-    of a slot (all blocks' q tiles over ``SLOTS``); Hq // Hkv if none is.
-    More than 1 adds a pass that sums the n float32 partials."""
+    of a slot (all blocks' q tiles over ``slots(hd)``); Hq // Hkv if none
+    is.  More than 1 adds a pass that sums the n float32 partials."""
     rep = Hq // Hkv
     tiles = band_q_tiles(Sq, Skv, causal, window)
     total = B * Hq * sum(tiles)
     for n in range(1, rep + 1):
-        if rep % n == 0 and max(tiles, default=0) * (rep // n) * SLOTS \
+        if rep % n == 0 and max(tiles, default=0) * (rep // n) * slots(hd) \
                 <= total:
             return n
     return rep
@@ -175,8 +184,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     Skv, Hkv = k.shape[1], k.shape[2]
     body = body_for(q.dtype, hd)
     tc = body == "tensor_cores"
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    if tc:
         if lse is None or out_lo is None:
             raise ValueError("attention backward: bfloat16 takes the "
                              "forward's lse and out_lo "
@@ -197,19 +205,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if tc:
         scratch = torch.empty((B, Hq, -(-Sq // TILE) * TILE, 2),
                               dtype=torch.float32, device=q.device)
-        nsplit = group_split(B, Sq, Skv, Hq, Hkv, causal, window)
+        nsplit = group_split(B, Sq, Skv, Hq, Hkv, causal, window, hd)
         if nsplit > 1:
             partial = torch.empty((2, nsplit, B, Skv, Hkv, hd),
                                   dtype=torch.float32, device=q.device)
     else:
-        scratch = torch.empty((1 if bf16 else 2, B, Hq, Sq),
-                              dtype=torch.float32, device=q.device)
+        scratch = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
+                              device=q.device)
     lib = library()
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     rc = lib.mcsa_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        out_lo.data_ptr() if bf16 else None, dout.data_ptr(),
-        lse.data_ptr() if bf16 else None, dq.data_ptr(), dk.data_ptr(),
+        out_lo.data_ptr() if tc else None, dout.data_ptr(),
+        lse.data_ptr() if tc else None, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr(),
         partial.data_ptr() if partial is not None else None, B, Sq, Skv, Hq,
         Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),

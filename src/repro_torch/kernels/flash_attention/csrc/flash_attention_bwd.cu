@@ -22,46 +22,69 @@
 // every tile in shared memory, fed by TMA, as the forward's body does.
 //
 // Two bodies, chosen by the type, never by a fallback:
-//   * bfloat16 -> the tensor-core body (namespace tc), four launches:
+//   * bfloat16 -> the tensor-core body (namespace tc), at every head_dim,
+//     four launches:
 //       1. delta: one pass over dout, out and out_lo (the forward's
 //          rounding residual) packs (LSE, D) a row into stats (B, Hq,
 //          Sq_pad) float2, Sq_pad = Sq rounded up to 64 (rows past Sq get
 //          zeros), D = rowsum(dO ⊙ (out + out_lo)) in float32.  LSE comes
 //          from the forward (base 2), so no pass recomputes the scores.
-//       2. dkdv: grid (B·Hkv·nsplit, kv tiles), one warpgroup a block.  K
-//          and V of 64 keys stay in shared memory (TMA, the forward's
-//          128-byte swizzle); the block walks hps = Hq/Hkv/nsplit query
-//          heads and, for each, the q tiles of the causal/window band,
-//          through a two-stage TMA ring of (Q, dO, stats) tiles.  Per q
-//          tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma, both operands in shared
-//          memory; dPᵀ runs while Pᵀ = 2^(x − LSE) is formed in
-//          registers); dV += Pᵀ·dO with Pᵀ as the bf16 register A operand;
-//          dSᵀ = Pᵀ ⊙ (dPᵀ − D) in float32 while dV's product runs; dK +=
-//          dSᵀ·Q with dSᵀ as plain bf16.  Q and dO serve as K-major B
-//          operands in the first two products and as MN-major ones in the
-//          last two, from the same swizzled tile.  dK and dV stay in
-//          float32 registers over the block's heads and are stored once.
+//       2. dkdv: grid (B·Hkv·nsplit, kv tiles), one warpgroup a block (two
+//          at HD 256, below).  K and V of 64 keys stay in shared memory
+//          (TMA, the forward's 128-byte swizzle); the block walks hps =
+//          Hq/Hkv/nsplit query heads and, for each, the q tiles of the
+//          causal/window band, through a two-stage TMA ring of (Q, dO,
+//          stats) tiles.  Per q tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma,
+//          both operands in shared memory; dPᵀ runs while Pᵀ = 2^(x −
+//          LSE) is formed in registers); dV += Pᵀ·dO with Pᵀ as the bf16
+//          register A operand; dSᵀ = Pᵀ ⊙ (dPᵀ − D) in float32 while dV's
+//          product runs; dK += dSᵀ·Q with dSᵀ as plain bf16.  Q and dO
+//          serve as K-major B operands in the first two products and as
+//          MN-major ones in the last two, from the same swizzled tile.  dK
+//          and dV stay in float32 registers over the block's heads and are
+//          stored once.
 //       3. sum (only when nsplit > 1): the nsplit float32 partials of dK
 //          and dV summed in split order into bf16.
-//       4. dq: grid (B·Hq, q tiles), one warpgroup a block.  Q, dO and the
-//          rows' (LSE, D) stay; K and V tiles come through the ring.  Per
-//          kv tile: S = Q·Kᵀ and dP = dO·Vᵀ, dS in float32 registers, then
-//          dQ += dS_hi·K + dS_lo·K with K as the MN-major B operand.
+//       4. dq: grid (B·Hq, q tiles), one warpgroup a block (two at HD
+//          256).  Q, dO and the rows' (LSE, D) stay; K and V tiles come
+//          through the ring.  Per kv tile: S = Q·Kᵀ and dP = dO·Vᵀ, dS in
+//          float32 registers, then dQ += dS_hi·K + dS_lo·K with K as the
+//          MN-major B operand.
 //     No atomics: a block owns its outputs, and the split count follows
 //     the shape alone (backward.py::group_split), so two runs on the same
 //     inputs give the same bits.
 //   * float32 -> the CUDA-core body (namespace cc, the first design): fp32
 //     FMAs, so the exact 1e-5 checks keep full float32 products; a pre-pass
-//     recomputes LSE and takes D from the float32 out.
-//   * bfloat16 at HD 256 (recurrentgemma-9b's local layers) -> the same
-//     CUDA-core body, its tiles converted to float32 in shared memory, with
-//     the training forward's base-2 LSE and D = rowsum(dO ⊙ (out +
-//     out_lo)) in float32 from a pre-pass, as the tensor-core body takes
-//     them.  At HD 256 the body's tiles are 32 rows, not 64, in both types:
-//     four float32 tiles of 64 x 260 would need 266 KB of shared memory, a
-//     block may take 227 KB.  A tensor-core body at HD 256 needs its own
-//     register plan (dK and dV alone would be 256 float32 registers a
-//     thread of one warpgroup) and is later work (ROADMAP).
+//     recomputes LSE and takes D from the float32 out.  At HD 256 its
+//     tiles are 32 rows, not 64: four float32 tiles of 64 x 260 would need
+//     266 KB of shared memory, a block may take 227 KB.
+//
+// Head_dim 256 on the tensor cores (recurrentgemma-9b's local layers).
+// dK and dV of 64 keys x 256 columns would be 256 float32 accumulator
+// registers a thread of one warpgroup, past the 255 a thread may have.
+// So a block there is two warpgroups (256 threads), warpgroup w owning
+// output columns [128w, 128w + 128) of dK and dV (dkdv) or of dQ (dq):
+// 128 accumulator registers a thread in dkdv, as at HD 128.  Each
+// warpgroup computes the whole 64 x 64 Sᵀ and dPᵀ (S and dP in dq) over
+// all 256 columns itself, and the two products that reduce over keys or
+// query rows (dV += Pᵀ·dO, dK += dSᵀ·Q; dQ += dS·K) read only its half of
+// dO, Q or K (the MN-major B starts 2 column blocks in).  Computing the
+// scores twice costs 1.5x the tensor work of computing them once (24
+// products of 64 x 64 x 64 a tile pair in each kernel, not 16), and buys
+// what a hand-over
+// through shared memory would have to repair: no tile leaves a
+// warpgroup's registers, no barrier but the ring's, and the numerics are
+// those of HD ≤ 128 exactly.  A hand-over of P in bf16 would be a
+// rounding the HD ≤ 128 design does not make, and P's error in dS = P ⊙
+// (dP − D) reaches dQ as the shared key component does
+// (tests/test_torch_attn_bwd_rounding.py shows that variant breach);
+// handing over float32 tiles would add 32 KB to a block already at 194
+// KB.  Shared memory: a 64-row bf16 tile is 32 KB at HD 256, so K, V and
+// two stages of (Q, dO) take 192 KB (dq: Q, dO and two stages of (K,
+// V)), and one block fits an SM (two at HD ≤ 128): 132 slots for
+// group_split, where HD ≤ 128 has 264.  ptxas reports the registers and
+// spills of every instance in chip_smoke.py's [build] lines, which fail
+// on a spill.
 //
 // Why D in float32, and dS as hi + lo only in dQ.  An error δD_i enters dQ_i
 // as −δD_i·Σ_j P_ij k_j.  When the keys share a common component c (a bias,
@@ -82,17 +105,21 @@
 // 234 registers at HD 128, 170 at 64 and 32, no spill).  So a block is one
 // warpgroup of 64 keys (not the forward's two or three of 64 rows each),
 // and two blocks share an SM (2 x 128 x 240 registers fit its 64 K).  The
-// dQ kernel (ptxas: 155 at HD 128) takes the same shape.  With one
-// warpgroup a block, the stage it finishes is refilled by its own thread
-// 0 after a barrier, with no release counter.
+// dQ kernel (ptxas: 155 at HD 128) takes the same shape.  At HD 256 each
+// of the two warpgroups holds what one holds at HD 128 (dq: half its
+// accumulators), so one block of 256 threads fits the SM's registers
+// (ptxas: 234 and 156 at HD 256, no spill).  The stage
+// a block finishes is refilled by its thread 0 after a block barrier,
+// with no release counter.
 //
 // Splitting a k/v head's query heads (GQA).  starcoder2-3b's 24/2 heads
 // give 2 k/v heads, so one block per (kv tile, k/v head, batch) is 128
 // blocks, and a causal kv tile 0 walks 16 q tiles x 12 heads while tile 15
 // walks 12.  backward.py::group_split splits the 12 heads over nsplit
 // blocks (4 at that shape: 512 blocks) until the heaviest block is no
-// longer than the mean work of the card's 264 two-block slots; their
-// float32 partials are summed by launch 3.  Causal blocks run heaviest
+// longer than the mean work of the card's slots (264 at HD ≤ 128, two
+// blocks an SM; 132 at HD 256, where recurrentgemma-9b's 16/1 heads at S
+// 2560 split 4 ways); their float32 partials are summed by launch 3.  Causal blocks run heaviest
 // first: the kv tile (dK/dV) or q tile (dQ) is the grid's slowest axis.
 //
 // Semantics kept from the forward (and so from attention_ref): q position
@@ -102,8 +129,9 @@
 //
 // Shared memory (tensor-core body), bytes at HD 128 (HD 32 pads to 64):
 // dkdv K, V + 2 stages x (Q, dO) of 64 x 128 bf16 + 2 x 512 of stats =
-// 97 KiB; dq Q, dO + 2 x (K, V) = 96 KiB; + mbarriers and 1 KiB to align
-// the swizzle atoms (backward.py::smem_bytes mirrors Cfg).
+// 97 KiB; dq Q, dO + 2 x (K, V) = 96 KiB; at HD 256 193 and 192 KiB; +
+// mbarriers and 1 KiB to align the swizzle atoms (backward.py::smem_bytes
+// mirrors Cfg).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; the launches
 // go on the caller's stream and return cudaGetLastError().
@@ -147,44 +175,17 @@ constexpr int PS = 80;          // pitch of the P / dS tile
 template <int HD>
 constexpr int rows_for() { return HD > 128 ? 32 : 64; }
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 4 consecutive elements of src (16-byte aligned for float, 8 for bf16)
-// as float32
+// 4 consecutive elements of src (16-byte aligned)
 __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// P from a scaled score: float32 takes the natural-log LSE this body's
-// pre-pass recomputes, exp(x·scale − L); bfloat16 the training forward's
-// base-2 LSE, 2^(x·scale·log2 e − L) (se is the exponent's scale)
-template <typename T>
-__device__ __forceinline__ float prob(float x, float se, float L) {
-  if constexpr (sizeof(T) == 2) return exp2f(x * se - L);
-  else return expf(x * se - L);
-}
 
 // Copy `rows` rows of one head (HD elements each, `stride` elements apart)
-// into shared memory as float32 with row pitch HD + 4; rows at or past
-// `valid` are zeros.
-template <typename T, int HD>
-__device__ void load_tile(float* dst, const T* src, size_t stride, int rows,
-                          int valid) {
+// into shared memory with row pitch HD + 4; rows at or past `valid` are
+// zeros.
+template <int HD>
+__device__ void load_tile(float* dst, const float* src, size_t stride,
+                          int rows, int valid) {
   constexpr int P = HD + 4, PER_ROW = HD / 4;
   for (int i = threadIdx.x; i < rows * PER_ROW; i += THREADS) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
@@ -274,10 +275,11 @@ __device__ __forceinline__ void acc_tile(float (&acc)[RA][Acc<HD>::NC],
 
 // Store 4 rows (ty + 16a) of an accumulator times `mul` to dst (row r at
 // dst + r * stride), rows at or past `valid` skipped.
-template <typename T, int HD, int RA>
+template <int HD, int RA>
 __device__ __forceinline__ void store_acc(const float (&acc)[RA][Acc<HD>::NC],
-                                          T* dst, size_t stride, int valid,
-                                          float mul, int ty, int tx) {
+                                          float* dst, size_t stride,
+                                          int valid, float mul, int ty,
+                                          int tx) {
   using C = Acc<HD>;
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
@@ -287,8 +289,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[RA][Acc<HD>::NC],
     for (int e = 0; e < C::NG; ++e)
 #pragma unroll
       for (int j = 0; j < C::VW; ++j)
-        dst[r * stride + C::col(tx, e) + j] =
-            from_f<T>(acc[a][e * C::VW + j] * mul);
+        dst[r * stride + C::col(tx, e) + j] = acc[a][e * C::VW + j] * mul;
   }
 }
 
@@ -304,11 +305,11 @@ __device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
   kt_end = (k_end + BK - 1) / BK;
 }
 
-// 1. LSE and D (float32): D = rowsum(dO ⊙ out), TPR threads a row
-template <typename T, int HD, int R>
+// 1. LSE (natural log) and D = rowsum(dO ⊙ out), TPR threads a row
+template <int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ out, const T* __restrict__ dout,
+attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ out, const float* __restrict__ dout,
               float* __restrict__ lse, float* __restrict__ delta, int Sq,
               int Skv, int Hq, int Hkv, float scale, int causal,
               int window) {
@@ -329,8 +330,8 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
     const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
     float s = 0.f;
     if (q0 + r < Sq) {
-      const T* o = out + q_off + r * q_stride;
-      const T* g = dout + q_off + r * q_stride;
+      const float* o = out + q_off + r * q_stride;
+      const float* g = dout + q_off + r * q_stride;
       for (int c = part * 4; c < HD; c += 4 * TPR) {
         const float4 ov = load4(o + c), gv = load4(g + c);
         s += ov.x * gv.x + ov.y * gv.y + ov.z * gv.z + ov.w * gv.w;
@@ -342,7 +343,7 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
     if (part == 0 && q0 + r < Sq) delta[row0 + r] = s;
   }
 
-  load_tile<T, HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
   int kt_begin, kt_end;
   kv_band<BK>(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin,
               kt_end);
@@ -355,8 +356,8 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                       // previous K tile consumed
-    load_tile<T, HD>(Ks, k + (((size_t)b * Skv + k0) * Hkv + hk) * HD,
-                     kv_stride, BK, Skv - k0);
+    load_tile<HD>(Ks, k + (((size_t)b * Skv + k0) * Hkv + hk) * HD,
+                  kv_stride, BK, Skv - k0);
     __syncthreads();
     float s[RA][RA];
     nt_tile<HD, RA>(s, Qs, Ks, ty, tx);
@@ -394,42 +395,14 @@ attn_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// 1'. D (bfloat16, the forward's LSE taken as it is): D = rowsum(dO ⊙
-// (out + out_lo)) in float32, out_lo being what out's rounding left out,
-// TPR threads a row
-template <int HD, int R>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_delta(const __nv_bfloat16* __restrict__ out,
-               const __nv_bfloat16* __restrict__ out_lo,
-               const __nv_bfloat16* __restrict__ dout,
-               float* __restrict__ delta, int Sq, int Hq) {
-  constexpr int TPR = THREADS / R;
-  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const size_t off = (((size_t)b * Sq + q0 + r) * Hq + h) * HD;
-  float s = 0.f;
-  if (q0 + r < Sq) {
-    for (int c = part * 4; c < HD; c += 4 * TPR) {
-      const float4 ov = load4(out + off + c), lv = load4(out_lo + off + c);
-      const float4 gv = load4(dout + off + c);
-      s += (ov.x + lv.x) * gv.x + (ov.y + lv.y) * gv.y +
-           (ov.z + lv.z) * gv.z + (ov.w + lv.w) * gv.w;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (part == 0 && q0 + r < Sq)
-    delta[((size_t)b * Hq + h) * Sq + q0 + r] = s;
-}
-
 // 2. dK and dV
-template <typename T, int HD, int R>
+template <int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
-              int Hq, int Hkv, float scale, float se, int causal,
+              float* __restrict__ dk, float* __restrict__ dv, int Sq,
+              int Skv, int Hq, int Hkv, float scale, int causal,
               int window) {
   using C = Acc<HD>;
   constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
@@ -446,8 +419,8 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
   const size_t kv_off = (((size_t)b * Skv + k0) * Hkv + hk) * HD;
-  load_tile<T, HD>(Ks, k + kv_off, kv_stride, BK, Skv - k0);
-  load_tile<T, HD>(Vs, v + kv_off, kv_stride, BK, Skv - k0);
+  load_tile<HD>(Ks, k + kv_off, kv_stride, BK, Skv - k0);
+  load_tile<HD>(Vs, v + kv_off, kv_stride, BK, Skv - k0);
 
   // the q tiles whose rows meet keys [k0, k_last]
   const int k_last = min(k0 + BK, Skv) - 1;
@@ -468,8 +441,8 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
       const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;
       __syncthreads();                     // the last tiles are consumed
-      load_tile<T, HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
-      load_tile<T, HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
+      load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
+      load_tile<HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
       for (int i = threadIdx.x; i < BQ; i += THREADS) {
         const bool in = q0 + i < Sq;
         Ls[i] = in ? lse[row0 + i] : 0.f;
@@ -485,7 +458,7 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         for (int bb = 0; bb < RA; ++bb) {
           const int c = tx + 16 * bb;
           const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
-          p[a][bb] = ok ? prob<T>(p[a][bb], se, Ls[r]) : 0.f;
+          p[a][bb] = ok ? expf(p[a][bb] * scale - Ls[r]) : 0.f;
           Ps[r * PS + c] = p[a][bb];
         }
       }
@@ -504,18 +477,18 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       acc_tile<HD, true, RA>(dka, Ps, Qs, ty, tx);
     }
   }
-  store_acc<T, HD, RA>(dka, dk + kv_off, kv_stride, Skv - k0, scale, ty, tx);
-  store_acc<T, HD, RA>(dva, dv + kv_off, kv_stride, Skv - k0, 1.f, ty, tx);
+  store_acc<HD, RA>(dka, dk + kv_off, kv_stride, Skv - k0, scale, ty, tx);
+  store_acc<HD, RA>(dva, dv + kv_off, kv_stride, Skv - k0, 1.f, ty, tx);
 }
 
 // 3. dQ
-template <typename T, int HD, int R>
+template <int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-            float scale, float se, int causal, int window) {
+            float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
+            float scale, int causal, int window) {
   using C = Acc<HD>;
   constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   extern __shared__ float4 smem4[];
@@ -532,8 +505,8 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
   const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
   const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;
-  load_tile<T, HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
-  load_tile<T, HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
   for (int i = threadIdx.x; i < BQ; i += THREADS) {
     const bool in = q0 + i < Sq;
     Ls[i] = in ? lse[row0 + i] : 0.f;
@@ -553,8 +526,8 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BK;
     const size_t kv_off = (((size_t)b * Skv + k0) * Hkv + hk) * HD;
     __syncthreads();                       // the last K and dS are consumed
-    load_tile<T, HD>(Ks, k + kv_off, kv_stride, BK, Skv - k0);
-    load_tile<T, HD>(Vs, v + kv_off, kv_stride, BK, Skv - k0);
+    load_tile<HD>(Ks, k + kv_off, kv_stride, BK, Skv - k0);
+    load_tile<HD>(Vs, v + kv_off, kv_stride, BK, Skv - k0);
     __syncthreads();
     float s[RA][RA], dp[RA][RA];
     nt_tile<HD, RA>(s, Qs, Ks, ty, tx);
@@ -566,14 +539,14 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       for (int bb = 0; bb < RA; ++bb) {
         const int c = tx + 16 * bb;
         const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
-        const float pv = ok ? prob<T>(s[a][bb], se, Ls[r]) : 0.f;
+        const float pv = ok ? expf(s[a][bb] * scale - Ls[r]) : 0.f;
         Ps[r * PS + c] = pv * (dp[a][bb] - Ds[r]);
       }
     }
     __syncthreads();
     acc_tile<HD, false, RA>(dqa, Ps, Ks, ty, tx);
   }
-  store_acc<T, HD, RA>(dqa, dq + q_off, q_stride, Sq - q0, scale, ty, tx);
+  store_acc<HD, RA>(dqa, dq + q_off, q_stride, Sq - q0, scale, ty, tx);
 }
 
 template <int HD, int R>
@@ -585,49 +558,37 @@ constexpr size_t grad_smem() {
   return sizeof(float) * ((size_t)(4 * R) * (HD + 4) + R * PS + 2 * R);
 }
 
-// float32: the pre-pass recomputes LSE (natural log) into `lse` and D
-// from out.  bfloat16: `lse` is the training forward's (base 2) and D
-// comes from out + out_lo.
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* out_lo, const void* dout, void* dq, void* dk,
-           void* dv, float* lse, float* delta, int B, int Sq, int Skv,
-           int Hq, int Hkv, float scale, int causal, int window,
-           cudaStream_t s) {
+// the pre-pass recomputes LSE (natural log) into `lse` and D from out
+template <int HD>
+int launch(const float* q, const float* k, const float* v, const float* out,
+           const float* dout, float* dq, float* dk, float* dv, float* lse,
+           float* delta, int B, int Sq, int Skv, int Hq, int Hkv,
+           float scale, int causal, int window, cudaStream_t s) {
   constexpr int R = rows_for<HD>();
-  constexpr bool BF16 = sizeof(T) == 2;
-  auto prep = attn_bwd_prep<T, HD, R>;
-  auto dkdv = attn_bwd_dkdv<T, HD, R>;
-  auto dqk = attn_bwd_dq<T, HD, R>;
+  auto prep = attn_bwd_prep<HD, R>;
+  auto dkdv = attn_bwd_dkdv<HD, R>;
+  auto dqk = attn_bwd_dq<HD, R>;
   static const int attr = [&] {
-    int e = BF16 ? 0 : set_smem(prep, prep_smem<HD, R>());
+    int e = set_smem(prep, prep_smem<HD, R>());
     if (!e) e = set_smem(dkdv, grad_smem<HD, R>());
     if (!e) e = set_smem(dqk, grad_smem<HD, R>());
     return e;
   }();
   if (attr) return attr;
-  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v;
   const dim3 qgrid((Sq + R - 1) / R, Hq, B), kgrid((Skv + R - 1) / R, Hkv,
                                                    B);
-  if constexpr (BF16) {
-    attn_bwd_delta<HD, R><<<qgrid, THREADS, 0, s>>>(
-        (const T*)out, (const T*)out_lo, (const T*)dout, delta, Sq, Hq);
-  } else {
-    prep<<<qgrid, THREADS, prep_smem<HD, R>(), s>>>(
-        tq, tk, (const T*)out, (const T*)dout, lse, delta, Sq, Skv, Hq, Hkv,
-        scale, causal, window);
-  }
+  prep<<<qgrid, THREADS, prep_smem<HD, R>(), s>>>(
+      q, k, out, dout, lse, delta, Sq, Skv, Hq, Hkv, scale, causal, window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const float se = BF16 ? scale * 1.4426950408889634f : scale;
   dkdv<<<kgrid, THREADS, grad_smem<HD, R>(), s>>>(
-      tq, tk, tv, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Sq, Skv, Hq,
-      Hkv, scale, se, causal, window);
+      q, k, v, dout, lse, delta, dk, dv, Sq, Skv, Hq, Hkv, scale, causal,
+      window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dqk<<<qgrid, THREADS, grad_smem<HD, R>(), s>>>(
-      tq, tk, tv, (const T*)dout, lse, delta, (T*)dq, Sq, Skv, Hq, Hkv,
-      scale, se, causal, window);
+      q, k, v, dout, lse, delta, dq, Sq, Skv, Hq, Hkv, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
@@ -640,9 +601,10 @@ int launch_f32(int hd, const void* q, const void* k, const void* v,
   float* delta = scratch + (size_t)B * Hq * Sq;
 #define MCSA_CC_F32(HD)                                                     \
   case HD:                                                                  \
-    return launch<float, HD>(q, k, v, out, nullptr, dout, dq, dk, dv, lse,  \
-                             delta, B, Sq, Skv, Hq, Hkv, scale, causal,     \
-                             window, s);
+    return launch<HD>((const float*)q, (const float*)k, (const float*)v,    \
+                      (const float*)out, (const float*)dout, (float*)dq,    \
+                      (float*)dk, (float*)dv, lse, delta, B, Sq, Skv, Hq,   \
+                      Hkv, scale, causal, window, s);
   switch (hd) {
     MCSA_CC_F32(32)
     MCSA_CC_F32(64)
@@ -651,20 +613,6 @@ int launch_f32(int hd, const void* q, const void* k, const void* v,
   }
 #undef MCSA_CC_F32
   return (int)cudaErrorInvalidValue;
-}
-
-// bfloat16 at head_dim 256 (the tensor-core body takes 32-128): lse (B,
-// Hq, Sq) and out_lo from the training forward; scratch (B, Hq, Sq)
-// float32 takes D
-int launch_bf16(int hd, const void* q, const void* k, const void* v,
-                const void* out, const void* out_lo, const void* dout,
-                const float* lse, void* dq, void* dk, void* dv,
-                float* scratch, int B, int Sq, int Skv, int Hq, int Hkv,
-                float scale, int causal, int window, cudaStream_t s) {
-  if (hd != 256) return (int)cudaErrorInvalidValue;
-  return launch<__nv_bfloat16, 256>(q, k, v, out, out_lo, dout, dq, dk, dv,
-                                    (float*)lse, scratch, B, Sq, Skv, Hq,
-                                    Hkv, scale, causal, window, s);
 }
 
 }  // namespace cc
@@ -677,7 +625,6 @@ namespace tc {
 using namespace attn_tc;
 
 constexpr int TILE_ROWS = 64;      // q rows and keys a tile
-constexpr int THREADS = 128;       // one warpgroup a block
 constexpr int STAGES = 2;
 
 template <int HD>
@@ -685,6 +632,14 @@ struct Cfg {
   static constexpr int HDP = HD < 64 ? 64 : HD;    // padded width in smem
   static constexpr int NCB = HDP / 64;             // 128-byte column blocks
   static constexpr int TILE = TILE_ROWS * HDP * 2; // one bf16 tile
+  // warpgroups a block: one, or two at HD 256, each owning HO of the
+  // output's HDP columns (HS of HD stored); one block an SM at HD 256,
+  // two below
+  static constexpr int NWG = HD > 128 ? 2 : 1;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int BLOCKS_PER_SM = NWG == 1 ? 2 : 1;
+  static constexpr int HO = HDP / NWG;
+  static constexpr int HS = HD / NWG;
   static constexpr int STATS = TILE_ROWS * 8;      // 64 (LSE, D) pairs
   // dkdv: K, V, STAGES x (Q, dO), STAGES stats rows, then the mbarriers
   // (K/V, then one a stage)
@@ -815,7 +770,7 @@ attn_bwd_delta_kernel(const bf16* __restrict__ out,
 
 // 2. dK and dV of 64 keys over hps query heads
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, Cfg<HD>::BLOCKS_PER_SM)
 attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                         const __grid_constant__ CUtensorMap tmK,
                         const __grid_constant__ CUtensorMap tmV,
@@ -826,7 +781,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                         int Skv, int Hq, int Hkv, int nsplit, float scale,
                         float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
-  constexpr int HDP = C::HDP, NCB = C::NCB, NA = HDP / 2;
+  constexpr int NCB = C::NCB, HO = C::HO, NA = HO / 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -844,7 +799,12 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
   const int hps = Hq / Hkv / nsplit;               // query heads a block
   const int h_first = hk * (Hq / Hkv) + split * hps;
   const int k0 = kt * TILE_ROWS, k_last = min(k0 + TILE_ROWS, Skv) - 1;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  // warpgroup wg owns output columns wg·HO..; with one warpgroup these
+  // are constants, so the code of HD ≤ 128 is that of a one-group block
+  const int t = threadIdx.x, lane = t & 31;
+  const int warp = C::NWG == 1 ? t >> 5 : (t >> 5) & 3;
+  const int wg = C::NWG == 1 ? 0 : t >> 7;
+  const uint32_t col_off = wg * (HO / 64) * TILE_ROWS * 128;
   const int kr0 = k0 + 16 * warp + (lane >> 2), kr1 = kr0 + 8;
   const int c2 = 2 * (lane & 3);
 
@@ -937,7 +897,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
     // dV += Pᵀ·dO (Pᵀ plain bf16), and meanwhile dSᵀ = Pᵀ ⊙ (dPᵀ − D)
     wgmma_fence();
     fence_regs(dva);
-    nn_product<HDP>(dva, pa, sG);
+    nn_product<HO>(dva, pa, sG + col_off);
     wgmma_commit();
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
@@ -954,7 +914,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
     // dK += dSᵀ·Q (dSᵀ plain bf16)
     wgmma_fence();
     fence_regs(dka);
-    nn_product<HDP>(dka, da, sQ);
+    nn_product<HO>(dka, da, sQ + col_off);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dva);
@@ -968,19 +928,20 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
   }
 
   const size_t stride = (size_t)Hkv * HD;
-  const size_t off = ((size_t)b * Skv + k0) * Hkv * HD + (size_t)hk * HD;
+  const size_t off = ((size_t)b * Skv + k0) * Hkv * HD + (size_t)hk * HD +
+                     (size_t)wg * C::HS;
   const int r0 = 16 * warp + (lane >> 2), valid = Skv - k0;
   if (nsplit == 1) {
-    store_rows<HD, HDP>(dka, dk + off, nullptr, stride, r0, c2, valid,
-                        scale);
-    store_rows<HD, HDP>(dva, dv + off, nullptr, stride, r0, c2, valid,
-                        1.f);
+    store_rows<C::HS, HO>(dka, dk + off, nullptr, stride, r0, c2, valid,
+                          scale);
+    store_rows<C::HS, HO>(dva, dv + off, nullptr, stride, r0, c2, valid,
+                          1.f);
   } else {
     const size_t n = (size_t)gridDim.x / groups * Skv * stride;  // dK's size
-    store_rows<HD, HDP>(dka, nullptr, partial + split * n + off, stride, r0,
-                        c2, valid, scale);
-    store_rows<HD, HDP>(dva, nullptr, partial + (nsplit + split) * n + off,
-                        stride, r0, c2, valid, 1.f);
+    store_rows<C::HS, HO>(dka, nullptr, partial + split * n + off, stride,
+                          r0, c2, valid, scale);
+    store_rows<C::HS, HO>(dva, nullptr, partial + (nsplit + split) * n + off,
+                          stride, r0, c2, valid, 1.f);
   }
 }
 
@@ -1008,7 +969,7 @@ attn_bwd_sum_kernel(const float* __restrict__ partial, bf16* __restrict__ dk,
 
 // 4. dQ of 64 query rows
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, Cfg<HD>::BLOCKS_PER_SM)
 attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                       const __grid_constant__ CUtensorMap tmK,
                       const __grid_constant__ CUtensorMap tmV,
@@ -1017,7 +978,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                       int Sq, int Sq_pad, int Skv, int Hq, int Hkv,
                       float scale, float scale_log2, int causal, int window) {
   using C = Cfg<HD>;
-  constexpr int HDP = C::HDP, NCB = C::NCB, NA = HDP / 2;
+  constexpr int NCB = C::NCB, HO = C::HO, NA = HO / 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sG = base + C::TILE;
@@ -1029,7 +990,12 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
   const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * TILE_ROWS, q_last = min(q0 + TILE_ROWS, Sq) - 1;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  // warpgroup wg owns output columns wg·HO..; with one warpgroup these
+  // are constants, so the code of HD ≤ 128 is that of a one-group block
+  const int t = threadIdx.x, lane = t & 31;
+  const int warp = C::NWG == 1 ? t >> 5 : (t >> 5) & 3;
+  const int wg = C::NWG == 1 ? 0 : t >> 7;
+  const uint32_t col_off = wg * (HO / 64) * TILE_ROWS * 128;
   const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
   const int c2 = 2 * (lane & 3);
 
@@ -1134,9 +1100,9 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
 #pragma unroll
     for (int kb = 0; kb < 4; ++kb) {
       const uint64_t db =
-          desc_sw128(sK + kb * 16 * 128, TILE_ROWS * 128, 1024);
-      wgmma_pv<HDP>(dqa, dsh[kb], db);
-      wgmma_pv<HDP>(dqa, dsl[kb], db);
+          desc_sw128(sK + col_off + kb * 16 * 128, TILE_ROWS * 128, 1024);
+      wgmma_pv<HO>(dqa, dsh[kb], db);
+      wgmma_pv<HO>(dqa, dsl[kb], db);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1149,10 +1115,11 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
     if (t == 0 && kt + STAGES < kt_end) load_kv(kt + STAGES);
   }
 
-  store_rows<HD, HDP>(dqa,
-                      dq + (((size_t)b * Sq + q0) * Hq + h) * HD, nullptr,
-                      (size_t)Hq * HD, 16 * warp + (lane >> 2), c2, Sq - q0,
-                      scale);
+  store_rows<C::HS, HO>(dqa,
+                        dq + (((size_t)b * Sq + q0) * Hq + h) * HD +
+                            (size_t)wg * C::HS,
+                        nullptr, (size_t)Hq * HD, 16 * warp + (lane >> 2),
+                        c2, Sq - q0, scale);
 }
 
 template <int HD>
@@ -1189,7 +1156,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = scale * LOG2E;
   const dim3 kgrid(B * Hkv * nsplit, (Skv + TILE_ROWS - 1) / TILE_ROWS);
-  dkdv<<<kgrid, THREADS, C::KV_BYTES, s>>>(
+  dkdv<<<kgrid, C::THREADS, C::KV_BYTES, s>>>(
       tq, tk, tv, tg, stats, (bf16*)dk, (bf16*)dv, partial, Sq, Sq_pad, Skv,
       Hq, Hkv, nsplit, scale, scale_log2, causal, window);
   e = cudaGetLastError();
@@ -1202,7 +1169,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 qgrid(B * Hq, (Sq + TILE_ROWS - 1) / TILE_ROWS);
-  dqk<<<qgrid, THREADS, C::Q_BYTES, s>>>(tq, tk, tv, tg, stats, (bf16*)dq,
+  dqk<<<qgrid, C::THREADS, C::Q_BYTES, s>>>(tq, tk, tv, tg, stats, (bf16*)dq,
                                          Sq, Sq_pad, Skv, Hq, Hkv, scale,
                                          scale_log2, causal, window);
   return (int)cudaGetLastError();
@@ -1215,15 +1182,12 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor
-// cores.  The pairings taken are (float32, CUDA cores) at hd 32, 64, 128
-// or 256, (bfloat16, CUDA cores) at hd 256 and (bfloat16, tensor cores) at
-// hd 32, 64 or 128; anything else returns cudaErrorInvalidValue.  q, k, v,
-// out, dout, dq, dk, dv: that dtype, contiguous in the model layout,
-// 16-byte aligned; Hq % Hkv == 0.
+// cores.  The pairings taken are (float32, CUDA cores) and (bfloat16,
+// tensor cores), each at hd 32, 64, 128 or 256; anything else returns
+// cudaErrorInvalidValue.  q, k, v, out, dout, dq, dk, dv: that dtype,
+// contiguous in the model layout, 16-byte aligned; Hq % Hkv == 0.
 //   * CUDA cores, float32: out_lo, lse and partial null, nsplit 1; scratch
 //     (2, B, Hq, Sq) float32 (LSE, then D).
-//   * CUDA cores, bfloat16: out_lo and lse as for the tensor cores,
-//     partial null, nsplit 1; scratch (B, Hq, Sq) float32 (D).
 //   * tensor cores: out_lo (out's shape) and lse (B, Hq, Sq) float32 from
 //     the training forward; scratch (B, Hq, Sq_pad, 2) float32, Sq_pad =
 //     Sq rounded up to 64; nsplit divides Hq / Hkv; partial (2, nsplit, B,
@@ -1247,14 +1211,6 @@ int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
                           (float*)scratch, B, Sq, Skv, Hq, Hkv, scale, causal,
                           window, s);
   }
-  if (dtype == 1 && body == 0) {
-    if (out_lo == nullptr || lse == nullptr || partial != nullptr ||
-        nsplit != 1)
-      return (int)cudaErrorInvalidValue;
-    return cc::launch_bf16(hd, q, k, v, out, out_lo, dout, lse, dq, dk, dv,
-                           (float*)scratch, B, Sq, Skv, Hq, Hkv, scale,
-                           causal, window, s);
-  }
   if (dtype == 1 && body == 1) {
     float2* stats = (float2*)scratch;
     switch (hd) {
@@ -1270,6 +1226,10 @@ int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
         return tc::launch<128>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
                                stats, partial, B, Sq, Skv, Hq, Hkv, scale,
                                causal, window, nsplit, s);
+      case 256:
+        return tc::launch<256>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
+                               stats, partial, B, Sq, Skv, Hq, Hkv, scale,
+                               causal, window, nsplit, s);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -1283,6 +1243,7 @@ int mcsa_attention_bwd_smem(int hd, int kernel) {
     case 32: kv = tc::Cfg<32>::KV_BYTES; qb = tc::Cfg<32>::Q_BYTES; break;
     case 64: kv = tc::Cfg<64>::KV_BYTES; qb = tc::Cfg<64>::Q_BYTES; break;
     case 128: kv = tc::Cfg<128>::KV_BYTES; qb = tc::Cfg<128>::Q_BYTES; break;
+    case 256: kv = tc::Cfg<256>::KV_BYTES; qb = tc::Cfg<256>::Q_BYTES; break;
   }
   return kernel == 0 ? kv : kernel == 1 ? qb : -1;
 }

@@ -10,7 +10,10 @@ training forward's LSE and output residual.
   dq at one bf16 rounding, with plain bf16 P in dV = Pᵀ·dO and plain bf16
   dS in dK = dSᵀ·Q (their sums run over query rows, which share no such
   component).  A float32 D with plain bf16 dS in dQ still breaches at c =
-  4: both repairs are needed.
+  4: both repairs are needed.  At head_dim 256 (recurrentgemma-9b's 16/1
+  heads with a window) the two-warpgroup body makes the same roundings
+  and holds; handing P from one warpgroup to the other in bf16 would
+  breach dq at c = 4.
 * The plain versions (``ref.py``) against the JAX package on the CPU: the
   forward's new outputs (LSE in base 2 against ``torch.logsumexp`` of
   the plain scores, O against the JAX attention), and the plain backward
@@ -60,13 +63,14 @@ def _rel_rms(a, b) -> float:
 
 def _simulate(c: float, D_from: str, p_dv: str, ds_dk: str, ds_dq: str,
               seed: int = 0, S: int = 512, Hq: int = 8, Hkv: int = 2,
-              hd: int = 128) -> dict:
-    """One causal head group in float64 on bf16 inputs (keys randn + c):
-    the backward with D from ``D_from`` ("bf16": the bf16 output; "f32":
-    out + out_lo), P in dV and dS in dK and dQ each "exact", "bf16" or
+              hd: int = 128, window: int = 0, p_ds: str = "exact") -> dict:
+    """One causal head group (with a sliding ``window`` if > 0) in float64
+    on bf16 inputs (keys randn + c): the backward with D from ``D_from``
+    ("bf16": the bf16 output; "f32": out + out_lo), P in dV, P in dS =
+    P ⊙ (dP − D) (``p_ds``) and dS in dK and dQ each "exact", "bf16" or
     "hilo" (bf16 hi + lo), the outputs rounded to bf16 as the kernel
-    stores them -> {"dq", "dk", "dv": error RMS over the exact
-    gradient's RMS}."""
+    stores them (dK and dV a query head each) -> {"dq", "dk", "dv": error
+    RMS over the exact gradient's RMS}."""
     g = torch.Generator().manual_seed(seed)
     rep, scale = Hq // Hkv, hd ** -0.5
 
@@ -80,7 +84,10 @@ def _simulate(c: float, D_from: str, p_dv: str, ds_dk: str, ds_dq: str,
     K, V = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
     s = q @ K.transpose(-1, -2) * scale
     i = torch.arange(S)
-    p = torch.softmax(s.masked_fill(i[:, None] < i[None, :], -math.inf), -1)
+    masked = i[:, None] < i[None, :]
+    if window:
+        masked = masked | (i[:, None] - i[None, :] >= window)
+    p = torch.softmax(s.masked_fill(masked, -math.inf), -1)
     o = p @ V
     dp = do @ V.transpose(-1, -2)
     ds = p * (dp - (do * o).sum(-1, keepdim=True))
@@ -89,13 +96,14 @@ def _simulate(c: float, D_from: str, p_dv: str, ds_dk: str, ds_dq: str,
 
     out16 = _r16(o)
     used = out16 if D_from == "bf16" else out16 + _r16(o - out16)
-    ds_k = p * (dp - (do * used).sum(-1, keepdim=True))
 
     def rnd(x, how):
         if how == "exact":
             return x
         hi = _r16(x)
         return hi if how == "bf16" else hi + _r16(x - hi)
+
+    ds_k = rnd(p, p_ds) * (dp - (do * used).sum(-1, keepdim=True))
 
     got = {"dq": _r16(scale * rnd(ds_k, ds_dq) @ K),
            "dk": _r16(scale * rnd(ds_k, ds_dk).transpose(-1, -2) @ q),
@@ -129,6 +137,31 @@ def test_float32_d_and_hi_lo_ds_in_dq_hold_every_offset(c):
 def test_float32_d_alone_still_breaches_with_plain_bf16_ds_in_dq():
     err = _simulate(4.0, "f32", "bf16", "bf16", "bf16")
     assert err["dq"] > TOL, err
+
+
+#: recurrentgemma-9b's local attention, cut in length: 16/1 heads of 256,
+#: a window of 3/4 of the sequence (2048 of 2560 in the model)
+HD256 = dict(S=512, Hq=16, Hkv=1, hd=256, window=384)
+
+
+@pytest.mark.parametrize("c", [0.0, 2.0, 4.0])
+def test_head_dim_256_two_warpgroup_design_holds_every_offset(c):
+    """The head_dim-256 body: each warpgroup forms the whole Sᵀ, dPᵀ (S,
+    dP) itself, so its roundings are the head_dim ≤ 128 design's: D from
+    out + out_lo, plain bf16 P in dV and dS in dK, dS as hi + lo in dQ."""
+    err = _simulate(c, "f32", "bf16", "bf16", "hilo", **HD256)
+    assert max(err.values()) < HOLD, err
+
+
+def test_head_dim_256_p_handed_over_in_bf16_breaches_dq():
+    """The alternative the design avoids: one warpgroup forms P and hands
+    it to the other in bf16, which forms dS = P_bf16 ⊙ (dP − D).  P's
+    rounding reaches dQ scaled by the keys' shared component."""
+    err = _simulate(4.0, "f32", "bf16", "bf16", "hilo", p_ds="bf16",
+                    **HD256)
+    assert err["dq"] > TOL, err
+    assert _simulate(0.0, "f32", "bf16", "bf16", "hilo", p_ds="bf16",
+                     **HD256)["dq"] < TOL
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +275,9 @@ def test_plain_backward_with_the_forward_stats_matches_jax_in_float32(mask):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("hd", fb.HEAD_DIMS)
 def test_backward_body_follows_the_dtype(hd):
-    """bf16 runs the tensor cores up to head_dim 128 and the CUDA cores at
-    256 (recurrentgemma-9b's); float32 the CUDA cores."""
-    assert fb.body_for(torch.bfloat16, hd) == (
-        "tensor_cores" if hd in fb.TC_HEAD_DIMS else "cuda_cores")
+    """bf16 runs the tensor cores at every head_dim, 256 (recurrentgemma-9b's)
+    included; float32 the CUDA cores."""
+    assert fb.body_for(torch.bfloat16, hd) == "tensor_cores"
     assert fb.body_for(torch.float32, hd) == "cuda_cores"
     with pytest.raises(TypeError, match="dtype"):
         fb.body_for(torch.float16, hd)
@@ -271,49 +303,69 @@ def test_backward_cuda_core_tiles_fit_at_head_dim_256():
 
 
 def test_backward_body_codes_match_the_library():
+    """The library takes (float32, CUDA cores) and (bfloat16, tensor
+    cores) only: the bf16 CUDA-core pairing is gone."""
     src = fb.SOURCE.read_text()
     pairs = set(re.findall(r"if \(dtype == (\d) && body == (\d)\)", src))
     assert pairs == {(str(fb.DTYPES[torch.float32]),
                       str(fb.BODIES["cuda_cores"])),
                      (str(fb.DTYPES[torch.bfloat16]),
-                      str(fb.BODIES["cuda_cores"])),
-                     (str(fb.DTYPES[torch.bfloat16]),
                       str(fb.BODIES["tensor_cores"]))}
+    assert "launch_bf16" not in src
+    cases = set(re.findall(r"return tc::launch<(\d+)>", src))
+    assert cases == {str(hd) for hd in fb.HEAD_DIMS}
 
 
-@pytest.mark.parametrize("hd", fb.TC_HEAD_DIMS)
+@pytest.mark.parametrize("hd", fb.HEAD_DIMS)
 @pytest.mark.parametrize("kernel", ["dkdv", "dq"])
 def test_backward_blocks_fit_two_to_an_sm(hd, kernel):
-    """Each tensor-core block fits the H100's 232,448 bytes, and two fit
-    one SM's 228 KiB with their 1 KiB reserve each (the design's
-    occupancy)."""
+    """Each tensor-core block fits the H100's 232,448 bytes, and the blocks
+    an SM the design states (the kernels' launch bounds) fit one SM's 228
+    KiB with their 1 KiB reserve each: two of one warpgroup up to head_dim
+    128, one of two warpgroups at 256."""
     smem = fb.smem_bytes(hd, kernel)
     assert smem <= fb.SMEM_LIMIT
-    assert 2 * (smem + 1024) <= 228 * 1024
+    n = fb.blocks_per_sm(hd)
+    assert n == (2 if hd <= 128 else 1)
+    assert n * (smem + 1024) <= 228 * 1024
+    assert "BLOCKS_PER_SM = NWG == 1 ? 2 : 1" in fb.SOURCE.read_text()
+    assert "NWG = HD > 128 ? 2 : 1" in fb.SOURCE.read_text()
 
 
 def test_backward_split_at_the_train_shapes():
     """starcoder2-3b's 24/2 heads split 4 ways (512 blocks, the heaviest
     within a slot's mean); wider k/v groups need none."""
     split = fb.group_split
-    assert split(4, 1024, 1024, 24, 2, True, 0) == 4
-    assert split(4, 1024, 1024, 32, 8, True, 0) == 1
-    assert split(4, 1024, 1024, 16, 8, True, 0) == 1
-    assert split(2, 2048, 2048, 32, 16, True, 1024) == 1
+    assert split(4, 1024, 1024, 24, 2, True, 0, 128) == 4
+    assert split(4, 1024, 1024, 32, 8, True, 0, 128) == 1
+    assert split(4, 1024, 1024, 16, 8, True, 0, 64) == 1
+    assert split(2, 2048, 2048, 32, 16, True, 1024, 128) == 1
+
+
+def test_backward_split_at_recurrentgemma_head_dim_256():
+    """recurrentgemma-9b's 16/1 MQA group at B 2, S 2560, window 2048:
+    132 one-block slots at head_dim 256 give 4 splits (320 blocks), where
+    264 two-block slots would ask for 8."""
+    assert fb.slots(256) == 132 and fb.slots(128) == fb.slots(64) == 264
+    tiles = fb.band_q_tiles(2560, 2560, True, 2048)
+    assert tiles[:8] == [33] * 8 and tiles[8:] == list(range(32, 0, -1))
+    assert fb.group_split(2, 2560, 2560, 16, 1, True, 2048, 256) == 4
+    assert fb.group_split(2, 2560, 2560, 16, 1, True, 2048, 128) == 8
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", [
     (4, 1024, 24, 2, True, 0), (2, 150, 7, 1, True, 17),
     (2, 150, 16, 1, False, 40), (1, 5, 6, 2, True, 0),
-    (2, 300, 12, 4, False, 0)])
+    (2, 300, 12, 4, False, 0), (2, 2560, 16, 1, True, 2048)])
+@pytest.mark.parametrize("hd", [128, 256])
 def test_backward_split_divides_the_group_and_balances(B, S, Hq, Hkv, causal,
-                                                       window):
-    n = fb.group_split(B, S, S, Hq, Hkv, causal, window)
+                                                       window, hd):
+    n = fb.group_split(B, S, S, Hq, Hkv, causal, window, hd)
     rep = Hq // Hkv
     assert rep % n == 0
     tiles = fb.band_q_tiles(S, S, causal, window)
     if n < rep:
-        assert max(tiles) * (rep // n) * fb.SLOTS <= B * Hq * sum(tiles)
+        assert max(tiles) * (rep // n) * fb.slots(hd) <= B * Hq * sum(tiles)
 
 
 def test_band_q_tiles_counts_the_kernels_band():

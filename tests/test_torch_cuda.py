@@ -971,8 +971,8 @@ from repro_torch.kernels.flash_attention import backward as tflash_bwd  # noqa
 from repro_torch.kernels.rmsnorm import backward as trms_bwd          # noqa
 
 
-def _bwd_counts(dtype, calls=2, hd=128):
-    tc = calls if dtype == "bfloat16" and hd != 256 else 0
+def _bwd_counts(dtype, calls=2):
+    tc = calls if dtype == "bfloat16" else 0
     return {"flash_attention_bwd": calls, "flash_attention_bwd_tc": tc}
 
 
@@ -1083,12 +1083,12 @@ def test_cuda_flash_attention_bwd_refuses_other_head_dims(cuda):
 def test_cuda_flash_attention_bwd_head_dim_256(B, S, Hq, Hkv, causal,
                                                window, dtype, key_offset,
                                                cuda):
-    """Head_dim 256 runs the CUDA-core body in both types (32-row tiles),
-    bf16 with the training forward's LSE and residual; ragged lengths and
-    keys randn + c."""
+    """Head_dim 256: bf16 runs the tensor-core body (two warpgroups a
+    block) with the training forward's LSE and residual, float32 the
+    CUDA-core body (32-row tiles); ragged lengths and keys randn + c."""
     counts = _attention_bwd_case(B, Hq, Hkv, S, 256, causal, window, dtype,
                                  cuda, key_offset=key_offset)
-    assert counts == _bwd_counts(dtype, hd=256)
+    assert counts == _bwd_counts(dtype)
 
 
 @pytest.mark.cuda
@@ -1107,7 +1107,7 @@ def test_cuda_flash_attention_bwd_takes_the_stats_its_body_needs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_cuda_flash_attention_bwd_smem_matches_the_library(hd, cuda):
     for kernel in ("dkdv", "dq"):
         assert tflash_bwd.library_smem_bytes(hd, kernel) == \
@@ -1253,19 +1253,29 @@ def _twice(fn, counter, name):
     (32, 1280, 1024, 512, "bfloat16"),     # granite-moe's training shape
     (32, 4, 1024, 512, "bfloat16"),        # a decode-sized capacity
     (3, 70, 136, 200, "bfloat16"),         # C, d and ff off the tiles
+    (4, 300, 2048, 1408, "bfloat16"),      # moonshot-v1-16b-a3b's widths
+    (2, 16, 136, 200, "bfloat16"),         # the largest mma.sync capacity
+    (2, 17, 136, 200, "bfloat16"),         # the smallest wgmma one
     (4, 100, 64, 128, "float32"),
     (2, 1, 72, 24, "float32"),
 ])
 def test_cuda_moe_swiglu_bwd_matches_plain_version(E, C, d, ff, dtype,
                                                    cuda):
+    """bf16 above 16 capacity rows runs the wgmma + TMA body (counted as
+    moe_swiglu_bwd_tc), up to 16 the mma.sync tiles; float32 the CUDA
+    cores."""
     dt = getattr(torch, dtype)
     x = _randn((E, C, d), dt, cuda, 90)
     wg = (_randn((E, d, ff), torch.float32, cuda, 91) * d ** -0.5).to(dt)
     wu = (_randn((E, d, ff), torch.float32, cuda, 92) * d ** -0.5).to(dt)
     wd = (_randn((E, ff, d), torch.float32, cuda, 93) * ff ** -0.5).to(dt)
     dy = _randn((E, C, d), dt, cuda, 94)
+    tc = tmoe_bwd.LAUNCHES["moe_swiglu_bwd_tc"]
     got = _twice(lambda: tmoe_bwd.moe_swiglu_bwd_cuda(x, wg, wu, wd, dy),
                  tmoe_bwd.LAUNCHES, "moe_swiglu_bwd")
+    wgmma = tmoe_bwd.body_for(dt, C, d, ff) == "wgmma"
+    assert wgmma == (dtype == "bfloat16" and C > 16)
+    assert tmoe_bwd.LAUNCHES["moe_swiglu_bwd_tc"] == tc + (2 if wgmma else 0)
     assert [t.dtype for t in got] == [dt] * 4
     leaves = [t.float().requires_grad_() for t in (x, wg, wu, wd)]
     want = torch.autograd.grad(tmoe.moe_swiglu_ref(*leaves), leaves,

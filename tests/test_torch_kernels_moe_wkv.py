@@ -154,16 +154,20 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     """A source's library name covers the local headers it includes,
     followed recursively, so editing ``common/csrc/hopper.cuh`` rebuilds
     every library that uses it (attention's two through
-    ``attention_tc.cuh``)."""
+    ``attention_tc.cuh``, the expert SwiGLU's two through
+    ``moe_tc.cuh``)."""
     from repro_torch.kernels.flash_attention import backward as k_fa_bwd
     from repro_torch.kernels.flash_attention import kernel as k_fa
+    from repro_torch.kernels.moe_gemm import backward as k_moe_bwd
     hdr = (_build.Path(k_fa.SOURCE).parents[2] / "common" / "csrc"
            / "hopper.cuh").resolve()
     attn_hdr = (_build.Path(k_fa.SOURCE).parent / "attention_tc.cuh") \
         .resolve()
+    moe_hdr = (_build.Path(k_moe.SOURCE).parent / "moe_tc.cuh").resolve()
     assert _build.local_includes(k_fa.SOURCE) == [attn_hdr, hdr]
     assert _build.local_includes(k_fa_bwd.SOURCE) == [attn_hdr, hdr]
-    assert _build.local_includes(k_moe.SOURCE) == [hdr]
+    assert _build.local_includes(k_moe.SOURCE) == [moe_hdr, hdr]
+    assert _build.local_includes(k_moe_bwd.SOURCE) == [moe_hdr, hdr]
     src = tmp_path / "a" / "k.cu"
     src.parent.mkdir()
     inc = tmp_path / "h.cuh"

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 2 (the
 single-split Li-GD steps), 5 (fused expert SwiGLU), 7 (WKV6) and the
-backward kernels of rows 3 (attention) and 4 (RMSNorm) of this checkout
-against the same rows of other checkouts, in one process on one CUDA
-card.
+backward kernels of rows 3 (attention), 4 (RMSNorm) and 5 of this
+checkout against the same rows of other checkouts, in one process on one
+CUDA card.
 
 Each ``--other DIR`` is the root of another checkout of this repository
 (for example the parent commit, unpacked with ``git archive``): its
@@ -55,10 +55,17 @@ forward, which is also timed with and without them), held at
 ``GRAD_TOL``/``GRAD_RMS_TOL`` (a breach of another version is reported,
 one of this checkout's raises), with SDPA's backward timed beside them;
 the RMSNorm backward (``rms-bwd``) at ``chip_smoke.TRAIN_RMS_CASES``,
-with ``F.rms_norm``'s backward beside it.
+with ``F.rms_norm``'s backward beside it; the expert SwiGLU backward
+(``moe-bwd``) at the bf16 cases of ``chip_smoke.TRAIN_MOE_CASES``
+(granite-moe-1b-a400m's training shape and a decode-sized capacity),
+held at ``GRAD_TOL``/``GRAD_RMS_TOL`` against float32 autograd through
+this checkout's plain forward, with autograd of the 3-``torch.bmm`` + silu
+composition beside it.  The forward's row (``moe``) also reports whether
+each version's output equals this checkout's bit for bit.
 
     python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
-        [--rows sweep,steps,moe,wkv,attn-bwd,rms-bwd] [--out report.json]
+        [--rows sweep,steps,moe,wkv,attn-bwd,rms-bwd,moe-bwd]
+        [--out report.json]
 
 Needs a CUDA card; prints one JSON line per measurement and the whole
 report as the last line (also written to ``--out`` when given).
@@ -402,6 +409,82 @@ def rms_bwd_rows(versions: dict, rounds: int, device) -> list:
     return out
 
 
+def moe_bwd_rows(versions: dict, rounds: int, device) -> list:
+    """Row 5's backward: every version against float32 autograd through
+    this checkout's plain forward, twice for the same bits, then ABBA
+    rounds with autograd of the 3-``torch.bmm`` + silu composition as the
+    library."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import moe_gemm as mg
+    g = torch.Generator(device=device).manual_seed(14)
+    out = []
+    for E, C, d, ff, dtn in cs.TRAIN_MOE_CASES:
+        if dtn != "bfloat16":
+            continue
+        dt = torch.bfloat16
+
+        def randn(shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=device)
+                    * scale).to(dt)
+
+        x, dy = randn((E, C, d)), randn((E, C, d))
+        wg, wu = randn((E, d, ff), d ** -0.5), randn((E, d, ff), d ** -0.5)
+        wd = randn((E, ff, d), ff ** -0.5)
+        leaves = [t.float().requires_grad_() for t in (x, wg, wu, wd)]
+        want = torch.autograd.grad(mg.moe_swiglu_ref(*leaves), leaves,
+                                   dy.float())
+        del leaves
+        label = f"E {E}, C {C}, d {d}, ff {ff}"
+        fns = {name: (lambda f=f: f(x, wg, wu, wd, dy))
+               for name, f in versions.items()}
+        held = {}
+        for name, fn in fns.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            errs = [cs.grad_errors(a, b, dtn) for a, b in zip(got, want)]
+            held[name] = {
+                "same_bits": all(torch.equal(a, b)
+                                 for a, b in zip(got, again)),
+                "rel_rms": {n: e[1] for n, e in
+                            zip(("dx", "dwg", "dwu", "dwd"), errs)},
+                "within_tolerance": all(e[2] for e in errs)}
+            print(json.dumps({"kernel": "moe_swiglu_bwd", "case": label,
+                              "version": name, **held[name]}), flush=True)
+            if name == "this" and not (held[name]["within_tolerance"]
+                                       and held[name]["same_bits"]):
+                raise AssertionError(f"moe_swiglu_bwd {label}: "
+                                     f"{held[name]}")
+            del got, again
+        xl, gl, ul, dl = (t.detach().requires_grad_()
+                          for t in (x, wg, wu, wd))
+
+        def library():
+            yl = torch.bmm(F.silu(torch.bmm(xl, gl)) * torch.bmm(xl, ul), dl)
+            return torch.autograd.grad(yl, (xl, gl, ul, dl), dy)
+
+        fns["composition"] = library
+        flops = 12.0 * E * C * d * ff
+        rec = {"case": label, "held": held, "flops": flops,
+               "bound_ms": max(flops / cs.PEAK_BF16_S,
+                               2 * (2 * x.numel() + 3 * wg.numel()) * 2
+                               / cs.PEAK_BYTES_S) * 1e3,
+               "by_kernel": by_kernel(fns["this"]), "runs": []}
+        print(json.dumps({"kernel": "moe_swiglu_bwd", "case": label,
+                          "by_kernel": rec["by_kernel"]}), flush=True)
+        for name in abba(list(versions) + ["composition"], rounds):
+            run = {"version": name,
+                   "device_ms": cs.device_ms(fns[name], 30, 3),
+                   "ms": cs.timed_ms(fns[name], 30, 3)}
+            rec["runs"].append(run)
+            print(json.dumps({"kernel": "moe_swiglu_bwd", "case": label,
+                              **run}), flush=True)
+        out.append(rec)
+        del x, dy, wg, wu, wd, want, fns
+    return out
+
+
 def abba(names: list, rounds: int) -> list:
     order = []
     for _ in range(rounds):
@@ -415,7 +498,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--rows", default="sweep,steps,moe,wkv",
                     help="comma-separated subset of sweep, steps, moe, "
-                    "wkv, attn-bwd, rms-bwd")
+                    "wkv, attn-bwd, rms-bwd, moe-bwd")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -436,14 +519,16 @@ def main() -> int:
     wkv = {"this": wkv6.wkv6_cuda}
     attn = {"this": flash_attention}
     rms = {"this": rmsnorm.rmsnorm_bwd_cuda}
+    moe_bwd = {"this": moe_gemm.moe_swiglu_bwd_cuda}
     for i, root in enumerate(args.other):
         tag = f"{root.name}_{i}"
         if rows & {"sweep", "steps"}:
             other = load_package(root, "ligd_step", f"other{i}_ligd_step")
             sweep[tag], steps[tag] = other.sweep_cuda, other
-        if "moe" in rows:
-            moe[tag] = load_package(root, "moe_gemm",
-                                    f"other{i}_moe_gemm").moe_swiglu_cuda
+        if rows & {"moe", "moe-bwd"}:
+            other = load_package(root, "moe_gemm", f"other{i}_moe_gemm")
+            moe[tag] = other.moe_swiglu_cuda
+            moe_bwd[tag] = other.moe_swiglu_bwd_cuda
         if "wkv" in rows:
             wkv[tag] = load_package(root, "wkv6",
                                     f"other{i}_wkv6").wkv6_cuda
@@ -455,7 +540,7 @@ def main() -> int:
                                     f"other{i}_rmsnorm").rmsnorm_bwd_cuda
     report = {"card": cs.card_line(), "sweep": [], "ligd_steps": [],
               "moe_swiglu": [], "wkv6": [], "flash_attention_bwd": [],
-              "rmsnorm_bwd": []}
+              "rmsnorm_bwd": [], "moe_swiglu_bwd": []}
     print(report["card"], flush=True)
     dev = torch.device("cuda")
     if "sweep" in rows:
@@ -466,6 +551,8 @@ def main() -> int:
         report["flash_attention_bwd"] = attn_bwd_rows(attn, args.rounds, dev)
     if "rms-bwd" in rows:
         report["rmsnorm_bwd"] = rms_bwd_rows(rms, args.rounds, dev)
+    if "moe-bwd" in rows:
+        report["moe_swiglu_bwd"] = moe_bwd_rows(moe_bwd, args.rounds, dev)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def randn(shape, scale=1.0):
@@ -479,8 +566,12 @@ def main() -> int:
         want = moe_gemm.moe_swiglu_ref(x, wg, wu, wd).float()
         tol, rms_tol = cs.MOE_TOL["bfloat16"], cs.MOE_RMS_TOL["bfloat16"]
         fns = {n: (lambda f=f: f(x, wg, wu, wd)) for n, f in moe.items()}
+        mine = fns["this"]()
+        same = {}
         for n, fn in fns.items():
-            got = fn().float()
+            out16 = fn()
+            same[n] = torch.equal(out16, mine)
+            got = out16.float()
             rr = cs.rel_rms(got, want)
             if not (torch.allclose(got, want, atol=tol, rtol=tol)
                     and rr <= rms_tol):
@@ -490,11 +581,13 @@ def main() -> int:
         fns["composition"] = lambda: torch.bmm(
             F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
         rec = {"case": label, "E": E, "C": C, "d": d, "ff": ff,
+               "same_bits_as_this": same,
                "bound_ms": max(6.0 * E * C * d * ff / cs.PEAK_BF16_S,
                                (2 * E * C * d + 3 * E * d * ff) * 2
                                / cs.PEAK_BYTES_S) * 1e3,
                "by_kernel": by_kernel(fns["this"]), "runs": []}
         print(json.dumps({"kernel": "moe_swiglu", "case": label,
+                          "same_bits_as_this": same,
                           "by_kernel": rec["by_kernel"]}), flush=True)
         for n in abba(list(moe) + ["composition"], args.rounds):
             run = {"version": n, "device_ms": cs.device_ms(fns[n], 30, 3),
@@ -503,7 +596,7 @@ def main() -> int:
             print(json.dumps({"kernel": "moe_swiglu", "case": label, **run}),
                   flush=True)
         report["moe_swiglu"].append(rec)
-        del x, wg, wu, wd, want
+        del x, wg, wu, wd, want, mine
 
     for label, B, S, H, n, decays in WKV_SHAPES if "wkv" in rows else ():
         r, k, v = (randn((B, S, H, n)).bfloat16() for _ in range(3))

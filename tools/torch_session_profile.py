@@ -163,7 +163,12 @@ def _groups(dev: dict) -> dict:
             "rmsnorm": ("rmsnorm_kernel",),
             "rmsnorm_bwd": ("rmsnorm_bwd_rows_kernel",
                             "rmsnorm_bwd_dw_kernel"),
-            "moe_swiglu_bwd": ("bwd_hidden", "bwd_dx", "bwd_dw"),
+            # the wgmma body's three kernels, then the mma.sync and
+            # CUDA-core bodies' three
+            "moe_swiglu_bwd": ("hopper_tc::hidden_kernel",
+                               "hopper_tc::dx_kernel",
+                               "hopper_tc::dw_kernel", "bwd_hidden",
+                               "bwd_dx", "bwd_dw"),
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
                            "hopper_tc::gate_up_kernel",
                            "hopper_tc::down_kernel"),
