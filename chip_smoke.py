@@ -567,6 +567,30 @@ def kernel_label(mangled: str) -> str:
     return name + "<" + ",".join(kind + re.findall(r"Li(\d+)E", args)) + ">"
 
 
+def by_kernel(fn, calls: int = 5) -> dict:
+    """Device microseconds a call, by CUDA kernel name, over ``calls``
+    calls of ``fn`` (``torch.profiler``, CUDA activity; template
+    arguments and the anonymous namespace dropped from the names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
 def ptxas_instances(log: str) -> list:
     """Per kernel instance in an ``nvcc -Xptxas -v`` log: its readable
     name (template arguments in <>), registers, spill bytes (stores +
@@ -3005,14 +3029,17 @@ TRAIN_MOE_CASES = ((32, 1280, 1024, 512, "bfloat16"),
 TRAIN_RGLRU_CASES = ((2, 2560, 4096, 1.0), (2, 2560, 4096, 0.0))
 #: the WKV6 backward at rwkv6-3b's training shape (B, S, H, n, dtype,
 #: from a nonzero state with its gradient), w = 0 and w = 1 entries in
-#: every case
+#: every case; S 1024 runs the chunked body, S 64 (the longest that
+#: backward.body_for leaves to it) the serial one
 TRAIN_WKV_CASES = ((4, 1024, 40, 64, "bfloat16", False),
-                   (4, 1024, 40, 64, "bfloat16", True))
+                   (4, 1024, 40, 64, "bfloat16", True),
+                   (4, 64, 40, 64, "bfloat16", True))
 #: operations a state element a step that the WKV6 backward needs: the
 #: recurrence's re-run (a multiply and a multiply-add), Ĝ's update (the
 #: same two) and one multiply-add each for S·dy, Ĝ·v, Ĝᵀ·k and Ĝ ⊙ S
-#: (the forward's count is 3); csrc/wkv6_bwd.cu issues 12 (it re-runs
-#: the recurrence twice, and both thread halves update Ĝ)
+#: (the forward's count is 3); the serial body of csrc/wkv6_bwd.cu issues
+#: 12 (it re-runs the recurrence twice, and both thread halves update Ĝ),
+#: the chunked body about 8 plus the sums inside each 16-step sub-chunk
 WKV_BWD_OPS = 8
 #: [train-kernels]' RMSNorm cases: starcoder2-3b's norms at B 4 x S 1024,
 #: qwen3-8b's qk-norm rows (4 x 1024 tokens x 32 heads, 128 wide), and
@@ -3120,6 +3147,11 @@ def train_kernel_cases(device) -> dict:
         errs["wkv6_bwd"].append(rec["max_abs_err"])
         if not with_s0:
             out["wkv6_bwd"] = rec
+        if rec["body"] == "serial":
+            serial = rec
+    out["wkv6_bwd"]["serial"] = {k: serial[k] for k in (
+        "S", "max_abs_err", "rel_rms_err", "ms", "device_ms", "plain_ms",
+        "bound_ms")}
     for rows, d, dtn in TRAIN_RMS_CASES:
         rec = rmsnorm_bwd_case(randn, rows, d, dtn, breaches)
         errs["rmsnorm_bwd"].append(rec["max_abs_err"])
@@ -3332,7 +3364,7 @@ def rglru_bwd_case(device, g, B: int, S: int, C: int, a_near: float,
     rec = dict(
         B=B, S=S, C=C, a_near=a_near, max_abs_err=err, rel_rms_err=rr,
         same_bits=same, ms=timed_ms(call, 30, 3),
-        device_ms=device_ms(call, 30, 3),
+        device_ms=device_ms(call, 30, 3), by_kernel_us=by_kernel(call),
         plain_ms=timed_ms(lambda: rg.rglru_scan_bwd_ref(a, h, dh), 3, 1),
         library_ms=None, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
         bound_by="bytes")
@@ -3364,9 +3396,13 @@ def wkv6_bwd_case(device, g, B: int, S: int, H: int, n: int, dtn: str,
     u, dy = rn((H, n), 0.5), rn((B, S, H, n))
     s0 = rn((B, H, n, n), 0.5) if with_s0 else None
     ds = rn((B, H, n, n)) if with_s0 else None
+    body = wb.body_for(S, n)
+    before = dict(wb.LAUNCHES)
     got = wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds)
     again = wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds)
     torch.cuda.synchronize()
+    if body_of(wb.LAUNCHES, before, "wkv6_bwd_") != body:
+        breaches.append(f"{label}: not the {body} body")
     same = all((x is None and y is None) or torch.equal(x, y)
                for x, y in zip(got, again))
     if not same:
@@ -3391,12 +3427,13 @@ def wkv6_bwd_case(device, g, B: int, S: int, H: int, n: int, dtn: str,
                + 2 * u.numel() * 4) / PEAK_BYTES_S * 1e3
     call = (lambda: wb.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds))
     rec = dict(
-        B=B, S=S, H=H, n=n, dtype=dtn, with_s0=with_s0,
+        B=B, S=S, H=H, n=n, dtype=dtn, with_s0=with_s0, body=body,
         w_zero_share=(w == 0).float().mean().item(),
         w_one_share=(w == 1).float().mean().item(), max_abs_err=err,
         rel_rms_err=rr, same_bits=same, state_ops=ops,
-        workspace_mb=wb.workspace_bytes(B, S, H, n) / 1e6,
+        workspace_mb=wb.workspace_bytes(B, S, H, n, body) / 1e6,
         ms=timed_ms(call, 10, 2), device_ms=device_ms(call, 10, 2),
+        by_kernel_us=by_kernel(call),
         plain_ms=timed_ms(lambda: wk.wkv6_bwd_ref(r, k, v, w, u, s0, dy,
                                                   ds), 2, 1),
         library_ms=None, bound_ms=max(t_ops, t_bytes),
@@ -3490,13 +3527,15 @@ def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
     0): each block's kernels forward twice under ``remat`` (its own run
     and the recompute) and backward once, the encoder's too, with each
     body's count (attention's tensor cores for bf16, forward and
-    backward; the MoE's by capacity, forward and backward; WKV6's by S);
-    the final norm (and an encoder's enc_norm) once each way."""
+    backward; the MoE's by capacity, forward and backward; WKV6's by S,
+    forward and backward); the final norm (and an encoder's enc_norm)
+    once each way."""
     import torch
     from repro_torch.configs.base import RGLRU, RWKV6
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.moe_gemm import backward as mb
     from repro_torch.kernels.moe_gemm import kernel as mk
+    from repro_torch.kernels.wkv6 import backward as wb
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.models.moe import capacity_for
     from repro_torch.models.transformer import CAPACITY_FACTOR, encoder_cfg
@@ -3528,10 +3567,10 @@ def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
         for lt in c.layer_types():
             norms(2)
             if lt == RWKV6:
-                body = wk.body_for(length, c.rwkv_head_dim)
                 add("wkv6", f)
-                add("wkv6_" + body, f)
+                add("wkv6_" + wk.body_for(length, c.rwkv_head_dim), f)
                 add("wkv6_bwd", 1)
+                add("wkv6_bwd_" + wb.body_for(length, c.rwkv_head_dim), 1)
                 continue
             if lt == RGLRU:
                 add("rglru_scan", f)
@@ -4102,8 +4141,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], **({"body": r["body"]}
-                                             if "body" in r else {})})
+            "device_ms": r["device_ms"], **{k: r[k] for k in (
+                "body", "serial") if k in r}})
     phase("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

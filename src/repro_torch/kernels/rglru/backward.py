@@ -3,10 +3,13 @@
 
 The library is built by :mod:`repro_torch.kernels._build` at the first
 launch, never at import.  :func:`rglru_scan_bwd_cuda` checks its inputs,
-allocates da and db with ``torch.empty``, launches on the current stream
-without synchronising, and raises if the launch was refused.
-``LAUNCHES["rglru_scan_bwd"]`` counts each successful launch, nowhere
-else.
+allocates da, db and the carries with ``torch.empty`` (the flags and
+ticket with ``torch.zeros``), launches on the current stream without
+synchronising, and raises if the launch was refused.
+``LAUNCHES["rglru_scan_bwd"]`` counts each successful call, nowhere else.
+
+Time is split into chunks of ``CHUNK`` steps across blocks, and each
+chunk passes its carry to the earlier one in one pass.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+
+from .ref import CHUNK, SUB
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan_bwd.cu"
 LIB_NAME = "mcsa_rglru_scan_bwd"
@@ -31,11 +36,26 @@ def library() -> ctypes.CDLL:
     """Build (first call) and load the RG-LRU backward library."""
     lib = _build.load(LIB_NAME, SOURCE, FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mcsa_rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.mcsa_rglru_scan_bwd_launch.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.mcsa_rglru_scan_bwd_launch.restype = ctypes.c_int
+    for name, want in (("chunk", CHUNK), ("sub", SUB)):
+        fn = getattr(lib, f"mcsa_rglru_scan_bwd_{name}")
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"rglru_scan backward: the library's {name} "
+                               f"is {fn()}, ref.{name.upper()} {want}")
     lib.mcsa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcsa_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def workspace_bytes(B: int, S: int, C: int) -> int:
+    """Bytes of the workspace: a float32 carry a (chunk, batch, channel)
+    and a zeroed 32-bit flag a (chunk, batch, 32 channels) plus the
+    ticket."""
+    nc = -(-S // CHUNK)
+    return 4 * (nc * B * C + nc * B * -(-C // 32) + 1)
 
 
 def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
@@ -62,11 +82,15 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
     da, db = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
         return da, db
+    nc = -(-S // CHUNK)
+    ws = torch.empty(nc * B * C, dtype=torch.float32, device=a.device)
+    flags = torch.zeros(nc * B * -(-C // 32) + 1, dtype=torch.int32,
+                        device=a.device)
     lib = library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.mcsa_rglru_scan_bwd_launch(a.data_ptr(), h.data_ptr(),
-                                        dh.data_ptr(), da.data_ptr(),
-                                        db.data_ptr(), B, S, C, stream)
+    rc = lib.mcsa_rglru_scan_bwd_launch(
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+        db.data_ptr(), ws.data_ptr(), flags.data_ptr(), B, S, C, stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()
         raise RuntimeError(f"rglru_scan backward launch failed: {msg} "

@@ -5,7 +5,9 @@ card, their plain PyTorch versions ``ref.py`` on the CPU, chosen by
 from .backward import wkv6_bwd_cuda
 from .kernel import LAUNCHES, wkv6_cuda
 from .ops import WKV6Function, wkv6
-from .ref import wkv6_bwd_ref, wkv6_chunked_ref, wkv6_ref
+from .ref import (wkv6_bwd_ref, wkv6_chunked_bwd_ref, wkv6_chunked_ref,
+                  wkv6_ref)
 
 __all__ = ["LAUNCHES", "WKV6Function", "wkv6", "wkv6_bwd_cuda",
-           "wkv6_bwd_ref", "wkv6_chunked_ref", "wkv6_cuda", "wkv6_ref"]
+           "wkv6_bwd_ref", "wkv6_chunked_bwd_ref", "wkv6_chunked_ref",
+           "wkv6_cuda", "wkv6_ref"]

@@ -1289,8 +1289,14 @@ def test_cuda_moe_swiglu_bwd_matches_plain_version(E, C, d, ff, dtype,
     (2, 2560, 4096, 0.0),                   # a ~ 0
     (1, 37, 100, 0.5),                      # S off the chunks, C ragged
     (3, 1, 64, 1.0),
+    (2, 300, 1000, 0.5),                    # S not a multiple of the chunk
+    (1, 100, 4096, 1.0),                    # S shorter than one chunk
+    (3, 129, 4096, 1.0),                    # B 3, one step past a chunk
 ])
 def test_cuda_rglru_scan_bwd_matches_plain_version(B, S, C, a_near, cuda):
+    """Time split across blocks in chunks of 128 steps, the carries
+    chained between them, against float32 autograd through the plain
+    scan."""
     g = torch.Generator(device=cuda).manual_seed(95)
     jitter = torch.rand((B, S, C), generator=g, device=cuda) * 1e-3
     a = (1.0 - jitter if a_near == 1.0 else jitter if a_near == 0.0
@@ -1328,19 +1334,27 @@ def _wkv_bwd_inputs(B, S, H, n, dtype, device, seed):
     (2, 37, 3, 32, "float32", True),        # S off the segments
     (1, 8, 2, 64, "float32", False),
     (1, 1, 2, 32, "float32", True),
+    (2, 200, 3, 64, "float32", True),       # chunked, ragged, with ds0
+    (1, 65, 2, 64, "float32", False),       # the first chunked length
+    (1, 64, 2, 64, "float32", True),        # the last serial one
 ])
 def test_cuda_wkv6_bwd_matches_plain_version(B, S, H, n, dtype, with_s0,
                                              cuda):
     """Against float32 autograd through the plain recurrence, with w = 0
     and w = 1 entries; from a nonzero s0, with the final state's gradient
-    too, where ``with_s0``."""
+    too, where ``with_s0``.  The body is the forward's (chunked past 64
+    steps at head size 64), as its counter shows."""
     r, k, v, w, u, dy = _wkv_bwd_inputs(B, S, H, n, dtype, cuda, 98)
     s0 = ds = None
     if with_s0:
         s0 = _randn((B, H, n, n), torch.float32, cuda, 99)
         ds = _randn((B, H, n, n), torch.float32, cuda, 100)
+    body = twkv_bwd.body_for(S, n)
+    assert body == ("chunked" if S > 64 and n == 64 else "serial")
+    before = twkv_bwd.LAUNCHES["wkv6_bwd_" + body]
     got = _twice(lambda: twkv_bwd.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds),
                  twkv_bwd.LAUNCHES, "wkv6_bwd")
+    assert twkv_bwd.LAUNCHES["wkv6_bwd_" + body] == before + 2
     assert (got[5] is None) == (s0 is None)
     leaves = [t.float().requires_grad_() for t in (r, k, v, w, u)]
     if s0 is not None:
@@ -1354,6 +1368,38 @@ def test_cuda_wkv6_bwd_matches_plain_version(B, S, H, n, dtype, with_s0,
     want = torch.autograd.grad(outs, leaves, grads)
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     _hold_grads(names, [t for t in got if t is not None], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,dtype", [(1, 777, "float32"),
+                                       (2, 300, "bfloat16")])
+def test_cuda_wkv6_bwd_chunked_at_the_models_decays(B, S, dtype, cuda):
+    """The chunked backward at rwkv6-3b's heads, ragged S, decays drawn as
+    the model forms them (exactly 0 in places), from a state with the
+    final state's gradient, against float32 autograd through the plain
+    recurrence."""
+    H, n = 40, 64
+    dt = getattr(torch, dtype)
+    r, k, v = (_randn((B, S, H, n), torch.float32, cuda, 101 + i) * 0.5
+               for i in range(3))
+    r, k, v = r.to(dt), k.to(dt), v.to(dt)
+    w = torch.exp(-torch.exp(torch.clamp(
+        _randn((B, S, H, n), torch.float32, cuda, 104) * 6.0 + 1.0,
+        -20.0, 10.0)))
+    assert bool((w == 0).any())
+    u = _randn((H, n), torch.float32, cuda, 105) * 0.5
+    dy = _randn((B, S, H, n), torch.float32, cuda, 106)
+    s0 = _randn((B, H, n, n), torch.float32, cuda, 107) * 0.5
+    ds = _randn((B, H, n, n), torch.float32, cuda, 108)
+    before = twkv_bwd.LAUNCHES["wkv6_bwd_chunked"]
+    got = _twice(lambda: twkv_bwd.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds),
+                 twkv_bwd.LAUNCHES, "wkv6_bwd")
+    assert twkv_bwd.LAUNCHES["wkv6_bwd_chunked"] == before + 2
+    leaves = [t.float().requires_grad_() for t in (r, k, v, w, u)]
+    leaves.append(s0.clone().requires_grad_())
+    y, s_fin = twkv.wkv6_ref(*leaves)
+    want = torch.autograd.grad([y, s_fin], leaves, [dy, ds])
+    _hold_grads(("dr", "dk", "dv", "dw", "du", "ds0"), got, want, dtype)
 
 
 @pytest.mark.cuda

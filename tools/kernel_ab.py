@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Kernel rows 1a/1b (the fused Li-GD / MLi-GD sweep), 2 (the
 single-split Li-GD steps), 5 (fused expert SwiGLU), 7 (WKV6) and the
-backward kernels of rows 3 (attention), 4 (RMSNorm) and 5 of this
-checkout against the same rows of other checkouts, in one process on one
-CUDA card.
+backward kernels of rows 3 (attention), 4 (RMSNorm), 5, 6 (RG-LRU) and 7
+of this checkout against the same rows of other checkouts, in one
+process on one CUDA card.
 
 Each ``--other DIR`` is the root of another checkout of this repository
 (for example the parent commit, unpacked with ``git archive``): its
 ``src/repro_torch/kernels/ligd_step``, ``moe_gemm``, ``wkv6``,
-``flash_attention`` and ``rmsnorm`` packages are loaded under names of
-their own, and their CUDA sources are built beside this checkout's
+``rglru``, ``flash_attention`` and ``rmsnorm`` packages are loaded under
+names of their own, and their CUDA sources are built beside this checkout's
 libraries (a library's name hashes its source, so the versions never
 mix).
 
@@ -60,11 +60,18 @@ with ``F.rms_norm``'s backward beside it; the expert SwiGLU backward
 (granite-moe-1b-a400m's training shape and a decode-sized capacity),
 held at ``GRAD_TOL``/``GRAD_RMS_TOL`` against float32 autograd through
 this checkout's plain forward, with autograd of the 3-``torch.bmm`` + silu
-composition beside it.  The forward's row (``moe``) also reports whether
+composition beside it; the WKV6 backward (``wkv-bwd``) at
+``chip_smoke.TRAIN_WKV_CASES`` (rwkv6-3b's heads, bf16, with and without
+a state, at S 1024 and at the serial body's S 64) and the RG-LRU scan
+backward (``rglru-bwd``) at ``chip_smoke.TRAIN_RGLRU_CASES``, held at
+``GRAD_TOL``/``GRAD_RMS_TOL`` against float32 autograd through this
+checkout's plain versions, ``by_kernel`` for every version.  The
+forward's rows (``moe``, ``wkv``) and ``rglru-bwd`` also report whether
 each version's output equals this checkout's bit for bit.
 
     python3 tools/kernel_ab.py --other DIR [--other DIR ...] [--rounds 2]
-        [--rows sweep,steps,moe,wkv,attn-bwd,rms-bwd,moe-bwd]
+        [--rows sweep,steps,moe,wkv,attn-bwd,rms-bwd,moe-bwd,wkv-bwd,
+                rglru-bwd]
         [--out report.json]
 
 Needs a CUDA card; prints one JSON line per measurement and the whole
@@ -90,7 +97,7 @@ WKV_SHAPES = (("prefill", 4, 1024, 40, 64, "uniform"),
 
 
 def load_package(root: Path, sub: str, tag: str):
-    """The kernel package ``sub`` (``moe_gemm`` or ``wkv6``) of the
+    """The kernel package ``sub`` (``moe_gemm``, ``wkv6``, ...) of the
     checkout at ``root``, imported as a package named ``tag`` so that its
     relative imports resolve inside that checkout."""
     pkg = (root / KERNELS / sub).resolve()
@@ -104,25 +111,9 @@ def load_package(root: Path, sub: str, tag: str):
 
 def by_kernel(fn, calls: int = 5) -> dict:
     """Device microseconds a call, by kernel name, over ``calls`` calls
-    of ``fn`` (``torch.profiler``, CUDA activity)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us and us > 0:
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].removeprefix("void ")
-            out[name] = out.get(name, 0.0) + us / calls
-    return out
+    of ``fn`` (``chip_smoke.by_kernel``)."""
+    import chip_smoke as cs
+    return cs.by_kernel(fn, calls)
 
 
 def sweep_cases(device) -> list:
@@ -485,6 +476,136 @@ def moe_bwd_rows(versions: dict, rounds: int, device) -> list:
     return out
 
 
+def _held(kernel: str, label: str, name: str, got, again, want,
+          names, dtn: str) -> dict:
+    """One version's gradients against the float32 reference: the error
+    RMS ratio of each, within ``GRAD_TOL``/``GRAD_RMS_TOL``, the same bits
+    twice; printed, and raised for this checkout's version."""
+    import torch
+    import chip_smoke as cs
+    errs = [cs.grad_errors(a, b, dtn) for a, b in zip(got, want)]
+    held = {"same_bits": all((a is None and b is None) or torch.equal(a, b)
+                             for a, b in zip(got, again)),
+            "rel_rms": {n: e[1] for n, e in zip(names, errs)},
+            "within_tolerance": all(e[2] for e in errs)}
+    print(json.dumps({"kernel": kernel, "case": label, "version": name,
+                      **held}), flush=True)
+    if name.startswith("this") and not (held["within_tolerance"]
+                                        and held["same_bits"]):
+        raise AssertionError(f"{kernel} {label} {name}: {held}")
+    return held
+
+
+def _timed(kernel: str, label: str, fns: dict, rec: dict,
+           rounds: int) -> None:
+    """by_kernel of every version, then ABBA rounds of device_ms and ms."""
+    import chip_smoke as cs
+    rec["by_kernel"] = {}
+    for name, fn in fns.items():
+        rec["by_kernel"][name] = by_kernel(fn)
+        print(json.dumps({"kernel": kernel, "case": label, "version": name,
+                          "by_kernel": rec["by_kernel"][name]}), flush=True)
+    rec["runs"] = []
+    for name in abba(list(fns), rounds):
+        run = {"version": name, "device_ms": cs.device_ms(fns[name], 10, 2),
+               "ms": cs.timed_ms(fns[name], 10, 2)}
+        rec["runs"].append(run)
+        print(json.dumps({"kernel": kernel, "case": label, **run}),
+              flush=True)
+
+
+def wkv_bwd_rows(versions: dict, rounds: int, device) -> list:
+    """Row 7's backward at ``chip_smoke.TRAIN_WKV_CASES`` (rwkv6-3b's
+    heads, bf16, with and without a state, both bodies), w with entries 0
+    and 1: every version against float32 autograd through this
+    checkout's plain recurrence, twice for the same bits, then by_kernel
+    and ABBA rounds."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import wkv6
+    g = torch.Generator(device=device).manual_seed(18)
+    out = []
+    for B, S, H, n, dtn, with_s0 in cs.TRAIN_WKV_CASES:
+        dt = getattr(torch, dtn)
+
+        def rn(shape, scale=1.0):
+            return torch.randn(shape, generator=g, device=device) * scale
+
+        r, k, v = (rn((B, S, H, n), 0.5).to(dt) for _ in range(3))
+        w = torch.rand((B, S, H, n), generator=g, device=device)
+        w[..., ::7] = 0.0
+        w[..., 3::11] = 1.0
+        u, dy = rn((H, n), 0.5), rn((B, S, H, n))
+        s0 = rn((B, H, n, n), 0.5) if with_s0 else None
+        ds = rn((B, H, n, n)) if with_s0 else None
+        leaves = [t.float().requires_grad_() for t in (r, k, v, w, u)]
+        if with_s0:
+            leaves.append(s0.clone().requires_grad_())
+        y, s_fin = wkv6.wkv6_ref(*leaves[:5], leaves[5] if with_s0 else None)
+        outs, grads = ([y, s_fin], [dy, ds]) if with_s0 else ([y], [dy])
+        want = torch.autograd.grad(outs, leaves, grads)
+        del y, s_fin, outs, leaves
+        label = f"B {B}, S {S}, H {H}, n {n}, {dtn}" + (", s0" if with_s0
+                                                         else "")
+        fns = {name: (lambda f=f: f(r, k, v, w, u, s0, dy, ds))
+               for name, f in versions.items()}
+        rec = {"case": label, "held": {},
+               "bound_ms": cs.WKV_BWD_OPS * B * S * H * n * n / cs.ISSUE_S
+               * 1e3}
+        for name, fn in fns.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            rec["held"][name] = _held(
+                "wkv6_bwd", label, name, [t for t in got if t is not None],
+                [t for t in again if t is not None], want,
+                ("dr", "dk", "dv", "dw", "du", "ds0"), dtn)
+            del got, again
+        _timed("wkv6_bwd", label, fns, rec, rounds)
+        out.append(rec)
+        del want, fns
+    return out
+
+
+def rglru_bwd_rows(versions: dict, rounds: int, device) -> list:
+    """Row 6's backward at ``chip_smoke.TRAIN_RGLRU_CASES``
+    (recurrentgemma-9b's training shape, a near 1 and near 0): every
+    version against float32 autograd through this checkout's plain scan,
+    twice for the same bits, and whether it equals this checkout's output
+    bit for bit; then by_kernel and ABBA rounds."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import rglru
+    g = torch.Generator(device=device).manual_seed(19)
+    out = []
+    for B, S, C, a_near in cs.TRAIN_RGLRU_CASES:
+        jitter = torch.rand((B, S, C), generator=g, device=device) * 1e-3
+        a = 1.0 - jitter if a_near == 1.0 else jitter
+        b = torch.randn((B, S, C), generator=g, device=device)
+        dh = torch.randn((B, S, C), generator=g, device=device)
+        h = rglru.rglru_scan_cuda(a, b)
+        leaves = [a.clone().requires_grad_(), b.clone().requires_grad_()]
+        want = torch.autograd.grad(rglru.rglru_scan_ref(*leaves), leaves, dh)
+        del leaves
+        label = f"B {B}, S {S}, C {C}, a~{a_near:g}"
+        fns = {name: (lambda f=f: f(a, h, dh))
+               for name, f in versions.items()}
+        rec = {"case": label, "held": {}, "same_bits_as_this": {},
+               "bound_ms": 20 * a.numel() / cs.PEAK_BYTES_S * 1e3}
+        mine = fns["this"]()
+        for name, fn in fns.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            rec["held"][name] = _held("rglru_scan_bwd", label, name, got,
+                                      again, want, ("da", "db"), "float32")
+            rec["same_bits_as_this"][name] = all(
+                torch.equal(x, y) for x, y in zip(got, mine))
+            del got, again
+        _timed("rglru_scan_bwd", label, fns, rec, rounds)
+        out.append(rec)
+        del want, fns, mine
+    return out
+
+
 def abba(names: list, rounds: int) -> list:
     order = []
     for _ in range(rounds):
@@ -498,7 +619,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--rows", default="sweep,steps,moe,wkv",
                     help="comma-separated subset of sweep, steps, moe, "
-                    "wkv, attn-bwd, rms-bwd, moe-bwd")
+                    "wkv, attn-bwd, rms-bwd, moe-bwd, wkv-bwd, rglru-bwd")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -510,7 +631,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import (flash_attention, ligd_step, moe_gemm,
-                                     rmsnorm, wkv6)
+                                     rglru, rmsnorm, wkv6)
 
     rows = set(args.rows.split(","))
     sweep = {"this": ligd_step.sweep_cuda}
@@ -520,6 +641,8 @@ def main() -> int:
     attn = {"this": flash_attention}
     rms = {"this": rmsnorm.rmsnorm_bwd_cuda}
     moe_bwd = {"this": moe_gemm.moe_swiglu_bwd_cuda}
+    wkv_bwd = {"this": wkv6.wkv6_bwd_cuda}
+    rglru_bwd = {"this": rglru.rglru_scan_bwd_cuda}
     for i, root in enumerate(args.other):
         tag = f"{root.name}_{i}"
         if rows & {"sweep", "steps"}:
@@ -529,9 +652,12 @@ def main() -> int:
             other = load_package(root, "moe_gemm", f"other{i}_moe_gemm")
             moe[tag] = other.moe_swiglu_cuda
             moe_bwd[tag] = other.moe_swiglu_bwd_cuda
-        if "wkv" in rows:
-            wkv[tag] = load_package(root, "wkv6",
-                                    f"other{i}_wkv6").wkv6_cuda
+        if rows & {"wkv", "wkv-bwd"}:
+            other = load_package(root, "wkv6", f"other{i}_wkv6")
+            wkv[tag], wkv_bwd[tag] = other.wkv6_cuda, other.wkv6_bwd_cuda
+        if "rglru-bwd" in rows:
+            rglru_bwd[tag] = load_package(
+                root, "rglru", f"other{i}_rglru").rglru_scan_bwd_cuda
         if "attn-bwd" in rows:
             attn[tag] = load_package(root, "flash_attention",
                                      f"other{i}_flash_attention")
@@ -540,7 +666,8 @@ def main() -> int:
                                     f"other{i}_rmsnorm").rmsnorm_bwd_cuda
     report = {"card": cs.card_line(), "sweep": [], "ligd_steps": [],
               "moe_swiglu": [], "wkv6": [], "flash_attention_bwd": [],
-              "rmsnorm_bwd": [], "moe_swiglu_bwd": []}
+              "rmsnorm_bwd": [], "moe_swiglu_bwd": [], "wkv6_bwd": [],
+              "rglru_scan_bwd": []}
     print(report["card"], flush=True)
     dev = torch.device("cuda")
     if "sweep" in rows:
@@ -553,6 +680,11 @@ def main() -> int:
         report["rmsnorm_bwd"] = rms_bwd_rows(rms, args.rounds, dev)
     if "moe-bwd" in rows:
         report["moe_swiglu_bwd"] = moe_bwd_rows(moe_bwd, args.rounds, dev)
+    if "wkv-bwd" in rows:
+        report["wkv6_bwd"] = wkv_bwd_rows(wkv_bwd, args.rounds, dev)
+    if "rglru-bwd" in rows:
+        report["rglru_scan_bwd"] = rglru_bwd_rows(rglru_bwd, args.rounds,
+                                                  dev)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def randn(shape, scale=1.0):
@@ -611,8 +743,11 @@ def main() -> int:
         want_y, want_s = wkv6.wkv6_ref(r, k, v, w, u, s0)
         fns = {nm: (lambda f=f: f(r, k, v, w, u, s0))
                for nm, f in wkv.items()}
+        mine_y, mine_s = fns["this"]()
+        same = {}
         for nm, fn in fns.items():
             y, s = fn()
+            same[nm] = torch.equal(y, mine_y) and torch.equal(s, mine_s)
             rr = max(cs.rel_rms(y, want_y), cs.rel_rms(s, want_s))
             if not (torch.allclose(y, want_y, atol=cs.WKV_TOL,
                                    rtol=cs.WKV_TOL)
@@ -621,12 +756,14 @@ def main() -> int:
                     and rr <= cs.WKV_RMS_TOL):
                 raise AssertionError(f"wkv6 {nm} {label}: RMS ratio {rr}")
         rec = {"case": label, "B": B, "S": S, "H": H, "n": n,
+               "same_bits_as_this": same,
                "bound_ms": max(3.0 * B * S * H * n * n / cs.ISSUE_S,
                                (B * S * H * n * (3 * 2 + 4 + 4)
                                 + 2 * B * H * n * n * 4 + H * n * 4)
                                / cs.PEAK_BYTES_S) * 1e3,
                "by_kernel": by_kernel(fns["this"]), "runs": []}
         print(json.dumps({"kernel": "wkv6", "case": label,
+                          "same_bits_as_this": same,
                           "by_kernel": rec["by_kernel"]}), flush=True)
         for nm in abba(list(wkv), args.rounds):
             run = {"version": nm, "device_ms": cs.device_ms(fns[nm], 30, 3),

@@ -172,9 +172,10 @@ def _groups(dev: dict) -> dict:
             "moe_swiglu": ("moe_swiglu", "sum_slices_kernel",
                            "hopper_tc::gate_up_kernel",
                            "hopper_tc::down_kernel"),
-            "wkv6_bwd": ("wkv6_bwd_kernel",),
-            "wkv6": ("wkv6_kernel", "chunked::chunk_"),
-            "rglru_scan_bwd": ("rglru_scan_bwd_kernel",),
+            # the serial body's kernel, then the chunked body's five
+            "wkv6_bwd": ("wkv6_bwd_kernel", "bwd_chunked::"),
+            "wkv6": ("wkv6_kernel", "chunked::chunk_", "wkv6_chunk::chunk_"),
+            "rglru_scan_bwd": ("rglru_bwd_",),
             "rglru_scan": ("rglru_scan_kernel",),
             "sweep": ("sweep_kernel",)}
     out = dict.fromkeys(tuple(mine) + ("matmul", "other"), 0.0)
