@@ -37,6 +37,20 @@ card, over its main paths.
   scan and windowed hd-256 attention against their plain versions, then
   the same split, engine and card-against-CPU checks (a 3-layer cut with a
   reduced window).
+* The configurations served last, the same way at full width and depth:
+  qwen3-8b (qk-norm), gemma3-27b (5 local : 1 global, 2048-token prompts
+  past its 1024 window), moonshot-v1-16b-a3b (64 experts at d 2048: the
+  expert SwiGLU's mma.sync decode body at d 2048),
+  internvl2-1b (with a full-width prefill of 256 patch embeddings and
+  768 tokens, its launches held against the plain versions) and yi-34b
+  (68.8 GB of weights, last, once earlier memory is returned), each
+  phase's peak memory against an estimate from ``num_params()`` and the
+  k/v caches; card against CPU on 2-layer cuts of four of them
+  (gemma3-27b's a local and a global block, window 32).
+* ``[tools]``: the port's twins of the reference's smoke tools and
+  examples (``tools/torch_{chaos_smoke,serve_smoke,policy_matrix}.py``,
+  ``examples/torch_{quickstart,mobility_sim}.py``) as a user runs them on
+  the card, each ending with its own line, every Session on ``cuda``.
 * Kernel row 2, the single-split Li-GD steps: ``ligd_steps_grouped`` for
   the 100,000 users of ``megafleet_100k`` at their planned splits, one
   launch for all four servers' groups, and a case built so that the
@@ -733,11 +747,16 @@ def lm_kernel_cases(device) -> dict:
     errs = []
     # starcoder2-3b's decode and prefill rows in both types, then
     # recurrentgemma-9b's prefill and decode rows and qwen3-8b's qk-norm
-    # rows (a prefill of 4 x 1024 tokens, 32 heads of 128)
+    # rows (a prefill of 4 x 1024 tokens, 32 heads of 128), then the
+    # prefill rows of the configurations served last: qwen3-8b,
+    # gemma3-27b (4 x 2048), yi-34b, moonshot-v1-16b-a3b, internvl2-1b
     for rows, d, dtn in ((8, 3072, "bfloat16"), (8, 3072, "float32"),
                          (4096, 3072, "bfloat16"), (4096, 3072, "float32"),
                          (10240, 4096, "bfloat16"), (4, 4096, "bfloat16"),
-                         (131072, 128, "bfloat16")):
+                         (131072, 128, "bfloat16"),
+                         (4096, 4096, "bfloat16"), (8192, 5376, "bfloat16"),
+                         (4096, 7168, "bfloat16"), (4096, 2048, "bfloat16"),
+                         (4096, 896, "bfloat16")):
         rec = rmsnorm_case(randn, rows, d, dtn, breaches)
         errs.append(rec["max_abs_err"])
         if (rows, d, dtn) == (4096, 3072, "bfloat16"):
@@ -757,7 +776,14 @@ def lm_kernel_cases(device) -> dict:
             (1, 512, True, 128, "bfloat16", sc2),
             (1, 512, False, 0, "bfloat16", sc2),
             (1, 2048, True, 0, "float32", sc2),
-            (4, 1024, True, 0, "bfloat16", granite)):
+            (4, 1024, True, 0, "bfloat16", granite),
+            # the configurations served last: GQA ratios 4 (qwen3-8b) and
+            # 7 (yi-34b, internvl2-1b), gemma3-27b's local layers past
+            # their 1024 window
+            (4, 1024, True, 0, "bfloat16", (32, 8, 128)),
+            (4, 1024, True, 0, "bfloat16", (56, 8, 128)),
+            (4, 1024, True, 0, "bfloat16", (14, 2, 64)),
+            (4, 2048, True, 1024, "bfloat16", (32, 16, 128))):
         rec = attention_case(device, randn, B, S, causal, window, dtn,
                              heads, breaches)
         errs.append(rec["max_abs_err"])
@@ -1145,13 +1171,41 @@ def body_of(launches: dict, before: dict, prefix: str) -> str:
     return moved[0]
 
 
+def moe_cuda_cores(x, wg, wu, wd):
+    """The expert SwiGLU's CUDA-core body on bfloat16 inputs that
+    ``body_for`` gives another body, launched through the library
+    directly and not counted: at moonshot-v1-16b-a3b's decode it is what
+    ran before the mma.sync body reached d 2048, and it is timed there
+    beside that body."""
+    import torch
+    from repro_torch.kernels.moe_gemm import kernel as mk
+    E, C, d = x.shape
+    ff = wg.shape[2]
+    y = torch.empty_like(x)
+    lib = mk.library()
+    rc = lib.mcsa_moe_swiglu_launch(
+        x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        y.data_ptr(), None, None, E, C, d, ff, 0, mk.num_sms(x.device),
+        mk.DTYPES[x.dtype], mk.BODIES["cuda_cores"],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("moe_swiglu CUDA-core body: "
+                           + lib.mcsa_cuda_error_string(rc).decode())
+    return y
+
+
 def moe_wkv_kernel_cases(device) -> dict:
     """The fused expert SwiGLU and WKV6 kernels against their plain
     versions on the card: MoE at granite-moe-1b-a400m's prefill shape
     (E 32, C 1280 = capacity_for(4096 tokens), d 1024, ff 512, bf16),
     its engine-prefill shape (C 320 = capacity_for(1024)), its engine
     decode shape (C 4 at 8 slots) and ragged cases (ff 1408, moonshot's
-    width, and 1000; C 37) in float32 and bfloat16; WKV6 at rwkv6-3b's
+    width, and 1000; C 37) in float32 and bfloat16, and at
+    moonshot-v1-16b-a3b's (E 64, d 2048, ff 1408) prefill (C 480) and
+    decode (C 1, 4, 16) in both, where the bf16 cases also time and hold
+    the CUDA-core body (``moe_cuda_cores``, the decode body there before
+    the mma.sync body took d 2048); every case launched twice for the
+    same bits; WKV6 at rwkv6-3b's
     prefill shape (B 4, S 1024, H 40, n 64, bf16 r/k/v) from a non-zero
     state, at a ragged S 777 with the model's decays
     (w = exp(-exp(clamp(x, -20, 10))), some exactly 0) from a state, and
@@ -1159,7 +1213,8 @@ def moe_wkv_kernel_cases(device) -> dict:
     that ran (from the per-body counters) and fails if it is not the one
     the plan should pick.  Returns, per kernel, the record of its
     main-path case (the prefill shape) with ``max_abs_err`` the largest
-    over its cases."""
+    over its cases, the MoE's with its bf16 moonshot decode records under
+    ``decode_d2048``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -1177,22 +1232,38 @@ def moe_wkv_kernel_cases(device) -> dict:
     C_prefill = capacity_for(4 * 1024, granite, 1.25)
     C_engine = capacity_for(1024, granite, 1.25)
     C_decode = capacity_for(8, granite, 2.0)
-    errs = []
-    for label, E_, C, ff_, dtn, want_body in (
-            ("prefill", E, C_prefill, ff, "bfloat16", "wgmma"),
-            ("engine prefill", E, C_engine, ff, "bfloat16", "wgmma"),
-            ("decode", E, C_decode, ff, "bfloat16", "mma"),
-            ("ragged", 4, 37, 1408, "float32", "cuda_cores"),
-            ("ragged", 4, 37, 1408, "bfloat16", "wgmma"),
-            ("ragged", 4, 37, 1000, "bfloat16", "wgmma")):
+    moon = get_config("moonshot-v1-16b-a3b")
+    mE, md, mff = moon.num_experts, moon.d_model, moon.d_ff
+    moon_cases = tuple(
+        (label, mE, C, md, mff, dtn,
+         "cuda_cores" if dtn == "float32" else body)
+        for label, C, body in (
+            ("moonshot prefill", capacity_for(4 * 1024, moon, 1.25),
+             "wgmma"),
+            ("moonshot decode", 1, "mma"), ("moonshot decode", 4, "mma"),
+            ("moonshot decode", 16, "mma"))
+        for dtn in ("bfloat16", "float32"))
+    errs, decode_d2048 = [], []
+    for label, E_, C, d, ff_, dtn, want_body in (
+            ("prefill", E, C_prefill, d, ff, "bfloat16", "wgmma"),
+            ("engine prefill", E, C_engine, d, ff, "bfloat16", "wgmma"),
+            ("decode", E, C_decode, d, ff, "bfloat16", "mma"),
+            ("ragged", 4, 37, d, 1408, "float32", "cuda_cores"),
+            ("ragged", 4, 37, d, 1408, "bfloat16", "wgmma"),
+            ("ragged", 4, 37, d, 1000, "bfloat16", "wgmma"),
+            *moon_cases):
         dt = getattr(torch, dtn)
         x = randn((E_, C, d)).to(dt)
         wg = randn((E_, d, ff_), d ** -0.5).to(dt)
         wu = randn((E_, d, ff_), d ** -0.5).to(dt)
         wd = randn((E_, ff_, d), ff_ ** -0.5).to(dt)
         before = dict(mg.LAUNCHES)
-        got = mg.moe_swiglu_cuda(x, wg, wu, wd).float()
+        got = mg.moe_swiglu_cuda(x, wg, wu, wd)
         body = body_of(mg.LAUNCHES, before, "moe_swiglu_")
+        # the same bits on a second run (the ff slices sum in a fixed
+        # order)
+        same_bits = bool(torch.equal(got, mg.moe_swiglu_cuda(x, wg, wu, wd)))
+        got = got.float()
         want = mg.moe_swiglu_ref(x, wg, wu, wd).float()
         err = (got - want).abs().max().item()
         rr = rel_rms(got, want)
@@ -1205,6 +1276,9 @@ def moe_wkv_kernel_cases(device) -> dict:
         if body != want_body:
             breaches.append(f"moe_swiglu {label} {dtn} C={C}: ran the "
                             f"{body} body, expected {want_body}")
+        if not same_bits:
+            breaches.append(f"moe_swiglu {label} {dtn} C={C}: two runs "
+                            "gave other bits")
         del got, want
         flops = 6.0 * E_ * C * d * ff_
         peak = PEAK_BF16_S if dtn == "bfloat16" else PEAK_FP32_S
@@ -1218,7 +1292,8 @@ def moe_wkv_kernel_cases(device) -> dict:
 
         rec = dict(
             case=label, E=E_, C=C, d=d, ff=ff_, dtype=dtn, body=body,
-            max_abs_err=err, rel_rms_err=rr, flops=flops,
+            same_bits=same_bits, max_abs_err=err, rel_rms_err=rr,
+            flops=flops,
             ms=timed_ms(lambda: mg.moe_swiglu_cuda(x, wg, wu, wd), 30, 3),
             device_ms=device_ms(lambda: mg.moe_swiglu_cuda(x, wg, wu, wd),
                                 30, 3),
@@ -1229,10 +1304,29 @@ def moe_wkv_kernel_cases(device) -> dict:
             library_call="composition: 3 torch.bmm + silu (no single call)",
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if label == "moonshot decode" and body == "mma":
+            cc = moe_cuda_cores(x, wg, wu, wd).float()
+            want = mg.moe_swiglu_ref(x, wg, wu, wd).float()
+            rec.update(
+                cuda_cores_max_abs_err=(cc - want).abs().max().item(),
+                cuda_cores_ms=timed_ms(
+                    lambda: moe_cuda_cores(x, wg, wu, wd), 30, 3),
+                cuda_cores_device_ms=device_ms(
+                    lambda: moe_cuda_cores(x, wg, wu, wd), 30, 3))
+            if not (torch.allclose(cc, want, atol=tol, rtol=tol)
+                    and rel_rms(cc, want) <= rms_tol):
+                breaches.append(f"moe_swiglu {label} C={C}: the CUDA-core "
+                                f"body breaks MOE_TOL")
+            del cc, want
+            decode_d2048.append({k: rec[k] for k in (
+                "C", "body", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "library_ms", "library_device_ms", "bound_ms",
+                "cuda_cores_ms", "cuda_cores_device_ms")})
         phase("lm-kernel", "moe_swiglu " + json.dumps(rec))
         if label == "prefill":
             out["moe_swiglu"] = rec
     out["moe_swiglu"]["max_abs_err"] = max(errs)
+    out["moe_swiglu"]["decode_d2048"] = decode_d2048
 
     rwkv = get_config("rwkv6-3b")
     H, n = rwkv.rwkv_num_heads, rwkv.rwkv_head_dim
@@ -1316,9 +1410,11 @@ def to_tree(tree, **kw):
 
 
 def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
-                window: int = 0) -> None:
+                window: int = 0, pattern: tuple = ()) -> None:
     """``arch`` at full width, ``layers`` layers (``window``, if given,
-    replaces the sliding window, so that the prompts wrap its ring), one
+    replaces the sliding window, so that the prompts wrap its ring;
+    ``pattern``, if given, the layer-type pattern, so that a cut keeps
+    each kind of block), one
     64-token prompt: bf16 prefill logits on the card (kernels) against
     the CPU (plain versions), then 8 greedy tokens in float32, which must
     be equal.
@@ -1340,6 +1436,8 @@ def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     if window:
         cfg = dataclasses.replace(cfg, window_size=window)
+    if pattern:
+        cfg = dataclasses.replace(cfg, pattern=tuple(pattern))
     cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
     tok = torch.randint(0, cfg.vocab_size, (1, 64),
                         generator=torch.Generator().manual_seed(seed + 1))
@@ -1629,8 +1727,117 @@ def kernel_counters() -> tuple:
             gb.LAUNCHES, wb.LAUNCHES)
 
 
+def kv_cache_gb(cfg, batch: int, length: int) -> float:
+    """GB of bf16 k/v cache that ``batch`` sequences of ``length``
+    positions hold in ``cfg``'s attention blocks: ``length`` rows a
+    global block, a ring of min(window, length) a sliding-window one
+    (recurrent states are left out: at most tens of MB)."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    rows = sum(length if t == ATTN_GLOBAL
+               else min(cfg.window_size, length) if t == ATTN_LOCAL else 0
+               for t in cfg.layer_types())
+    return 2 * batch * rows * cfg.num_kv_heads * cfg.head_dim * 2 / 1e9
+
+
+#: serve_full_width's memory check: the peak may pass the estimate
+#: (bf16 weights from num_params(), the engine's and the split
+#: generation's k/v caches) by at most this share of it, and never by
+#: less than SERVE_PEAK_FLOOR_GB: room for a prefill's activations and
+#: the allocator's rounding (the largest excess read on the card is
+#: recurrentgemma-9b's, 10.8 % at 4 x 2560 tokens), while the weights
+#: are at least 72 % of every estimate (granite-moe-1b-a400m's), so a
+#: second copy of them breaks the check in every configuration
+SERVE_PEAK_SLACK = 0.15
+SERVE_PEAK_FLOOR_GB = 0.5
+#: internvl2-1b's full-width patch prefill: 4 sequences of 256 patch
+#: embeddings (its frontend_len) and 768 tokens
+VLM_BATCH = 4
+VLM_TOKENS = 768
+
+
+def rmsnorm_per_forward(cfg) -> int:
+    """RMSNorm launches in one forward of ``cfg``: two a block and the
+    final one, and 2 more an attention block with qk-norm, which
+    normalises q and k (``models/transformer.py``)."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    n_attn = sum(t in (ATTN_GLOBAL, ATTN_LOCAL) for t in cfg.layer_types())
+    return 2 * cfg.num_layers + 1 + (2 * n_attn if cfg.qk_norm else 0)
+
+
+def vlm_patch_prefill(cfg, params, device, counters) -> dict:
+    """A VLM's prefill with its image prefix at full width: VLM_BATCH x
+    (``cfg.frontend_len`` patch embeddings from ``vit_patch_embeds`` +
+    VLM_TOKENS tokens) through ``prefill(..., {"tokens",
+    "patch_embeds"})``, every count zeroed just before and read just
+    after; then the first attention and RMSNorm launch at each shape held
+    against the plain versions (``hold_lm_launches``), the logits finite
+    and of shape (B, Vp), one tensor-core attention launch a layer and
+    ``rmsnorm_per_forward`` RMSNorm launches.  Raises on a breach."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.frontend import vit_patch_embeds
+    gen = torch.Generator(device=device).manual_seed(11)
+    patches = vit_patch_embeds(cfg, gen, VLM_BATCH, device)
+    tokens = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_TOKENS),
+                           generator=gen, device=device)
+    seen, unspy = record_lm_launches()
+    zero_counters(counters)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = tfm.prefill(cfg, params, {"tokens": tokens,
+                                              "patch_embeds": patches},
+                                cache_len=cfg.frontend_len + VLM_TOKENS)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = all_launches(counters)
+    finally:
+        unspy()
+    held = hold_lm_launches(seen, "vlm-prefill")
+    L = cfg.num_layers
+    rec = {"batch": VLM_BATCH, "patches": cfg.frontend_len,
+           "tokens": VLM_TOKENS, "prefill_ms": prefill_ms,
+           "logits_shape": list(logits.shape),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "launches": launches, "held": held}
+    breaches = []
+    if not rec["logits_finite"] or logits.shape[0] != VLM_BATCH:
+        breaches.append(f"logits {rec['logits_shape']}, finite "
+                        f"{rec['logits_finite']}")
+    seq = cfg.frontend_len + VLM_TOKENS
+    if [VLM_BATCH, seq, seq, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, 1, 0] not in held["flash_attention"]["shapes"]:
+        breaches.append("no attention launch over the whole image + "
+                        "text sequence was held")
+    for name, want in (("flash_attention", L), ("flash_attention_tc", L),
+                       ("rmsnorm", rmsnorm_per_forward(cfg))):
+        if launches[name] != want:
+            breaches.append(f"{name}: {launches[name]} launches, expected "
+                            f"{want}")
+    if breaches:
+        raise AssertionError("vlm-prefill: " + "; ".join(breaches))
+    return rec
+
+
+#: the configurations served last, in order: (arch, tag,
+#: serve_full_width keywords), each after the earlier phases' memory is
+#: returned (``release_memory``); gemma3-27b's 2048-token prompts pass
+#: its 1024 window, and yi-34b (68.8 GB of weights) comes last.  Their
+#: engine references stop at the first token (the one the engine must
+#: match): 16 one-request generations of 32 tokens at 36-62 blocks would
+#: take most of each phase's time
+SERVED_LAST = (
+    ("qwen3-8b", "serve-qwen3", {"ref_tokens": 1}),
+    ("gemma3-27b", "serve-gemma3", {"prompt_len": 2048, "cache_len": 4096,
+                                    "ref_tokens": 1}),
+    ("moonshot-v1-16b-a3b", "serve-moonshot", {"ref_tokens": 1}),
+    ("internvl2-1b", "serve-vlm", {"ref_tokens": 1}),
+    ("yi-34b", "serve-yi", {"ref_tokens": 1}),
+)
+
+
 def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
-                     cache_len: int = 2048) -> dict:
+                     cache_len: int = 2048, ref_tokens: int = 0) -> dict:
     """``arch`` as get_config gives it (full width and depth, bf16),
     random weights from ``serve_split.SEED``: the Li-GD split on its
     profile (one sweep launch), split generation of 4 prompts x
@@ -1639,14 +1846,22 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
     128-``prompt_len`` prompt tokens, 32 new tokens each, 8 slots,
     ``cache_len``-token caches, whose first tokens
     must equal each request's own generation (later tokens are counted,
-    not required: bf16 rounds differently at batch 8 and batch 1).
+    not required: bf16 rounds differently at batch 8 and batch 1; with
+    ``ref_tokens`` the one-request generations stop after that many
+    tokens, and only those are compared).
     Every kernel's count is zeroed just before and read just after, and
     each kernel of the family must launch a whole number of times per
-    forward.  For MoE, prints the capacities both factors give at the
-    batches used and requires split and unsplit decode to agree (the
-    split path decodes at ``CAPACITY_FACTOR``, ``decode_step`` at
-    ``DECODE_CAPACITY_FACTOR``, as in the reference).  Raises on a
-    breach."""
+    forward (RMSNorm 2·L + 1, and 2 more an attention block with
+    qk-norm, which normalises q and k).  For MoE, prints the capacities
+    both factors give at the batches used and requires split and unsplit
+    decode to agree (the split path decodes at ``CAPACITY_FACTOR``,
+    ``decode_step`` at ``DECODE_CAPACITY_FACTOR``, as in the reference).
+    Prints the free memory before the weights are drawn, the peak while
+    they are and the peak while serving, which may pass the estimate
+    from ``num_params()`` and the k/v caches (``kv_cache_gb``) by at most
+    SERVE_PEAK_SLACK of it (SERVE_PEAK_FLOOR_GB at least).  A VLM then
+    runs ``vlm_patch_prefill`` (record ``patch_prefill``, its own
+    counts).  Raises on a breach."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1672,11 +1887,15 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
         if dec[0] != dec[1]:
             breaches.append(f"split and unsplit decode capacities differ "
                             f"at T={batch}: {dec}")
+    t_phase = time.perf_counter()
+    free_gb = torch.cuda.mem_get_info(device)[0] / 1e9
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, tokens = serve_split.make_inputs(cfg, device=device, batch=batch,
                                              prompt_len=prompt_len)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     counters = kernel_counters()
     for c in counters:
@@ -1700,12 +1919,21 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
     engine_s = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weights_gb = cfg.num_params() * 2 / 1e9
+    engine_kv_gb = kv_cache_gb(cfg, slots, cache_len)
+    split_kv_gb = kv_cache_gb(cfg, batch, prompt_len + new)
+    estimate_gb = weights_gb + engine_kv_gb + split_kv_gb
+    slack_gb = max(SERVE_PEAK_FLOOR_GB, SERVE_PEAK_SLACK * estimate_gb)
+    if peak_gb > estimate_gb + slack_gb:
+        breaches.append(f"peak {peak_gb:.2f} GB, estimate {estimate_gb:.2f}"
+                        f" GB + {slack_gb:.2f} GB")
 
     # one-request references (after the counts were read)
+    ref_new = ref_tokens or new
     first_ok, later_same, later_all, prefix = 0, 0, 0, 0
     for rid, p in zip(rids, prompts):
         ref, _, _ = serve_split.unsplit_generate(
-            cfg, params, torch.as_tensor(p, device=device)[None], new)
+            cfg, params, torch.as_tensor(p, device=device)[None], ref_new)
         ref = ref[0].cpu().tolist()
         got = results[rid]
         first_ok += int(got[0] == ref[0])
@@ -1714,10 +1942,10 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
         prefix += next((i for i, (a, b) in enumerate(zip(got, ref))
                         if a != b), len(ref))
     L, types = cfg.num_layers, cfg.layer_types()
-    per_forward = {"rmsnorm": 2 * L + 1, "ligd_sweep": 1}
+    n_attn = sum(t in (ATTN_GLOBAL, ATTN_LOCAL) for t in types)
+    per_forward = {"rmsnorm": rmsnorm_per_forward(cfg), "ligd_sweep": 1}
     for name, n in (
-            ("flash_attention",                       # prefill only
-             sum(t in (ATTN_GLOBAL, ATTN_LOCAL) for t in types)),
+            ("flash_attention", n_attn),              # prefill only
             ("rglru_scan", types.count(RGLRU)),       # prefill only
             ("wkv6", types.count(RWKV6)),
             ("moe_swiglu", L if cfg.num_experts else 0)):
@@ -1735,10 +1963,20 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
         engine_requests=len(results),
         engine_complete=sum(len(results[r]) == new for r in rids),
         engine_s=engine_s, engine_tokens_per_s=16 * new / engine_s,
-        engine_first_token_equal=first_ok,
-        engine_later_token_share_equal=later_same / later_all,
+        engine_first_token_equal=first_ok, engine_reference_tokens=ref_new,
+        engine_later_token_share_equal=(later_same / later_all
+                                        if later_all else None),
         engine_mean_equal_prefix=prefix / len(rids),
-        launches=launches, peak_mem_gb=peak_gb, moe_capacities=caps)
+        launches=launches, free_before_init_gb=free_gb,
+        init_peak_gb=init_peak_gb, peak_mem_gb=peak_gb,
+        weights_gb=weights_gb, engine_kv_gb=engine_kv_gb,
+        split_kv_gb=split_kv_gb, estimate_gb=estimate_gb,
+        peak_slack_gb=slack_gb,
+        moe_capacities=caps)
+    if cfg.frontend == "vit":
+        rec["patch_prefill"] = vlm_patch_prefill(cfg, params, device,
+                                                 kernel_counters())
+    rec["phase_s"] = time.perf_counter() - t_phase
     phase(tag, json.dumps(rec))
     if not (res["match"] and mid_match):
         breaches.append("split generation != unsplit")
@@ -1768,6 +2006,94 @@ def serve_full_width(device, arch: str, tag: str, prompt_len: int = 1024,
     del params, eng
     torch.cuda.empty_cache()
     return rec
+
+
+#: [tools]: the twins of the reference's smoke tools and examples as a
+#: user runs them on the card (each preset at its own size; mobility_sim
+#: at 100,000 users), with the line each run must end with
+TOOL_RUNS = (
+    ("tools/torch_chaos_smoke.py", ["--scenario", "chaos_singlefail_k3"],
+     "CHAOS_SMOKE_OK"),
+    ("tools/torch_chaos_smoke.py", ["--scenario", "chaos_churn"],
+     "CHAOS_SMOKE_OK"),
+    ("tools/torch_serve_smoke.py", [], "SERVE_SMOKE_OK"),
+    ("tools/torch_serve_smoke.py", ["--adaptive"], "ADAPTIVE_SMOKE_OK"),
+    ("tools/torch_policy_matrix.py", [], "POLICY_MATRIX_OK"),
+    ("examples/torch_quickstart.py", [], "done."),
+    ("examples/torch_mobility_sim.py", ["--users", "100000", "--minutes",
+                                        "8"], "fleet mean latency:"),
+)
+
+
+def run_script(path: Path, argv: list) -> str:
+    """What ``main()`` of the script at ``path`` (a tool or example, not a
+    package module) prints when run in this process with the command line
+    ``argv`` (``sys.argv`` is set, since some ``main``s read it); raises
+    on an exit code other than 0 or None."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(f"_script_{path.stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf, argv0 = io.StringIO(), sys.argv
+    sys.argv = [str(path), *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main()
+    finally:
+        sys.argv = argv0
+    if rc not in (None, 0):
+        raise AssertionError(f"{path.name} {argv}: exit {rc}")
+    return buf.getvalue()
+
+
+def tools_phase(counters) -> dict:
+    """[tools]: every run of TOOL_RUNS on the card, in this process, with
+    the twins' default device (the card).  A spy on ``Session.__init__``
+    notes each session's device: every run must build at least one, all
+    on ``cuda``, and its output must end with its line.  Every count is
+    zeroed just before the first run and read after the last; the sweep
+    must have launched.  Prints each run's wall time, sessions and last
+    lines.  Returns the launches."""
+    import torch
+    from repro_torch.api import Session
+    devices = []
+    init = Session.__init__
+
+    def spy(self, *args, **kw):
+        init(self, *args, **kw)
+        devices.append(self.device.type)
+
+    Session.__init__ = spy
+    zero_counters(counters)
+    t_all = time.perf_counter()
+    try:
+        for rel, argv, last in TOOL_RUNS:
+            devices.clear()
+            t0 = time.perf_counter()
+            lines = run_script(ROOT / rel, argv).splitlines()
+            torch.cuda.synchronize()
+            phase("tools", json.dumps({
+                "run": " ".join([rel, *argv]),
+                "wall_s": time.perf_counter() - t0, "lines": len(lines),
+                "sessions": len(devices),
+                "session_devices": sorted(set(devices)),
+                "tail": lines[-13:]}))
+            if not (lines and lines[-1].startswith(last)):
+                raise AssertionError(f"tools: {rel} {argv} did not end with "
+                                     f"{last!r}")
+            if not devices or set(devices) != {"cuda"}:
+                raise AssertionError(f"tools: {rel} {argv} built sessions "
+                                     f"on {devices}, expected cuda")
+    finally:
+        Session.__init__ = init
+    launches = all_launches(counters)
+    phase("tools", json.dumps({"wall_s": time.perf_counter() - t_all,
+                               "launches": launches}))
+    if launches["ligd_sweep"] <= 0 or launches["mligd_sweep"] <= 0:
+        raise AssertionError(f"tools: the sweep never launched: {launches}")
+    return launches
 
 
 #: [serve-loop]: the serve_chaos_k3 world at its own size, its pools'
@@ -3890,8 +4216,11 @@ def main() -> int:
                         moe_bwd.LIB_NAME: None,
                         rglru_bwd.LIB_NAME: None,
                         wkv_bwd.LIB_NAME: None,
+                        # and every instance of the mma.sync body,
+                        # d 128-2048 (moonshot's 2048: NTW 32)
                         moe_kernel.LIB_NAME: ("gate_up_kernel",
-                                              "down_kernel"),
+                                              "down_kernel",
+                                              "moe_swiglu_mma_kernel"),
                         wkv_kernel.LIB_NAME: ("chunk_",)})
 
     # 3. kernel against plain on the card --------------------------------
@@ -4000,12 +4329,34 @@ def main() -> int:
                                     "serve-hybrid", prompt_len=2560,
                                     cache_len=4096)
 
+    # 7b. the configurations served last: qwen3-8b (qk-norm), gemma3-27b
+    # (5 local : 1 global, prompts of 2048 past its 1024 window), moonshot
+    # (row 5's mma.sync decode body at d 2048), internvl2-1b (and its
+    # patch prefill), then yi-34b (68.8 GB of weights); each once the
+    # earlier phases' memory is returned ------------------------------
+    served_last = []
+    for arch, tag, kw in SERVED_LAST:
+        t0 = time.perf_counter()
+        phase(tag, f"{release_memory():.2f} GB still allocated before its "
+              "weights are drawn")
+        served_last.append(serve_full_width(device, arch, tag, **kw))
+        phase(tag, f"{time.perf_counter() - t0:.1f} s")
+
     # 8. serving, card against the CPU path -------------------------------
-    for arch in ("starcoder2-3b", "granite-moe-1b-a400m", "rwkv6-3b"):
+    for arch in ("starcoder2-3b", "granite-moe-1b-a400m", "rwkv6-3b",
+                 "qwen3-8b", "moonshot-v1-16b-a3b", "yi-34b"):
         serve_cross(device, arch)
     # one block of each kind, (R, R, A), with a 32-token window that the
     # 64-token prompt and the engine's prompts wrap
     serve_cross(device, "recurrentgemma-9b", layers=3, window=32)
+    # gemma3-27b's two kinds, (local, global), the same way
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    serve_cross(device, "gemma3-27b", window=32,
+                pattern=(ATTN_LOCAL, ATTN_GLOBAL))
+
+    # 8a. the tools and examples on the port, on the card -----------------
+    counters = kernel_counters()
+    tools_launches = tools_phase(counters)
 
     # 8b. the closed loop: planner -> data plane -> telemetry -> planner.
     # serve_chaos_k3 at its own size with full-width starcoder2-3b pools,
@@ -4013,10 +4364,12 @@ def main() -> int:
     # against the open loop, card against CPU --------------------------
     loop_rec, loop_launches = serve_loop(device)
     serve_identity(device)
-    counters = kernel_counters()
     hotspot_on, adaptive_launches, adaptive_held = serve_adaptive(counters)
     cross_launches, cross_held = serve_loop_cross(counters, hotspot_on)
-    later_paths = (loop_launches, adaptive_launches, cross_launches)
+    later_paths = (tools_launches, loop_launches, adaptive_launches,
+                   cross_launches, *(r["patch_prefill"]["launches"]
+                                     for r in served_last
+                                     if "patch_prefill" in r))
     # every closed-loop launch held against its plain version joins the
     # kernels line's max_abs_err
     for held in (loop_rec["held_launches"], *adaptive_held.values(),
@@ -4090,7 +4443,7 @@ def main() -> int:
         **{k: steps[k] for k in ("launches", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "device_ms")}})
-    paths = (serve, serve_moe, serve_rwkv, serve_hybrid)
+    paths = (serve, serve_moe, serve_rwkv, serve_hybrid, *served_last)
     for name, src, replaces in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -4115,8 +4468,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], **({"body": r["body"]}
-                                             if "body" in r else {})})
+            "device_ms": r["device_ms"], **{k: r[k] for k in (
+                "body", "decode_d2048") if k in r}})
     for name, src, replaces in (
             ("flash_attention_bwd",
              "src/repro_torch/kernels/flash_attention/csrc/"

@@ -51,19 +51,22 @@
 //   the epilogues mask their stores, so ragged C (engine prefills give
 //   40-320) and ff (1000, 1408) need no padding.
 // * mma.sync (bfloat16, C up to 16: decode; and other bf16 shapes it
-//   takes): mma.sync m16n8k16 bf16 -> f32.  BM = 32 rows a block, 8
-//   warps; the x tile sits in shared memory as bf16.  Each ff step of
-//   BF = 64:
-//     1. g and u (32 x 64) accumulate over d in chunks of KC = 128 d-rows
-//        of Wg and Wu staged in shared memory (ldmatrix, .trans for the
-//        weights); each warp owns one 16-row m-tile and two 8-column
-//        n-tiles of both, so silu(g)·u is formed in its registers;
+//   takes): mma.sync m16n8k16 bf16 -> f32.  BM = 16 rows a block (one
+//   m16 tile: decode's capacities are at most 16 rows), 8 warps; the x
+//   tile sits in shared memory as bf16.  Each ff step of BF = 64:
+//     1. g and u (16 x 64) accumulate over d in chunks of KC = 128
+//        d-rows of Wg and Wu staged in shared memory (ldmatrix, .trans
+//        for the weights); each warp owns one 8-column n-tile of both,
+//        so silu(g)·u is formed in its registers;
 //     2. h is split into bf16 hi + lo (h - hi) in shared memory, so the
 //        second product keeps h to ~16 bits of mantissa (the contract is
 //        float32 h: one bf16 rounding of h alone would move y by ~1e-3
 //        of its RMS);
-//     3. y (32 x d, float32, 128 registers a thread) += h_hi·Wd + h_lo·Wd,
-//        Wd staged 16 ff-rows at a time, each warp owning d/8 columns.
+//     3. y (16 x d, float32) += h_hi·Wd + h_lo·Wd, Wd staged 16 ff-rows
+//        at a time, each warp owning d/8 columns: d/16 accumulators a
+//        thread, 128 at d 2048.  Shared memory at d 2048 is 136 KB (x
+//        16 x 2056 bf16, Wd's 16 rows as wide, h hi + lo), one block an
+//        SM.
 //   At decode the capacity tile is mostly empty rows and only E blocks
 //   would run, so the plan splits ff into FS slices (grid z) until about
 //   two blocks per SM are in flight; each slice writes float32 partial
@@ -113,13 +116,13 @@ __device__ __forceinline__ float silu(float g) { return g / (1.f + expf(-g)); }
 // ===========================================================================
 namespace tc {
 
-constexpr int BM = 32;         // capacity rows a block (two m16 tiles)
+constexpr int BM = 16;         // capacity rows a block (one m16 tile)
 constexpr int BF = 64;         // ff columns a step
 constexpr int KC = 128;        // d-rows of Wg/Wu staged per chunk
 constexpr int WK = 16;         // ff-rows of Wd staged per sub-step
 constexpr int THREADS = 256;   // 8 warps
 constexpr int PAD = 8;         // bf16 a shared row is padded by (16 bytes)
-constexpr int MAX_D = 1024;
+constexpr int MAX_D = 2048;
 
 typedef __nv_bfloat16 bf16;
 
@@ -199,24 +202,15 @@ moe_swiglu_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const bf16* wue = wu + (size_t)e * D * ff;
   const bf16* wde = wd + (size_t)e * ff * D;
 
-  float acc[2][NTW][4];
+  float acc[NTW][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int n = 0; n < NTW; ++n)
 #pragma unroll
-    for (int n = 0; n < NTW; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
-
-  const int mt1 = warp & 1;          // phase 1: this warp's m-tile
-  const int nt1 = (warp >> 1) * 2;   // and its two n-tiles of the BF step
+    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
 
   for (int f0 = f_begin; f0 < f_end; f0 += BF) {
     // 1. g, u (BM x BF) over d
-    float g[2][4], u[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) g[j][q] = u[j][q] = 0.f;
+    float g[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
     for (int k0 = 0; k0 < D; k0 += KC) {
       __syncthreads();                     // buf is free
       for (int i = tid; i < 2 * KC * (BF / 8); i += THREADS) {
@@ -232,34 +226,26 @@ moe_swiglu_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
       __syncthreads();
 #pragma unroll
       for (int ks = 0; ks < KC; ks += 16) {
-        unsigned a[4];
-        ldsm_x4(a, xs + (mt1 * 16 + (lane & 15)) * XP + k0 + ks +
-                       (lane >> 4) * 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          unsigned b[4];                   // b[0..1] Wg, b[2..3] Wu
-          ldsm_x4_t(b, buf + ((lane >> 4) * KC + ks + (lane & 15)) * HP +
-                           (nt1 + j) * 8);
-          mma(g[j], a, b[0], b[1]);
-          mma(u[j], a, b[2], b[3]);
-        }
+        unsigned a[4], b[4];               // b[0..1] Wg, b[2..3] Wu
+        ldsm_x4(a, xs + (lane & 15) * XP + k0 + ks + (lane >> 4) * 8);
+        ldsm_x4_t(b, buf + ((lane >> 4) * KC + ks + (lane & 15)) * HP +
+                         warp * 8);
+        mma(g, a, b[0], b[1]);
+        mma(u, a, b[2], b[3]);
       }
     }
     // 2. h = silu(g)·u as bf16 hi + lo, into shared memory
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt1 * 16 + gid + 8 * half;
-        const int c = (nt1 + j) * 8 + 2 * tq;
-        const float h0 = silu(g[j][2 * half]) * u[j][2 * half];
-        const float h1 = silu(g[j][2 * half + 1]) * u[j][2 * half + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
-        const float2 hif = __bfloat1622float2(hi);
-        *reinterpret_cast<__nv_bfloat162*>(hhi + r * HP + c) = hi;
-        *reinterpret_cast<__nv_bfloat162*>(hlo + r * HP + c) =
-            __floats2bfloat162_rn(h0 - hif.x, h1 - hif.y);
-      }
+    for (int half = 0; half < 2; ++half) {
+      const int r = gid + 8 * half, c = warp * 8 + 2 * tq;
+      const float h0 = silu(g[2 * half]) * u[2 * half];
+      const float h1 = silu(g[2 * half + 1]) * u[2 * half + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
+      const float2 hif = __bfloat1622float2(hi);
+      *reinterpret_cast<__nv_bfloat162*>(hhi + r * HP + c) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(hlo + r * HP + c) =
+          __floats2bfloat162_rn(h0 - hif.x, h1 - hif.y);
+    }
     // 3. acc += (h_hi + h_lo) · Wd[f0 : f0 + BF]
 #pragma unroll 1
     for (int kk = 0; kk < BF; kk += WK) {
@@ -273,48 +259,40 @@ moe_swiglu_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
         *reinterpret_cast<uint4*>(buf + kr * XP + cv * 8) = v;
       }
       __syncthreads();
-      unsigned ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int off = (m * 16 + (lane & 15)) * HP + kk + (lane >> 4) * 8;
-        ldsm_x4(ahi[m], hhi + off);
-        ldsm_x4(alo[m], hlo + off);
-      }
+      unsigned ahi[4], alo[4];
+      const int off = (lane & 15) * HP + kk + (lane >> 4) * 8;
+      ldsm_x4(ahi, hhi + off);
+      ldsm_x4(alo, hlo + off);
 #pragma unroll
       for (int p = 0; p < NTW; p += 2) {
         unsigned b[4];                     // n-tiles p and p + 1
         ldsm_x4_t(b, buf + (lane & 15) * XP + warp * (D / 8) + p * 8 +
                          (lane >> 4) * 8);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma(acc[m][p], ahi[m], b[0], b[1]);
-          mma(acc[m][p], alo[m], b[0], b[1]);
-          mma(acc[m][p + 1], ahi[m], b[2], b[3]);
-          mma(acc[m][p + 1], alo[m], b[2], b[3]);
-        }
+        mma(acc[p], ahi, b[0], b[1]);
+        mma(acc[p], alo, b[0], b[1]);
+        mma(acc[p + 1], ahi, b[2], b[3]);
+        mma(acc[p + 1], alo, b[2], b[3]);
       }
     }
   }
 
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int n = 0; n < NTW; ++n)
 #pragma unroll
-    for (int n = 0; n < NTW; ++n)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + gid + 8 * half;
-        if (r >= rows) continue;
-        const int col = warp * (D / 8) + n * 8 + 2 * tq;
-        const float v0 = acc[m][n][2 * half], v1 = acc[m][n][2 * half + 1];
-        const size_t row = (size_t)e * C + c0 + r;
-        if (ws)
-          *reinterpret_cast<float2*>(
-              ws + ((size_t)blockIdx.z * E * C + row) * D + col) =
-              make_float2(v0, v1);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(y + row * D + col) =
-              __floats2bfloat162_rn(v0, v1);
-      }
+    for (int half = 0; half < 2; ++half) {
+      const int r = gid + 8 * half;
+      if (r >= rows) continue;
+      const int col = warp * (D / 8) + n * 8 + 2 * tq;
+      const float v0 = acc[n][2 * half], v1 = acc[n][2 * half + 1];
+      const size_t row = (size_t)e * C + c0 + r;
+      if (ws)
+        *reinterpret_cast<float2*>(
+            ws + ((size_t)blockIdx.z * E * C + row) * D + col) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(y + row * D + col) =
+            __floats2bfloat162_rn(v0, v1);
+    }
 }
 
 // y[i] = sum over the FS slices of ws[s][i], in slice order, as bf16.
@@ -384,6 +362,22 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
       return launch_ntw<14>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
     case 16:
       return launch_ntw<16>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 18:
+      return launch_ntw<18>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 20:
+      return launch_ntw<20>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 22:
+      return launch_ntw<22>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 24:
+      return launch_ntw<24>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 26:
+      return launch_ntw<26>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 28:
+      return launch_ntw<28>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 30:
+      return launch_ntw<30>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
+    case 32:
+      return launch_ntw<32>(x, wg, wu, wd, y, ws, E, C, ff, fs, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -35,7 +35,9 @@ LAUNCHES = {"moe_swiglu": 0, "moe_swiglu_wgmma": 0, "moe_swiglu_mma": 0,
             "moe_swiglu_cuda_cores": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the CUDA-core body keeps d / 256 output columns a thread in registers
+#: widest d of either body that keeps y in registers: the CUDA-core body
+#: holds d / 256 output columns a thread, the mma.sync body (one m16
+#: tile a block) d / 16 floats
 MAX_D = 2048
 #: capacity rows up to which bfloat16 runs the mma.sync body (decode:
 #: C 2-16, where the weights' bytes bind)
@@ -47,12 +49,12 @@ BODIES = {"cuda_cores": 0, "mma": 1, "wgmma": 2}
 def body_for(dtype: torch.dtype, C: int, d: int, ff: int) -> str:
     """The body that runs x (E, C, d) of ``dtype`` with ff columns:
     ``"wgmma"`` for bfloat16 with C > DECODE_C and d, ff multiples of 8;
-    ``"mma"`` for bfloat16 with d a multiple of 128 up to 1024 and ff a
-    multiple of 8; else ``"cuda_cores"``."""
+    ``"mma"`` for bfloat16 with d a multiple of 128 up to ``MAX_D`` and
+    ff a multiple of 8; else ``"cuda_cores"``."""
     if dtype == torch.bfloat16 and d % 8 == 0 and ff % 8 == 0:
         if C > DECODE_C:
             return "wgmma"
-        if d % 128 == 0 and d <= 1024:
+        if d % 128 == 0 and d <= MAX_D:
             return "mma"
     return "cuda_cores"
 

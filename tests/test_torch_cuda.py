@@ -385,6 +385,10 @@ def _attention_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
     (4, 24, 2, 1024, 128, 0),           # starcoder2-3b prefill
     (4, 16, 8, 1024, 64, 0),            # granite-moe-1b-a400m prefill
     (4, 16, 1, 2560, 256, 2048),        # recurrentgemma-9b local layers
+    (4, 32, 8, 1024, 128, 0),           # qwen3-8b prefill
+    (4, 56, 8, 1024, 128, 0),           # yi-34b prefill
+    (4, 32, 16, 2048, 128, 1024),       # gemma3-27b local layers
+    (4, 14, 2, 1024, 64, 0),            # internvl2-1b prefill
 ])
 def test_cuda_flash_attention_bf16_at_the_serving_shapes(B, Hq, Hkv, S, hd,
                                                          window, cuda):
@@ -417,7 +421,7 @@ def test_cuda_flash_attention_cross_shapes(Sq, Skv, dtype, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("ratio", [1, 2, 8, 12, 16])
+@pytest.mark.parametrize("ratio", [1, 2, 4, 7, 8, 12, 16])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_flash_attention_gqa_ratios(hd, ratio, dtype, cuda):
     Hkv = 2 if ratio <= 8 else 1
@@ -533,6 +537,10 @@ from repro_torch.kernels import wkv6 as twkv                     # noqa: E402
     (32, 300, 128, 96),         # ragged ff tail
     (3, 20, 64, 40),            # d below one wgmma column tile
     (2, 17, 2048, 96),          # d > 1024
+    (64, 480, 2048, 1408),      # moonshot prefill: bf16 wgmma
+    (64, 1, 2048, 1408),        # moonshot decode: bf16 mma.sync, one
+    (64, 4, 2048, 1408),        # m16 tile a block at d 2048
+    (64, 16, 2048, 1408),
     (3, 8, 64, 40)])            # CUDA-core path in bf16 too (d % 128)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_moe_swiglu_matches_plain_version(E, C, d, ff, dtype, cuda):
@@ -554,6 +562,25 @@ def test_cuda_moe_swiglu_matches_plain_version(E, C, d, ff, dtype, cuda):
     if dtype == "bfloat16":
         rms = lambda t: t.square().mean().sqrt().item()           # noqa: E731
         assert rms(y.float() - ref) <= 1e-3 * rms(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16])
+def test_cuda_moe_swiglu_mma_at_d_2048_gives_the_same_bits(C, cuda):
+    """The mma.sync body at moonshot-v1-16b-a3b's width (one m16 tile a
+    block) sums its ff slices in a fixed order: two launches on the same
+    inputs give the same bits."""
+    E, d, ff, dt = 64, 2048, 1408, torch.bfloat16
+    x = _randn((E, C, d), dt, cuda, 24)
+    wg = (_randn((E, d, ff), torch.float32, cuda, 25) * d ** -0.5).to(dt)
+    wu = (_randn((E, d, ff), torch.float32, cuda, 26) * d ** -0.5).to(dt)
+    wd = (_randn((E, ff, d), torch.float32, cuda, 27) * ff ** -0.5).to(dt)
+    before = tmoe.LAUNCHES["moe_swiglu_mma"]
+    a = tmoe.moe_swiglu_cuda(x, wg, wu, wd)
+    b = tmoe.moe_swiglu_cuda(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert tmoe.LAUNCHES["moe_swiglu_mma"] == before + 2
+    assert torch.equal(a, b)
 
 
 def _wkv_inputs(B, S, H, n, dt, device):

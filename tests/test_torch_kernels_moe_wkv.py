@@ -141,7 +141,10 @@ def test_moe_body_plan():
     assert k_moe.body_for(bf, 300, 2048, 1408) == "wgmma"
     for C in (2, 4, 16):                             # decode
         assert k_moe.body_for(bf, C, 1024, 512) == "mma"
-    assert k_moe.body_for(bf, 4, 2048, 512) == "cuda_cores"   # d > 1024
+    assert k_moe.body_for(bf, 4, 2048, 512) == "mma"    # d up to 2048
+    for C in (1, 4, 16):                             # moonshot decode
+        assert k_moe.body_for(bf, C, 2048, 1408) == "mma"
+    assert k_moe.body_for(bf, 4, 2176, 512) == "cuda_cores"   # d > 2048
     assert k_moe.body_for(bf, 4, 64, 40) == "cuda_cores"      # d % 128
     assert k_moe.body_for(bf, 100, 1024, 100) == "cuda_cores"  # ff % 8
     for C in (4, 1280):

@@ -1,7 +1,9 @@
 """The port's front door (``repro_torch.api``) against the JAX package's:
-``Session`` on ``paper_fig1`` (first 6 steps, sync) and on a 512-user
-``megafleet_100k`` (3 steps, async), every FleetState column per step and
-the handoff/relay/resplit accounting; ``Scenario.to_dict`` across the two
+``Session`` on ``paper_fig1`` (first 6 steps, sync), on a 512-user
+``megafleet_100k`` (3 steps, async), on ``dense_urban`` at 400 users (5
+steps), ``highway`` (10 steps) and ``static_no_mobility`` (whole), every
+FleetState column per step and the handoff/relay/resplit accounting;
+``Scenario.to_dict`` across the two
 packages for every preset the port registers; the worlds it refused
 before admission, faults and serving were ported; and, in a fresh
 interpreter, that the port loads neither JAX nor ``repro``.
@@ -36,6 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("name, changes, steps", [
     ("paper_fig1", {}, 6),
     ("megafleet_100k", {"num_users": 512, "steps": 3}, 3),
+    ("dense_urban", {"num_users": 400, "steps": 5}, 5),
+    ("highway", {"steps": 10}, 10),
+    ("static_no_mobility", {}, 5),
 ])
 def test_session_matches_reference(name, changes, steps, monkeypatch):
     js_sc = j_get_scenario(name).replace(**changes)

@@ -412,3 +412,19 @@ def t_greedy(cfg, params, tokens: np.ndarray, max_new: int):
                                           caches)
         out.append(np_of(cur))
     return np.stack(out, axis=1), np_of(logits.float())
+
+
+def script_stdout(path, argv) -> str:
+    """``chip_smoke.run_script``: what ``main()`` of the script at
+    ``path`` prints when run in this process with the command line
+    ``argv``, with PyTorch on one CPU thread meanwhile: the twins' ops
+    are small, and on a test worker beside others more threads made the
+    serve smoke 3-4x slower, not faster."""
+    import chip_smoke
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return chip_smoke.run_script(path, argv)
+    finally:
+        torch.set_num_threads(threads)

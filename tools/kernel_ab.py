@@ -43,7 +43,10 @@ servers' groups (one launch where the version has
 ``ligd_steps_grouped_cuda``, else one a group), the largest group alone
 and the smallest alone; MoE at granite-moe-1b-a400m's prefill (E 32, C
 1280, d 1024, ff 512), an engine prefill (C 320) and engine decode (C 4),
-bf16, with the composition of 3 ``torch.bmm`` + silu timed beside them;
+and at moonshot-v1-16b-a3b's decode (E 64, C 1, 4, 16, d 2048, ff
+1408), bf16, with the composition of 3 ``torch.bmm`` + silu timed beside
+them, and at the shapes that run the mma.sync body also this checkout's
+CUDA-core body (``chip_smoke.moe_cuda_cores``);
 WKV6 at
 rwkv6-3b's prefill (B 4, S 1024, H 40, n 64, bf16 r/k/v, from a state),
 a ragged S 777 with the model's decays, and decode (B 8, S 1); the
@@ -90,7 +93,10 @@ KERNELS = Path("src/repro_torch/kernels")
 
 MOE_SHAPES = (("prefill", 32, 1280, 1024, 512),
               ("engine prefill", 32, 320, 1024, 512),
-              ("decode", 32, 4, 1024, 512))
+              ("decode", 32, 4, 1024, 512),
+              ("moonshot decode", 64, 1, 2048, 1408),
+              ("moonshot decode", 64, 4, 2048, 1408),
+              ("moonshot decode", 64, 16, 2048, 1408))
 WKV_SHAPES = (("prefill", 4, 1024, 40, 64, "uniform"),
               ("ragged, model decays", 1, 777, 40, 64, "model"),
               ("decode", 8, 1, 40, 64, "uniform"))
@@ -632,6 +638,7 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import (flash_attention, ligd_step, moe_gemm,
                                      rglru, rmsnorm, wkv6)
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 
     rows = set(args.rows.split(","))
     sweep = {"this": ligd_step.sweep_cuda}
@@ -698,6 +705,8 @@ def main() -> int:
         want = moe_gemm.moe_swiglu_ref(x, wg, wu, wd).float()
         tol, rms_tol = cs.MOE_TOL["bfloat16"], cs.MOE_RMS_TOL["bfloat16"]
         fns = {n: (lambda f=f: f(x, wg, wu, wd)) for n, f in moe.items()}
+        if moe_kernel.body_for(x.dtype, C, d, ff) == "mma":
+            fns["cuda_cores"] = lambda: cs.moe_cuda_cores(x, wg, wu, wd)
         mine = fns["this"]()
         same = {}
         for n, fn in fns.items():
@@ -721,7 +730,7 @@ def main() -> int:
         print(json.dumps({"kernel": "moe_swiglu", "case": label,
                           "same_bits_as_this": same,
                           "by_kernel": rec["by_kernel"]}), flush=True)
-        for n in abba(list(moe) + ["composition"], args.rounds):
+        for n in abba(list(fns), args.rounds):
             run = {"version": n, "device_ms": cs.device_ms(fns[n], 30, 3),
                    "ms": cs.timed_ms(fns[n], 30, 3)}
             rec["runs"].append(run)
