@@ -96,6 +96,18 @@ card, over its main paths.
   ``[train-cross]``: a reduced float32 model card against CPU (loss,
   gradients, one update), then ``launch.train`` preempted and resumed
   against a straight run.
+* The mesh, ``[mesh]``: four ranks that share card 0 (gloo process
+  groups, the backend checked against the cards the ranks hold;
+  FileStore rendezvous; no rank builds a kernel) run (a) the static
+  plan of megafleet_100k (100,000 users, 50,000 a rank) and of
+  capacitated_k3 (K 3) on a data-2 mesh against the one-process plan,
+  and (b) full-width starcoder2-3b cut to 4 of its 30 layers, B 4 x S
+  1024, on model 2, data 2 and data 2 x model 2 meshes (ZeRO-1) in
+  float32 and on data 2 x model 2 in bfloat16, two steps each against
+  the one-process steps from the same weights; then (c) ``launch.train
+  --mesh host`` under ``torch.distributed.run`` (2 ranks) preempted and
+  resumed by one process against an unbroken run.  Ranks sharing one
+  card show the sharded paths, not multi-card speed or memory.
 
     python3 chip_smoke.py
 
@@ -111,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -4171,6 +4184,494 @@ def train_cross(device, counters) -> tuple:
     return rec, launches
 
 
+#: [mesh]: tensor and data parallelism of the dense family and the
+#: sharded static plan, run by MESH_WORLD ranks that share card 0 (so
+#: init_world picks gloo: NCCL refuses two ranks on one device),
+#: spawned after every library is built, meeting through a FileStore;
+#: every collective, and the world, end within these
+MESH_WORLD = 4
+MESH_COLLECTIVE_TIMEOUT_S = 300.0
+MESH_WORLD_TIMEOUT_S = 480.0
+#: (a) the static plan on a data-2 mesh: full-size megafleet_100k (K 1,
+#: 50,000 users a rank) and capacitated_k3 (K 3: 1500 Li-GD rows, 750 a
+#: rank), against the one-process plan on the same card: splits and
+#: servers equal, B, r, U, T, E, C within U_RTOL
+MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
+#: (b) full-width starcoder2-3b cut to 4 of its 30 layers, TRAIN_BATCH x
+#: TRAIN_SEQ tokens, remat, MESH_STEPS AdamW steps on each mesh, against
+#: the one-process steps on the same card from the same weights and
+#: batches: float32 at TRAIN_CROSS_* (the loss; every gradient leaf and,
+#: by the triangle inequality, grad_norm at TRAIN_CROSS_GRAD_RMS; every
+#: leaf's change over the steps at TRAIN_CROSS_UPDATE_RMS) on every mesh
+#: of MESH_SHAPES, bfloat16 at MESH_BF16_* on the last (both axes at
+#: once).  Gloo stages every collective through the host at about 1 GB/s
+#: here, so a data-parallel float32 step takes 5-9 s (PR 28's first run)
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 4, 2
+MESH_SHAPES = (("model 2", (1, 2)), ("data 2", (2, 1)),
+               ("data 2 x model 2", (2, 2)))
+MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
+#: bfloat16, mesh against one process, set from the rounding argument in
+#: PERF.md §6 (PR 28) before the first card run: a bf16 rounding is off
+#: by at most 2^-8 relative (RMS about 2.3e-3); each row-parallel output
+#: (wo, wd) adds about two roundings (each rank's partial sum, the
+#: all-reduce), so the residual of 4 blocks drifts by about 2.3e-3 x 2 x
+#: sqrt(8) = 1.3e-2 relative; per-token logit noise of that size moves
+#: the mean loss of 4096 tokens by about 2e-5 relative (1e-3 allowed);
+#: gradients carry it plus one rounding of each rank's half-batch
+#: gradient (5e-2 allowed in error RMS, and grad_norm with it); AdamW's
+#: first step moves an element by lr x sign(g), so a fraction of about
+#: 0.8 x 5e-2 of elements may move the other way: the change's error RMS
+#: over its RMS up to 2 x sqrt(0.04) = 0.4
+MESH_BF16_LOSS_RTOL = 1e-3
+MESH_BF16_GRAD_RMS = 5e-2
+MESH_BF16_UPDATE_RMS = 0.4
+#: (c) launch.train --mesh host under torch.distributed.run (2 ranks,
+#: the 100m member of qwen3-8b's family), preempted after 2 steps of 4
+#: and resumed by one process, each loss against an unbroken
+#: one-process run within TRAIN_RESUME_RTOL
+MESH_LAUNCH_ARGS = ("--size", "100m", "--steps", "4", "--ckpt-every", "2")
+
+
+def _mesh_tolerances(dtn: str) -> tuple:
+    """(loss rtol, gradient and grad-norm error RMS, change error RMS)."""
+    if dtn == "float32":
+        return (TRAIN_CROSS_LOSS_RTOL, TRAIN_CROSS_GRAD_RMS,
+                TRAIN_CROSS_UPDATE_RMS)
+    return MESH_BF16_LOSS_RTOL, MESH_BF16_GRAD_RMS, MESH_BF16_UPDATE_RMS
+
+
+def _nonzero(counters) -> dict:
+    return {k: v for k, v in all_launches(counters).items() if v}
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def mesh_plan_rank(device, counters, total: dict) -> dict:
+    """(a) on a rank of the data-2 mesh (ranks 0 and 1; the others only
+    build the mesh): each scenario's static plan sharded over the mesh,
+    then unsharded on this rank alone, compared."""
+    import numpy as np
+    import torch
+    from repro_torch.api import get_scenario
+    from repro_torch.api.policies import make_policy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.meshenv import make_env
+    env = make_env(make_mesh((2,), ("data",)))
+    if not env.member:
+        return {}
+    out = {}
+    for name in MESH_PLAN_SCENARIOS:
+        sc = get_scenario(name)
+        profile, devices = sc.build_profile(), sc.build_devices()
+        topo = sc.build_topology()
+        aps = topo.nearest_ap(sc.build_mobility(topo).positions())
+        plans, walls, launches = {}, {}, {}
+        for kind, e in (("mesh", env), ("one", None)):
+            planner = make_policy(None, sc, profile, sc.build_topology(),
+                                  device=device)
+            torch.cuda.synchronize()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            _, _, fleet = planner.plan_static(devices, aps, env=e)
+            torch.cuda.synchronize()
+            walls[kind] = time.perf_counter() - t0
+            launches[kind] = _nonzero(counters)
+            plans[kind] = fleet
+        _add_launches(total, launches["mesh"])
+        a, b = plans["mesh"], plans["one"]
+        rel = {f: float(np.max(np.abs(getattr(a, f) - getattr(b, f))
+                               / np.maximum(np.abs(getattr(b, f)), 1e-30)))
+               for f in ("B", "r", "U", "T", "E", "C")}
+        out[name] = dict(
+            users=len(aps), K=sc.candidates_k,
+            rows_per_rank=len(aps) * sc.candidates_k // env.dp,
+            wall_s_mesh=walls["mesh"], wall_s_one=walls["one"],
+            launches_mesh=launches["mesh"],
+            splits_equal=bool(np.array_equal(a.split, b.split)),
+            servers_equal=bool(np.array_equal(a.server, b.server)),
+            max_rel=rel, bit_for_bit=all(
+                np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("split", "server", "B", "r", "U", "T", "E", "C")))
+    return out
+
+
+def _mesh_cfg(dtn: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MESH_TRAIN_ARCH),
+                               num_layers=MESH_TRAIN_LAYERS, dtype=dtn)
+
+
+def _mesh_batches(cfg, device) -> list:
+    from repro_torch.runtime.data import DataConfig, batch_at
+    dcfg = DataConfig(seed=0, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    return [batch_at(cfg, dcfg, s, device) for s in range(MESH_STEPS)]
+
+
+def mesh_baseline(cfg, device) -> dict:
+    """(b)'s one-process run, on rank 0 alone: the step-1 gradient of
+    every leaf, then MESH_STEPS train steps; the weights before and after
+    and the gradients kept on the card for the comparisons."""
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.train import (TrainConfig, loss_and_grads,
+                                           make_train_step)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(remat=True)
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device)
+    p0 = [p.detach().clone() for p in leaves(params)]
+    batches = _mesh_batches(cfg, device)
+    _, _, g1 = loss_and_grads(cfg, params, batches[0], tcfg=tcfg)
+    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10))
+    opt, steps = adamw.init(params), []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          s=time.perf_counter() - t0))
+    p2 = [p.detach() for p in leaves(params)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt, m
+    release_memory()
+    return {"p0": p0, "g1": g1, "p2": p2, "steps": steps, "peak_gb": peak}
+
+
+def mesh_train_run(cfg, env, device, counters, base, total: dict) -> dict:
+    """(b) on one mesh, on each member: this rank's slices of the same
+    weights (init_lm for the mesh, cut by interop.shard_lm_params), the
+    step-1 gradient of every leaf gathered to compare, then MESH_STEPS
+    train steps, each step's launches zeroed before it and read after it
+    (train_launches_per_step of this rank's rows; no plain version), and
+    the weights gathered to compare.  ``base`` (rank 0 only) holds the
+    one-process run; the comparisons are made there."""
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.interop import shard_lm_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.train import (TrainConfig, init_opt_state,
+                                           loss_and_grads, make_train_step)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(remat=True)
+    params = shard_lm_params(cfg, tfm.init_lm(
+        cfg, torch.Generator(device).manual_seed(0), device, env), env)
+    specs = leaves(tfm.param_specs(cfg, env))
+    opt = init_opt_state(cfg, params, env)
+    batches = _mesh_batches(cfg, device)
+    zero_counters(counters)
+    _, _, grads = loss_and_grads(cfg, params, batches[0], tcfg=tcfg,
+                                 env=env)
+    torch.cuda.synchronize()
+    grad_launches = _nonzero(counters)
+    _add_launches(total, grad_launches)
+    grad_rr = []
+    for i, (g, sp) in enumerate(zip(grads, specs)):
+        full = env.unshard(g, sp)
+        if base is not None:
+            grad_rr.append(rel_rms(full.float(), base["g1"][i].float()))
+        del full
+    del grads
+    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10), env=env)
+    want = train_launches_per_step(cfg, TRAIN_BATCH // env.dp, TRAIN_SEQ)
+    steps, bad = [], []
+    with plain_version_calls() as plain:
+        for s, b in enumerate(batches):
+            torch.cuda.synchronize()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = _nonzero(counters)
+            _add_launches(total, launches)
+            if launches != want:
+                bad.append(f"step {s + 1} launches {launches}, want {want}")
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), s=dt))
+    if any(plain.values()):
+        bad.append(f"plain versions called: {plain}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    upd_rr = []
+    for i, (p, sp) in enumerate(zip(leaves(params), specs)):
+        full = env.unshard(p.detach(), sp)
+        if base is not None:
+            p0 = base["p0"][i].float()
+            upd_rr.append(rel_rms(full.float() - p0,
+                                  base["p2"][i].float() - p0))
+        del full
+    rec = dict(coordinate=env.coordinate, tp=env.tp, dp=env.dp,
+               rows_per_rank=TRAIN_BATCH // env.dp, steps=steps,
+               peak_gb=peak, launches_per_step=want,
+               launches_grads=grad_launches)
+    if base is not None:
+        loss_tol, grad_tol, upd_tol = _mesh_tolerances(cfg.dtype)
+        rec.update(
+            one_process_steps=base["steps"],
+            one_process_peak_gb=base["peak_gb"],
+            loss_rel_diff=[abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(steps, base["steps"])],
+            grad_norm_rel_diff=[
+                abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                for a, b in zip(steps, base["steps"])],
+            grad_rel_rms_max=max(grad_rr), update_rel_rms_max=max(upd_rr),
+            tolerances=dict(loss=loss_tol, grad=grad_tol, update=upd_tol))
+        if max(rec["loss_rel_diff"]) > loss_tol:
+            bad.append(f"loss {rec['loss_rel_diff']} > {loss_tol}")
+        if max(rec["grad_norm_rel_diff"]) > grad_tol:
+            bad.append(f"grad_norm {rec['grad_norm_rel_diff']} > {grad_tol}")
+        if rec["grad_rel_rms_max"] > grad_tol:
+            bad.append(f"gradient rel RMS {rec['grad_rel_rms_max']:.3g}")
+        if rec["update_rel_rms_max"] > upd_tol:
+            bad.append(f"update rel RMS {rec['update_rel_rms_max']:.3g}")
+    rec["bad"] = bad
+    del params, opt, m
+    release_memory()
+    return rec
+
+
+def mesh_train_rank(rank: int, device, counters, total: dict) -> list:
+    """(b): for each dtype, rank 0's one-process run while the others
+    wait, then its meshes (MESH_DTYPES) over the first ranks of the world
+    (the others build each mesh and wait)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.meshenv import make_env
+    out = []
+    for dtn, shapes in MESH_DTYPES:
+        cfg = _mesh_cfg(dtn)
+        base = mesh_baseline(cfg, device) if rank == 0 else None
+        dist.barrier()
+        for label, shape in shapes:
+            env = make_env(make_mesh(shape, ("data", "model")))
+            if env.member:
+                rec = mesh_train_run(cfg, env, device, counters, base, total)
+                out.append(dict(mesh=label, dtype=dtn, **rec))
+            dist.barrier()
+        del base
+        release_memory()
+    return out
+
+
+def gloo_cuda_probe(device) -> dict:
+    """Which collectives the world's gloo groups run on CUDA tensors:
+    the three the port uses (all_reduce, all_gather; broadcast, which
+    ``dist.barrier`` rests on) and two it does not (recorded, not
+    required; gloo refuses an op before it communicates)."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    x = torch.ones(4, device=device)
+    ops = (("all_reduce", lambda: dist.all_reduce(x.clone())),
+           ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+           ("all_gather", lambda: dist.all_gather(
+               [torch.empty_like(x) for _ in range(n)], x)),
+           ("reduce_scatter", lambda: dist.reduce_scatter(
+               torch.empty_like(x), [x.clone() for _ in range(n)])),
+           ("all_to_all_single", lambda: dist.all_to_all_single(
+               torch.empty(4 * n, device=device), x.repeat(n))))
+    out = {}
+    for name, fn in ops:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ran"
+        except RuntimeError as e:
+            out[name] = "refused: " + str(e).splitlines()[0][:160]
+    return out
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of [mesh]'s world: gloo on card 0 through a FileStore in
+    ``tmp``; (a), (b) and the gloo probe; its record written to
+    ``tmp/rank<r>.json``, or its traceback to ``tmp/rank<r>.err``."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_world
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), world)
+        device, backend = init_world(
+            "cuda:0", store=store, rank=rank, world_size=world,
+            timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+        counters, total = kernel_counters(), {}
+        rec = {"rank": rank, "backend": backend, "device": str(device),
+               "card": torch.cuda.get_device_name(device),
+               "card_uuid": str(torch.cuda.get_device_properties(
+                   device).uuid)}
+        t0 = time.perf_counter()
+        rec["plan"] = mesh_plan_rank(device, counters, total)
+        rec["plan_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec["train"] = mesh_train_rank(rank, device, counters, total)
+        rec["train_s"] = time.perf_counter() - t0
+        dist.barrier()
+        rec["gloo_cuda"] = gloo_cuda_probe(device)
+        rec["launches"] = total
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_world() -> list:
+    """Spawn MESH_WORLD ranks of ``mesh_rank`` on the card; every rank
+    must exit 0 within MESH_WORLD_TIMEOUT_S.  Returns their records."""
+    import tempfile
+    import torch.multiprocessing as mp
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, MESH_WORLD, tmp))
+                 for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MESH_WORLD_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = []
+        for r in range(MESH_WORLD):
+            err = Path(tmp) / f"rank{r}.err"
+            if err.exists():
+                errs.append(f"rank {r}:\n{err.read_text()}")
+        codes = [p.exitcode for p in procs]
+        if hung or errs or any(codes):
+            raise AssertionError(f"[mesh] ranks hung {hung}, exit codes "
+                                 f"{codes}\n" + "\n".join(errs))
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(MESH_WORLD)]
+
+
+def mesh_launcher(device, counters) -> dict:
+    """(c): ``launch.train --mesh host`` under torch.distributed.run on 2
+    ranks (ZeRO-1 over a data mesh), preempted after 2 steps with a
+    logical checkpoint, resumed by one process, against an unbroken
+    one-process run (both in this process)."""
+    import os
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    build = ROOT / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ck = ["--ckpt-dir", tmp, "--resume"]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+             "--mesh", "host", *MESH_LAUNCH_ARGS, *ck, "--stop-after", "2"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=MESH_WORLD_TIMEOUT_S)
+        torchrun_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[mesh] torchrun exited {proc.returncode}"
+                                 f"\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        first = {int(s): float(v) for s, v in re.findall(
+            r"step\s+(\d+) loss ([0-9.]+)", proc.stdout)}
+        zero_counters(counters)
+        second = launch_train.run(launch_train.parse_args(
+            [*MESH_LAUNCH_ARGS, *ck]))
+        launches = _nonzero(counters)
+    zero_counters(counters)
+    straight = launch_train.run(launch_train.parse_args(
+        list(MESH_LAUNCH_ARGS)))
+    _add_launches(launches, _nonzero(counters))
+    resumed = {**first, **{s: float(f"{v:.4f}")
+                           for s, v in second["losses"].items()}}
+    want = {s: float(f"{v:.4f}") for s, v in straight["losses"].items()}
+    rel = {s: abs(resumed.get(s, float("nan")) - v) / abs(v)
+           for s, v in want.items()}
+    rec = dict(torchrun_s=torchrun_s, preempted=proc.stdout.count(
+        "[preempt] stopping after 2 steps"), losses_2_ranks=first,
+        losses_resumed=second["losses"], resume_start=second["start"],
+        losses_one_process=straight["losses"], rel_diff=rel,
+        launches=launches)
+    bad = []
+    if rec["preempted"] != 1 or sorted(first) != [0, 1]:
+        bad.append(f"torchrun run: {proc.stdout[-1500:]}")
+    if second["start"] != 2 or sorted(resumed) != [0, 1, 2, 3]:
+        bad.append(f"resume: {second}")
+    if not all(r <= TRAIN_RESUME_RTOL for r in rel.values()):
+        bad.append(f"losses {resumed} vs unbroken {want}")
+    rec["bad"] = bad
+    return rec
+
+
+def mesh_phase(device, counters) -> tuple:
+    """[mesh]: (a) and (b) in a world of MESH_WORLD ranks sharing the
+    card, then (c).  Prints each record; raises on any breach.  Returns
+    (records, launches of every rank and of (c)'s one-process runs)."""
+    from repro_torch.launch.mesh import choose_backend
+    phase("mesh", f"{release_memory():.2f} GB still allocated before the "
+          "ranks start")
+    t0 = time.perf_counter()
+    ranks = mesh_world()
+    world_s = time.perf_counter() - t0
+    launches, bad = {}, []
+    for r in ranks:
+        _add_launches(launches, r["launches"])
+        phase("mesh", f"rank {r['rank']} backend {r['backend']} on "
+              f"{r['device']} ({r['card']}); plan {r['plan_s']:.1f} s, "
+              f"train {r['train_s']:.1f} s; launches "
+              + json.dumps(r["launches"]) + "; gloo on CUDA tensors: "
+              + json.dumps(r["gloo_cuda"]))
+        for name, p in r["plan"].items():
+            phase("mesh", f"plan {name} rank {r['rank']} " + json.dumps(p))
+            if not (p["splits_equal"] and p["servers_equal"]
+                    and max(p["max_rel"].values()) <= U_RTOL):
+                bad.append(f"plan {name} rank {r['rank']}: {p}")
+            if not p["launches_mesh"].get("ligd_sweep"):
+                bad.append(f"plan {name} rank {r['rank']}: no sweep launch")
+        for t in r["train"]:
+            phase("mesh", f"train {t['dtype']} {t['mesh']} rank "
+                  f"{r['rank']} " + json.dumps(t))
+            bad.extend(f"train {t['dtype']} {t['mesh']} rank {r['rank']}: "
+                       f"{b}" for b in t["bad"])
+    want = choose_backend([r["card_uuid"] for r in ranks])
+    if any(r["backend"] != want for r in ranks):
+        bad.append(f"backends {[r['backend'] for r in ranks]}, the cards "
+                   f"the ranks hold call for {want}")
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd", "ligd_sweep"):
+        on = ranks[:2] if name == "ligd_sweep" else ranks
+        if not all(r["launches"].get(name) for r in on):
+            bad.append(f"{name} not launched on every rank that runs it")
+    phase("mesh", f"world of {MESH_WORLD} ranks: {world_s:.1f} s")
+    t0 = time.perf_counter()
+    launcher = mesh_launcher(device, counters)
+    phase("mesh", f"launcher ({time.perf_counter() - t0:.1f} s) "
+          + json.dumps(launcher))
+    bad.extend(f"launcher: {b}" for b in launcher["bad"])
+    _add_launches(launches, launcher["launches"])
+    if bad:
+        raise AssertionError("[mesh]: " + "; ".join(bad))
+    return ranks, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4422,6 +4923,16 @@ def main() -> int:
     _, train_cross_launches = train_cross(device, counters)
     phase("train-cross", f"{time.perf_counter() - t0:.1f} s")
     later_paths += (train_cross_launches,)
+
+    # 8e. the mesh: the sharded static plan and tensor- and data-parallel
+    # training of the dense family in a world of ranks that share the
+    # card (each rank's counts zeroed before each of its runs and read
+    # after it), then the launcher's --mesh host under
+    # torch.distributed.run, resumed by one process ------------------
+    t0 = time.perf_counter()
+    _, mesh_launches = mesh_phase(device, counters)
+    phase("mesh", f"{time.perf_counter() - t0:.1f} s")
+    later_paths += (mesh_launches,)
 
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"

@@ -36,8 +36,12 @@ launch; results cross to the host where the reference forces them: the
 static plan, the admission of the dirty rows (:meth:`_admit_dirty`) and
 the application of a pending replan (:meth:`_apply_one`).
 
-Not ported yet, and raising ``NotImplementedError`` instead: the
-``shard_map`` static path (``env``) — ROADMAP, queue 1, item 8.
+The static plan shards users over a mesh (``env``, a
+``runtime.meshenv.MeshEnv``): when the solve's rows divide the
+data-parallel size, each batch rank solves its contiguous slice of the
+X (or X·K) rows and the ranks gather the results, so every rank ends
+with the whole ``LiGDResult`` (the reference's ``shard_map`` path;
+independent solves, no cross-user reduction).
 """
 from __future__ import annotations
 
@@ -60,10 +64,6 @@ from .ledger import BudgetLedger
 from .ligd import LiGDConfig, LiGDResult, solve_ligd_batch
 from .mligd import MLiGDResult, solve_mligd_batch
 from .mobility import HandoffBatch
-
-SHARDED_DEFERRED = ("the sharded static plan (env / shard_map) is not "
-                    "ported yet: ROADMAP, queue 1, item 8")
-
 
 def _host(a) -> np.ndarray:
     """A result field on the host: one device-to-host copy for a tensor."""
@@ -290,9 +290,11 @@ class MCSAPlanner:
         water-filling greedy assigns servers under the per-server
         budgets; the outcome is kept in ``self.last_admission``.  Any
         in-flight async replan is dropped (a fresh plan supersedes it)
-        and the budget ledger is re-derived from the new table."""
-        if env is not None:
-            raise NotImplementedError(SHARDED_DEFERRED)
+        and the budget ledger is re-derived from the new table.
+
+        ``env``: an optional MeshEnv; when it has more than one batch
+        rank and they divide the solve's rows, the rows are sharded
+        across them (:meth:`_solve_static`)."""
         self._inflight.clear()
         K = self.candidates_k if candidates_k is None else max(
             1, int(candidates_k))
@@ -307,12 +309,28 @@ class MCSAPlanner:
             hops = self.topo.hops[user_aps, servers]
             devs_s = self._device_rows(devices, None, hops)
             edges_s = self._edges_for(servers)
-            res = solve_ligd_batch(self.profile, devs_s, edges_s, self.cfg)
+            res = self._solve_static(devs_s, edges_s, env)
             fleet = FleetState.from_static(servers, res)  # waits for it
             self._update_t_ag(res)
             self.ledger.reset_from_fleet(fleet, self.profile.num_layers)
             return res, servers, fleet
-        return self._plan_admission(devices, user_aps, K)
+        return self._plan_admission(devices, user_aps, K, env)
+
+    def _solve_static(self, devs: dict, edges: dict, env) -> LiGDResult:
+        """One Li-GD solve of every row; with ``env`` of ``dp > 1`` batch
+        ranks dividing the X rows, each rank solves its contiguous X/dp
+        rows and every rank gathers every rank's result (one broadcast
+        from each)."""
+        X = devs["c_dev"].shape[0]
+        if env is None or not env.is_spmd or env.dp <= 1 or X % env.dp:
+            return solve_ligd_batch(self.profile, devs, edges, self.cfg)
+        axis = env.batch()
+        part = solve_ligd_batch(
+            self.profile, {k: env.local_slice(v, 0, axis)
+                           for k, v in devs.items()},
+            {k: env.local_slice(v, 0, axis) for k, v in edges.items()},
+            self.cfg)
+        return LiGDResult(*(env.all_gather(a, 0, axis) for a in part))
 
     def _update_t_ag(self, res: LiGDResult) -> None:
         # Eq. 6/7 feedback: observed per-user strategy time for future CBR.
@@ -320,7 +338,7 @@ class MCSAPlanner:
         self.t_ag_estimate = iters * self.per_iter_time
 
     def _plan_admission(self, devices: Devices, user_aps: np.ndarray,
-                        K: int) -> tuple:
+                        K: int, env=None) -> tuple:
         """Candidate-set static plan: one Li-GD solve per (user, candidate)
         row — user-major tiling, row x·K+k is user x's k-th candidate —
         then water-filling admission under the per-server budgets."""
@@ -347,7 +365,7 @@ class MCSAPlanner:
         dev_rows = self._device_rows(devices, np.repeat(np.arange(X), K),
                                      hops.reshape(-1))
         edge_rows = self._edges_for(cand.reshape(-1))
-        res = solve_ligd_batch(self.profile, dev_rows, edge_rows, self.cfg)
+        res = self._solve_static(dev_rows, edge_rows, env)
         res = LiGDResult(*(_host(a) for a in res))    # waits for the solve
         self._update_t_ag(res)
 

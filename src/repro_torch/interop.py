@@ -23,7 +23,8 @@ from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.configs.chain_cnns import ChainCNNConfig
 from repro_torch.core.costs import LayerProfile
 from repro_torch.core.planner import PLAN_FIELDS, FleetState
-from repro_torch.models.transformer import encoder_cfg
+from repro_torch.models.transformer import encoder_cfg, param_specs
+from repro_torch.runtime.meshenv import MeshEnv, shard_tree
 
 _INT_COLUMNS = ("server", "split", "R")
 
@@ -103,6 +104,17 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
                                             tree["encoder"])
         params["enc_norm"] = _tensor(tree["enc_norm"])
     return params
+
+
+def shard_lm_params(cfg: ModelConfig, tree: dict, env: MeshEnv) -> dict:
+    """One rank's parameters under ``env`` from a logical tree: the
+    reference's ``init_lm`` tree as numpy leaves (its ``stack``
+    unstacked first, :func:`lm_params_from_numpy`) or the port's own
+    (``init_lm(cfg, gen, device, env)``), each leaf cut by
+    :func:`repro_torch.models.transformer.param_specs`."""
+    if "stack" in tree:
+        tree = lm_params_from_numpy(cfg, tree)
+    return shard_tree(tree, param_specs(cfg, env), env)
 
 
 def lm_caches_from_numpy(cfg: ModelConfig, tree: dict) -> list:

@@ -9,8 +9,9 @@ an (E, capacity, d) buffer by the reference's sort-based Switch dispatch
 and assignments past ``capacity`` drop), the experts' SwiGLU runs through
 the fused kernel (:mod:`repro_torch.kernels.moe_gemm`), and each token
 gathers its k expert outputs back, weighted by gate and keep, and sums
-them in float32.  Expert parallelism over a mesh waits for the ROADMAP
-item that maps ``meshenv`` to a ``DeviceMesh``.
+them in float32.  Expert parallelism over a mesh, with the reference's
+capacity rule (global on a pure data mesh, per data shard with tp > 1),
+waits for ROADMAP item 8b.
 
 Two departures, neither of which changes a float32 result: the buffer is
 built with one index write (each kept (expert, rank) pair is unique, so

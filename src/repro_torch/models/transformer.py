@@ -59,6 +59,19 @@ blocks into ``aux``; an encoder-decoder encodes ``src_embeds`` under the
 same remat; and ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, per block where the reference checkpoints
 per superblock: the same arithmetic).
+
+Tensor and data parallelism (``env``, a ``runtime.meshenv.MeshEnv``)
+cover the dense decoder family in :func:`loss_fn` (ROADMAP item 8a):
+each rank holds its slice of every parameter under
+:func:`param_specs` (the reference's rules: q heads, padded to divide
+TP, and k/v heads when they divide it over the model axis; ``wg``/``wu``
+column- and ``wd`` row-parallel; the vocab of ``embed`` and ``unembed``
+over the model axis); attention runs on the local heads, RMSNorm on the
+replicated residual, and ``wo`` and ``wd`` end in an all-reduce over the
+model axis.  The reference's sequence-sharded residual between blocks
+is a GSPMD layout choice that does not change the numbers and is not
+reproduced.  Any other family on a mesh raises
+:class:`NotImplementedError` naming ROADMAP item 8b.
 """
 from __future__ import annotations
 
@@ -75,8 +88,10 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from . import attention as attn_lib
 from .attention import quantize_kv
-from .layers import (apply_mlp, apply_rope, init_attention, init_mlp,
-                     init_norm, param_dtype, rms_norm)
+from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
+from .layers import (apply_mlp, apply_rope, attention_specs, init_attention,
+                     init_mlp, init_norm, kv_sharded, mlp_specs, param_dtype,
+                     rms_norm)
 from .moe import apply_moe, init_moe
 from .rglru import (apply_rglru_decode, apply_rglru_seq, init_rglru,
                     init_rglru_state)
@@ -97,11 +112,34 @@ DECODE_CAPACITY_FACTOR = 2.0
 MOE_AUX_WEIGHT = 0.01
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a layer type the port does not know."""
-    for lt in dict.fromkeys(cfg.layer_types()):
+#: what a mesh other than one process waits for, for a family other
+#: than the dense decoder
+MESH_DEFERRED = ("{}: tensor and data parallelism for this family wait "
+                 "for ROADMAP item 8b (only the dense decoder family runs "
+                 "on a mesh)")
+
+
+def _dense(cfg: ModelConfig) -> bool:
+    """The dense decoder family: global/local attention with a SwiGLU
+    MLP, no experts, no encoder, no frontend."""
+    return (set(cfg.layer_types()) <= {ATTN_GLOBAL, ATTN_LOCAL}
+            and not cfg.num_experts and not cfg.enc_dec and not cfg.frontend)
+
+
+def check_supported(cfg: ModelConfig, env: MeshEnv = CPU_ENV) -> None:
+    """Raise ``ValueError`` for a layer type the port does not know, and
+    ``NotImplementedError`` for a family other than the dense decoder
+    (global/local attention with a SwiGLU MLP, no experts, no encoder,
+    no frontend) on a mesh with ``tp > 1`` or ``dp > 1``, or for the
+    reference's context-parallel attention (ROADMAP item 8b)."""
+    for lt in set(cfg.layer_types()):
         if lt not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6):
             raise ValueError(f"unknown layer type {lt!r}")
+    if (env.tp > 1 or env.dp > 1) and not _dense(cfg):
+        raise NotImplementedError(MESH_DEFERRED.format(cfg.name))
+    if env.context_parallel_attn and env.tp > 1:
+        raise NotImplementedError("context-parallel attention waits for "
+                                  "ROADMAP item 8b")
 
 
 def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -115,13 +153,18 @@ def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
 # Init
 # ===========================================================================
 def init_block(cfg: ModelConfig, gen: torch.Generator, device,
-               layer_type: str = ATTN_GLOBAL, cross: bool = False) -> Params:
+               layer_type: str = ATTN_GLOBAL, cross: bool = False,
+               env: MeshEnv = CPU_ENV) -> Params:
     """One block; ``cross`` adds the decoder's ``ln_cross`` and ``cross``
-    attention (an encoder-decoder stack)."""
+    attention (an encoder-decoder stack).  ``env`` pads an attention
+    block's q heads for its TP size."""
     rwkv = layer_type == RWKV6
-    init_mix = {RWKV6: init_rwkv_time_mix, RGLRU: init_rglru}.get(
-        layer_type, init_attention)
-    p = {"ln1": init_norm(cfg, device), "mix": init_mix(cfg, gen, device)}
+    if layer_type in (RWKV6, RGLRU):
+        init_mix = {RWKV6: init_rwkv_time_mix, RGLRU: init_rglru}[layer_type]
+        mix = init_mix(cfg, gen, device)
+    else:
+        mix = init_attention(cfg, gen, device, env=env)
+    p = {"ln1": init_norm(cfg, device), "mix": mix}
     if cross:
         p["ln_cross"] = init_norm(cfg, device)
         p["cross"] = init_attention(cfg, gen, device, cross=True)
@@ -135,17 +178,21 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device,
     return p
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
+def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None,
+            env: MeshEnv = CPU_ENV) -> Params:
     """Random parameters from ``gen`` (drawn on the generator's device,
     then moved to ``device``, default the generator's): embeddings
     Normal(0, 1/d_model), projections Normal(0, 1/fan_in), norms zero.
     An encoder-decoder config also gets ``encoder`` (one block per
     encoder layer) and ``enc_norm``, and cross attention in every
-    decoder block."""
-    check_supported(cfg)
+    decoder block.  These are the logical (whole) parameters for
+    ``env``: the vocab padded to lcm(tp, 128) and the q heads padded for
+    its TP size, as the reference's ``init_lm`` pads them; a rank's own
+    slice is ``interop.shard_lm_params`` of them."""
+    check_supported(cfg, env)
     device = gen.device if device is None else torch.device(device)
     dt = param_dtype(cfg)
-    Vp = padded_vocab(cfg.vocab_size)
+    Vp = padded_vocab(cfg.vocab_size, env.tp)
     scale = 1.0 / math.sqrt(cfg.d_model)
 
     def table(shape):
@@ -156,7 +203,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
     params: Params = {"embed": table((Vp, cfg.d_model)),
                       "final_norm": init_norm(cfg, device),
                       "layers": [init_block(cfg, gen, device, lt,
-                                            cross=cfg.enc_dec)
+                                            cross=cfg.enc_dec, env=env)
                                  for lt in cfg.layer_types()]}
     if not cfg.tie_embeddings:
         params["unembed"] = table((cfg.d_model, Vp))
@@ -168,26 +215,88 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
     return params
 
 
+def block_specs(cfg: ModelConfig, env: MeshEnv) -> dict:
+    """The reference's specs of one dense block, global or local
+    (``init_block``)."""
+    return {"ln1": P(None), "mix": attention_specs(cfg, env),
+            "ln2": P(None), "ffn": mlp_specs(cfg, env)}
+
+
+def param_specs(cfg: ModelConfig, env: MeshEnv) -> Params:
+    """The reference's ``PartitionSpec`` of every parameter of the dense
+    family under ``env``, in the port's tree (``layers`` one block
+    each, where the reference stacks its scan blocks): ``embed`` P("model", None), ``unembed`` P(None, "model"),
+    norms replicated, attention and MLP as ``models.layers`` says.  Other
+    families raise (ROADMAP item 8b)."""
+    if not _dense(cfg):
+        raise NotImplementedError(MESH_DEFERRED.format(cfg.name))
+    specs = {"embed": P("model", None), "final_norm": P(None),
+             "layers": [block_specs(cfg, env)
+                        for _ in range(cfg.num_layers)]}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, "model")
+    return specs
+
+
 # ===========================================================================
 # Attention block
 # ===========================================================================
+def _local_kv_heads(cfg: ModelConfig, env: MeshEnv, hq_local: int,
+                    device) -> torch.Tensor:
+    """The kv heads this rank's q heads read when k/v are replicated:
+    q head h (global, of the padded count) reads kv head h // rep.  The
+    local q heads cover whole groups, sit inside one group, or (neither)
+    take one kv head each."""
+    hq_pad = hq_local * env.tp
+    rep = hq_pad // cfg.num_kv_heads
+    first = env.axis_index(env.model_axis) * hq_local
+    if hq_local % rep == 0:
+        heads = torch.arange(first // rep, (first + hq_local) // rep)
+    elif rep % hq_local == 0:
+        heads = torch.tensor([first // rep])
+    else:
+        heads = (first + torch.arange(hq_local)) // rep
+    return heads.to(device)
+
+
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
-                 layer_type: str):
+                 layer_type: str, env: MeshEnv = CPU_ENV):
     """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE'd
-    with the local base for a sliding-window block."""
+    with the local base for a sliding-window block.
+
+    With ``env.tp > 1`` the q heads (and k/v heads, when they divide TP)
+    are this rank's; replicated k/v are cut to the heads the local q
+    heads read.  A replicated tensor that only part of each rank's
+    computation uses (x, replicated wk/wv, the qk-norm weights) enters
+    through ``psum_grad``, so its gradient is the sum over the model
+    axis."""
     B, S, d = x.shape
+    wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    tp = env.tp > 1
+    if tp:
+        model = env.model_axis
+        x = env.psum_grad(x, model)
+        if not kv_sharded(cfg, env):
+            wk, wv = env.psum_grad(wk, model), env.psum_grad(wv, model)
+        if cfg.qk_norm:
+            q_norm = env.psum_grad(q_norm, model)
+            k_norm = env.psum_grad(k_norm, model)
 
     def proj(w):
         return (x @ w.reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
 
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = proj(p["wq"]), proj(wk), proj(wv)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     theta = (cfg.rope_theta_local if layer_type == ATTN_LOCAL
              else cfg.rope_theta)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    if tp and not kv_sharded(cfg, env):
+        heads = _local_kv_heads(cfg, env, q.shape[2], k.device)
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
     return q, k, v
 
 
@@ -234,7 +343,7 @@ def _kv_rows(k: torch.Tensor, v: torch.Tensor, kv_quant: bool,
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     mode: str, positions, cache: Optional[dict],
                     cache_len: int = 0, layer_type: str = ATTN_GLOBAL,
-                    kv_quant: bool = False):
+                    kv_quant: bool = False, env: MeshEnv = CPU_ENV):
     """x (B, S, d) normalised input -> (out (B, S, d), cache).
 
     mode ``prefill``: positions (B, S); returns a new cache: for a global
@@ -247,7 +356,9 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     mode ``encode``: non-causal attention over the whole sequence (the
     encoder), no cache.
     mode ``train``: causal attention over the whole sequence (windowed
-    on a local layer), no cache."""
+    on a local layer), no cache; with ``env.tp > 1`` on this rank's
+    heads (:func:`_project_qkv`), the output summed over the model
+    axis."""
     B, S, d = x.shape
     W = cfg.window_size if layer_type == ATTN_LOCAL else 0
     if mode == "decode":
@@ -263,7 +374,7 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                                         v_scale=cache.get("v_scale"))
         new_cache = cache
     elif mode in ("prefill", "encode", "train"):
-        q, k, v = _project_qkv(cfg, p, x, positions, layer_type)
+        q, k, v = _project_qkv(cfg, p, x, positions, layer_type, env)
         out = flash_ops.flash_attention(q, k, v, causal=mode != "encode",
                                         window=W)
         new_cache = None
@@ -276,6 +387,8 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                          "'train'")
     Hq, hd = p["wo"].shape[:2]
     out = out.reshape(B, S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
+    if env.tp > 1:
+        out = env.psum(out, env.model_axis)
     return out, new_cache
 
 
@@ -309,7 +422,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
                 layer_type: str = ATTN_GLOBAL,
                 capacity_factor: float = CAPACITY_FACTOR,
                 kv_memory: Optional[torch.Tensor] = None,
-                kv_quant: bool = False):
+                kv_quant: bool = False, env: MeshEnv = CPU_ENV):
     """Residual block: the mixer (attention, RWKV-6 time mix or RG-LRU),
     in a decoder block with ``cross`` then cross attention to the encoder
     output (its k/v built from ``kv_memory`` at prefill, read from the
@@ -343,7 +456,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
                                          positions=positions, cache=cache,
                                          cache_len=cache_len,
                                          layer_type=layer_type,
-                                         kv_quant=kv_quant)
+                                         kv_quant=kv_quant, env=env)
     h = h + out
     if "cross" in p:
         cross = (cache["cross"] if mode == "decode"
@@ -359,7 +472,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
                                  capacity_factor=capacity_factor)
         aux = torch.mean(aux_tok)
     else:
-        out = apply_mlp(p["ffn"], x)
+        out = apply_mlp(p["ffn"], x, env=env)
     if mode == "train":
         return h + out, _no_aux(h) if aux is None else aux
     return h + out, new_cache
@@ -374,7 +487,8 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
                 cache_len: int = 0, lo: int = 0, hi: Optional[int] = None,
                 capacity_factor: float = CAPACITY_FACTOR,
                 kv_memory: Optional[torch.Tensor] = None,
-                kv_quant: bool = False, remat: bool = False):
+                kv_quant: bool = False, remat: bool = False,
+                env: MeshEnv = CPU_ENV):
     """Blocks [lo, hi) (default: all).  ``caches`` holds one cache per
     block of the range (decode); returns (h, caches of the range), or in
     mode ``train`` (h, aux): the blocks' MoE aux losses summed in block
@@ -397,7 +511,7 @@ def apply_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
             apply_block, cfg, params["layers"][i], mode=mode,
             positions=positions, cache=c, cache_len=cache_len,
             layer_type=types[i], capacity_factor=capacity_factor,
-            kv_memory=kv_memory, kv_quant=kv_quant)
+            kv_memory=kv_memory, kv_quant=kv_quant, env=env)
         h, nc = (checkpoint(block, h, use_reentrant=False) if remat
                  else block(h))
         if aux is not None:
@@ -457,9 +571,9 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device,
 # ===========================================================================
 # Top-level model functions
 # ===========================================================================
-def _embed_tokens(cfg: ModelConfig, params: Params,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    h = embed_lookup(params["embed"], tokens)
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  env: MeshEnv = CPU_ENV) -> torch.Tensor:
+    h = embed_lookup(params["embed"], tokens, env=env)
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
 
 
@@ -468,12 +582,12 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
-def _assemble_inputs(cfg: ModelConfig, params: Params,
-                     batch: dict) -> torch.Tensor:
+def _assemble_inputs(cfg: ModelConfig, params: Params, batch: dict,
+                     env: MeshEnv = CPU_ENV) -> torch.Tensor:
     """The reference's ``_assemble_inputs``: the scaled token embeddings,
     with a VLM's ``patch_embeds`` (B, P, d) prepended (cast to their
     dtype) when ``cfg.frontend == "vit"``."""
-    h = _embed_tokens(cfg, params, batch["tokens"])
+    h = _embed_tokens(cfg, params, batch["tokens"], env)
     if cfg.frontend == "vit" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(device=h.device, dtype=h.dtype)
         h = torch.cat([pe, h], dim=1)
@@ -505,7 +619,8 @@ def head(cfg: ModelConfig, params: Params, h: torch.Tensor):
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
             remat: bool = True,
-            capacity_factor: float = CAPACITY_FACTOR) -> tuple:
+            capacity_factor: float = CAPACITY_FACTOR,
+            env: MeshEnv = CPU_ENV) -> tuple:
     """batch = {"tokens": (B, S), "labels": (B, S)}, with ``"patch_embeds"``
     (B, P, d) for a ``vit`` frontend (prepended; its positions are
     cropped before the loss) and ``"src_embeds"`` (B, Ss, d) for an
@@ -515,23 +630,26 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
     without experts), with ``total = loss + MOE_AUX_WEIGHT * aux``, as the
     reference's ``loss_fn``.  ``remat`` recomputes each block, the
     encoder's included, in the backward.  ``capacity_factor`` is the
-    MoE's."""
-    check_supported(cfg)
+    MoE's.  With a tensor-parallel ``env`` (dense family only),
+    ``params`` are this rank's slices (:func:`param_specs`) and every
+    rank of a model group returns the same loss; ``batch`` is this
+    rank's rows, and the loss their mean."""
+    check_supported(cfg, env)
     kv_memory = (_encode(cfg, params, batch["src_embeds"], remat=remat)
                  if cfg.enc_dec else None)
-    h = _assemble_inputs(cfg, params, batch)
+    h = _assemble_inputs(cfg, params, batch, env)
     offset = h.shape[1] - batch["tokens"].shape[1]
     h, aux = apply_stack(cfg, params, h, mode="train",
                          positions=_positions(h), remat=remat,
                          capacity_factor=capacity_factor,
-                         kv_memory=kv_memory)
+                         kv_memory=kv_memory, env=env)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if offset:
         h = h[:, offset:]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     tok_loss = fused_unembed_xent(h, table, batch["labels"],
                                   transpose_table=cfg.tie_embeddings,
-                                  valid_vocab=cfg.vocab_size)
+                                  valid_vocab=cfg.vocab_size, env=env)
     loss = tok_loss.mean()
     return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
 
@@ -569,8 +687,9 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos,
     return logits, nxt, caches
 
 
-__all__ = ["MOE_AUX_WEIGHT", "Params", "apply_attention", "apply_block",
-           "apply_cross_attention", "apply_stack", "check_supported",
-           "cross_kv", "decode_step", "encoder_cfg",
-           "head", "init_block", "init_caches", "init_layer_cache",
-           "init_lm", "loss_fn", "prefill"]
+__all__ = ["MESH_DEFERRED", "MOE_AUX_WEIGHT", "Params", "apply_attention",
+           "apply_block", "apply_cross_attention", "apply_stack",
+           "block_specs", "check_supported", "cross_kv", "decode_step",
+           "encoder_cfg", "head", "init_block", "init_caches",
+           "init_layer_cache", "init_lm", "loss_fn", "param_specs",
+           "prefill"]

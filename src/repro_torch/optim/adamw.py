@@ -63,11 +63,13 @@ def _f32(x) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamWState, params,
-           lr_scale=1.0):
+           lr_scale=1.0, grad_norm=None):
     """One AdamW step, in place (module docstring).  ``grads`` mirrors
     ``params``; ``lr_scale`` (a float or a () tensor) multiplies
-    ``cfg.lr``.  Returns (params, new state, {"grad_norm"})."""
-    gnorm = global_norm(grads)
+    ``cfg.lr``.  ``grad_norm``, when given, is the norm the clip uses in
+    place of ``global_norm(grads)``: a mesh's, whose ``grads`` are one
+    rank's slices.  Returns (params, new state, {"grad_norm"})."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0)
     step = state.step + 1

@@ -1,9 +1,11 @@
 """The training runtime of the port: the train step, the deterministic
-data stream, checkpoints and gradient compression."""
-from . import checkpoint, compression, data, train
-from .data import DataConfig, StragglerAwareDispatcher, batch_at
-from .train import TrainConfig, make_train_step
+data stream, checkpoints, gradient compression and the mesh.
 
-__all__ = ["DataConfig", "StragglerAwareDispatcher", "TrainConfig",
-           "batch_at", "checkpoint", "compression", "data",
-           "make_train_step", "train"]
+The train step is ``repro_torch.runtime.train``, imported by name: it
+imports the models, whose modules import ``runtime.meshenv``, so this
+package does not load it."""
+from . import checkpoint, compression, data
+from .data import DataConfig, StragglerAwareDispatcher, batch_at
+
+__all__ = ["DataConfig", "StragglerAwareDispatcher", "batch_at",
+           "checkpoint", "compression", "data"]

@@ -17,6 +17,14 @@ manifest's dtype list.  ``TrainState.rng`` is the state of a
 ``torch.Generator`` (``get_state()``, a uint8 tensor), the counterpart
 of the reference's PRNG key.  ``restore`` puts each leaf on the device
 and in the dtype of the example state's leaf.
+
+On a mesh (``env`` and ``specs``, the spec tree of ``{"params",
+"opt_state"}``), the leaves are logical: ``save`` gathers each leaf's
+pieces (every rank of the mesh calls it), the mesh's first rank writes,
+and every rank waits for the commit; ``restore`` reads the logical
+leaves and cuts each rank's piece for the *current* env.  So a
+checkpoint from data 2 x model 2 resumes on data 1 x model 2, or on one
+process (``runtime/elastic.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch._tree import leaves, unflatten
+from .meshenv import CPU_ENV, MeshEnv, unshard_tree
 
 
 @dataclasses.dataclass
@@ -60,15 +69,30 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:010d}")
 
 
-def save(ckpt_dir: str, state: TrainState, *, retain: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save(ckpt_dir: str, state: TrainState, *, retain: int = 3,
+         env: MeshEnv = CPU_ENV, specs=None) -> str:
+    """Commit ``state`` as step ``state.step``; on a mesh, its logical
+    leaves under ``specs`` (module docstring)."""
     final = _step_dir(ckpt_dir, state.step)
+    tree = {"params": state.params, "opt_state": state.opt_state}
+    if env.is_spmd:
+        tree = unshard_tree(tree, specs, env)
+        if not env.is_first:
+            env.barrier()                       # the first rank commits
+            return final
+    _write(ckpt_dir, final, state, leaves(tree), retain)
+    env.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, state: TrainState, flat: list,
+           retain: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    flat = leaves({"params": state.params, "opt_state": state.opt_state})
     arrays, dtypes = {}, []
     for i, x in enumerate(flat):
         a, dt = _to_numpy(torch.as_tensor(x))
@@ -89,7 +113,6 @@ def save(ckpt_dir: str, state: TrainState, *, retain: int = 3) -> str:
 
     for old in list_steps(ckpt_dir)[:-retain]:
         shutil.rmtree(_step_dir(ckpt_dir, old), ignore_errors=True)
-    return final
 
 
 def list_steps(ckpt_dir: str) -> list:
@@ -105,9 +128,11 @@ def list_steps(ckpt_dir: str) -> list:
     return sorted(out)
 
 
-def _try_load(path: str, example: TrainState) -> Optional[TrainState]:
-    """The checkpoint at ``path`` on ``example``'s devices and dtypes, or
-    None if it is unreadable or does not fit ``example``."""
+def _try_load(path: str, example: TrainState, env: MeshEnv = CPU_ENV,
+              specs=None) -> Optional[TrainState]:
+    """The checkpoint at ``path`` on ``example``'s devices and dtypes
+    (each logical leaf cut to this rank's piece on a mesh), or None if
+    it is unreadable or does not fit ``example``."""
     try:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -116,9 +141,12 @@ def _try_load(path: str, example: TrainState) -> Optional[TrainState]:
         refs = leaves(tree)
         if manifest["num_leaves"] != len(refs):
             return None
+        cuts = leaves(specs) if env.is_spmd else [None] * len(refs)
         out = []
         for i, ref in enumerate(refs):
             t = _from_numpy(data[f"leaf_{i}"], manifest["dtypes"][i])
+            if cuts[i] is not None:
+                t = env.shard(t, cuts[i]).contiguous()
             ref = torch.as_tensor(ref)
             if tuple(t.shape) != tuple(ref.shape):
                 return None
@@ -133,11 +161,14 @@ def _try_load(path: str, example: TrainState) -> Optional[TrainState]:
         return None
 
 
-def restore(ckpt_dir: str, example: TrainState) -> Optional[TrainState]:
+def restore(ckpt_dir: str, example: TrainState, *, env: MeshEnv = CPU_ENV,
+            specs=None) -> Optional[TrainState]:
     """Restore the newest COMPLETE checkpoint, skipping corrupt ones;
-    None when there is none."""
+    None when there is none.  On a mesh, each logical leaf is cut for
+    ``env`` under ``specs`` (the spec tree of ``{"params",
+    "opt_state"}``) and must then fit ``example``'s local leaf."""
     for step in reversed(list_steps(ckpt_dir)):
-        state = _try_load(_step_dir(ckpt_dir, step), example)
+        state = _try_load(_step_dir(ckpt_dir, step), example, env, specs)
         if state is not None:
             return state
     return None

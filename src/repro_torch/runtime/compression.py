@@ -2,14 +2,21 @@
 
 The port of the JAX package's ``repro/runtime/compression.py``:
 ``quantize_int8`` / ``dequantize_int8`` with one float32 scale per
-block of 256 values.  ``compressed_pod_mean`` (the error-feedback mean
-over a ``pod`` mesh axis) waits for the mesh."""
+block of 256 values, and ``compressed_pod_mean``, the error-feedback
+mean over a ``pod`` mesh axis:
+
+    q = quantize_int8(g_local + error)
+    g_hat = mean over pods of dequantize(every pod's q)   # int8 on the wire
+    error' = (g_local + error) - dequantize(q)
+"""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch._tree import leaves, unflatten
 
 BLOCK = 256
 
@@ -42,7 +49,29 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape,
 
 
 def compressed_pod_mean(env, grads, errors):
-    """The int8, error-feedback mean of gradients over a ``pod`` mesh
-    axis: it needs the mesh."""
-    raise NotImplementedError("compressed_pod_mean waits for ROADMAP item "
-                              "8 (the mesh)")
+    """Mean gradients across the pod axis with int8 + error feedback.
+
+    grads/errors: trees of this rank's pod-local gradients and its
+    float32 error carried from the last call.  Each rank's codes and
+    scales go to every pod rank (one ``all_gather`` each), and the mean
+    is summed in pod order, as the reference sums its all-gather.
+    Returns (mean_grads, new_errors); the identity when the mesh has no
+    ``pod`` axis."""
+    if env is None or not env.is_spmd or "pod" not in env.shape:
+        return grads, errors
+    npods = env.shape["pod"]
+
+    def leaf_fn(g, e):
+        shape, dtype = g.shape, g.dtype
+        corrected = g.float() + e
+        q, scale = quantize_int8(corrected)
+        new_e = corrected - dequantize_int8(q, scale, shape)
+        total = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        for qp, sp in zip(env.gather_parts(q, "pod"),
+                          env.gather_parts(scale, "pod")):
+            total = total + dequantize_int8(qp, sp, shape)
+        return (total / npods).to(dtype), new_e
+
+    out = [leaf_fn(g, e) for g, e in zip(leaves(grads), leaves(errors))]
+    return (unflatten(grads, [o[0] for o in out]),
+            unflatten(grads, [o[1] for o in out]))

@@ -312,17 +312,24 @@ def _planner(**kw):
                                   "faulted_topology", "env",
                                   "run_baseline", "autodiff"])
 def test_deferred_paths_raise(case):
-    """The sharded plan still raises (ROADMAP, queue 1, item 8).  K > 1,
-    budgets, a fault step, a faulted topology, ``run_baseline`` and the
-    autodiff oracle were deferred until admission, faults, the baselines
-    and the oracle were ported: they now plan, with finite tables.  The
-    oracle's plan is the fused sweep's to ``torch_diff``'s tolerances
-    (split exact outside named near-ties, B, r and U to 1e-4)."""
+    """K > 1, budgets, a fault step, a faulted topology, an ``env``,
+    ``run_baseline`` and the autodiff oracle were deferred until
+    admission, faults, the mesh, the baselines and the oracle were
+    ported: they now plan, with finite tables.  A one-rank env plans
+    exactly as no env does (the sharded plans are in
+    ``tests/test_torch_mesh_plan.py``).  The oracle's plan is the fused
+    sweep's to ``torch_diff``'s tolerances (split exact outside named
+    near-ties, B, r and U to 1e-4)."""
     dev = tcosts.DeviceFleet(c_dev=np.full(8, 4e9))
     aps = np.arange(8) % 16
     if case == "env":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _planner().plan_static(dev, aps, env=object())
+        from repro_torch.runtime.meshenv import make_env
+        one_rank = make_env({"data": 1, "model": 1})
+        assert one_rank.is_spmd and one_rank.dp == 1
+        want = _planner().plan(dev, aps)
+        got = _planner().plan(dev, aps, env=one_rank)
+        for f in tplanner.PLAN_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
         return
     if case == "autodiff":
         dev = tcosts.DeviceFleet(

@@ -245,11 +245,6 @@ def test_quantize_int8_matches_reference(shape):
     assert np.abs(back.numpy() - x).max() <= ts.max().item() / 2 + 1e-6
 
 
-def test_compressed_pod_mean_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_comp.compressed_pod_mean(None, {}, {})
-
-
 # ---------------------------------------------------------------------------
 # the launcher and the example, as a user runs them
 # ---------------------------------------------------------------------------
@@ -280,11 +275,6 @@ def test_launcher_preempts_resumes_and_matches_straight_through(tmp_path):
     resumed = {**_losses(first), **_losses(second)}
     assert resumed == {s: float(f"{v:.4f}")
                        for s, v in straight["losses"].items()}
-
-
-def test_launcher_mesh_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_launch.main(["--device", "cpu", "--mesh", "host", "--steps", "1"])
 
 
 def test_example_trains_preempts_and_resumes(capsys):

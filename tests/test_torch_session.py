@@ -192,6 +192,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.optim, repro_torch.launch.train\n"
         "import repro_torch.runtime.checkpoint, repro_torch.runtime.data\n"
         "import repro_torch.runtime.compression\n"
+        "import repro_torch.runtime.meshenv, repro_torch.runtime.elastic\n"
+        "import repro_torch.launch.mesh\n"
         "from repro_torch.runtime import train as rt\n"
         "cfg = reduced(get_config('starcoder2-3b'), layers=2)\n"
         "params = init_lm(cfg, torch.Generator().manual_seed(0))\n"

@@ -191,14 +191,6 @@ def test_fused_unembed_xent_matches_reference(tied):
     np.testing.assert_allclose(np_of(got), np.asarray(want), rtol=1e-5)
 
 
-def test_fused_unembed_xent_vocab_sharded_waits_for_the_mesh():
-    h = torch.zeros((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_sharded.fused_unembed_xent(h, torch.zeros((4, 128)),
-                                     torch.zeros((1, 2), dtype=torch.long),
-                                     transpose_table=False, tp=2)
-
-
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "internvl2-1b"])
 def test_train_step_trajectory_matches_reference(arch):
     """4 AdamW steps from the same weights on the reference's batches,
