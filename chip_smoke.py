@@ -101,13 +101,20 @@ card, over its main paths.
   FileStore rendezvous; no rank builds a kernel) run (a) the static
   plan of megafleet_100k (100,000 users, 50,000 a rank) and of
   capacitated_k3 (K 3) on a data-2 mesh against the one-process plan,
-  and (b) full-width starcoder2-3b cut to 4 of its 30 layers, B 4 x S
+  and (b) full-width starcoder2-3b cut to 2 of its 30 layers, B 4 x S
   1024, on model 2, data 2 and data 2 x model 2 meshes (ZeRO-1) in
   float32 and on data 2 x model 2 in bfloat16, two steps each against
-  the one-process steps from the same weights; then (c) ``launch.train
-  --mesh host`` under ``torch.distributed.run`` (2 ranks) preempted and
-  resumed by one process against an unbroken run.  Ranks sharing one
-  card show the sharded paths, not multi-card speed or memory.
+  the one-process steps from the same weights, and (d) every other
+  family at its published widths, depth cut, two float32 steps each
+  against the one-process steps (MESH_FAMILY_CASES: granite-moe on a
+  data 2 mesh under the global capacity rule and on data 2 x model 2
+  with expert parallelism; rwkv6-3b, recurrentgemma-9b and
+  seamless-m4t on data 2 x model 2; internvl2-1b with its patch prefix
+  on model 4); then (c) ``launch.train --mesh host`` under
+  ``torch.distributed.run`` (2 ranks) for qwen3-8b's and
+  granite-moe's 100m members, preempted and resumed by one process
+  against an unbroken run.  Ranks sharing one card show the sharded
+  paths, not multi-card speed or memory.
 
     python3 chip_smoke.py
 
@@ -3859,10 +3866,11 @@ def plain_version_calls():
 
 
 def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
-                            src_len: int = 0) -> dict:
+                            src_len: int = 0, moe_rows: int = 0) -> dict:
     """The kernel launches (the non-zero counts of ``kernel_counters``)
     that one ``loss_fn`` forward and backward makes for ``cfg`` at batch
     B x S tokens (an encoder-decoder's source ``src_len`` frames, S if
+    0; an MoE's buffer ``moe_rows`` rows an expert, capacity_for(B·S) if
     0): each block's kernels forward twice under ``remat`` (its own run
     and the recompute) and backward once, the encoder's too, with each
     body's count (attention's tensor cores for bf16, forward and
@@ -3922,7 +3930,8 @@ def train_launches_per_step(cfg, B: int, S: int, remat: bool = True,
                 attention(c)
                 norms(1)
             if c.num_experts:
-                cap = capacity_for(B * length, c, CAPACITY_FACTOR)
+                cap = moe_rows or capacity_for(B * length, c,
+                                               CAPACITY_FACTOR)
                 add("moe_swiglu", f)
                 add("moe_swiglu_" + mk.body_for(dt, cap, c.d_model, c.d_ff),
                     f)
@@ -4184,8 +4193,8 @@ def train_cross(device, counters) -> tuple:
     return rec, launches
 
 
-#: [mesh]: tensor and data parallelism of the dense family and the
-#: sharded static plan, run by MESH_WORLD ranks that share card 0 (so
+#: [mesh]: tensor and data parallelism of every family and the sharded
+#: static plan, run by MESH_WORLD ranks that share card 0 (so
 #: init_world picks gloo: NCCL refuses two ranks on one device),
 #: spawned after every library is built, meeting through a FileStore;
 #: every collective, and the world, end within these
@@ -4197,16 +4206,17 @@ MESH_WORLD_TIMEOUT_S = 480.0
 #: rank), against the one-process plan on the same card: splits and
 #: servers equal, B, r, U, T, E, C within U_RTOL
 MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
-#: (b) full-width starcoder2-3b cut to 4 of its 30 layers, TRAIN_BATCH x
-#: TRAIN_SEQ tokens, remat, MESH_STEPS AdamW steps on each mesh, against
-#: the one-process steps on the same card from the same weights and
+#: (b) full-width starcoder2-3b cut to 2 of its 30 layers (so that (d)
+#: fits in the run's time), TRAIN_BATCH x TRAIN_SEQ tokens, remat,
+#: MESH_STEPS AdamW steps on each mesh, against the one-process steps
+#: on the same card from the same weights and
 #: batches: float32 at TRAIN_CROSS_* (the loss; every gradient leaf and,
 #: by the triangle inequality, grad_norm at TRAIN_CROSS_GRAD_RMS; every
 #: leaf's change over the steps at TRAIN_CROSS_UPDATE_RMS) on every mesh
 #: of MESH_SHAPES, bfloat16 at MESH_BF16_* on the last (both axes at
 #: once).  Gloo stages every collective through the host at about 1 GB/s
 #: here, so a data-parallel float32 step takes 5-9 s (PR 28's first run)
-MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 4, 2
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 2, 2
 MESH_SHAPES = (("model 2", (1, 2)), ("data 2", (2, 1)),
                ("data 2 x model 2", (2, 2)))
 MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
@@ -4215,8 +4225,9 @@ MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
 #: by at most 2^-8 relative (RMS about 2.3e-3); each row-parallel output
 #: (wo, wd) adds about two roundings (each rank's partial sum, the
 #: all-reduce), so the residual of 4 blocks drifts by about 2.3e-3 x 2 x
-#: sqrt(8) = 1.3e-2 relative; per-token logit noise of that size moves
-#: the mean loss of 4096 tokens by about 2e-5 relative (1e-3 allowed);
+#: sqrt(8) = 1.3e-2 relative (the 2 run here, MESH_TRAIN_LAYERS, less);
+#: per-token logit noise of that size moves the mean loss of 4096
+#: tokens by about 2e-5 relative (1e-3 allowed);
 #: gradients carry it plus one rounding of each rank's half-batch
 #: gradient (5e-2 allowed in error RMS, and grad_norm with it); AdamW's
 #: first step moves an element by lr x sign(g), so a fraction of about
@@ -4230,6 +4241,35 @@ MESH_BF16_UPDATE_RMS = 0.4
 #: and resumed by one process, each loss against an unbroken
 #: one-process run within TRAIN_RESUME_RTOL
 MESH_LAUNCH_ARGS = ("--size", "100m", "--steps", "4", "--ckpt-every", "2")
+#: (c) again for an MoE (the global capacity rule of a data mesh), the
+#: two torchrun worlds started together
+MESH_LAUNCH_ARCHS = ("qwen3-8b", "granite-moe-1b-a400m")
+#: (d) every other family at its published widths on a mesh, depth cut
+#: (label, config, layers kept (an encoder-decoder's encoder too),
+#: (data, model), batch, sequence): the shapes of its [train-*] phase
+#: (internvl2-1b, which has none: [serve-vlm]'s 4 x (256 patches + 768
+#: tokens)).  Each runs MESH_STEPS float32 AdamW steps on the mesh from
+#: the same weights (init_lm for the mesh, cut by shard_lm_params) and
+#: batches as a one-process run on the card, held at TRAIN_CROSS_*
+#: (loss, aux, grad_norm, the step-1 gradient of every leaf, every
+#: leaf's change).  The one-process run goes first, on rank 0 while the
+#: others wait; its results stay on the host and the card is freed
+#: before the ranks start.  At data 2 x model 2 an MoE's capacity and
+#: aux are per data shard: its one-process run takes each shard's rows
+#: through the one-process path (a shard's capacity) and averages the
+#: gradients and metrics.  Assignments that the capacity rule (factor
+#: 1.25) drops are counted and printed
+MESH_FAMILY_CASES = (
+    ("granite-moe data 2", "granite-moe-1b-a400m", 4, (2, 1), 4, 1024),
+    ("granite-moe data 2 x model 2", "granite-moe-1b-a400m", 4, (2, 2), 4,
+     1024),
+    ("rwkv6-3b data 2 x model 2", "rwkv6-3b", 4, (2, 2), 4, 1024),
+    ("recurrentgemma-9b data 2 x model 2", "recurrentgemma-9b", 3, (2, 2),
+     2, 2560),
+    ("seamless-m4t data 2 x model 2", "seamless-m4t-large-v2", 2, (2, 2),
+     4, 1024),
+    ("internvl2-1b model 4", "internvl2-1b", 4, (1, 4), 4, 1024),
+)
 
 
 def _mesh_tolerances(dtn: str) -> tuple:
@@ -4464,6 +4504,357 @@ def mesh_train_rank(rank: int, device, counters, total: dict) -> list:
     return out
 
 
+def _family_cfg(arch: str, layers: int):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = dict(num_layers=layers, dtype="float32")
+    if cfg.enc_dec:
+        kw["num_enc_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def _family_batches(cfg, B: int, S: int, device) -> list:
+    from repro_torch.runtime.data import DataConfig, batch_at
+    dcfg = DataConfig(seed=0, seq_len=S, global_batch=B)
+    return [batch_at(cfg, dcfg, s, device) for s in range(MESH_STEPS)]
+
+
+@contextlib.contextmanager
+def first_grads():
+    """Keep the gradients of the first ``runtime.train.loss_and_grads``
+    call in a ``with`` block (a train step's, so no extra backward).
+    Yields a list that holds them after that call."""
+    from repro_torch.runtime import train as train_mod
+    inner, kept = train_mod.loss_and_grads, []
+
+    def spy(*a, **kw):
+        out = inner(*a, **kw)
+        if not kept:
+            kept.append(out[2])
+        return out
+
+    train_mod.loss_and_grads = spy
+    try:
+        yield kept
+    finally:
+        train_mod.loss_and_grads = inner
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count, for each call of ``models.moe._moe_local`` in a ``with``
+    block, the token-expert assignments that its capacity rule drops
+    (the router's top-k of the call's own inputs; on a data mesh each
+    expert's earlier data ranks' assignments counted first, as the call
+    does).  Yields the list of (assignments, dropped) per call."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    inner, seen = moe_mod._moe_local, []
+
+    def spy(x_flat, router, *a, num_experts, top_k, capacity, **kw):
+        with torch.no_grad():
+            idx = torch.topk(x_flat.float() @ router, top_k,
+                             dim=-1).indices.reshape(-1)
+            counts = torch.zeros((num_experts,), dtype=idx.dtype,
+                                 device=idx.device).index_add_(
+                0, idx, torch.ones_like(idx))
+            before = torch.zeros_like(counts)
+            axis, env = kw.get("data_axis"), kw.get("env")
+            if axis is not None:
+                parts = env.gather_parts(counts, axis)
+                i = env.axis_index(axis)
+                if i:
+                    before = torch.stack(parts[:i]).sum(dim=0)
+            kept = torch.minimum(torch.clamp(capacity - before, min=0),
+                                 counts)
+            seen.append((int(idx.numel()), int((counts - kept).sum())))
+        return inner(x_flat, router, *a, num_experts=num_experts,
+                     top_k=top_k, capacity=capacity, **kw)
+
+    moe_mod._moe_local = spy
+    try:
+        yield seen
+    finally:
+        moe_mod._moe_local = inner
+
+
+def _drops_per_step(seen: list, cfg, passes: int = 1) -> list:
+    """Each step's (assignments, dropped) of its forward: remat routes
+    every block twice a pass (the forward and its recompute, the same
+    inputs), so the first num_layers calls of each 2·num_layers, summed
+    over the step's ``passes`` (a one-process run of each data shard's
+    rows: one pass a shard)."""
+    n = cfg.num_layers if cfg.num_experts else 0
+    if not n:
+        return []
+    per = [[sum(c) for c in zip(*seen[i:i + n])]
+           for i in range(0, len(seen), 2 * n)]
+    return [[sum(c) for c in zip(*per[i:i + passes])]
+            for i in range(0, len(per), passes)]
+
+
+def _host(tensors) -> list:
+    """float32 copies on the host (never views of the live tensors)."""
+    import torch
+    return [t.detach().to("cpu", torch.float32, copy=True)
+            for t in tensors]
+
+
+def mesh_family_baseline(cfg, layout, shards: int, B: int, S: int,
+                         device) -> dict:
+    """(d)'s one-process run, on rank 0 alone: init_lm for the mesh's
+    ``layout`` (the same logical weights the ranks cut), MESH_STEPS
+    train steps, the first step's gradients kept; with ``shards`` > 1,
+    each step takes each data shard's rows through the one-process path
+    and averages their gradients, loss and aux before AdamW.  Returns
+    the step-1 gradients and each leaf's change over the steps on the
+    host, each step's metrics, the drops, the peak and the seconds."""
+    import torch
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.train import (TrainConfig, loss_and_grads,
+                                           make_train_step)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    tcfg = TrainConfig(remat=True)
+    sched = cosine_with_warmup(2, 10)
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device, layout)
+    p0 = _host(leaves(params))
+    batches = _family_batches(cfg, B, S, device)
+    step = make_train_step(cfg, tcfg, sched)
+    opt, steps = adamw.init(params), []
+    with first_grads() as g1, moe_drops() as seen:
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if shards == 1:
+                params, opt, m = step(params, opt, b)
+                m = {k: float(v) for k, v in m.items()}
+            else:
+                rows = B // shards
+                parts = [loss_and_grads(cfg, params, {
+                    k: v[i * rows:(i + 1) * rows] for k, v in b.items()},
+                    tcfg=tcfg) for i in range(shards)]
+                grads = [sum(g) / shards for g in zip(*(r[2] for r in parts))]
+                if not steps:
+                    g1[:] = [grads]
+                params, opt, om = adamw.update(
+                    tcfg.adamw, unflatten(params, grads), opt, params,
+                    lr_scale=sched(opt.step))
+                m = {k: sum(float(r[1][k]) for r in parts) / shards
+                     for k in ("loss", "aux")}
+                m["grad_norm"] = float(om["grad_norm"])
+                del parts, grads
+            torch.cuda.synchronize()
+            steps.append(dict(loss=m["loss"], aux=m["aux"],
+                              grad_norm=m["grad_norm"],
+                              s=time.perf_counter() - t0))
+            if len(steps) == 1:
+                g1[:] = [_host(g1[0])]
+    change = _host(leaves(params))
+    for d, a in zip(change, p0):
+        d.sub_(a)
+    del p0
+    out = {"g1": g1[0], "change": change,
+           "steps": steps, "drops": _drops_per_step(seen, cfg, shards),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt
+    release_memory()
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+#: elements of a host tensor moved to the card at a time to compare
+COMPARE_CHUNK = 1 << 25
+
+
+def _sq_sums(got, want, device) -> tuple:
+    """(sum (got - want)², sum want²) of host tensors in float64, moved
+    to the card COMPARE_CHUNK elements at a time."""
+    import torch
+    num = den = torch.zeros((), dtype=torch.float64, device=device)
+    g, w = got.reshape(-1), want.reshape(-1)
+    for i in range(0, g.numel(), COMPARE_CHUNK):
+        a = g[i:i + COMPARE_CHUNK].to(device).double()
+        b = w[i:i + COMPARE_CHUNK].to(device).double()
+        num = num + (a - b).square().sum()
+        den = den + b.square().sum()
+    return num, den
+
+
+def _compare_leaves(local, specs, env, want, device) -> float:
+    """The largest rel_rms over the leaves of each rank's host pieces
+    ``local`` against ``want``, the one-process leaves on rank 0's host
+    (None elsewhere).  No leaf is gathered whole (recurrentgemma-9b's
+    table is 4.2 GB in float32, and four ranks share one host's memory
+    and one card's): the other
+    members of rank 0's model group send it their pieces of each
+    model-sharded leaf, one at a time, and rank 0 compares each piece
+    with its slice of ``want``, which it empties as it goes."""
+    import torch
+    import torch.distributed as dist
+    model = env.model_axis
+    group = env.group(model).ranks if env.tp > 1 else (dist.get_rank(),)
+    # rank 0's model group: the members of the first data row
+    sends = env.axis_index(env.batch()) == 0 and group[0] != dist.get_rank()
+    worst = 0.0
+    for i, (t, sp) in enumerate(zip(local, specs)):
+        dim = next((d for d, e in enumerate(sp) if e == model), None)
+        if dim is None or env.tp == 1:
+            pieces = [t] if want is not None else []
+        elif want is not None:
+            pieces = [t]
+            for r in group[1:]:
+                buf = torch.empty_like(t)
+                dist.recv(buf, src=r)
+                pieces.append(buf)
+        else:
+            if sends:
+                dist.send(t.contiguous(), dst=group[0])
+            continue
+        num = den = 0.0
+        for j, piece in enumerate(pieces):
+            ref = (want[i] if len(pieces) == 1 else
+                   want[i].narrow(dim, j * piece.shape[dim], piece.shape[dim]))
+            a, b = _sq_sums(piece, ref, device)
+            num, den = num + a, den + b
+        if pieces:
+            worst = max(worst, (num / den).sqrt().item())
+            want[i] = None
+    return worst
+
+
+def mesh_family_run(cfg, env, B: int, S: int, device, counters, base,
+                    total: dict) -> dict:
+    """(d) on one mesh, on each member: this rank's slices of the
+    weights, MESH_STEPS train steps (each step's launches zeroed before
+    it and read after it, against train_launches_per_step of this
+    rank's rows; no plain version), the step-1 gradients and the
+    updated weights gathered to compare with ``base`` (rank 0 only)."""
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.interop import shard_lm_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.runtime.train import (TrainConfig, init_opt_state,
+                                           make_train_step)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(remat=True)
+    params = shard_lm_params(cfg, tfm.init_lm(
+        cfg, torch.Generator(device).manual_seed(0), device, env), env)
+    specs = leaves(tfm.param_specs(cfg, env))
+    p0 = _host(leaves(params))
+    opt = init_opt_state(cfg, params, env)
+    batches = _family_batches(cfg, B, S, device)
+    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10), env=env)
+    rows_local, rows = B // env.dp, 0
+    if cfg.num_experts:
+        rows = (capacity_for(rows_local * S, cfg, tcfg.capacity_factor)
+                if env.tp > 1 else
+                min(capacity_for(B * S, cfg, tcfg.capacity_factor),
+                    rows_local * S))
+    want = train_launches_per_step(cfg, rows_local, S, src_len=S,
+                                   moe_rows=rows)
+    steps, bad, grad_rr = [], [], None
+    with first_grads() as g1, moe_drops() as seen, \
+            plain_version_calls() as plain:
+        for s, b in enumerate(batches):
+            torch.cuda.synchronize()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = _nonzero(counters)
+            _add_launches(total, launches)
+            if launches != want:
+                bad.append(f"step {s + 1} launches {launches}, want {want}")
+            steps.append(dict(loss=float(m["loss"]), aux=float(m["aux"]),
+                              grad_norm=float(m["grad_norm"]), s=dt))
+            if s == 0:
+                grad_rr = _compare_leaves(
+                    _host(g1[0]), specs, env,
+                    None if base is None else base["g1"], device)
+                g1[0] = None
+    if any(plain.values()):
+        bad.append(f"plain versions called: {plain}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt, m
+    release_memory()
+    change = _host(leaves(params))
+    for d, a in zip(change, p0):
+        d.sub_(a)
+    del p0
+    upd_rr = _compare_leaves(change, specs, env,
+                             None if base is None else base["change"], device)
+    del change
+    rec = dict(coordinate=env.coordinate, tp=env.tp, dp=env.dp,
+               rows_per_rank=rows_local, moe_rows=rows, steps=steps,
+               drops=_drops_per_step(seen, cfg), peak_gb=peak,
+               launches_per_step=want)
+    if base is not None:
+        loss_tol, grad_tol, upd_tol = _mesh_tolerances("float32")
+        one = base["steps"]
+        rel = {k: [abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(steps, one)]
+               for k in ("loss", "aux", "grad_norm")}
+        rec.update(one_process_steps=one,
+                   one_process_peak_gb=base["peak_gb"],
+                   one_process_s=base["s"],
+                   one_process_drops=base["drops"],
+                   rel_diff=rel, grad_rel_rms_max=grad_rr,
+                   update_rel_rms_max=upd_rr,
+                   tolerances=dict(loss=loss_tol, grad=grad_tol,
+                                   update=upd_tol))
+        for k, tol in (("loss", loss_tol), ("aux", loss_tol),
+                       ("grad_norm", grad_tol)):
+            if max(rel[k]) > tol:
+                bad.append(f"{k} {rel[k]} > {tol}")
+        if grad_rr > grad_tol:
+            bad.append(f"gradient rel RMS {grad_rr:.3g}")
+        if upd_rr > upd_tol:
+            bad.append(f"update rel RMS {upd_rr:.3g}")
+    rec["bad"] = bad
+    del params
+    release_memory()
+    return rec
+
+
+def mesh_family_rank(rank: int, device, counters, total: dict) -> list:
+    """(d): for each of MESH_FAMILY_CASES, rank 0's one-process run
+    while the others wait, then the case's mesh over the first ranks of
+    the world (the others build it and wait)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.meshenv import make_env
+    out = []
+    for label, arch, layers, shape, B, S in MESH_FAMILY_CASES:
+        cfg = _family_cfg(arch, layers)
+        layout = make_env({"data": shape[0], "model": shape[1]})
+        shards = shape[0] if cfg.num_experts and shape[1] > 1 else 1
+        t0 = time.perf_counter()
+        base = (mesh_family_baseline(cfg, layout, shards, B, S, device)
+                if rank == 0 else None)
+        dist.barrier()
+        env = make_env(make_mesh(shape, ("data", "model")))
+        if env.member:
+            rec = mesh_family_run(cfg, env, B, S, device, counters, base,
+                                  total)
+            out.append(dict(case=label, batch=B, seq=S, layers=layers,
+                            s=time.perf_counter() - t0, **rec))
+        dist.barrier()
+        del base
+        release_memory()
+    return out
+
+
 def gloo_cuda_probe(device) -> dict:
     """Which collectives the world's gloo groups run on CUDA tensors:
     the three the port uses (all_reduce, all_gather; broadcast, which
@@ -4494,7 +4885,7 @@ def gloo_cuda_probe(device) -> dict:
 
 def mesh_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of [mesh]'s world: gloo on card 0 through a FileStore in
-    ``tmp``; (a), (b) and the gloo probe; its record written to
+    ``tmp``; (a), (b), (d) and the gloo probe; its record written to
     ``tmp/rank<r>.json``, or its traceback to ``tmp/rank<r>.err``."""
     import os
     import traceback
@@ -4519,6 +4910,10 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         t0 = time.perf_counter()
         rec["train"] = mesh_train_rank(rank, device, counters, total)
         rec["train_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec["families"] = mesh_family_rank(rank, device, counters, total)
+        rec["families_s"] = time.perf_counter() - t0
         dist.barrier()
         rec["gloo_cuda"] = gloo_cuda_probe(device)
         rec["launches"] = total
@@ -4566,64 +4961,85 @@ def mesh_world() -> list:
                 for r in range(MESH_WORLD)]
 
 
-def mesh_launcher(device, counters) -> dict:
-    """(c): ``launch.train --mesh host`` under torch.distributed.run on 2
-    ranks (ZeRO-1 over a data mesh), preempted after 2 steps with a
-    logical checkpoint, resumed by one process, against an unbroken
-    one-process run (both in this process)."""
+def mesh_launcher(counters) -> list:
+    """(c): for each of MESH_LAUNCH_ARCHS, ``launch.train --mesh host
+    --arch arch`` under torch.distributed.run on 2 ranks (ZeRO-1 over
+    a data mesh; the runs started together), preempted after 2 steps
+    with a logical checkpoint, resumed by one process, against an
+    unbroken one-process run (both in this process).  Returns a record
+    an arch."""
     import os
     import tempfile
     from repro_torch.launch import train as launch_train
     build = ROOT / "build"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    recs = []
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        ck = ["--ckpt-dir", tmp, "--resume"]
-        env = dict(os.environ, PYTHONPATH=str(SRC))
+        args = {a: [*MESH_LAUNCH_ARGS, "--arch", a] for a in MESH_LAUNCH_ARCHS}
+        ck = {a: ["--ckpt-dir", os.path.join(tmp, a), "--resume"]
+              for a in MESH_LAUNCH_ARCHS}
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs = {a: subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-             "--mesh", "host", *MESH_LAUNCH_ARGS, *ck, "--stop-after", "2"],
-            cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=MESH_WORLD_TIMEOUT_S)
+             "--mesh", "host", *args[a], *ck[a], "--stop-after", "2"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for a in MESH_LAUNCH_ARCHS}
+        try:
+            outs = {a: p.communicate(timeout=max(
+                1.0, MESH_WORLD_TIMEOUT_S - (time.perf_counter() - t0)))
+                for a, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         torchrun_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"[mesh] torchrun exited {proc.returncode}"
-                                 f"\n{proc.stdout[-2000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
-        first = {int(s): float(v) for s, v in re.findall(
-            r"step\s+(\d+) loss ([0-9.]+)", proc.stdout)}
-        zero_counters(counters)
-        second = launch_train.run(launch_train.parse_args(
-            [*MESH_LAUNCH_ARGS, *ck]))
-        launches = _nonzero(counters)
-    zero_counters(counters)
-    straight = launch_train.run(launch_train.parse_args(
-        list(MESH_LAUNCH_ARGS)))
-    _add_launches(launches, _nonzero(counters))
-    resumed = {**first, **{s: float(f"{v:.4f}")
-                           for s, v in second["losses"].items()}}
-    want = {s: float(f"{v:.4f}") for s, v in straight["losses"].items()}
-    rel = {s: abs(resumed.get(s, float("nan")) - v) / abs(v)
-           for s, v in want.items()}
-    rec = dict(torchrun_s=torchrun_s, preempted=proc.stdout.count(
-        "[preempt] stopping after 2 steps"), losses_2_ranks=first,
-        losses_resumed=second["losses"], resume_start=second["start"],
-        losses_one_process=straight["losses"], rel_diff=rel,
-        launches=launches)
-    bad = []
-    if rec["preempted"] != 1 or sorted(first) != [0, 1]:
-        bad.append(f"torchrun run: {proc.stdout[-1500:]}")
-    if second["start"] != 2 or sorted(resumed) != [0, 1, 2, 3]:
-        bad.append(f"resume: {second}")
-    if not all(r <= TRAIN_RESUME_RTOL for r in rel.values()):
-        bad.append(f"losses {resumed} vs unbroken {want}")
-    rec["bad"] = bad
-    return rec
+        for arch, (stdout, stderr) in outs.items():
+            if procs[arch].returncode != 0:
+                raise AssertionError(
+                    f"[mesh] torchrun {arch} exited "
+                    f"{procs[arch].returncode}\n{stdout[-2000:]}"
+                    f"\n{stderr[-4000:]}")
+            first = {int(s): float(v) for s, v in re.findall(
+                r"step\s+(\d+) loss ([0-9.]+)", stdout)}
+            zero_counters(counters)
+            second = launch_train.run(launch_train.parse_args(
+                [*args[arch], *ck[arch]]))
+            launches = _nonzero(counters)
+            zero_counters(counters)
+            straight = launch_train.run(launch_train.parse_args(args[arch]))
+            _add_launches(launches, _nonzero(counters))
+            resumed = {**first, **{s: float(f"{v:.4f}")
+                                   for s, v in second["losses"].items()}}
+            want = {s: float(f"{v:.4f}")
+                    for s, v in straight["losses"].items()}
+            rel = {s: abs(resumed.get(s, float("nan")) - v) / abs(v)
+                   for s, v in want.items()}
+            rec = dict(arch=arch, torchrun_s=torchrun_s,
+                       preempted=stdout.count("[preempt] stopping after 2 "
+                                              "steps"),
+                       losses_2_ranks=first,
+                       losses_resumed=second["losses"],
+                       resume_start=second["start"],
+                       losses_one_process=straight["losses"], rel_diff=rel,
+                       launches=launches)
+            bad = []
+            if rec["preempted"] != 1 or sorted(first) != [0, 1]:
+                bad.append(f"torchrun run: {stdout[-1500:]}")
+            if second["start"] != 2 or sorted(resumed) != [0, 1, 2, 3]:
+                bad.append(f"resume: {second}")
+            if not all(r <= TRAIN_RESUME_RTOL for r in rel.values()):
+                bad.append(f"losses {resumed} vs unbroken {want}")
+            rec["bad"] = bad
+            recs.append(rec)
+    return recs
 
 
 def mesh_phase(device, counters) -> tuple:
-    """[mesh]: (a) and (b) in a world of MESH_WORLD ranks sharing the
-    card, then (c).  Prints each record; raises on any breach.  Returns
+    """[mesh]: (a), (b) and (d) in a world of MESH_WORLD ranks sharing
+    the card, then (c) for each of MESH_LAUNCH_ARCHS.  Prints each
+    record; raises on any breach.  Returns
     (records, launches of every rank and of (c)'s one-process runs)."""
     from repro_torch.launch.mesh import choose_backend
     phase("mesh", f"{release_memory():.2f} GB still allocated before the "
@@ -4651,22 +5067,37 @@ def mesh_phase(device, counters) -> tuple:
                   f"{r['rank']} " + json.dumps(t))
             bad.extend(f"train {t['dtype']} {t['mesh']} rank {r['rank']}: "
                        f"{b}" for b in t["bad"])
+        phase("mesh", f"families rank {r['rank']}: "
+              f"{r['families_s']:.1f} s")
+        for t in r["families"]:
+            phase("mesh", f"family {t['case']} rank {r['rank']} "
+                  + json.dumps(t))
+            bad.extend(f"family {t['case']} rank {r['rank']}: {b}"
+                       for b in t["bad"])
+        cases = {t["case"] for t in r["families"]}
+        wanted = {label for label, _, _, shape, _, _ in MESH_FAMILY_CASES
+                  if r["rank"] < shape[0] * shape[1]}
+        if cases != wanted:
+            bad.append(f"rank {r['rank']} ran {sorted(cases)}, want "
+                       f"{sorted(wanted)}")
     want = choose_backend([r["card_uuid"] for r in ranks])
     if any(r["backend"] != want for r in ranks):
         bad.append(f"backends {[r['backend'] for r in ranks]}, the cards "
                    f"the ranks hold call for {want}")
     for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                 "rmsnorm_bwd", "ligd_sweep"):
+                 "rmsnorm_bwd", "moe_swiglu", "moe_swiglu_bwd", "wkv6",
+                 "wkv6_bwd", "rglru_scan", "rglru_scan_bwd", "ligd_sweep"):
         on = ranks[:2] if name == "ligd_sweep" else ranks
         if not all(r["launches"].get(name) for r in on):
             bad.append(f"{name} not launched on every rank that runs it")
     phase("mesh", f"world of {MESH_WORLD} ranks: {world_s:.1f} s")
     t0 = time.perf_counter()
-    launcher = mesh_launcher(device, counters)
-    phase("mesh", f"launcher ({time.perf_counter() - t0:.1f} s) "
-          + json.dumps(launcher))
-    bad.extend(f"launcher: {b}" for b in launcher["bad"])
-    _add_launches(launches, launcher["launches"])
+    for launcher in mesh_launcher(counters):
+        phase("mesh", f"launcher {launcher['arch']} " + json.dumps(launcher))
+        bad.extend(f"launcher {launcher['arch']}: {b}"
+                   for b in launcher["bad"])
+        _add_launches(launches, launcher["launches"])
+    phase("mesh", f"launchers {time.perf_counter() - t0:.1f} s")
     if bad:
         raise AssertionError("[mesh]: " + "; ".join(bad))
     return ranks, launches
@@ -4924,10 +5355,10 @@ def main() -> int:
     phase("train-cross", f"{time.perf_counter() - t0:.1f} s")
     later_paths += (train_cross_launches,)
 
-    # 8e. the mesh: the sharded static plan and tensor- and data-parallel
-    # training of the dense family in a world of ranks that share the
-    # card (each rank's counts zeroed before each of its runs and read
-    # after it), then the launcher's --mesh host under
+    # 8e. the mesh: the sharded static plan and tensor-, data- and
+    # expert-parallel training of every family in a world of ranks that
+    # share the card (each rank's counts zeroed before each of its runs
+    # and read after it), then the launcher's --mesh host under
     # torch.distributed.run, resumed by one process ------------------
     t0 = time.perf_counter()
     _, mesh_launches = mesh_phase(device, counters)

@@ -13,7 +13,7 @@ one device) or a rank has none.  The port's collectives are
 ``all_reduce`` and ``all_gather``, which gloo runs on CUDA tensors.
 
 The reference's ``make_production_mesh`` (256 and 512 devices) waits
-for its dry run (ROADMAP item 8c).
+for its dry run (ROADMAP item 8d).
 """
 from __future__ import annotations
 

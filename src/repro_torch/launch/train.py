@@ -15,9 +15,10 @@ It prints the reference's lines (``step … loss … gnorm …``,
 MoE, RWKV-6, RecurrentGemma, encoder-decoder).  ``--device`` defaults to the
 card; ``--device cpu`` takes the plain PyTorch path.
 
-``--mesh host`` under ``torch.distributed.run`` trains on a data mesh
-over every rank of the world (``launch.mesh.make_host_mesh``; the dense
-family only), each rank on its rows of the global batch, AdamW's
+``--mesh host`` under ``torch.distributed.run`` trains any ``--arch`` on
+a data mesh over every rank of the world (``launch.mesh.make_host_mesh``;
+an MoE routes under the reference's global capacity rule there), each
+rank on its rows of the global batch, AdamW's
 moments sharded ZeRO-1; the mesh's first rank prints, and checkpoints
 hold logical tensors, so a run resumes on another world size or on one
 process.  With one process it is the single-process path.
@@ -26,6 +27,9 @@ process.  With one process it is the single-process path.
         --steps 20 --ckpt-dir /tmp/ckpt --resume
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m repro_torch.launch.train --mesh host --size 100m --steps 4
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --mesh host \\
+        --arch granite-moe-1b-a400m --size 100m --steps 4
 """
 from __future__ import annotations
 

@@ -21,8 +21,9 @@ reference's ``PartitionSpec``s for a ``MeshEnv``, the rules of its
 * ``wg``/``wu`` are column-parallel and ``wd`` row-parallel.
 
 :func:`apply_mlp` with a tensor-parallel env runs on the local columns
-and ends in an all-reduce over the model axis.  Only the dense family
-shards (ROADMAP item 8a); the other families wait for item 8b.
+and ends in an all-reduce over the model axis.  The attention specs
+serve every family's attention blocks, an encoder-decoder's encoder and
+cross attention among them (``cross``: no qk-norm weights).
 """
 from __future__ import annotations
 

@@ -23,6 +23,13 @@ the reference's order; gates, ``a``, ``b`` and ``h`` are float32;
 ``jax.nn.gelu``'s default tanh form and ``jax.nn.softplus``'s form
 without a threshold (``logaddexp(x, 0)``) are kept.
 
+Tensor parallelism (``env``), the reference's specs
+(:func:`rglru_specs`): each model rank holds d_rnn/tp channels of
+``wx``, ``wy``, ``conv_w`` and ``a_param``, the matching rows of
+``wo`` and num_heads/tp whole blocks of ``gate_a``/``gate_i``; it runs
+the conv, the gates and the scan on them, and ``wo`` ends in an
+all-reduce over the model axis (x enters through ``psum_grad``).
+
 State per block: ``{"h": (B, d_rnn) float32, "conv": (B, K-1, d_rnn)}``
 in the model's dtype.  Decode updates a given state in place and returns
 it; sequence mode returns a new one.
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
 from .layers import dense_init, param_dtype
 
 Params = dict
@@ -61,13 +69,26 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     }
 
 
+def rglru_specs(cfg: ModelConfig, env: MeshEnv) -> dict:
+    """The reference's RG-LRU specs: channels (and gate blocks) over the
+    model axis; d_rnn and the heads must divide TP."""
+    if env.tp > 1 and (cfg.d_rnn % env.tp or cfg.num_heads % env.tp):
+        raise ValueError(f"RG-LRU: d_rnn {cfg.d_rnn} and heads "
+                         f"{cfg.num_heads} must divide TP {env.tp}")
+    return {"wx": P(None, "model"), "wy": P(None, "model"),
+            "wo": P("model", None), "conv_w": P(None, "model"),
+            "gate_a": P("model", None, None),
+            "gate_i": P("model", None, None), "a_param": P("model")}
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + exp(x)) with no linear threshold."""
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _gates(p: Params, H: int, xc: torch.Tensor):
-    """xc (..., r) -> (log_a, gated input), both float32."""
+    """xc (..., r) -> (log_a, gated input), both float32; H heads (this
+    rank's ``gate_a`` blocks under TP)."""
     shape = xc.shape
     r = shape[-1]
     xh = xc.float().reshape(*shape[:-1], H, r // H)
@@ -119,14 +140,21 @@ def _gelu_branch(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rglru_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
-    """Sequence mode.  x (B, S, d) -> (out (B, S, d), final state)."""
+                    state: Optional[dict] = None, *,
+                    env: MeshEnv = CPU_ENV) -> Tuple[torch.Tensor, dict]:
+    """Sequence mode.  x (B, S, d) -> (out (B, S, d), final state).  With
+    ``env.tp > 1``, ``p`` holds this rank's channels and the output is
+    summed over the model axis."""
+    if env.tp > 1:
+        x = env.psum_grad(x, env.model_axis)
     xi = x @ p["wx"]                                    # (B, S, r)
     conv_state = state["conv"] if state is not None else None
     xc = _causal_conv(p["conv_w"], xi, conv_state)
-    log_a, gated = _gates(p, cfg.num_heads, xc)
+    log_a, gated = _gates(p, p["gate_a"].shape[0], xc)
     h = rglru_scan(log_a, gated, state["h"] if state is not None else None)
     out = (h.to(x.dtype) * _gelu_branch(p, x)) @ p["wo"]
+    if env.tp > 1:
+        out = env.psum(out, env.model_axis)
     K = cfg.conv_width
     tail = (torch.cat([conv_state.to(xi.dtype), xi], dim=1)[:, -(K - 1):]
             .clone() if conv_state is not None else _last_k(xi, K - 1))
@@ -142,7 +170,7 @@ def apply_rglru_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # window[k] holds x_{t-(K-1-k)} and the sequence path applies w[m] to
     # x_{t-m}: tap m = K-1-k, so the kernel is flipped over the window
     xc = torch.einsum("bkr,kr->br", window, p["conv_w"].flip(0))[:, None]
-    log_a, gated = _gates(p, cfg.num_heads, xc)
+    log_a, gated = _gates(p, p["gate_a"].shape[0], xc)
     a = torch.exp(log_a[:, 0])
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a[:, 0]),
                                       1e-12))
@@ -161,4 +189,4 @@ def init_rglru_state(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 __all__ = ["C_RGLRU", "apply_rglru_decode", "apply_rglru_seq", "init_rglru",
-           "init_rglru_state", "rglru_scan"]
+           "init_rglru_state", "rglru_scan", "rglru_specs"]

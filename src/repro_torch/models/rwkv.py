@@ -11,6 +11,20 @@ in a bfloat16 model.  The WKV recurrence goes through
 :mod:`repro_torch.kernels.wkv6` in the model layout (B, S, H, n), so no
 transposed copy is made.
 
+Tensor parallelism (``env``), the reference's specs
+(:func:`time_mix_specs`, :func:`channel_mix_specs`): when the heads
+divide TP, ``wr``/``wk``/``wv``/``wg``, ``u``, ``ln_x`` and ``wo`` hold
+this rank's heads, the WKV recurrence runs on them, the decay (from the
+replicated ``w0``/``wA``/``wB``) is computed whole and cut to them, and
+``wo`` ends in an all-reduce over the model axis; otherwise (rwkv6-3b's
+40 heads at tp 16) the time mix runs replicated on every model rank.
+The channel mix is always tensor parallel: ``wk`` column- and ``wv``
+row-parallel (an all-reduce), the ``wr`` gate replicated.  Each
+replicated input of a sharded branch (x, ``mu``, ``w0``, ``wA``, ``wB``
+of the time mix; the channel mix's key input) enters through
+``psum_grad``; a branch computed whole on every rank (the replicated
+time mix, the ``wr`` gate) does not.
+
 State for decode, per block: the time mix's ``{"s": (B, H, n, n),
 "tm": (B, d)}`` and the channel mix's ``{"cm": (B, d)}``, all float32.
 Decode updates a given state in place (the WKV kernel writes the final
@@ -26,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
 from .layers import dense_init, group_norm_heads, param_dtype
 
 Params = dict
@@ -65,6 +80,30 @@ def init_rwkv_channel_mix(cfg: ModelConfig, gen: torch.Generator,
     }
 
 
+def heads_sharded(cfg: ModelConfig, env: MeshEnv) -> bool:
+    """True when the time mix's heads shard over the model axis (they
+    divide TP)."""
+    return env.tp > 1 and cfg.rwkv_num_heads % env.tp == 0
+
+
+def time_mix_specs(cfg: ModelConfig, env: MeshEnv) -> dict:
+    """The reference's time-mix specs: heads over the model axis when
+    they divide TP, the shift mixes and the decay LoRA replicated."""
+    h = "model" if heads_sharded(cfg, env) else None
+    return {"mu": P(None, None), "w0": P(None), "wA": P(None, None),
+            "wB": P(None, None), "wr": P(None, h, None),
+            "wk": P(None, h, None), "wv": P(None, h, None),
+            "wg": P(None, h, None), "u": P(h, None), "ln_x": P(h, None),
+            "wo": P(h, None, None)}
+
+
+def channel_mix_specs(cfg: ModelConfig, env: MeshEnv) -> dict:
+    """The reference's channel-mix specs: ``wk`` column- and ``wv``
+    row-parallel, ``mu`` and the ``wr`` gate replicated."""
+    return {"mu": P(None, None), "wk": P(None, "model"),
+            "wv": P("model", None), "wr": P(None, None)}
+
+
 def _token_shift(x: torch.Tensor,
                  prev: Optional[torch.Tensor]) -> torch.Tensor:
     """x_{t-1} along time; ``prev`` (B, d) carries across calls (decode)."""
@@ -86,19 +125,29 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+                   state: Optional[dict] = None, *,
+                   env: MeshEnv = CPU_ENV) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (out (B, S, d), state {"s", "tm"}).  With ``state``
-    (decode) the state is read and updated in place."""
+    (decode) the state is read and updated in place.  With sharded heads
+    (:func:`heads_sharded`) ``p`` holds this rank's heads and the output
+    is summed over the model axis."""
     B, S, d = x.shape
     H, n = cfg.rwkv_num_heads, cfg.rwkv_head_dim
+    mu, w0, wA, wB = p["mu"], p["w0"], p["wA"], p["wB"]
+    sharded = heads_sharded(cfg, env)
+    if sharded:
+        model = env.model_axis
+        x, mu, w0, wA, wB = (env.psum_grad(t, model)
+                             for t in (x, mu, w0, wA, wB))
     prev = state["tm"] if state is not None else None
     xs = _token_shift(x, prev)
-    mu = p["mu"]
     xr, xk, xv, xg, xw = (x + mu[i] * (xs - x) for i in range(5))
 
-    logw = p["w0"] + torch.tanh(xw.float() @ p["wA"]) @ p["wB"]
+    logw = w0 + torch.tanh(xw.float() @ wA) @ wB
     w = torch.exp(-torch.exp(torch.clamp(logw, -20.0, 10.0)))
     w = w.reshape(B, S, H, n)
+    if sharded:
+        w = env.local_slice(w, 2, model).contiguous()
 
     r, k, v, g = (_heads(t, p[name]) for t, name in
                   ((xr, "wr"), (xk, "wk"), (xv, "wv"), (xg, "wg")))
@@ -106,7 +155,10 @@ def apply_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y, s_final = wkv_ops.wkv6(r, k, v, w, p["u"], s0, state_out=s0)
     y = group_norm_heads(y, p["ln_x"])
     y = y * F.silu(g.float())
-    out = y.to(x.dtype).reshape(B, S, H * n) @ p["wo"].reshape(H * n, d)
+    Hl = p["wo"].shape[0]
+    out = y.to(x.dtype).reshape(B, S, Hl * n) @ p["wo"].reshape(Hl * n, d)
+    if sharded:
+        out = env.psum(out, model)
     if state is not None:
         state["tm"].copy_(x[:, -1])
         return out, state
@@ -114,17 +166,23 @@ def apply_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def apply_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      state: Optional[dict] = None
-                      ) -> Tuple[torch.Tensor, dict]:
+                      state: Optional[dict] = None, *,
+                      env: MeshEnv = CPU_ENV) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (out (B, S, d), state {"cm"}).  With ``state``
-    (decode) the state is read and updated in place."""
+    (decode) the state is read and updated in place.  With ``env.tp >
+    1``, ``p`` holds this rank's d_ff columns of ``wk`` and rows of
+    ``wv``, whose product is summed over the model axis."""
     prev = state["cm"] if state is not None else None
     xs = _token_shift(x, prev)
     mu = p["mu"]
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
+    if env.tp > 1:
+        xk = env.psum_grad(xk, env.model_axis)
     k = torch.square(torch.relu((xk @ p["wk"]).float())).to(x.dtype)
     v = k @ p["wv"]
+    if env.tp > 1:
+        v = env.psum(v, env.model_axis)
     rgate = torch.sigmoid((xr @ p["wr"]).float())
     out = (rgate * v.float()).to(x.dtype)
     if state is not None:
@@ -142,5 +200,6 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> dict:
             "cm": torch.zeros((batch, cfg.d_model), dtype=f32, device=device)}
 
 
-__all__ = ["apply_channel_mix", "apply_time_mix", "init_rwkv_channel_mix",
-           "init_rwkv_state", "init_rwkv_time_mix"]
+__all__ = ["apply_channel_mix", "apply_time_mix", "channel_mix_specs",
+           "heads_sharded", "init_rwkv_channel_mix", "init_rwkv_state",
+           "init_rwkv_time_mix", "time_mix_specs"]

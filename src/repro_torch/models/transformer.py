@@ -61,17 +61,21 @@ same remat; and ``remat`` recomputes each block in the backward
 per superblock: the same arithmetic).
 
 Tensor and data parallelism (``env``, a ``runtime.meshenv.MeshEnv``)
-cover the dense decoder family in :func:`loss_fn` (ROADMAP item 8a):
-each rank holds its slice of every parameter under
-:func:`param_specs` (the reference's rules: q heads, padded to divide
-TP, and k/v heads when they divide it over the model axis; ``wg``/``wu``
-column- and ``wd`` row-parallel; the vocab of ``embed`` and ``unembed``
-over the model axis); attention runs on the local heads, RMSNorm on the
-replicated residual, and ``wo`` and ``wd`` end in an all-reduce over the
-model axis.  The reference's sequence-sharded residual between blocks
-is a GSPMD layout choice that does not change the numbers and is not
-reproduced.  Any other family on a mesh raises
-:class:`NotImplementedError` naming ROADMAP item 8b.
+cover every family in :func:`loss_fn`: each rank holds its slice of
+every parameter under :func:`param_specs` (the reference's rules:
+attention's q heads, padded to divide TP, and its k/v heads when they
+divide it; the MLP's ``wg``/``wu`` column- and ``wd`` row-parallel; the
+MoE's experts (:mod:`.moe`), RWKV-6's heads when they divide TP and its
+channel mix (:mod:`.rwkv`), the RG-LRU's channels (:mod:`.rglru`); the
+vocab of ``embed`` and ``unembed``; an encoder-decoder's encoder blocks
+and cross attention as the decoder's attention); each sharded branch
+runs on the local heads, channels or experts, RMSNorm on the replicated
+residual, and each row-parallel output ends in an all-reduce over the
+model axis.  ``src_embeds`` and ``patch_embeds`` are rows of the batch
+like the tokens.  The reference's sequence-sharded residual between
+blocks is a GSPMD layout choice that does not change the numbers and is
+not reproduced; its context-parallel attention raises
+:class:`NotImplementedError` naming ROADMAP item 8c.
 """
 from __future__ import annotations
 
@@ -92,11 +96,12 @@ from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
 from .layers import (apply_mlp, apply_rope, attention_specs, init_attention,
                      init_mlp, init_norm, kv_sharded, mlp_specs, param_dtype,
                      rms_norm)
-from .moe import apply_moe, init_moe
+from .moe import apply_moe, init_moe, moe_specs
 from .rglru import (apply_rglru_decode, apply_rglru_seq, init_rglru,
-                    init_rglru_state)
-from .rwkv import (apply_channel_mix, apply_time_mix, init_rwkv_channel_mix,
-                   init_rwkv_state, init_rwkv_time_mix)
+                    init_rglru_state, rglru_specs)
+from .rwkv import (apply_channel_mix, apply_time_mix, channel_mix_specs,
+                   init_rwkv_channel_mix, init_rwkv_state, init_rwkv_time_mix,
+                   time_mix_specs)
 from .sharded_ops import (embed_lookup, fused_unembed_xent, padded_vocab,
                           sharded_argmax, unembed_logits)
 
@@ -112,34 +117,24 @@ DECODE_CAPACITY_FACTOR = 2.0
 MOE_AUX_WEIGHT = 0.01
 
 
-#: what a mesh other than one process waits for, for a family other
-#: than the dense decoder
-MESH_DEFERRED = ("{}: tensor and data parallelism for this family wait "
-                 "for ROADMAP item 8b (only the dense decoder family runs "
-                 "on a mesh)")
-
-
-def _dense(cfg: ModelConfig) -> bool:
-    """The dense decoder family: global/local attention with a SwiGLU
-    MLP, no experts, no encoder, no frontend."""
-    return (set(cfg.layer_types()) <= {ATTN_GLOBAL, ATTN_LOCAL}
-            and not cfg.num_experts and not cfg.enc_dec and not cfg.frontend)
-
-
 def check_supported(cfg: ModelConfig, env: MeshEnv = CPU_ENV) -> None:
-    """Raise ``ValueError`` for a layer type the port does not know, and
-    ``NotImplementedError`` for a family other than the dense decoder
-    (global/local attention with a SwiGLU MLP, no experts, no encoder,
-    no frontend) on a mesh with ``tp > 1`` or ``dp > 1``, or for the
-    reference's context-parallel attention (ROADMAP item 8b)."""
-    for lt in set(cfg.layer_types()):
+    """Raise ``ValueError`` for a layer type the port does not know, or
+    for a model axis that the MoE's experts or the RG-LRU's channels and
+    heads do not divide (the reference's specs need it), and
+    ``NotImplementedError`` for the reference's context-parallel
+    attention with ``tp > 1`` (ROADMAP item 8c)."""
+    types = set(cfg.layer_types())
+    for lt in types:
         if lt not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6):
             raise ValueError(f"unknown layer type {lt!r}")
-    if (env.tp > 1 or env.dp > 1) and not _dense(cfg):
-        raise NotImplementedError(MESH_DEFERRED.format(cfg.name))
+    if env.tp > 1:
+        if cfg.num_experts:
+            moe_specs(cfg, env)
+        if RGLRU in types:
+            rglru_specs(cfg, env)
     if env.context_parallel_attn and env.tp > 1:
         raise NotImplementedError("context-parallel attention waits for "
-                                  "ROADMAP item 8b")
+                                  "ROADMAP item 8c")
 
 
 def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -156,8 +151,8 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device,
                layer_type: str = ATTN_GLOBAL, cross: bool = False,
                env: MeshEnv = CPU_ENV) -> Params:
     """One block; ``cross`` adds the decoder's ``ln_cross`` and ``cross``
-    attention (an encoder-decoder stack).  ``env`` pads an attention
-    block's q heads for its TP size."""
+    attention (an encoder-decoder stack).  ``env`` pads the attention's
+    q heads (self and cross) for its TP size."""
     rwkv = layer_type == RWKV6
     if layer_type in (RWKV6, RGLRU):
         init_mix = {RWKV6: init_rwkv_time_mix, RGLRU: init_rglru}[layer_type]
@@ -167,7 +162,7 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device,
     p = {"ln1": init_norm(cfg, device), "mix": mix}
     if cross:
         p["ln_cross"] = init_norm(cfg, device)
-        p["cross"] = init_attention(cfg, gen, device, cross=True)
+        p["cross"] = init_attention(cfg, gen, device, cross=True, env=env)
     p["ln2"] = init_norm(cfg, device)
     if rwkv:
         p["ffn"] = init_rwkv_channel_mix(cfg, gen, device)
@@ -209,32 +204,55 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None,
         params["unembed"] = table((cfg.d_model, Vp))
     if cfg.enc_dec:
         ecfg = encoder_cfg(cfg)
-        params["encoder"] = [init_block(ecfg, gen, device, lt)
+        params["encoder"] = [init_block(ecfg, gen, device, lt, env=env)
                              for lt in ecfg.layer_types()]
         params["enc_norm"] = init_norm(cfg, device)
     return params
 
 
-def block_specs(cfg: ModelConfig, env: MeshEnv) -> dict:
-    """The reference's specs of one dense block, global or local
-    (``init_block``)."""
-    return {"ln1": P(None), "mix": attention_specs(cfg, env),
-            "ln2": P(None), "ffn": mlp_specs(cfg, env)}
+def block_specs(cfg: ModelConfig, env: MeshEnv,
+                layer_type: str = ATTN_GLOBAL, cross: bool = False) -> dict:
+    """The reference's specs of one block (``init_block``): its mixer's
+    (attention, RWKV-6 time mix or RG-LRU), a decoder block's
+    ``ln_cross`` and ``cross`` attention, and its FFN's (SwiGLU MLP, MoE
+    or RWKV-6 channel mix); norms replicated."""
+    if layer_type == RWKV6:
+        mix = time_mix_specs(cfg, env)
+    elif layer_type == RGLRU:
+        mix = rglru_specs(cfg, env)
+    else:
+        mix = attention_specs(cfg, env)
+    specs = {"ln1": P(None), "mix": mix}
+    if cross:
+        specs["ln_cross"] = P(None)
+        specs["cross"] = attention_specs(cfg, env, cross=True)
+    specs["ln2"] = P(None)
+    if layer_type == RWKV6:
+        specs["ffn"] = channel_mix_specs(cfg, env)
+    elif cfg.num_experts:
+        specs["ffn"] = moe_specs(cfg, env)
+    else:
+        specs["ffn"] = mlp_specs(cfg, env)
+    return specs
 
 
 def param_specs(cfg: ModelConfig, env: MeshEnv) -> Params:
-    """The reference's ``PartitionSpec`` of every parameter of the dense
-    family under ``env``, in the port's tree (``layers`` one block
-    each, where the reference stacks its scan blocks): ``embed`` P("model", None), ``unembed`` P(None, "model"),
-    norms replicated, attention and MLP as ``models.layers`` says.  Other
-    families raise (ROADMAP item 8b)."""
-    if not _dense(cfg):
-        raise NotImplementedError(MESH_DEFERRED.format(cfg.name))
+    """The reference's ``PartitionSpec`` of every parameter under
+    ``env``, in the port's tree (``layers`` and an encoder-decoder's
+    ``encoder`` one block each, where the reference stacks its tail and
+    scan blocks): ``embed`` P("model", None), ``unembed`` P(None,
+    "model"), norms replicated, each block as :func:`block_specs`
+    says."""
     specs = {"embed": P("model", None), "final_norm": P(None),
-             "layers": [block_specs(cfg, env)
-                        for _ in range(cfg.num_layers)]}
+             "layers": [block_specs(cfg, env, lt, cross=cfg.enc_dec)
+                        for lt in cfg.layer_types()]}
     if not cfg.tie_embeddings:
         specs["unembed"] = P(None, "model")
+    if cfg.enc_dec:
+        ecfg = encoder_cfg(cfg)
+        specs["encoder"] = [block_specs(ecfg, env, lt)
+                            for lt in ecfg.layer_types()]
+        specs["enc_norm"] = P(None)
     return specs
 
 
@@ -392,29 +410,51 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return out, new_cache
 
 
-def cross_kv(cfg: ModelConfig, p: Params, kv_memory: torch.Tensor) -> dict:
+def cross_kv(cfg: ModelConfig, p: Params, kv_memory: torch.Tensor,
+             env: MeshEnv = CPU_ENV) -> dict:
     """The cross cache {"k", "v"} (B, Ss, Hkv, hd) of one decoder block:
-    the encoder output through its ``cross`` wk/wv, in the model dtype."""
+    the encoder output through its ``cross`` wk/wv, in the model dtype.
+    With ``env.tp > 1``, the kv heads this rank's q heads read (its own
+    when they shard, else those of :func:`_local_kv_heads`); the
+    replicated encoder output, and replicated wk/wv, enter through
+    ``psum_grad``."""
     B, Ss, d = kv_memory.shape
     dt = param_dtype(cfg)
+    wk, wv = p["wk"], p["wv"]
+    tp = env.tp > 1
+    if tp:
+        model = env.model_axis
+        kv_memory = env.psum_grad(kv_memory, model)
+        if not kv_sharded(cfg, env):
+            wk, wv = env.psum_grad(wk, model), env.psum_grad(wv, model)
 
     def proj(w):
         return (kv_memory @ w.reshape(d, -1)).reshape(
             B, Ss, w.shape[1], w.shape[2]).to(dt)
 
-    return {"k": proj(p["wk"]), "v": proj(p["wv"])}
+    k, v = proj(wk), proj(wv)
+    if tp and not kv_sharded(cfg, env):
+        heads = _local_kv_heads(cfg, env, p["wq"].shape[1], k.device)
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
+    return {"k": k, "v": v}
 
 
 def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                          cache: dict) -> torch.Tensor:
+                          cache: dict, env: MeshEnv = CPU_ENV
+                          ) -> torch.Tensor:
     """Cross attention of x (B, S, d) to the encoder's k/v in ``cache``
-    (:func:`cross_kv`): non-causal, no RoPE, no qk-norm."""
+    (:func:`cross_kv`): non-causal, no RoPE, no qk-norm.  With
+    ``env.tp > 1`` on this rank's heads, the output summed over the
+    model axis."""
     B, S, d = x.shape
+    if env.tp > 1:
+        x = env.psum_grad(x, env.model_axis)
     q = (x @ p["wq"].reshape(d, -1)).reshape(B, S, p["wq"].shape[1],
                                              p["wq"].shape[2])
     out = flash_ops.flash_attention(q, cache["k"], cache["v"], causal=False)
     Hq, hd = p["wo"].shape[:2]
-    return out.reshape(B, S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
+    out = out.reshape(B, S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
+    return env.psum(out, env.model_axis) if env.tp > 1 else out
 
 
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
@@ -438,10 +478,11 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if layer_type == RWKV6:
         st = cache if mode == "decode" else {"mix": None, "ffn": None}
-        out, mix_state = apply_time_mix(cfg, p["mix"], x, st["mix"])
+        out, mix_state = apply_time_mix(cfg, p["mix"], x, st["mix"], env=env)
         h = h + out
         x = rms_norm(h, p["ln2"], cfg.norm_eps)
-        out, ffn_state = apply_channel_mix(cfg, p["ffn"], x, st["ffn"])
+        out, ffn_state = apply_channel_mix(cfg, p["ffn"], x, st["ffn"],
+                                           env=env)
         if mode == "train":
             return h + out, _no_aux(h)
         return h + out, {"mix": mix_state, "ffn": ffn_state}
@@ -449,7 +490,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
         if mode == "decode":
             out, st = apply_rglru_decode(cfg, p["mix"], x, cache["mix"])
         else:
-            out, st = apply_rglru_seq(cfg, p["mix"], x)
+            out, st = apply_rglru_seq(cfg, p["mix"], x, env=env)
         new_cache = {"mix": st}
     else:
         out, new_cache = apply_attention(cfg, p["mix"], x, mode=mode,
@@ -460,16 +501,17 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
     h = h + out
     if "cross" in p:
         cross = (cache["cross"] if mode == "decode"
-                 else cross_kv(cfg, p["cross"], kv_memory))
+                 else cross_kv(cfg, p["cross"], kv_memory, env))
         h = h + apply_cross_attention(
-            cfg, p["cross"], rms_norm(h, p["ln_cross"], cfg.norm_eps), cross)
+            cfg, p["cross"], rms_norm(h, p["ln_cross"], cfg.norm_eps), cross,
+            env)
         if new_cache is not None:
             new_cache["cross"] = cross
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
     aux = None
     if cfg.num_experts:
         out, aux_tok = apply_moe(cfg, p["ffn"], x,
-                                 capacity_factor=capacity_factor)
+                                 capacity_factor=capacity_factor, env=env)
         aux = torch.mean(aux_tok)
     else:
         out = apply_mlp(p["ffn"], x, env=env)
@@ -595,15 +637,16 @@ def _assemble_inputs(cfg: ModelConfig, params: Params, batch: dict,
 
 
 def _encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, env: MeshEnv = CPU_ENV) -> torch.Tensor:
     """The encoder: src_embeds (B, Ss, d), cast to the model dtype,
     through the non-causal encoder blocks (positions 0..Ss-1) and
-    ``enc_norm``; ``remat`` recomputes each block in the backward (the
-    training loss)."""
+    ``enc_norm``, under ``env`` as the decoder; ``remat`` recomputes each
+    block in the backward (the training loss)."""
     h = src_embeds.to(device=params["embed"].device,
                       dtype=params["embed"].dtype)
     h, _ = apply_stack(encoder_cfg(cfg), {"layers": params["encoder"]}, h,
-                       mode="encode", positions=_positions(h), remat=remat)
+                       mode="encode", positions=_positions(h), remat=remat,
+                       env=env)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -630,13 +673,15 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
     without experts), with ``total = loss + MOE_AUX_WEIGHT * aux``, as the
     reference's ``loss_fn``.  ``remat`` recomputes each block, the
     encoder's included, in the backward.  ``capacity_factor`` is the
-    MoE's.  With a tensor-parallel ``env`` (dense family only),
-    ``params`` are this rank's slices (:func:`param_specs`) and every
-    rank of a model group returns the same loss; ``batch`` is this
-    rank's rows, and the loss their mean."""
+    MoE's.  On a mesh (``env``), ``params`` are this rank's slices
+    (:func:`param_specs`) and every rank of a model group returns the
+    same loss; ``batch`` is this rank's rows (``src_embeds`` and
+    ``patch_embeds`` included), and the loss their mean; ``aux`` is the
+    MoE's, global on a data mesh and this data shard's with tp > 1, as
+    the reference's (:func:`.moe.apply_moe`)."""
     check_supported(cfg, env)
-    kv_memory = (_encode(cfg, params, batch["src_embeds"], remat=remat)
-                 if cfg.enc_dec else None)
+    kv_memory = (_encode(cfg, params, batch["src_embeds"], remat=remat,
+                         env=env) if cfg.enc_dec else None)
     h = _assemble_inputs(cfg, params, batch, env)
     offset = h.shape[1] - batch["tokens"].shape[1]
     h, aux = apply_stack(cfg, params, h, mode="train",
@@ -687,7 +732,7 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos,
     return logits, nxt, caches
 
 
-__all__ = ["MESH_DEFERRED", "MOE_AUX_WEIGHT", "Params", "apply_attention",
+__all__ = ["MOE_AUX_WEIGHT", "Params", "apply_attention",
            "apply_block", "apply_cross_attention", "apply_stack",
            "block_specs", "check_supported", "cross_kv", "decode_step",
            "encoder_cfg", "head", "init_block", "init_caches",

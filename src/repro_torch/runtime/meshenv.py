@@ -18,6 +18,9 @@ the port calls them explicitly, over the process group of a named axis
 * :meth:`MeshEnv.psum_grad`: identity forward, all-reduce backward (a
   replicated tensor entering a tensor-parallel region, whose gradient
   each rank holds only in part);
+* :meth:`MeshEnv.psum_both`: all-reduce forward and backward (a sum
+  that every rank then uses whole, so each rank's part of it takes the
+  gradient of every rank's use);
 * :meth:`MeshEnv.pmax` / :meth:`MeshEnv.pmin`: reductions that carry no
   gradient;
 * :meth:`MeshEnv.all_gather`: the shards of an axis concatenated along
@@ -120,6 +123,23 @@ class _ReduceGrad(torch.autograd.Function):
         return g, None
 
 
+class _ReduceBoth(torch.autograd.Function):
+    """all-reduce (sum) forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 @dataclasses.dataclass(frozen=True)
 class _Group:
     """One process group of an axis key: the global ranks in it, in
@@ -135,7 +155,7 @@ class MeshEnv:
     batch_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = None
     # the reference's §Perf flag (attention sharded over the sequence);
-    # kept for its specs, waits for ROADMAP item 8b in the model code
+    # kept for its specs, waits for ROADMAP item 8c in the model code
     context_parallel_attn: bool = False
     #: (name, size) of every mesh axis, major first; empty off the mesh
     axes: Tuple[Tuple[str, int], ...] = ()
@@ -287,6 +307,13 @@ class MeshEnv:
         if self.axis_size(axis) == 1:
             return x
         return _ReduceGrad.apply(x, self.group(axis).pg)
+
+    def psum_both(self, x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+        """Sum over ``axis``, all-reduce forward and backward: the
+        transpose of a sum whose result each rank uses whole."""
+        if self.axis_size(axis) == 1:
+            return x
+        return _ReduceBoth.apply(x, self.group(axis).pg)
 
     def _reduce(self, x, axis, op):
         out = x.detach().clone()

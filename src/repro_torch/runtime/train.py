@@ -10,9 +10,9 @@ attention and RMSNorm backward kernels, ``remat`` recomputing each
 block), and :func:`repro_torch.optim.adamw.update` applies them in
 place, so the returned trees are the ones passed in.
 
-On a mesh (``env``, the dense decoder family; ROADMAP item 8a), the
-reference's sharding strategy, with the collectives GSPMD would insert
-made explicit:
+On a mesh (``env``, every family), the reference's sharding strategy,
+with the collectives GSPMD and ``shard_map`` would insert made
+explicit:
 
 * parameters: each rank holds its slice under the model's spec tree
   (``transformer.param_specs``), replicated over the batch axes;
@@ -29,9 +29,13 @@ made explicit:
   and of the parameters, and the parameters are then gathered, one
   all-gather a sliced leaf.
 
-The reference's other mesh-only fields (``context_parallel_attention``,
-``triangular_attention``, ``kv_quant_serving``) wait for ROADMAP item
-8b.
+The metrics are the mean over the batch axes of each rank's: the loss
+of its rows, and the MoE's ``aux``, which is global on a data mesh
+(every rank holds the same value) and the data shard's with tp > 1, as
+the reference's.  The reference's other mesh-only fields
+(``context_parallel_attention``, ``triangular_attention``,
+``kv_quant_serving``) are read only by its cell programs and dry run,
+and wait for ROADMAP item 8c.
 """
 from __future__ import annotations
 

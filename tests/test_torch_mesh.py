@@ -5,10 +5,14 @@
   as the reference's tree by ``_reference_specs``) and AdamW's
   (``runtime.train.opt_state_specs``, ZeRO-1) entry for entry against
   the reference's ``init_lm`` and ``opt_state_specs``, at data 2 x model
-  2 for a reduced dense config and at data 16 x model 16 for full-width
-  starcoder2-3b (24 -> 32 padded q heads), qwen3-8b and yi-34b (56 ->
-  64), the reference traced by ``jax.eval_shape`` on an ``AbstractMesh``
-  (nothing allocated, no forced devices).
+  2 for a reduced config of every family (RWKV-6 with heads that divide
+  tp and with 3 that do not) and at data 16 x model 16 for full-width
+  starcoder2-3b (24 -> 32 padded q heads), qwen3-8b, yi-34b (56 -> 64),
+  granite-moe-1b-a400m, moonshot-v1-16b-a3b, rwkv6-3b (40 heads at tp
+  16: the time mix replicated), recurrentgemma-9b, seamless-m4t-large-v2
+  (the encoder and cross attention) and internvl2-1b (14 -> 16), the
+  reference traced by ``jax.eval_shape`` on an ``AbstractMesh`` (nothing
+  allocated, no forced devices).
 * The vocab-sharded ops at model 2 and model 4 with a padded vocab (300
   -> 384), in a spawned four-rank gloo world (``torch_mesh_ranks``),
   against the reference's single-device ops (which the sharded ones
@@ -19,8 +23,9 @@
 * ``compressed_pod_mean`` at pod 2 against the reference's
   ``quantize_int8`` / ``dequantize_int8`` summed in pod order, bit for
   bit, over two calls (the second carrying the first's error feedback).
-* ``shrink_mesh``'s edge cases, and a family other than the dense
-  decoder raising on a mesh (ROADMAP item 8b).
+* ``shrink_mesh``'s edge cases; every family accepted on a data and on
+  a model mesh with the reference's spec tree, and context-parallel
+  attention refused (ROADMAP item 8c).
 """
 import os
 import subprocess
@@ -62,32 +67,57 @@ OPS_TOL = 1e-5
 # ---------------------------------------------------------------------------
 # spec trees
 # ---------------------------------------------------------------------------
+#: reduced configs of each family (``reduced`` kwargs, as both packages
+#: take them): "reduced" is the dense decoder's
+REDUCED = {
+    "reduced": ("qwen3-8b", dict(layers=3, d_model=48, heads=3,
+                                 kv_heads=1)),
+    "reduced-granite-moe": ("granite-moe-1b-a400m", {}),
+    "reduced-rwkv6": ("rwkv6-3b", {}),
+    "reduced-rwkv6-3-heads": ("rwkv6-3b", dict(d_model=48, heads=3)),
+    "reduced-recurrentgemma": ("recurrentgemma-9b", dict(layers=5)),
+    "reduced-seamless": ("seamless-m4t-large-v2", {}),
+    "reduced-internvl2": ("internvl2-1b", dict(d_model=48, heads=3,
+                                               kv_heads=1)),
+}
 SPEC_CASES = (("reduced", 2, 2, False), ("reduced", 2, 2, True),
               ("starcoder2-3b", 16, 16, False), ("qwen3-8b", 16, 16, False),
-              ("yi-34b", 16, 16, False))
+              ("yi-34b", 16, 16, False),
+              *((name, 2, 2, False) for name in REDUCED if name != "reduced"),
+              *((arch, 16, 16, False) for arch in (
+                  "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "rwkv6-3b",
+                  "recurrentgemma-9b", "seamless-m4t-large-v2",
+                  "internvl2-1b")))
 
 
 def _cfgs(arch: str):
-    if arch == "reduced":
-        return (j_reduced(j_get_config("qwen3-8b"), layers=3, d_model=48,
-                          heads=3, kv_heads=1),
-                reduced(get_config("qwen3-8b"), layers=3, d_model=48,
-                        heads=3, kv_heads=1))
+    if arch in REDUCED:
+        base, kw = REDUCED[arch]
+        return (j_reduced(j_get_config(base), **kw),
+                reduced(get_config(base), **kw))
     return j_get_config(arch), get_config(arch)
 
 
-def _reference_specs(cfg, env) -> dict:
-    """``transformer.param_specs`` in the reference's stacked tree
-    (``stack`` = {``tail``, ``scan``}, a scan leaf's spec led by ``None``
-    for its superblock axis): what the reference's ``init_lm(cfg, key,
-    env)`` returns as its specs."""
-    specs = t_tfm.param_specs(cfg, env)
-    blocks = specs.pop("layers")
+def _restack(cfg, blocks: list) -> dict:
+    """One spec tree per block as the reference's ``{"tail", "scan"}``
+    (a scan leaf's spec led by ``None`` for its superblock axis)."""
     period = len(cfg.pattern)
     rem = cfg.num_layers % period
     scan = tuple(tree_map(lambda sp: P(None, *sp), blocks[rem + j])
                  for j in range(period))
-    specs["stack"] = {"tail": tuple(blocks[:rem]), "scan": scan}
+    return {"tail": tuple(blocks[:rem]), "scan": scan}
+
+
+def _reference_specs(cfg, env) -> dict:
+    """``transformer.param_specs`` in the reference's stacked tree
+    (``stack``, and an encoder-decoder's ``encoder``, as {``tail``,
+    ``scan``}): what the reference's ``init_lm(cfg, key, env)`` returns
+    as its specs."""
+    specs = t_tfm.param_specs(cfg, env)
+    specs["stack"] = _restack(cfg, specs.pop("layers"))
+    if cfg.enc_dec:
+        specs["encoder"] = _restack(t_tfm.encoder_cfg(cfg),
+                                    specs.pop("encoder"))
     return specs
 
 
@@ -124,12 +154,12 @@ def _assert_same_specs(port, ref, where="") -> None:
 def test_spec_trees_match_the_reference(arch, data, model, cp, tree):
     """``cp``: the reference's context-parallel attention replicates the
     attention weights; the port's specs follow, and its model refuses
-    the mode (ROADMAP item 8b)."""
+    the mode (ROADMAP item 8c)."""
     jcfg, tcfg = _cfgs(arch)
     jspecs, shapes, jenv = _reference(jcfg, data, model, cp)
     env = make_env({"data": data, "model": model}, context_parallel_attn=cp)
     if cp:
-        with pytest.raises(NotImplementedError, match="8b"):
+        with pytest.raises(NotImplementedError, match="8c"):
             t_tfm.check_supported(tcfg, env)
     pspecs = _reference_specs(tcfg, env)
     if tree == "params":
@@ -158,15 +188,38 @@ def test_padded_heads_and_vocab_are_the_reference_s(hq, hkv, tp):
                                   "seamless-m4t-large-v2", "internvl2-1b"])
 @pytest.mark.parametrize("layout", [{"data": 2, "model": 1},
                                     {"data": 1, "model": 2}])
-def test_other_families_on_a_mesh_wait_for_item_8b(arch, layout):
-    cfg = reduced(get_config(arch))
+def test_every_family_is_accepted_on_a_mesh_with_the_reference_s_specs(
+        arch, layout):
+    """``check_supported``, ``param_specs`` and ``make_train_step``
+    accept each family on a data mesh and on a model mesh, and the spec
+    tree is the reference's."""
+    jcfg, tcfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
     env = make_env(layout)
-    t_tfm.check_supported(cfg)                # one process: supported
+    t_tfm.check_supported(tcfg, env)
+    assert callable(t_train.make_train_step(tcfg, env=env))
+    jspecs, _, _ = _reference(jcfg, layout["data"], layout["model"], False)
+    _assert_same_specs(_reference_specs(tcfg, env), jspecs)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-1b"])
+def test_context_parallel_attention_on_a_model_mesh_waits_for_item_8c(arch):
+    env = make_env({"data": 1, "model": 2}, context_parallel_attn=True)
+    cfg = reduced(get_config(arch))
     for call in (lambda: t_tfm.check_supported(cfg, env),
-                 lambda: t_train.make_train_step(cfg, env=env),
-                 lambda: t_tfm.param_specs(cfg, env)):
-        with pytest.raises(NotImplementedError, match="8b"):
+                 lambda: t_train.make_train_step(cfg, env=env)):
+        with pytest.raises(NotImplementedError, match="8c"):
             call()
+
+
+@pytest.mark.parametrize("arch,tp", [("granite-moe-1b-a400m", 3),
+                                     ("recurrentgemma-9b", 3)])
+def test_a_model_axis_the_experts_or_channels_do_not_divide_is_refused(
+        arch, tp):
+    """The reference's specs need E (MoE) and d_rnn and the heads
+    (RG-LRU) to divide TP; the port says so before it starts."""
+    env = make_env({"data": 1, "model": tp})
+    with pytest.raises(ValueError, match="divide"):
+        t_tfm.check_supported(reduced(get_config(arch)), env)
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +366,11 @@ def test_backend_follows_the_cards_the_ranks_hold(cards, backend):
                                    "repro_torch.models.sharded_ops",
                                    "repro_torch.models.layers",
                                    "repro_torch.runtime.meshenv",
-                                   "repro_torch.runtime.train"])
+                                   "repro_torch.runtime.train",
+                                   "repro_torch.models.moe",
+                                   "repro_torch.models.rwkv",
+                                   "repro_torch.models.rglru",
+                                   "repro_torch.models.transformer"])
 def test_the_mesh_modules_load_no_jax_in_a_fresh_interpreter(first):
     """Each module the mesh threads through imports first in a fresh
     interpreter (no circular import through ``runtime.meshenv``), and

@@ -416,9 +416,9 @@ def test_engine_under_reference_capacity_factors(moe_pair):
     seen = []
     orig = tmoe.apply_moe
 
-    def spy(cfg, p, x, *, capacity_factor=1.25):
+    def spy(cfg, p, x, *, capacity_factor=1.25, **kw):
         seen.append((x.shape[1], capacity_factor))
-        return orig(cfg, p, x, capacity_factor=capacity_factor)
+        return orig(cfg, p, x, capacity_factor=capacity_factor, **kw)
 
     mp = pytest.MonkeyPatch()
     mp.setattr(ttfm, "apply_moe", spy)
