@@ -1458,7 +1458,10 @@ def serve_cross(device, arch: str, seed: int = 3, layers: int = 2,
         cfg = dataclasses.replace(cfg, window_size=window)
     if pattern:
         cfg = dataclasses.replace(cfg, pattern=tuple(pattern))
-    cpu_params = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), "cpu")
+    # drawn on the card (the host draws a full-width table ~10x slower),
+    # kept on the host
+    cpu_params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(seed),
+                             "cpu")
     tok = torch.randint(0, cfg.vocab_size, (1, 64),
                         generator=torch.Generator().manual_seed(seed + 1))
     logits = {}
@@ -2840,7 +2843,8 @@ def enc_dec_cross(device, cfg) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cut = dataclasses.replace(cfg, num_layers=2, num_enc_layers=2)
-    cpu_params = tfm.init_lm(cut, torch.Generator().manual_seed(3), "cpu")
+    cpu_params = tfm.init_lm(cut, torch.Generator(device).manual_seed(3),
+                             "cpu")
     g = torch.Generator().manual_seed(4)
     src = torch.randn((1, ENC_CROSS_FRAMES, cut.d_model), generator=g)
     tok = torch.randint(0, cut.vocab_size, (1, ENC_PROMPT), generator=g)
@@ -4200,14 +4204,14 @@ def train_cross(device, counters) -> tuple:
 #: every collective, and the world, end within these
 MESH_WORLD = 4
 MESH_COLLECTIVE_TIMEOUT_S = 300.0
-MESH_WORLD_TIMEOUT_S = 480.0
+MESH_WORLD_TIMEOUT_S = 720.0
 #: (a) the static plan on a data-2 mesh: full-size megafleet_100k (K 1,
 #: 50,000 users a rank) and capacitated_k3 (K 3: 1500 Li-GD rows, 750 a
 #: rank), against the one-process plan on the same card: splits and
 #: servers equal, B, r, U, T, E, C within U_RTOL
 MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
-#: (b) full-width starcoder2-3b cut to 2 of its 30 layers (so that (d)
-#: fits in the run's time), TRAIN_BATCH x TRAIN_SEQ tokens, remat,
+#: (b) full-width starcoder2-3b cut to 1 of its 30 layers (so that (d)
+#: and (e) fit in the run's time), TRAIN_BATCH x TRAIN_SEQ tokens, remat,
 #: MESH_STEPS AdamW steps on each mesh, against the one-process steps
 #: on the same card from the same weights and
 #: batches: float32 at TRAIN_CROSS_* (the loss; every gradient leaf and,
@@ -4216,7 +4220,7 @@ MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
 #: of MESH_SHAPES, bfloat16 at MESH_BF16_* on the last (both axes at
 #: once).  Gloo stages every collective through the host at about 1 GB/s
 #: here, so a data-parallel float32 step takes 5-9 s (PR 28's first run)
-MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 2, 2
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 1, 2
 MESH_SHAPES = (("model 2", (1, 2)), ("data 2", (2, 1)),
                ("data 2 x model 2", (2, 2)))
 MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
@@ -4225,7 +4229,7 @@ MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
 #: by at most 2^-8 relative (RMS about 2.3e-3); each row-parallel output
 #: (wo, wd) adds about two roundings (each rank's partial sum, the
 #: all-reduce), so the residual of 4 blocks drifts by about 2.3e-3 x 2 x
-#: sqrt(8) = 1.3e-2 relative (the 2 run here, MESH_TRAIN_LAYERS, less);
+#: sqrt(8) = 1.3e-2 relative (the 1 run here, MESH_TRAIN_LAYERS, less);
 #: per-token logit noise of that size moves the mean loss of 4096
 #: tokens by about 2e-5 relative (1e-3 allowed);
 #: gradients carry it plus one rounding of each rank's half-batch
@@ -4245,6 +4249,8 @@ MESH_LAUNCH_ARGS = ("--size", "100m", "--steps", "4", "--ckpt-every", "2")
 #: two torchrun worlds started together
 MESH_LAUNCH_ARCHS = ("qwen3-8b", "granite-moe-1b-a400m")
 #: (d) every other family at its published widths on a mesh, depth cut
+#: (recurrentgemma-9b keeps its three blocks of three kinds; the others
+#: keep 1-2, so that (e) fits in the run's time)
 #: (label, config, layers kept (an encoder-decoder's encoder too),
 #: (data, model), batch, sequence): the shapes of its [train-*] phase
 #: (internvl2-1b, which has none: [serve-vlm]'s 4 x (256 patches + 768
@@ -4260,16 +4266,83 @@ MESH_LAUNCH_ARCHS = ("qwen3-8b", "granite-moe-1b-a400m")
 #: gradients and metrics.  Assignments that the capacity rule (factor
 #: 1.25) drops are counted and printed
 MESH_FAMILY_CASES = (
-    ("granite-moe data 2", "granite-moe-1b-a400m", 4, (2, 1), 4, 1024),
-    ("granite-moe data 2 x model 2", "granite-moe-1b-a400m", 4, (2, 2), 4,
+    ("granite-moe data 2", "granite-moe-1b-a400m", 2, (2, 1), 4, 1024),
+    ("granite-moe data 2 x model 2", "granite-moe-1b-a400m", 2, (2, 2), 4,
      1024),
-    ("rwkv6-3b data 2 x model 2", "rwkv6-3b", 4, (2, 2), 4, 1024),
+    ("rwkv6-3b data 2 x model 2", "rwkv6-3b", 2, (2, 2), 4, 1024),
     ("recurrentgemma-9b data 2 x model 2", "recurrentgemma-9b", 3, (2, 2),
      2, 2560),
-    ("seamless-m4t data 2 x model 2", "seamless-m4t-large-v2", 2, (2, 2),
+    ("seamless-m4t data 2 x model 2", "seamless-m4t-large-v2", 1, (2, 2),
      4, 1024),
-    ("internvl2-1b model 4", "internvl2-1b", 4, (1, 4), 4, 1024),
+    ("internvl2-1b model 4", "internvl2-1b", 2, (1, 4), 4, 1024),
 )
+
+#: (e) serving on a mesh: (label, config, layers kept (an encoder-decoder's
+#: encoder too), (data, model), batch, prompt, cache length, source
+#: frames, dtype, int8 caches), each at its published widths with depth
+#: cut: a prefill, then MESH_SERVE_STEPS greedy decode steps through
+#: launch.steps.build_decode's fn on the rank's shards, against one
+#: process on the card from the same weights (init_lm for the mesh, cut
+#: by shard_lm_params) and prompts; the one-process run goes first, on
+#: rank 0 while the others wait, its results on the host and the card
+#: freed before the ranks draw their weights, one rank at a time.  Each
+#: decode step takes the one-process run's token as its input
+#: (float32: the same as the mesh's own greedy pick, which must equal
+#: it).  starcoder2-3b's 2 kv heads on tp 4 shard the caches' length
+#: (the online-softmax merge), again with int8 caches and in bfloat16;
+#: gemma3-27b's 16 kv heads on tp 2 shard by heads, its rings of 1024
+#: wrap during decode; granite-moe decodes expert-parallel at capacity
+#: factor 2.0 per data shard (drops printed); rwkv6-3b's state by heads,
+#: 20 a rank; recurrentgemma-9b's batch of 1 does not shard, so its
+#: 2048-slot ring shards over (data, model) (long_500k's layout) and its
+#: RG-LRU state by channels; seamless-m4t's encoder on the mesh and its
+#: cross caches by heads
+MESH_SERVE_CASES = (
+    ("starcoder2-3b model 4", "starcoder2-3b", 2, (1, 4), 4, 1024, 2048, 0,
+     "float32", False),
+    ("starcoder2-3b model 4 int8", "starcoder2-3b", 2, (1, 4), 4, 1024,
+     2048, 0, "float32", True),
+    ("gemma3-27b data 2 x model 2", "gemma3-27b", 6, (2, 2), 4, 1024, 2048,
+     0, "float32", False),
+    ("granite-moe data 2 x model 2", "granite-moe-1b-a400m", 4, (2, 2), 4,
+     1024, 2048, 0, "float32", False),
+    ("rwkv6-3b data 2 x model 2", "rwkv6-3b", 4, (2, 2), 4, 1024, 2048, 0,
+     "float32", False),
+    ("recurrentgemma-9b data 2 x model 2", "recurrentgemma-9b", 3, (2, 2),
+     1, 2560, 4096, 0, "float32", False),
+    ("seamless-m4t data 2 x model 2", "seamless-m4t-large-v2", 2, (2, 2), 4,
+     256, 512, 1024, "float32", False),
+    ("starcoder2-3b model 4 bf16", "starcoder2-3b", 2, (1, 4), 4, 1024,
+     2048, 0, "bfloat16", False),
+)
+MESH_SERVE_STEPS = 8
+#: float32, mesh against one process, set from PERF.md §6's argument
+#: before the first card run: the mesh reorders float32 sums (the
+#: all-reduce of each row-parallel output's 2 or 4 partials, the
+#: online-softmax merge of a length-sharded cache, products of other
+#: shapes), each off by about 2^-24 = 6e-8 of its output; a few dozen of
+#: them through at most 6 blocks and the unembedding move a logit by
+#: about 1e-6 of the largest, so 1e-5 of the largest |value| bounds every
+#: logit and every float cache leaf; int8 codes within one step on at
+#: most MESH_SERVE_CODE_SHARE of them (a rounding tie the sums move)
+MESH_SERVE_RTOL = 1e-5
+MESH_SERVE_CODE_SHARE = 1e-3
+#: bfloat16 (case 1 again, the served dtype), beside MESH_BF16_*: each
+#: bf16 rounding is off by up to 2^-8 (RMS about 2.3e-3); a block's two
+#: row-parallel outputs add about two roundings each (the rank's partial,
+#: the all-reduce), so the residual of 2 blocks drifts by about 2.3e-3 x 2
+#: x sqrt(4) = 9e-3 relative, and a logit (a product over d of the
+#: drifted residual) by as much of the largest; 3e-2 of the largest
+#: |value| bounds the logits and cache leaves.  A greedy token may differ
+#: only where the one-process top-2 gap is under that bound
+MESH_SERVE_BF16_RTOL = 3e-2
+#: (f) every architecture x cell program at full size on layout-only
+#: envs (nothing allocated): 10 x 4 on each, the 7 full-attention
+#: architectures' long_500k refused; the host's RSS may grow by less
+#: than this
+MESH_CELL_LAYOUTS = ({"data": 16, "model": 16},
+                     {"pod": 2, "data": 16, "model": 16})
+MESH_CELL_RSS_GB = 1.0
 
 
 def _mesh_tolerances(dtn: str) -> tuple:
@@ -4855,6 +4928,363 @@ def mesh_family_rank(rank: int, device, counters, total: dict) -> list:
     return out
 
 
+def _serve_cfg(arch: str, layers: int, dtn: str):
+    import dataclasses
+    return dataclasses.replace(_family_cfg(arch, layers), dtype=dtn)
+
+
+def _serve_batch(cfg, B: int, S: int, src: int, device) -> dict:
+    """(e)'s prompts (and an encoder-decoder's source frames), from
+    seeded generators on the card: the same on every rank."""
+    import torch
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=device,
+        generator=torch.Generator(device).manual_seed(11))}
+    if cfg.enc_dec:
+        batch["src_embeds"] = torch.randn(
+            (B, src, cfg.d_model), device=device,
+            generator=torch.Generator(device).manual_seed(12))
+    return batch
+
+
+def _top2_gap(logits, V: int):
+    import torch
+    top = torch.topk(logits[:, :V].float(), 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu()
+
+
+def mesh_serve_baseline(cfg, layout, case, shards: int, device) -> dict:
+    """(e)'s one-process run, on rank 0 alone: init_lm for the mesh's
+    ``layout``, a prefill and MESH_SERVE_STEPS greedy decode steps; each
+    step's input tokens, logits (B, Vp), greedy picks and top-2 gaps and
+    the final caches on the host, the peak and the seconds.  With
+    ``shards`` > 1 (an MoE with tp > 1, whose capacity is per data
+    shard) each data shard's rows are served on their own and their
+    results concatenated.  With int8 caches, the caches right after the
+    prefill are kept on the host too."""
+    import torch
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.models import transformer as tfm
+    _, _, _, _, B, S, CL, src, _, quant = case
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device, layout)
+    batch = _serve_batch(cfg, B, S, src, device)
+    rows = B // shards
+    parts = []
+    with torch.no_grad():
+        for j in range(shards):
+            part = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
+            logits, caches = tfm.prefill(cfg, params, part, cache_len=CL,
+                                         kv_quant=quant)
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+            rec = {"logits": [logits.float().cpu()], "picks": [],
+                   "gaps": [], "inputs": [tok.cpu()],
+                   "prefill_caches": ([t.to("cpu", copy=True)
+                                       for t in leaves(caches)]
+                                      if quant else [])}
+            for i in range(MESH_SERVE_STEPS):
+                logits, tok, caches = tfm.decode_step(
+                    cfg, params, tok[:, None], S + i, caches)
+                rec["logits"].append(logits.float().cpu())
+                rec["picks"].append(tok.cpu())
+                rec["gaps"].append(_top2_gap(logits, cfg.vocab_size))
+                rec["inputs"].append(tok.cpu())
+            rec["caches"] = [t.cpu() for t in leaves(caches)]
+            parts.append(rec)
+            del caches, logits
+    out = {k: [torch.cat(xs) for xs in zip(*(r[k] for r in parts))]
+           for k in ("logits", "picks", "gaps", "inputs")}
+    out["inputs"] = out["inputs"][:MESH_SERVE_STEPS]
+    shape = tfm.init_caches(cfg, 1, CL, "meta", quant, src)
+    for key in ("caches", "prefill_caches"):
+        out[key] = (unflatten(shape, [torch.cat(xs) for xs in
+                                      zip(*(r[key] for r in parts))])
+                    if parts[0][key] else None)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, batch, parts
+    release_memory()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _normwise(got, want) -> float:
+    """max |got - want| over max |want| (float64 on the host)."""
+    g, w = got.double(), want.double()
+    return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
+def _cache_errors(full: list, want: list, quant: bool) -> tuple:
+    """(the worst normwise error over the float leaves, the share of
+    int8 codes that differ and their largest difference)."""
+    from repro_torch._tree import leaves
+    worst, diff, n, big = 0.0, 0, 0, 0
+    for g, w in zip(leaves(full), leaves(want)):
+        g = g.cpu()
+        if w.dtype.is_floating_point:
+            worst = max(worst, _normwise(g.float(), w.float()))
+        else:
+            d = (g.int() - w.int()).abs()
+            diff += int((d > 0).sum())
+            n += d.numel()
+            big = max(big, int(d.max()))
+    return worst, (diff / n if n else 0.0), big
+
+
+def _serve_rows(cfg) -> tuple:
+    """The kernels (of rows 3-7) that a family's serving path runs."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6
+    types = set(cfg.layer_types())
+    rows = ["rmsnorm"]
+    if types & {ATTN_GLOBAL, ATTN_LOCAL} or cfg.enc_dec:
+        rows.append("flash_attention")
+    if cfg.num_experts:
+        rows.append("moe_swiglu")
+    if RGLRU in types:
+        rows.append("rglru_scan")
+    if RWKV6 in types:
+        rows.append("wkv6")
+    return tuple(rows)
+
+
+def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
+                   total: dict) -> dict:
+    """(e) on one mesh: this rank's slices of the weights (the ranks draw
+    them one at a time), the prefill and MESH_SERVE_STEPS decode steps
+    through build_decode's fn, the counts zeroed just before the prefill
+    and read after the last step (no plain version may run); the logits
+    gathered over the vocab shards and rows, and the caches gathered
+    whole, compared on rank 0 with ``base``.  With int8 caches the
+    decode steps start from the one-process prefill's codes (cut by
+    interop.shard_lm_caches), as tests/test_torch_kv_int8.py's decode
+    starts from the reference's: a code at a rounding tie may flip
+    between the two prefills (the prefill's caches are held to
+    MESH_SERVE_CODE_SHARE), and a flipped code would move a later logit
+    by about 1e-5 of the largest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import leaves
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.interop import shard_lm_caches, shard_lm_params
+    from repro_torch.launch.steps import build_decode
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.meshenv import P, unshard_tree
+    label, _, _, _, B, S, CL, src, dtn, quant = case
+    release_memory()
+    params = None
+    for r in range(dist.get_world_size()):
+        if r == rank and env.member:
+            params = shard_lm_params(cfg, tfm.init_lm(
+                cfg, torch.Generator(device).manual_seed(0), device, env),
+                env)
+            release_memory()
+        dist.barrier()
+    shared = [(base["inputs"], base["prefill_caches"]) if base is not None
+              else None]
+    dist.broadcast_object_list(shared, src=0)
+    inputs, one_prefill = shared[0]
+    if not env.member:
+        return {}
+    torch.cuda.reset_peak_memory_stats()
+    batch = _serve_batch(cfg, B, S, src, device)
+    specs = tfm.cache_specs(cfg, env, B, CL, src, quant)
+    prog = build_decode(cfg, env, ShapeCell("mesh_serve", CL, B, "decode"),
+                        kv_quant=quant)
+    bad = []
+    if leaves(prog.in_specs[3]) != leaves(specs):
+        bad.append("build_decode's cache specs differ from cache_specs at "
+                   f"source length {src}")
+    b_ax = env.batch_if(B)
+    logits_all, picks, steps_s = [], [], []
+    with torch.no_grad(), plain_version_calls() as plain, \
+            moe_drops() as seen:
+        torch.cuda.synchronize()
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(cfg, params, batch, cache_len=CL,
+                                     kv_quant=quant, env=env)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = _nonzero(counters)
+        prefill_calls = len(seen)
+        logits_all.append(env.unshard(logits, P(b_ax, "model")).float()
+                          .cpu())
+        prefill_full = None
+        if quant:
+            prefill_full = unshard_tree(caches, specs, env)
+            caches = shard_lm_caches(cfg, to_tree(one_prefill, device=device),
+                                     env)
+        for i in range(MESH_SERVE_STEPS):
+            tok = inputs[i].to(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, nxt, caches = prog.fn(params, tok[:, None], S + i,
+                                          caches)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+            logits_all.append(env.unshard(logits, P(b_ax, "model")).float()
+                              .cpu())
+            picks.append(env.unshard(nxt, P(b_ax)).cpu())
+        launches = _nonzero(counters)
+    _add_launches(total, launches)
+    if any(plain.values()):
+        bad.append(f"plain versions called: {plain}")
+    missing = [k for k in _serve_rows(cfg) if not launches.get(k)]
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    decode_drops = [sum(c) for c in zip(*seen[prefill_calls:])]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    full = unshard_tree(caches, specs, env)
+    del caches, params
+    rec = dict(coordinate=env.coordinate, tp=env.tp, dp=env.dp,
+               rows_per_rank=B // env.dp if b_ax else B, dtype=dtn,
+               kv_quant=quant, peak_gb=peak, prefill_s=prefill_s,
+               decode_s=steps_s, launches=launches,
+               prefill_launches=prefill_launches,
+               moe_prefill=[sum(c) for c in zip(*seen[:prefill_calls])],
+               moe_decode=decode_drops)
+    if base is not None:
+        tol = MESH_SERVE_RTOL if dtn == "float32" else MESH_SERVE_BF16_RTOL
+        V = cfg.vocab_size              # past it, -1e30 on both sides
+        errs = [_normwise(a[:, :V], b[:, :V])
+                for a, b in zip(logits_all, base["logits"])]
+        cache_err, code_share, code_max = _cache_errors(full, base["caches"],
+                                                        quant)
+        if prefill_full is not None:
+            pre = _cache_errors(prefill_full, base["prefill_caches"], quant)
+            rec["prefill_cache_err"] = pre
+            cache_err = max(cache_err, pre[0])
+            code_share = max(code_share, pre[1])
+            code_max = max(code_max, pre[2])
+        near, differ = [], []
+        for i, (a, b) in enumerate(zip(picks, base["picks"])):
+            for row in (a != b).nonzero().flatten().tolist():
+                gap = float(base["gaps"][i][row])
+                scale = base["logits"][i + 1][:, :V].abs().max().item()
+                entry = dict(step=i, row=row, mesh=int(a[row]),
+                             one_process=int(b[row]), gap=gap)
+                (near if dtn != "float32" and gap < tol * scale
+                 else differ).append(entry)
+        rec.update(one_process_peak_gb=base["peak_gb"],
+                   one_process_s=base["s"], logits_err=errs,
+                   cache_err=cache_err, int8_codes_differing=code_share,
+                   int8_code_max_diff=code_max, tokens_near_tie=near,
+                   tokens=[p.tolist() for p in base["picks"]], tol=tol)
+        if max(errs) > tol:
+            bad.append(f"logits error {max(errs):.3g} > {tol}")
+        if cache_err > tol:
+            bad.append(f"cache error {cache_err:.3g} > {tol}")
+        if code_max > 1 or code_share > MESH_SERVE_CODE_SHARE:
+            bad.append(f"int8 codes: {code_share:.3g} differ, by up to "
+                       f"{code_max}")
+        if differ:
+            bad.append(f"greedy tokens differ: {differ}")
+    rec["bad"] = bad
+    del full
+    release_memory()
+    return rec
+
+
+def mesh_serve_rank(rank: int, device, counters, total: dict) -> list:
+    """(e): for each of MESH_SERVE_CASES, rank 0's one-process run while
+    the others wait, then the case's mesh over the first ranks of the
+    world (the others build it, take their turn at the weights and
+    wait)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.meshenv import make_env
+    out = []
+    for case in MESH_SERVE_CASES:
+        label, arch, layers, shape, _, _, _, _, dtn, _ = case
+        cfg = _serve_cfg(arch, layers, dtn)
+        layout = make_env({"data": shape[0], "model": shape[1]})
+        t0 = time.perf_counter()
+        shards = shape[0] if cfg.num_experts and shape[1] > 1 else 1
+        base = (mesh_serve_baseline(cfg, layout, case, shards, device)
+                if rank == 0 else None)
+        dist.barrier()
+        env = make_env(make_mesh(shape, ("data", "model")))
+        rec = mesh_serve_run(rank, cfg, env, case, device, counters, base,
+                             total)
+        if env.member:
+            out.append(dict(case=label, s=time.perf_counter() - t0, **rec))
+        dist.barrier()
+        del base
+        release_memory()
+    return out
+
+
+def mesh_cross_lse(device) -> dict:
+    """Row 3's float32 log-sum-exp (``stats=True``), which the merge over
+    a length-sharded cross cache takes, against the plain version's at
+    a decode step's shape over seamless-m4t's 1024 source frames cut
+    four ways (B 4, 1 x 256, 16/16 heads of 64; no case of (e) shards a
+    cross cache's length at published widths)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device).manual_seed(13)
+    q, k, v = (torch.randn(shape, device=device, generator=g)
+               for shape in ((4, 1, 16, 64), (4, 256, 16, 64),
+                             (4, 256, 16, 64)))
+    out, lse, lo = fk.flash_attention_cuda(q, k, v, causal=False, stats=True)
+    ref_out, ref_lse, _ = attention_ref(q, k, v, causal=False, stats=True)
+    rec = dict(lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+               out_max_abs_err=(out - ref_out).abs().max().item(),
+               residual=lo is None, tol=ATTN_TOL["float32"])
+    rec["bad"] = ([] if lo is None and max(
+        rec["lse_max_abs_err"], rec["out_max_abs_err"]) <= rec["tol"]
+        else [f"row 3's float32 LSE: {rec}"])
+    return rec
+
+
+def mesh_cell_programs() -> dict:
+    """(f): every architecture x cell program at full size on each of
+    MESH_CELL_LAYOUTS (layout-only envs); the full-attention
+    architectures' long_500k must raise ValueError.  Nothing may be
+    allocated on the card, and the host's RSS may grow by less than
+    MESH_CELL_RSS_GB."""
+    import resource
+    import torch
+    from repro_torch.configs import ALL_CELLS, ARCH_IDS, get_config
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.runtime.meshenv import make_env
+    from repro_torch.runtime.train import TrainConfig
+    before = torch.cuda.memory_allocated()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    built, refused, kinds = 0, 0, {}
+    for layout in MESH_CELL_LAYOUTS:
+        env = make_env(layout)
+        for arch in ARCH_IDS:
+            for cell in ALL_CELLS:
+                try:
+                    prog = build_cell(get_config(arch), env, cell,
+                                      TrainConfig())
+                except ValueError:
+                    refused += 1
+                    continue
+                built += 1
+                kinds[prog.kind] = kinds.get(prog.kind, 0) + 1
+    rec = dict(built=built, refused=refused, kinds=kinds,
+               s=time.perf_counter() - t0,
+               card_bytes_delta=torch.cuda.memory_allocated() - before,
+               rss_growth_gb=(resource.getrusage(resource.RUSAGE_SELF)
+                              .ru_maxrss - rss0) / 1e6)
+    bad = []
+    if (built, refused) != (66, 14):
+        bad.append(f"built {built}, refused {refused}; want 66 and 14")
+    if rec["card_bytes_delta"]:
+        bad.append(f"the card's allocated bytes moved by "
+                   f"{rec['card_bytes_delta']}")
+    if rec["rss_growth_gb"] >= MESH_CELL_RSS_GB:
+        bad.append(f"host RSS grew {rec['rss_growth_gb']:.2f} GB")
+    rec["bad"] = bad
+    return rec
+
+
 def gloo_cuda_probe(device) -> dict:
     """Which collectives the world's gloo groups run on CUDA tensors:
     the three the port uses (all_reduce, all_gather; broadcast, which
@@ -4885,7 +5315,7 @@ def gloo_cuda_probe(device) -> dict:
 
 def mesh_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of [mesh]'s world: gloo on card 0 through a FileStore in
-    ``tmp``; (a), (b), (d) and the gloo probe; its record written to
+    ``tmp``; (a), (b), (d), (e) and the gloo probe; its record written to
     ``tmp/rank<r>.json``, or its traceback to ``tmp/rank<r>.err``."""
     import os
     import traceback
@@ -4914,6 +5344,10 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         t0 = time.perf_counter()
         rec["families"] = mesh_family_rank(rank, device, counters, total)
         rec["families_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec["serve"] = mesh_serve_rank(rank, device, counters, total)
+        rec["serve_s"] = time.perf_counter() - t0
         dist.barrier()
         rec["gloo_cuda"] = gloo_cuda_probe(device)
         rec["launches"] = total
@@ -5037,8 +5471,9 @@ def mesh_launcher(counters) -> list:
 
 
 def mesh_phase(device, counters) -> tuple:
-    """[mesh]: (a), (b) and (d) in a world of MESH_WORLD ranks sharing
-    the card, then (c) for each of MESH_LAUNCH_ARCHS.  Prints each
+    """[mesh]: (a), (b), (d) and (e) in a world of MESH_WORLD ranks
+    sharing the card, then (f) the cell programs in this process and (c)
+    for each of MESH_LAUNCH_ARCHS.  Prints each
     record; raises on any breach.  Returns
     (records, launches of every rank and of (c)'s one-process runs)."""
     from repro_torch.launch.mesh import choose_backend
@@ -5080,6 +5515,18 @@ def mesh_phase(device, counters) -> tuple:
         if cases != wanted:
             bad.append(f"rank {r['rank']} ran {sorted(cases)}, want "
                        f"{sorted(wanted)}")
+        phase("mesh", f"serve rank {r['rank']}: {r['serve_s']:.1f} s")
+        for t in r["serve"]:
+            phase("mesh", f"serve {t['case']} rank {r['rank']} "
+                  + json.dumps(t))
+            bad.extend(f"serve {t['case']} rank {r['rank']}: {b}"
+                       for b in t["bad"])
+        cases = {t["case"] for t in r["serve"]}
+        wanted = {c[0] for c in MESH_SERVE_CASES
+                  if r["rank"] < c[3][0] * c[3][1]}
+        if cases != wanted:
+            bad.append(f"rank {r['rank']} served {sorted(cases)}, want "
+                       f"{sorted(wanted)}")
     want = choose_backend([r["card_uuid"] for r in ranks])
     if any(r["backend"] != want for r in ranks):
         bad.append(f"backends {[r['backend'] for r in ranks]}, the cards "
@@ -5091,6 +5538,12 @@ def mesh_phase(device, counters) -> tuple:
         if not all(r["launches"].get(name) for r in on):
             bad.append(f"{name} not launched on every rank that runs it")
     phase("mesh", f"world of {MESH_WORLD} ranks: {world_s:.1f} s")
+    cells = mesh_cell_programs()
+    phase("mesh", "cell programs " + json.dumps(cells))
+    bad.extend(f"cell programs: {b}" for b in cells["bad"])
+    lse = mesh_cross_lse(device)
+    phase("mesh", "row 3 float32 LSE " + json.dumps(lse))
+    bad.extend(lse["bad"])
     t0 = time.perf_counter()
     for launcher in mesh_launcher(counters):
         phase("mesh", f"launcher {launcher['arch']} " + json.dumps(launcher))
@@ -5254,12 +5707,16 @@ def main() -> int:
     # rwkv6-3b and recurrentgemma-9b split generation and the
     # continuous-batching engine; recurrentgemma's prompts (2560) are
     # longer than its window (2048), so its rings wrap ------------------
-    serve = serve_full_width(device, "starcoder2-3b", "serve")
-    serve_moe = serve_full_width(device, "granite-moe-1b-a400m", "serve-moe")
-    serve_rwkv = serve_full_width(device, "rwkv6-3b", "serve-rwkv")
+    # (the engine's one-request references stop at the first token, the
+    # one that must match, as the served-last phases' do)
+    serve = serve_full_width(device, "starcoder2-3b", "serve", ref_tokens=1)
+    serve_moe = serve_full_width(device, "granite-moe-1b-a400m", "serve-moe",
+                                 ref_tokens=1)
+    serve_rwkv = serve_full_width(device, "rwkv6-3b", "serve-rwkv",
+                                  ref_tokens=1)
     serve_hybrid = serve_full_width(device, "recurrentgemma-9b",
                                     "serve-hybrid", prompt_len=2560,
-                                    cache_len=4096)
+                                    cache_len=4096, ref_tokens=1)
 
     # 7b. the configurations served last: qwen3-8b (qk-norm), gemma3-27b
     # (5 local : 1 global, prompts of 2048 past its 1024 window), moonshot

@@ -3,8 +3,9 @@ transformer registry (``get_config("<arch-id>")``)."""
 from __future__ import annotations
 
 from .archs import ARCH_BUILDERS
-from .base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig,
-                   reduced)
+from .base import (ALL_CELLS, ATTN_GLOBAL, ATTN_LOCAL, CELLS_BY_NAME,
+                   DECODE_32K, LONG_500K, PREFILL_32K, RGLRU, RWKV6, TRAIN_4K,
+                   ModelConfig, ShapeCell, reduced, supports_cell)
 from .chain_cnns import (CNN_BUILDERS, ChainCNNConfig, CNNLayer, nin,
                          vgg16, yolov2)
 
@@ -25,7 +26,14 @@ def get_config(name: str):
             f"unknown arch {name!r}; available: {sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ARCH_BUILDERS", "ARCH_IDS", "ATTN_GLOBAL", "ATTN_LOCAL",
-           "CNN_BUILDERS", "CNN_IDS", "ChainCNNConfig", "CNNLayer",
-           "ModelConfig", "RGLRU", "RWKV6", "get_config", "nin", "reduced",
-           "vgg16", "yolov2"]
+def get_cell(name: str) -> ShapeCell:
+    """The shape cell ``name`` (``CELLS_BY_NAME``)."""
+    return CELLS_BY_NAME[name]
+
+
+__all__ = ["ALL_CELLS", "ARCH_BUILDERS", "ARCH_IDS", "ATTN_GLOBAL",
+           "ATTN_LOCAL", "CELLS_BY_NAME", "CNN_BUILDERS", "CNN_IDS",
+           "ChainCNNConfig", "CNNLayer", "DECODE_32K", "LONG_500K",
+           "ModelConfig", "PREFILL_32K", "RGLRU", "RWKV6", "ShapeCell",
+           "TRAIN_4K", "get_cell", "get_config", "nin", "reduced",
+           "supports_cell", "vgg16", "yolov2"]

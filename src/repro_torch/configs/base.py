@@ -3,8 +3,9 @@
 
 A copy of the JAX package's ``repro/configs/base.py`` (plain dataclasses,
 no tensors): the port imports nothing of that package, so it keeps its
-own.  The shape cells of the reference (``ShapeCell``) are not copied:
-nothing in the port reads them yet.
+own.  The shape cells (``ShapeCell``, ``ALL_CELLS``, ``supports_cell``)
+are the reference's, unchanged: ``launch/steps.py`` builds a program for
+each architecture x cell.
 """
 from __future__ import annotations
 
@@ -139,6 +140,36 @@ class ModelConfig:
             n += self.num_layers * (d + d * self.q_dim + 2 * d * self.kv_dim
                                     + self.q_dim * d)
         return n
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeCell("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeCell("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeCell("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeCell("long_500k", 524_288, 1, "decode")
+
+ALL_CELLS = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+CELLS_BY_NAME = {c.name: c for c in ALL_CELLS}
+
+
+def supports_cell(cfg: ModelConfig, cell: ShapeCell) -> bool:
+    """long_500k needs sub-quadratic attention state: a recurrent block
+    or sliding-window attention; pure full-attention architectures are
+    skipped."""
+    if cell.name != "long_500k":
+        return True
+    types = set(cfg.layer_types())
+    return bool(types & {RGLRU, RWKV6}) or (ATTN_LOCAL in types)
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,

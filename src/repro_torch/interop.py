@@ -17,13 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import leaves, tree_map
 from repro_torch.api.scenario import Scenario
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.configs.chain_cnns import ChainCNNConfig
 from repro_torch.core.costs import LayerProfile
 from repro_torch.core.planner import PLAN_FIELDS, FleetState
-from repro_torch.models.transformer import encoder_cfg, param_specs
+from repro_torch.models.transformer import (encoder_cfg, layer_cache_specs,
+                                            param_specs)
 from repro_torch.runtime.meshenv import MeshEnv, shard_tree
 
 _INT_COLUMNS = ("server", "split", "R")
@@ -132,6 +133,25 @@ def lm_caches_from_numpy(cfg: ModelConfig, tree: dict) -> list:
         if lt in (ATTN_GLOBAL, ATTN_LOCAL):
             b = dict(b["mix"], **{k: v for k, v in b.items() if k != "mix"})
         out.append(b)
+    return out
+
+
+def shard_lm_caches(cfg: ModelConfig, tree, env: MeshEnv) -> list:
+    """One rank's caches under ``env`` from whole (logical) caches: the
+    reference's stacked tree as numpy leaves (converted first,
+    :func:`lm_caches_from_numpy`) or the port's list, each block cut by
+    :func:`repro_torch.models.transformer.layer_cache_specs` of its own
+    batch, length, source length and int8 scales."""
+    if isinstance(tree, dict):
+        tree = lm_caches_from_numpy(cfg, tree)
+    out = []
+    for c, lt in zip(tree, cfg.layer_types()):
+        batch = leaves(c)[0].shape[0]
+        L = c["k"].shape[1] if "k" in c else 0
+        cross = c["cross"]["k"].shape[1] if "cross" in c else 0
+        specs = layer_cache_specs(cfg, env, lt, batch, L, cross,
+                                  "k_scale" in c)
+        out.append(shard_tree(c, specs, env))
     return out
 
 

@@ -133,8 +133,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int Sq, int Skv, int Hq, int Hkv, float scale,
-                       int causal, int window) {
+                       float* __restrict__ lse, int Sq, int Skv, int Hq,
+                       int Hkv, float scale, int causal, int window) {
   constexpr int QP = HD + 4;           // pitch of the q and k tiles
   constexpr int NC = HD / 32;          // float4 output chunks per thread
   extern __shared__ float4 smem4[];
@@ -274,6 +274,10 @@ flash_attention_kernel(const float* __restrict__ q,
       *reinterpret_cast<float4*>(o + 32 * c + 4 * tc) =
           make_float4(r[0], r[1], r[2], r[3]);
     }
+    // the row's log-sum-exp in base 2, as the tensor-core body gives it
+    if (lse != nullptr && tc == 0)
+      lse[((size_t)b * Hq + h) * Sq + qpos] =
+          (m[i] + logf(fmaxf(l[i], 1e-30f))) * 1.4426950408889634f;
   }
 }
 
@@ -281,8 +285,9 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv,
            float scale, int causal, int window, cudaStream_t stream) {
-  // its float32 output needs no residual, and its backward recomputes LSE
-  if (lse != nullptr || out_lo != nullptr) return (int)cudaErrorInvalidValue;
+  // its float32 output needs no residual; lse is the serving merge's (its
+  // backward recomputes LSE)
+  if (out_lo != nullptr) return (int)cudaErrorInvalidValue;
   constexpr int QP = HD + 4;
   constexpr size_t smem = sizeof(float) *
       (size_t)(BQ * QP + BK * QP + BK * HD + BQ * PS);
@@ -292,8 +297,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B), block(THREADS);
   kern<<<grid, block, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-      Skv, Hq, Hkv, scale, causal, window);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+      Sq, Skv, Hq, Hkv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -619,14 +624,14 @@ extern "C" {
 // 64, 128, 256}.  lse (B, Hq, Sq) float32 and out_lo (out's shape, bf16)
 // are both null (serving) or both given (the tensor-core body of a
 // training forward: base-2 log-sum-exp of each row's scaled scores, and
-// bf16(o - out) of the float32 output o); the CUDA-core body takes
-// neither.
+// bf16(o - out) of the float32 output o); the CUDA-core body takes lse
+// alone (a serving merge over sharded keys) or neither.
 int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, void* out_lo, int B,
                                 int Sq, int Skv, int Hq, int Hkv, int hd,
                                 float scale, int causal, int window,
                                 int dtype, int body, void* stream) {
-  if ((lse == nullptr) != (out_lo == nullptr))
+  if (body == 1 && (lse == nullptr) != (out_lo == nullptr))
     return (int)cudaErrorInvalidValue;
   static const LaunchFn cc_fns[4] = {cc::launch<32>, cc::launch<64>,
                                      cc::launch<128>, cc::launch<256>};

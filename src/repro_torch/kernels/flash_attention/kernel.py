@@ -10,7 +10,9 @@ and ``LAUNCHES["flash_attention_tc"]`` those of the tensor-core body,
 nowhere else.  A training forward (``stats=True``, bfloat16) also
 returns each row's log-sum-exp and the output's rounding residual, what
 the tensor-core backward (``backward.py``) takes; ``out``'s bits do not
-change.
+change.  In float32 ``stats=True`` returns the log-sum-exp alone (no
+residual: the output is float32), what the serving merge over a
+sharded cross cache takes (``models/transformer.py``).
 
 The body follows the dtype, explicitly (:func:`body_for`): bfloat16 runs
 the tensor-core body (wgmma, bf16 tiles), float32 the CUDA-core body
@@ -109,11 +111,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), contiguous and 16-byte aligned, on one CUDA device ->
     (B, Sq, Hq, hd) in that dtype.
 
-    ``stats=True`` (bfloat16 only: what the tensor-core backward needs)
-    returns ``(out, lse, out_lo)``: ``out`` with the same bits, each row's
-    log-sum-exp of the scaled scores in base 2 (B, Hq, Sq) float32, and
-    ``out_lo`` = bf16(o − out) of the float32 output o; see
-    ``ref.attention_ref``."""
+    ``stats=True`` returns ``(out, lse, out_lo)``: ``out`` with the same
+    bits, each row's log-sum-exp of the scaled scores in base 2 (B, Hq,
+    Sq) float32, and in bfloat16 ``out_lo`` = bf16(o − out) of the
+    float32 output o (see ``ref.attention_ref``), in float32 None."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name}: expected a tensor")
@@ -130,15 +131,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     body = body_for(q.dtype, hd)
-    if stats and body != "tensor_cores":
-        raise TypeError(f"attention: stats=True is the bfloat16 body's; "
-                        f"{q.dtype}'s backward recomputes them")
     out = torch.empty_like(q)
     lse = out_lo = None
     if stats:
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
                           device=q.device)
-        out_lo = torch.empty_like(q)
+        if body == "tensor_cores":
+            out_lo = torch.empty_like(q)
     if out.numel() == 0:
         return (out, lse, out_lo) if stats else out
     lib = library()
@@ -146,7 +145,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.mcsa_flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if stats else None,
-        out_lo.data_ptr() if stats else None, B, Sq, Skv, Hq, Hkv, hd,
+        out_lo.data_ptr() if out_lo is not None else None, B, Sq, Skv, Hq,
+        Hkv, hd,
         float(hd ** -0.5), int(bool(causal)), int(window), DTYPES[q.dtype],
         BODIES[body], stream)
     if rc != 0:

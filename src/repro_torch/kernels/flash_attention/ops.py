@@ -76,3 +76,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, window)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = False, window: int = 0) -> tuple:
+    """The forward with each row's log-sum-exp (no gradient; serving):
+    (out (B, Sq, Hq, hd), lse (B, Hq, Sq) float32 in base 2, out_lo: the
+    output's bfloat16 rounding residual, or None in float32)."""
+    out, lse, out_lo = _forward(q, k, v, causal, window, stats=True)
+    return out, lse, out_lo if q.dtype == torch.bfloat16 else None

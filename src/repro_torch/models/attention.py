@@ -14,6 +14,9 @@ widened to Hq heads.
 * :func:`decode_attention` — one query token against the cache, with
   per-sequence positions (continuous batching).  Plain tensor code, as in
   the reference (a candidate kernel: ROADMAP).
+* :func:`decode_attention_partial` — the same over one rank's slots of
+  a cache whose length is sharded over a mesh: the float32 partial
+  (max, sum of exponentials, weighted values) that the ranks merge.
 * :func:`naive_attention` — the reference softmax attention (ends of q
   and k aligned) that tests hold the others against.
 * :func:`quantize_kv` — int8 codes of k or v with one float32 scale a
@@ -111,6 +114,50 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
     return out.reshape(B, 1, Hq, hd).to(q.dtype)
 
 
+def decode_attention_partial(q, cache_k, cache_v, pos, *, window: int = 0,
+                             first: int = 0, length: Optional[int] = None,
+                             scale: Optional[float] = None, k_scale=None,
+                             v_scale=None) -> tuple:
+    """:func:`decode_attention` over one piece of a cache whose length is
+    sharded: ``cache_k``/``cache_v`` (B, L, Hkv, hd) hold slots
+    [first, first + L) of a cache of ``length`` slots (a ring of
+    ``length`` slots for a local layer), the int8 scales likewise.
+    Returns the float32 partial, relative to this piece's own max: (m,
+    l) (B, 1, Hq, 1), each head's max score and sum of exponentials, and
+    o (B, 1, Hq, hd), the exponentials times v (times ``v_scale``).
+    Pieces merge as the online softmax does: with M the max of the m's,
+    out = sum(o·e^(m−M)) / sum(l·e^(m−M)).  A piece with no valid slot
+    has m near -1e30 and weighs nothing in the merge."""
+    B, _, Hq, hd = q.shape
+    L, Hkv = cache_k.shape[1], cache_k.shape[2]
+    length = L if length is None else length
+    scale = scale if scale is not None else hd ** -0.5
+    qg = _group(q, Hkv).float()                          # (B,1,Hkv,rep,hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache_k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale.transpose(1, 2)[:, :, None, None, :]
+    slots = first + torch.arange(L, device=q.device)
+    p = torch.as_tensor(pos, device=q.device)
+    if p.dim() == 1:
+        p = p[:, None]                                   # (B,1) vs (L,)
+    if window > 0:
+        slot_pos = p - torch.remainder(p - slots, length)
+        valid = (slot_pos >= 0) & (slot_pos <= p) & ((p - slot_pos) < window)
+    else:
+        valid = slots <= p
+    bias = _mask_bias(valid)
+    bias = bias[:, None, None, None, :] if bias.dim() == 2 else bias
+    s = s + bias
+    m = s.amax(dim=-1, keepdim=True)                     # (B,Hkv,rep,1,1)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        e = e * v_scale.transpose(1, 2)[:, :, None, None, :]
+    o = torch.einsum("bgrqk,bkgd->bqgrd", e, cache_v.float())
+    return (m.reshape(B, 1, Hq, 1), l.reshape(B, 1, Hq, 1),
+            o.reshape(B, 1, Hq, hd))
+
+
 def quantize_kv(x: torch.Tensor):
     """(B,S,Hkv,hd) -> (int8 codes, (B,S,Hkv) float32 scales), one scale
     a row: ``max|x| / 127`` floored at 1e-8, codes rounded half to even
@@ -126,4 +173,5 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), s
 
 
-__all__ = ["NEG_INF", "decode_attention", "naive_attention", "quantize_kv"]
+__all__ = ["NEG_INF", "decode_attention", "decode_attention_partial",
+           "naive_attention", "quantize_kv"]

@@ -46,7 +46,11 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                device) -> torch.Tensor:
     """Normal(0, 1/in_dim) weights, drawn in float32 on the generator's
-    device, then cast and moved."""
+    device, then cast and moved.  On the ``meta`` device nothing is
+    drawn or allocated: the shape and dtype alone (abstract parameters,
+    ``launch/steps.py``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = 1.0 / math.sqrt(max(in_dim, 1))
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * scale

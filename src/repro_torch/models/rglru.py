@@ -27,8 +27,9 @@ Tensor parallelism (``env``), the reference's specs
 (:func:`rglru_specs`): each model rank holds d_rnn/tp channels of
 ``wx``, ``wy``, ``conv_w`` and ``a_param``, the matching rows of
 ``wo`` and num_heads/tp whole blocks of ``gate_a``/``gate_i``; it runs
-the conv, the gates and the scan on them, and ``wo`` ends in an
-all-reduce over the model axis (x enters through ``psum_grad``).
+the conv, the gates and the scan on them (at decode, the single-step
+update of its channels of the state), and ``wo`` ends in an all-reduce
+over the model axis (x enters through ``psum_grad``).
 
 State per block: ``{"h": (B, d_rnn) float32, "conv": (B, K-1, d_rnn)}``
 in the model's dtype.  Decode updates a given state in place and returns
@@ -162,9 +163,14 @@ def apply_rglru_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def apply_rglru_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                       state: dict) -> Tuple[torch.Tensor, dict]:
+                       state: dict, *, env: MeshEnv = CPU_ENV
+                       ) -> Tuple[torch.Tensor, dict]:
     """One token.  x (B, 1, d); state {"h": (B, r) float32, "conv":
-    (B, K-1, r)}, updated in place and returned."""
+    (B, K-1, r)}, updated in place and returned.  With ``env.tp > 1``,
+    ``p`` and the state hold this rank's channels and the output is
+    summed over the model axis."""
+    if env.tp > 1:
+        x = env.psum_grad(x, env.model_axis)
     xi = x @ p["wx"]                                    # (B, 1, r)
     window = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)  # (B, K, r)
     # window[k] holds x_{t-(K-1-k)} and the sequence path applies w[m] to
@@ -176,6 +182,8 @@ def apply_rglru_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                       1e-12))
     h = a * state["h"] + beta * gated[:, 0]             # (B, r) float32
     out = (h[:, None].to(x.dtype) * _gelu_branch(p, x)) @ p["wo"]
+    if env.tp > 1:
+        out = env.psum(out, env.model_axis)
     state["h"].copy_(h)
     state["conv"].copy_(window[:, 1:])
     return out, state

@@ -155,7 +155,7 @@ class MeshEnv:
     batch_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = None
     # the reference's §Perf flag (attention sharded over the sequence);
-    # kept for its specs, waits for ROADMAP item 8c in the model code
+    # kept for its specs, waits for ROADMAP item 8e in the model code
     context_parallel_attn: bool = False
     #: (name, size) of every mesh axis, major first; empty off the mesh
     axes: Tuple[Tuple[str, int], ...] = ()

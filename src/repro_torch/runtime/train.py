@@ -32,10 +32,12 @@ explicit:
 The metrics are the mean over the batch axes of each rank's: the loss
 of its rows, and the MoE's ``aux``, which is global on a data mesh
 (every rank holds the same value) and the data shard's with tp > 1, as
-the reference's.  The reference's other mesh-only fields
-(``context_parallel_attention``, ``triangular_attention``,
-``kv_quant_serving``) are read only by its cell programs and dry run,
-and wait for ROADMAP item 8c.
+the reference's.  The reference's three mesh-only fields are read by
+the cell programs (``launch/steps.py``): ``triangular_attention`` by
+prefill (accepted; the attention kernel always skips the masked-out kv
+blocks, so it changes no number), ``kv_quant_serving`` by decode (int8
+caches), and ``context_parallel_attention``, which ``check_supported``
+refuses with tp > 1 (ROADMAP item 8e).
 """
 from __future__ import annotations
 
@@ -82,6 +84,9 @@ class TrainConfig:
     adamw: AdamWConfig = AdamWConfig()
     remat: bool = True
     capacity_factor: float = 1.25
+    triangular_attention: bool = False  # prefill: changes no number
+    context_parallel_attention: bool = False   # refused: ROADMAP item 8e
+    kv_quant_serving: bool = False      # decode cells: int8 k/v caches
     bf16_collectives: bool = False      # gradients cross in their dtype
     zero1: bool = True                  # read nowhere, as the reference's
 

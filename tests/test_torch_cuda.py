@@ -1121,16 +1121,20 @@ def test_cuda_flash_attention_bwd_head_dim_256(B, S, Hq, Hkv, causal,
 @pytest.mark.cuda
 def test_cuda_flash_attention_bwd_takes_the_stats_its_body_needs(cuda):
     """bf16 refuses a call without the training forward's LSE and
-    residual, float32 one with them, and the forward gives them for bf16
-    only."""
+    residual, float32 one with them; the forward gives both for bf16 and
+    the LSE alone for float32 (the serving merge's), within 2e-5 of the
+    plain version's."""
     q = _randn((1, 8, 2, 64), torch.bfloat16, cuda, 74)
     with pytest.raises(ValueError, match="lse"):
         tflash.flash_attention_bwd_cuda(q, q, q, q, q)
     f = q.float()
     with pytest.raises(ValueError, match="float32"):
         tflash.flash_attention_bwd_cuda(f, f, f, f, f, lse=f, out_lo=f)
-    with pytest.raises(TypeError, match="stats"):
-        tflash.flash_attention_cuda(f, f, f, stats=True)
+    out, lse, lo = tflash.flash_attention_cuda(f, f, f, stats=True)
+    assert lo is None
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    _, want, _ = attention_ref(f.cpu(), f.cpu(), f.cpu(), stats=True)
+    torch.testing.assert_close(lse.cpu(), want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda

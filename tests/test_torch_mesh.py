@@ -25,7 +25,7 @@
   bit, over two calls (the second carrying the first's error feedback).
 * ``shrink_mesh``'s edge cases; every family accepted on a data and on
   a model mesh with the reference's spec tree, and context-parallel
-  attention refused (ROADMAP item 8c).
+  attention refused (ROADMAP item 8e).
 """
 import os
 import subprocess
@@ -154,12 +154,12 @@ def _assert_same_specs(port, ref, where="") -> None:
 def test_spec_trees_match_the_reference(arch, data, model, cp, tree):
     """``cp``: the reference's context-parallel attention replicates the
     attention weights; the port's specs follow, and its model refuses
-    the mode (ROADMAP item 8c)."""
+    the mode (ROADMAP item 8e)."""
     jcfg, tcfg = _cfgs(arch)
     jspecs, shapes, jenv = _reference(jcfg, data, model, cp)
     env = make_env({"data": data, "model": model}, context_parallel_attn=cp)
     if cp:
-        with pytest.raises(NotImplementedError, match="8c"):
+        with pytest.raises(NotImplementedError, match="8e"):
             t_tfm.check_supported(tcfg, env)
     pspecs = _reference_specs(tcfg, env)
     if tree == "params":
@@ -202,12 +202,17 @@ def test_every_family_is_accepted_on_a_mesh_with_the_reference_s_specs(
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-1b"])
-def test_context_parallel_attention_on_a_model_mesh_waits_for_item_8c(arch):
+def test_context_parallel_attention_on_a_model_mesh_waits_for_item_8e(arch):
     env = make_env({"data": 1, "model": 2}, context_parallel_attn=True)
     cfg = reduced(get_config(arch))
+    tokens = torch.zeros((2, 4), dtype=torch.int64)
     for call in (lambda: t_tfm.check_supported(cfg, env),
-                 lambda: t_train.make_train_step(cfg, env=env)):
-        with pytest.raises(NotImplementedError, match="8c"):
+                 lambda: t_train.make_train_step(cfg, env=env),
+                 lambda: t_tfm.prefill(cfg, {}, {"tokens": tokens},
+                                       cache_len=8, env=env),
+                 lambda: t_tfm.decode_step(cfg, {}, tokens[:, :1], 4, [],
+                                           env=env)):
+        with pytest.raises(NotImplementedError, match="8e"):
             call()
 
 
@@ -370,7 +375,9 @@ def test_backend_follows_the_cards_the_ranks_hold(cards, backend):
                                    "repro_torch.models.moe",
                                    "repro_torch.models.rwkv",
                                    "repro_torch.models.rglru",
-                                   "repro_torch.models.transformer"])
+                                   "repro_torch.models.transformer",
+                                   "repro_torch.launch.steps",
+                                   "repro_torch.configs"])
 def test_the_mesh_modules_load_no_jax_in_a_fresh_interpreter(first):
     """Each module the mesh threads through imports first in a fresh
     interpreter (no circular import through ``runtime.meshenv``), and
@@ -381,6 +388,7 @@ def test_the_mesh_modules_load_no_jax_in_a_fresh_interpreter(first):
         "import repro_torch.runtime.meshenv, repro_torch.runtime.elastic\n"
         "import repro_torch.launch.mesh, repro_torch.launch.train\n"
         "import repro_torch.runtime.compression, repro_torch.interop\n"
+        "import repro_torch.launch.steps, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"
