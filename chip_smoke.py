@@ -115,6 +115,16 @@ card, over its main paths.
   granite-moe's 100m members, preempted and resumed by one process
   against an unbroken run.  Ranks sharing one card show the sharded
   paths, not multi-card speed or memory.
+* The dry run, ``[dryrun]``: (a) ``launch.dryrun`` counts every
+  architecture x cell on both production layouts on ``meta``, in worker
+  processes that never touch the card (66 counted, 14 skipped), each
+  row's bottleneck, roofline step and MFU printed (derived from H100
+  data-sheet rates); (b) its calibration: full-width starcoder2-3b's
+  train cell at [train]'s shape and a decode cell counted on ``meta``
+  and run on the card under the count (flops and bytes equal, each
+  kernel launched as the count called it, no plain version, the
+  tracked peak against the card's), then the step timed beside its
+  roofline.
 
     python3 chip_smoke.py
 
@@ -4327,6 +4337,24 @@ MESH_SERVE_STEPS = 8
 #: most MESH_SERVE_CODE_SHARE of them (a rounding tie the sums move)
 MESH_SERVE_RTOL = 1e-5
 MESH_SERVE_CODE_SHARE = 1e-3
+
+
+def int8_flip_bound(flipped: int, positions: int) -> float:
+    """(e)'s int8 chain, set before the card run: the largest move, over
+    the largest |logit|, of a one-process decode's logits when its
+    prefill's int8 codes are replaced by the mesh prefill's, ``flipped``
+    of them one step apart (a rounding tie the mesh's sums move).  A
+    flipped code moves one cached k or v element by one scale step, at
+    most 1/127 of its row's largest |value|, and enters a later decode
+    step through the softmax weight of its position, 1/T on average over
+    the T = ``positions`` prompt positions a step attends; the logits
+    move by at most that sum over the flipped codes, flipped / (127 T).
+    The two prefills' float leaves (each row's scale) are held to
+    MESH_SERVE_RTOL of each other and move the logits by as much, which
+    the bound adds (with no flipped code, it is MESH_SERVE_RTOL)."""
+    return MESH_SERVE_RTOL + flipped / (127.0 * positions)
+
+
 #: bfloat16 (case 1 again, the served dtype), beside MESH_BF16_*: each
 #: bf16 rounding is off by up to 2^-8 (RMS about 2.3e-3); a block's two
 #: row-parallel outputs add about two roundings each (the rank's partial,
@@ -4343,6 +4371,37 @@ MESH_SERVE_BF16_RTOL = 3e-2
 MESH_CELL_LAYOUTS = ({"data": 16, "model": 16},
                      {"pod": 2, "data": 16, "model": 16})
 MESH_CELL_RSS_GB = 1.0
+
+
+#: [dryrun] (a): ``launch.dryrun.main`` over every architecture x cell x
+#: production mesh, counted on ``meta``, in one worker process a group
+#: of architectures, one worker a host core (8 on the card's machine)
+#: (the groups balanced by their counting time, so that the longest,
+#: gemma3-27b's, sets the phase's), 66 ok, 14 skipped; a worker may not
+#: touch the card, and its peak RSS (VmHWM, or VmRSS sampled every 20 ms
+#: where the host reports no VmHWM) may grow by less than DRYRUN_RSS_GB
+#: past its imports
+DRYRUN_GROUPS = (("gemma3-27b",), ("moonshot-v1-16b-a3b",), ("yi-34b",),
+                 ("seamless-m4t-large-v2",), ("rwkv6-3b",),
+                 ("recurrentgemma-9b", "internvl2-1b"),
+                 ("qwen3-8b", "starcoder2-3b"), ("granite-moe-1b-a400m",))
+DRYRUN_RSS_GB = 1.0
+DRYRUN_TIMEOUT_S = 420
+#: [dryrun] (b): starcoder2-3b at full width and depth, [train]'s shape
+#: and a decode step at batch TRAIN_BATCH into a cache of DRYRUN_CACHE,
+#: counted on ``meta`` and run on the card under the count; the step
+#: timed by CUDA events, median of DRYRUN_STEPS.  The dry run's tracked
+#: peak above the arguments is held to the card's
+#: (``max_memory_allocated`` above the arguments) within DRYRUN_PEAK_RTOL
+#: of the card's plus DRYRUN_PEAK_ATOL_BYTES, set before the first card
+#: run from the rehearsal on ``meta``: the caching allocator rounds
+#: each block up to 512 bytes (a few kB over the few hundred storages
+#: live at the train peak, counted on ``meta``), and the card may
+#: allocate inside the run what no aten op returns (a cuBLAS workspace)
+DRYRUN_CACHE = 1024
+DRYRUN_STEPS = 5
+DRYRUN_PEAK_RTOL = 0.02
+DRYRUN_PEAK_ATOL_BYTES = 64 * 2 ** 20
 
 
 def _mesh_tolerances(dtn: str) -> tuple:
@@ -5049,6 +5108,42 @@ def _serve_rows(cfg) -> tuple:
     return tuple(rows)
 
 
+def _code_flips(full, want) -> int:
+    """How many int8 codes of ``full`` differ from ``want``'s."""
+    from repro_torch._tree import leaves
+    return sum(int((g.cpu().int() != w.int()).sum())
+               for g, w in zip(leaves(full), leaves(want))
+               if not w.dtype.is_floating_point)
+
+
+def mesh_serve_chain(cfg, layout, case, caches, inputs, device) -> dict:
+    """(e)'s int8 case on one process from the mesh's prefill, on rank 0:
+    the one-process weights (``init_lm`` for the mesh's ``layout``, as
+    :func:`mesh_serve_baseline` draws them) and MESH_SERVE_STEPS decode
+    steps fed ``inputs`` (the tokens the mesh was fed) from a copy of
+    ``caches``, the mesh prefill's caches gathered whole; each step's
+    logits, greedy picks and top-2 gaps, the final caches, on the host."""
+    import torch
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.models import transformer as tfm
+    S = case[5]
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                         device, layout)
+    caches = tree_map(lambda t: t.clone(), caches)
+    out = {"logits": [], "picks": [], "gaps": []}
+    with torch.no_grad():
+        for i in range(MESH_SERVE_STEPS):
+            logits, tok, caches = tfm.decode_step(
+                cfg, params, inputs[i].to(device)[:, None], S + i, caches)
+            out["logits"].append(logits.float().cpu())
+            out["picks"].append(tok.cpu())
+            out["gaps"].append(_top2_gap(logits, cfg.vocab_size))
+    out["caches"] = [t.cpu() for t in leaves(caches)]
+    del params, caches
+    release_memory()
+    return out
+
+
 def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
                    total: dict) -> dict:
     """(e) on one mesh: this rank's slices of the weights (the ranks draw
@@ -5056,21 +5151,22 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
     through build_decode's fn, the counts zeroed just before the prefill
     and read after the last step (no plain version may run); the logits
     gathered over the vocab shards and rows, and the caches gathered
-    whole, compared on rank 0 with ``base``.  With int8 caches the
-    decode steps start from the one-process prefill's codes (cut by
-    interop.shard_lm_caches), as tests/test_torch_kv_int8.py's decode
-    starts from the reference's: a code at a rounding tie may flip
-    between the two prefills (the prefill's caches are held to
-    MESH_SERVE_CODE_SHARE), and a flipped code would move a later logit
-    by about 1e-5 of the largest."""
+    whole, compared on rank 0 with ``base``.  With int8 caches the chain
+    is held whole: the mesh decodes from its own prefill's codes, and so
+    does one process (:func:`mesh_serve_chain`), so that the decode
+    steps are held mesh against one process from the same codes
+    (MESH_SERVE_RTOL); a code at a rounding tie may flip between the two
+    prefills (held to MESH_SERVE_CODE_SHARE), and the one process's
+    move from its own codes to the mesh's is held apart, to
+    :func:`int8_flip_bound` of the flipped codes."""
     import torch
     import torch.distributed as dist
     from repro_torch._tree import leaves
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.interop import shard_lm_caches, shard_lm_params
+    from repro_torch.interop import shard_lm_params
     from repro_torch.launch.steps import build_decode
     from repro_torch.models import transformer as tfm
-    from repro_torch.runtime.meshenv import P, unshard_tree
+    from repro_torch.runtime.meshenv import P, make_env, unshard_tree
     label, _, _, _, B, S, CL, src, dtn, quant = case
     release_memory()
     params = None
@@ -5081,10 +5177,9 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
                 env)
             release_memory()
         dist.barrier()
-    shared = [(base["inputs"], base["prefill_caches"]) if base is not None
-              else None]
+    shared = [base["inputs"] if base is not None else None]
     dist.broadcast_object_list(shared, src=0)
-    inputs, one_prefill = shared[0]
+    inputs = shared[0]
     if not env.member:
         return {}
     torch.cuda.reset_peak_memory_stats()
@@ -5111,11 +5206,8 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
         prefill_calls = len(seen)
         logits_all.append(env.unshard(logits, P(b_ax, "model")).float()
                           .cpu())
-        prefill_full = None
-        if quant:
-            prefill_full = unshard_tree(caches, specs, env)
-            caches = shard_lm_caches(cfg, to_tree(one_prefill, device=device),
-                                     env)
+        prefill_full = (unshard_tree(caches, specs, env) if quant
+                        else None)
         for i in range(MESH_SERVE_STEPS):
             tok = inputs[i].to(device)
             torch.cuda.synchronize()
@@ -5148,9 +5240,27 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
     if base is not None:
         tol = MESH_SERVE_RTOL if dtn == "float32" else MESH_SERVE_BF16_RTOL
         V = cfg.vocab_size              # past it, -1e30 on both sides
+        want = base
+        if quant:
+            chain = mesh_serve_chain(cfg, make_env(dict(env.axes)), case,
+                                     prefill_full, inputs, device)
+            flipped = _code_flips(prefill_full, base["prefill_caches"])
+            flip_err = max(_normwise(a[:, :V], b[:, :V]) for a, b in
+                           zip(chain["logits"], base["logits"][1:]))
+            flip_tol = int8_flip_bound(flipped, S)
+            rec.update(int8_flipped_codes=flipped, int8_flip_err=flip_err,
+                       int8_flip_tol=flip_tol)
+            if flip_err > flip_tol:
+                bad.append(f"one process from the mesh's codes: logits "
+                           f"{flip_err:.3g} off its own, past "
+                           f"int8_flip_bound {flip_tol:.3g} of {flipped} "
+                           "flipped codes")
+            want = dict(base, logits=base["logits"][:1] + chain["logits"],
+                        picks=chain["picks"], gaps=chain["gaps"],
+                        caches=chain["caches"])
         errs = [_normwise(a[:, :V], b[:, :V])
-                for a, b in zip(logits_all, base["logits"])]
-        cache_err, code_share, code_max = _cache_errors(full, base["caches"],
+                for a, b in zip(logits_all, want["logits"])]
+        cache_err, code_share, code_max = _cache_errors(full, want["caches"],
                                                         quant)
         if prefill_full is not None:
             pre = _cache_errors(prefill_full, base["prefill_caches"], quant)
@@ -5159,10 +5269,10 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
             code_share = max(code_share, pre[1])
             code_max = max(code_max, pre[2])
         near, differ = [], []
-        for i, (a, b) in enumerate(zip(picks, base["picks"])):
+        for i, (a, b) in enumerate(zip(picks, want["picks"])):
             for row in (a != b).nonzero().flatten().tolist():
-                gap = float(base["gaps"][i][row])
-                scale = base["logits"][i + 1][:, :V].abs().max().item()
+                gap = float(want["gaps"][i][row])
+                scale = want["logits"][i + 1][:, :V].abs().max().item()
                 entry = dict(step=i, row=row, mesh=int(a[row]),
                              one_process=int(b[row]), gap=gap)
                 (near if dtn != "float32" and gap < tol * scale
@@ -5171,7 +5281,7 @@ def mesh_serve_run(rank: int, cfg, env, case, device, counters, base,
                    one_process_s=base["s"], logits_err=errs,
                    cache_err=cache_err, int8_codes_differing=code_share,
                    int8_code_max_diff=code_max, tokens_near_tie=near,
-                   tokens=[p.tolist() for p in base["picks"]], tol=tol)
+                   tokens=[p.tolist() for p in want["picks"]], tol=tol)
         if max(errs) > tol:
             bad.append(f"logits error {max(errs):.3g} > {tol}")
         if cache_err > tol:
@@ -5556,6 +5666,266 @@ def mesh_phase(device, counters) -> tuple:
     return ranks, launches
 
 
+_DRYRUN_WORKER = r"""
+import json, sys, threading
+import torch
+from repro_torch.launch import dryrun
+
+
+def vm_kb(key):
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    return None
+
+
+# this process's peak RSS: the kernel's high-water mark (VmHWM) where it
+# reports one, else the largest VmRSS sampled every 20 ms
+hwm = vm_kb("VmHWM") is not None
+rss0 = vm_kb("VmHWM" if hwm else "VmRSS")
+peak, stop = [rss0], threading.Event()
+
+
+def sample():
+    while not stop.wait(0.02):
+        peak[0] = max(peak[0], vm_kb("VmRSS"))
+
+
+if not hwm:
+    threading.Thread(target=sample, daemon=True).start()
+rc = dryrun.main(["--arch", sys.argv[2], "--cell", "all", "--mesh", "both",
+                  "--out", sys.argv[1]])
+stop.set()
+end = vm_kb("VmHWM") if hwm else max(peak[0], vm_kb("VmRSS"))
+print(json.dumps({"rc": rc, "cuda_initialized": torch.cuda.is_initialized(),
+                  "rss_growth_gb": (end - rss0) / 1e6,
+                  "rss_source": ("VmHWM" if hwm
+                                 else "VmRSS sampled every 20 ms")}))
+"""
+
+
+def dryrun_all() -> dict:
+    """[dryrun] (a): ``launch.dryrun.main`` for every architecture x cell
+    x production mesh into a temporary directory, one worker process a
+    group of DRYRUN_GROUPS, all started together (each stopped if it
+    outlives DRYRUN_TIMEOUT_S); 66 records ok, 14 skipped, none in
+    error; no worker may initialise CUDA (a process that never does
+    allocates nothing on the card), and a worker's peak RSS may grow by
+    less than DRYRUN_RSS_GB.  Returns the record (each ok row:
+    bottleneck, roofline step, MFU)."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    bad, workers = [], []
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_WORKER, out, ",".join(group)],
+            env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for group in DRYRUN_GROUPS]
+        try:
+            for group, proc in zip(DRYRUN_GROUPS, procs):
+                so, se = proc.communicate(
+                    timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+                last = so.strip().splitlines()[-1] if so.strip() else "{}"
+                w = json.loads(last) if last.startswith("{") else {}
+                w.update(archs=list(group), exit=proc.returncode)
+                workers.append(w)
+                if proc.returncode != 0 or w.get("rc") != 0:
+                    bad.append(f"worker {group}: exit {proc.returncode}: "
+                               + (so + se)[-1500:])
+                if w.get("cuda_initialized", True):
+                    bad.append(f"worker {group} initialised CUDA")
+                if w.get("rss_growth_gb", DRYRUN_RSS_GB) >= DRYRUN_RSS_GB:
+                    bad.append(f"worker {group}: RSS grew "
+                               f"{w.get('rss_growth_gb')} GB")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        recs = []
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name)) as f:
+                recs.append(json.load(f))
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    rows = [dict(tag=f"{r['arch']}:{r['cell']}:{r['mesh']}",
+                 bottleneck=r["roofline"]["bottleneck"],
+                 roofline_step_s=r["roofline_step_s"], mfu=r["mfu"],
+                 flops=r["cost_analysis"]["flops"],
+                 bytes=r["cost_analysis"]["bytes accessed"],
+                 link_bytes=r["collectives"]["link_bytes"],
+                 temp_gb=r["memory_analysis"]["temp_size_in_bytes"] / 1e9,
+                 argument_gb=(r["memory_analysis"]["argument_size_in_bytes"]
+                              / 1e9), trace_s=r["trace_s"])
+            for r in recs if r["status"] == "ok"]
+    rec = dict(status=status, s=time.perf_counter() - t0, workers=workers,
+               rows=rows)
+    if status != {"ok": 66, "skipped": 14}:
+        bad.append(f"records {status}; want 66 ok and 14 skipped")
+    rec["bad"] = bad
+    return rec
+
+
+def _calibration_args(cfg, prog, env, device) -> list:
+    """(b): the program's arguments drawn on the card: ``init_lm``'s
+    weights from seed 0, AdamW's zero state, tokens from seed 1; for a
+    decode cell zero caches, tokens and a position past the cache's
+    middle.  Their shapes and dtypes are the ``meta`` stand-ins'."""
+    import torch
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0), device,
+                         env)
+    g = torch.Generator(device).manual_seed(1)
+
+    def tokens(x):
+        return torch.randint(0, cfg.vocab_size, tuple(x.shape), generator=g,
+                             device=device, dtype=x.dtype)
+
+    if prog.kind == "train":
+        args = [params, adamw.init(params),
+                {k: tokens(v) for k, v in prog.args[2].items()}]
+    else:
+        _, _, _, stand_in = prog.args
+        caches = [torch.zeros(t.shape, dtype=t.dtype, device=device)
+                  for t in leaves(stand_in)]
+        args = [params, tokens(prog.args[1]),
+                torch.tensor(DRYRUN_CACHE // 2, dtype=torch.int32,
+                             device=device), unflatten(stand_in, caches)]
+    shapes = [(tuple(t.shape), t.dtype) for t in leaves(args)]
+    want = [(tuple(t.shape), t.dtype) for t in leaves(list(prog.args))]
+    if shapes != want:
+        raise AssertionError("[dryrun] (b): the card's arguments differ "
+                             "from the program's stand-ins")
+    return args
+
+
+def dryrun_calibration(device, counters) -> tuple:
+    """[dryrun] (b): full-width starcoder2-3b, a train cell at [train]'s
+    shape and a decode cell, each one ``CellProgram`` on a data 1 x
+    model 1 layout: counted on ``meta``, then run on the card under the
+    count with weights drawn there (counts zeroed just before, read just
+    after).  Flops and bytes must be equal on the two devices, each
+    kernel launched as often as the count called it (rows 3 and 4, and
+    their backward kernels in training) and no plain version run, and
+    the tracked peak within DRYRUN_PEAK_RTOL / DRYRUN_PEAK_ATOL_BYTES of
+    the card's.  Then DRYRUN_STEPS steps timed apart (CUDA events,
+    median) beside the roofline.  Returns (records, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import collective_stats, roofline
+    from repro_torch.launch.costs import count
+    from repro_torch.launch.dryrun import rank_args
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.runtime.meshenv import recording_env
+    from repro_torch.runtime.train import TrainConfig
+    cfg = get_config("starcoder2-3b")
+    out, launches, bad = [], {}, []
+    for cell, rows in (
+            (ShapeCell("calib_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             ("flash_attention", "rmsnorm", "flash_attention_bwd",
+              "rmsnorm_bwd")),
+            (ShapeCell("calib_decode", DRYRUN_CACHE, TRAIN_BATCH, "decode"),
+             ("rmsnorm",))):
+        release_memory()
+        env = recording_env({"data": 1, "model": 1})
+        prog = build_cell(cfg, env, cell, TrainConfig())
+        stand_ins = rank_args(prog, env)[0]
+        t0 = time.perf_counter()
+        with count() as meta:
+            prog.fn(*stand_ins)
+        meta_s = time.perf_counter() - t0
+        del stand_ins
+        args = _calibration_args(cfg, prog, env, device)
+        prog.fn(*args)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        with plain_version_calls() as plain, count() as card:
+            prog.fn(*args)
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = _nonzero(counters)
+        card_peak = torch.cuda.max_memory_allocated() - base
+        times = []
+        for _ in range(DRYRUN_STEPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            e0.record()
+            prog.fn(*args)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1) / 1e3)
+        step_s = sorted(times)[len(times) // 2]
+        rl = roofline.derive(cfg, cell, {"flops": meta.flops,
+                                         "bytes accessed": meta.bytes},
+                             collective_stats.collect_stats([]), 1)
+        calls = {k: v["calls"] for k, v in meta.kernels.items()}
+        kernel_launches = {k: got.get(k, 0) for k in calls}
+        rec = dict(
+            cell=cell.name, kind=prog.kind, flops_meta=meta.flops,
+            flops_card=card.flops, bytes_meta=meta.bytes,
+            bytes_card=card.bytes, tracked_peak_gb=meta.peak / 1e9,
+            card_tracked_peak_gb=card.peak / 1e9,
+            card_peak_gb=card_peak / 1e9,
+            peak_tol_gb=(DRYRUN_PEAK_RTOL * card_peak
+                         + DRYRUN_PEAK_ATOL_BYTES) / 1e9,
+            kernel_calls=calls, launches=got, meta_s=meta_s,
+            counted_card_s=card_s, step_s=step_s, steps_s=times,
+            roofline_step_s=rl.step_time_s,
+            step_over_roofline=step_s / rl.step_time_s,
+            counted_bytes_s=meta.bytes / HBM_BW,
+            counted_bytes_over_step=meta.bytes / HBM_BW / step_s,
+            roofline=rl.row(), mfu_at_step=rl.model_flops / (
+                step_s * roofline.H100.peak_flops))
+        if (meta.flops, meta.bytes) != (card.flops, card.bytes):
+            bad.append(f"{cell.name}: meta counts flops {meta.flops}, bytes "
+                       f"{meta.bytes}; the card {card.flops}, {card.bytes}")
+        if kernel_launches != calls or any(not got.get(k) for k in rows):
+            bad.append(f"{cell.name}: launches {got}, the count's calls "
+                       f"{calls}, rows {rows} required")
+        if any(plain.values()):
+            bad.append(f"{cell.name}: plain versions called: {plain}")
+        if abs(card_peak - meta.peak) > (DRYRUN_PEAK_RTOL * card_peak
+                                         + DRYRUN_PEAK_ATOL_BYTES):
+            bad.append(f"{cell.name}: tracked peak {meta.peak} B, the "
+                       f"card's {card_peak} B")
+        rec["bad"] = bad[:]
+        out.append(rec)
+        _add_launches(launches, got)
+        del args
+    release_memory()
+    return out, launches, bad
+
+
+def dryrun_phase(device, counters, card: str) -> dict:
+    """[dryrun]: (a) the dry run of every cell, (b) its calibration on the
+    card; prints each record beside the card's name and power limit;
+    raises on any breach.  Returns (b)'s launches."""
+    a = dryrun_all()
+    for row in a["rows"]:
+        phase("dryrun", "row " + json.dumps(row))
+    phase("dryrun", f"(a) {card}: " + json.dumps(
+        {k: v for k, v in a.items() if k != "rows"}))
+    bad = [f"(a) {b}" for b in a["bad"]]
+    recs, launches, b_bad = dryrun_calibration(device, counters)
+    for r in recs:
+        phase("dryrun", f"(b) {card}: " + json.dumps(r))
+    bad.extend(f"(b) {b}" for b in b_bad)
+    if bad:
+        raise AssertionError("[dryrun]: " + "; ".join(bad))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5821,6 +6191,16 @@ def main() -> int:
     _, mesh_launches = mesh_phase(device, counters)
     phase("mesh", f"{time.perf_counter() - t0:.1f} s")
     later_paths += (mesh_launches,)
+
+    # 8f. the dry run: every architecture x cell x production mesh
+    # counted on meta (worker processes, nothing on the card), then its
+    # calibration: starcoder2-3b's train and decode cells counted on
+    # meta and run on the card under the count (counts zeroed just
+    # before, read just after) ------------------------------------------
+    t0 = time.perf_counter()
+    dryrun_launches = dryrun_phase(device, counters, card)
+    phase("dryrun", f"{time.perf_counter() - t0:.1f} s")
+    later_paths += (dryrun_launches,)
 
     # 9. kernels line, 10. result ---------------------------------------
     src = "src/repro_torch/kernels/ligd_step/csrc/sweep.cu"

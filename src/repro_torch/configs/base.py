@@ -141,6 +141,18 @@ class ModelConfig:
                                     + self.q_dim * d)
         return n
 
+    def num_active_params(self) -> int:
+        """Parameters touched per token (MoE: only routed experts).  The
+        reference's count, quirk included: it takes the inactive experts
+        off every layer, whatever its type."""
+        if not self.num_experts:
+            return self.num_params()
+        d, ff = self.d_model, self.d_ff
+        dense_total = self.num_params()
+        per_layer_experts = self.num_experts * 3 * d * ff
+        active = self.experts_per_token * 3 * d * ff
+        return dense_total - len(self.layer_types()) * (per_layer_experts - active)
+
 
 # ---------------------------------------------------------------------------
 # Shape cells

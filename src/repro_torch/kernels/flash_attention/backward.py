@@ -145,16 +145,54 @@ def library_smem_bytes(hd: int, kernel: str) -> int:
         hd, {"dkdv": 0, "dq": 1}[kernel]))
 
 
-def _check(name: str, t, device, dtype) -> None:
+def _check(name: str, t, device) -> None:
     if not torch.is_tensor(t):
         raise TypeError(f"{name}: expected a tensor")
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected q's CUDA device "
                          f"({device})")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: not contiguous or not 16-byte aligned")
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, *, causal: bool,
+               window: int, lse, out_lo) -> str:
+    """Raise on what the backward kernels refuse on any device: dtypes
+    other than one float32 or bfloat16 for q, k, v, out and dout, shapes
+    :func:`.kernel.check_shapes` refuses or out/dout not q's, a head_dim
+    :func:`body_for` has no body for, bfloat16 without the forward's
+    ``lse`` (B, Hq, Sq) float32 and ``out_lo`` (q's shape and dtype),
+    float32 with either; else the body."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype}")
+    check_shapes(q, k, v, causal, window)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"attention backward: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    B, Sq, Hq, hd = q.shape
+    body = body_for(q.dtype, hd)
+    if body == "tensor_cores":
+        if lse is None or out_lo is None:
+            raise ValueError("attention backward: bfloat16 takes the "
+                             "forward's lse and out_lo "
+                             "(flash_attention_cuda(stats=True))")
+        if lse.dtype != torch.float32 or out_lo.dtype != q.dtype:
+            raise TypeError(f"attention backward: lse {lse.dtype} and "
+                            f"out_lo {out_lo.dtype}; expected float32 and "
+                            f"{q.dtype}")
+        if lse.shape != (B, Hq, Sq) or out_lo.shape != q.shape:
+            raise ValueError(f"attention backward: lse {tuple(lse.shape)} "
+                             f"and out_lo {tuple(out_lo.shape)}; expected "
+                             f"{(B, Hq, Sq)} and {tuple(q.shape)}")
+    elif lse is not None or out_lo is not None:
+        raise ValueError("attention backward: float32 recomputes LSE and "
+                         "takes D from out; pass no lse or out_lo")
+    return body
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -170,34 +208,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     takes neither.  hd 32, 64, 128 or 256; any other raises."""
     if not torch.is_tensor(q):
         raise TypeError("q: expected a tensor")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
-        _check(name, t, q.device, q.dtype)
-    check_shapes(q, k, v, causal, window)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"attention backward: out {tuple(out.shape)} and "
-                         f"dout {tuple(dout.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+        _check(name, t, q.device)
+    for name, t in (("lse", lse), ("out_lo", out_lo)):
+        if t is not None:
+            _check(name, t, q.device)
+    body = check_args(q, k, v, out, dout, causal=causal, window=window,
+                      lse=lse, out_lo=out_lo)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    body = body_for(q.dtype, hd)
     tc = body == "tensor_cores"
-    if tc:
-        if lse is None or out_lo is None:
-            raise ValueError("attention backward: bfloat16 takes the "
-                             "forward's lse and out_lo "
-                             "(flash_attention_cuda(stats=True))")
-        _check("lse", lse, q.device, torch.float32)
-        _check("out_lo", out_lo, q.device, q.dtype)
-        if lse.shape != (B, Hq, Sq) or out_lo.shape != q.shape:
-            raise ValueError(f"attention backward: lse {tuple(lse.shape)} "
-                             f"and out_lo {tuple(out_lo.shape)}; expected "
-                             f"{(B, Hq, Sq)} and {tuple(q.shape)}")
-    elif lse is not None or out_lo is not None:
-        raise ValueError("attention backward: float32 recomputes LSE and "
-                         "takes D from out; pass no lse or out_lo")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

@@ -104,6 +104,19 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "end of the keys)")
 
 
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int) -> str:
+    """Raise on what the kernel refuses on any device: q, k and v not
+    all float32 or all bfloat16, :func:`check_shapes`' shapes, a head_dim
+    :func:`body_for` has no body for; else the body."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                            "bfloat16, the same for q, k and v")
+    check_shapes(q, k, v, causal, window)
+    return body_for(q.dtype, q.shape[3])
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          stats: bool = False):
@@ -121,16 +134,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: on {t.device}, expected q's CUDA "
                              f"device ({q.device})")
-        if t.dtype not in DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
-                            "bfloat16, the same for q, k and v")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: not contiguous or not 16-byte "
                              "aligned")
-    check_shapes(q, k, v, causal, window)
+    body = check_args(q, k, v, causal, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    body = body_for(q.dtype, hd)
     out = torch.empty_like(q)
     lse = out_lo = None
     if stats:

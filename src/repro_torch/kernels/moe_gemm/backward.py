@@ -79,6 +79,24 @@ def library_wgmma_smem_bytes() -> int:
     return int(library().mcsa_moe_swiglu_bwd_wgmma_smem())
 
 
+def check_args(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+               wd: torch.Tensor, dy: torch.Tensor) -> str:
+    """Raise on what the backward kernel refuses on any device: the five
+    not all float32 or all bfloat16, :func:`.kernel.check_shapes`'
+    shapes, dy not x's shape, widths :func:`body_for` refuses; else the
+    body."""
+    for name, t in (("x", x), ("wg", wg), ("wu", wu), ("wd", wd),
+                    ("dy", dy)):
+        if t.dtype not in DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                            "bfloat16, the same for all five")
+    check_shapes(x, wg, wu, wd)
+    if dy.shape != x.shape:
+        raise ValueError(f"moe_swiglu backward: dy {tuple(dy.shape)} != x "
+                         f"{tuple(x.shape)}")
+    return body_for(x.dtype, *x.shape[1:], wg.shape[2])
+
+
 def moe_swiglu_bwd_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                         wd: torch.Tensor, dy: torch.Tensor) -> tuple:
     """x and dy (E, C, d), wg/wu (E, d, ff), wd (E, ff, d): one dtype
@@ -92,19 +110,12 @@ def moe_swiglu_bwd_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name}: on {t.device}, expected x's CUDA "
                              f"device ({x.device})")
-        if t.dtype not in DTYPES or t.dtype != x.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
-                            "bfloat16, the same for all five")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: not contiguous or not 16-byte "
                              "aligned")
-    check_shapes(x, wg, wu, wd)
-    if dy.shape != x.shape:
-        raise ValueError(f"moe_swiglu backward: dy {tuple(dy.shape)} != x "
-                         f"{tuple(x.shape)}")
+    body = check_args(x, wg, wu, wd, dy)
     E, C, d = x.shape
     ff = wg.shape[2]
-    body = body_for(x.dtype, C, d, ff)
     dx, dwg, dwu, dwd = (torch.empty_like(t) for t in (x, wg, wu, wd))
     if E == 0 or d == 0 or ff == 0 or C == 0:
         return dx.zero_(), dwg.zero_(), dwu.zero_(), dwd.zero_()

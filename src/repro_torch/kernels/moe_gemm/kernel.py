@@ -105,6 +105,22 @@ def check_shapes(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                          "(E, d, ff) twice and (E, ff, d)")
 
 
+def check_args(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+               wd: torch.Tensor) -> None:
+    """Raise on what the kernel refuses on any device: the four not all
+    float32 or all bfloat16, :func:`check_shapes`' shapes, d not a
+    multiple of 4 up to ``MAX_D``."""
+    for name, t in (("x", x), ("wg", wg), ("wu", wu), ("wd", wd)):
+        if t.dtype not in DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                            "bfloat16, the same for all four")
+    check_shapes(x, wg, wu, wd)
+    d = x.shape[2]
+    if d % 4 or d > MAX_D:
+        raise ValueError(f"moe_swiglu: d={d}; the kernel takes a multiple "
+                         f"of 4 up to {MAX_D}")
+
+
 def moe_swiglu_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                     wd: torch.Tensor) -> torch.Tensor:
     """x (E, C, d), wg/wu (E, d, ff), wd (E, ff, d): one dtype (float32 or
@@ -120,19 +136,13 @@ def moe_swiglu_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name}: on {t.device}, expected x's CUDA "
                              f"device ({x.device})")
-        if t.dtype not in DTYPES or t.dtype != x.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
-                            "bfloat16, the same for all four")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
-    check_shapes(x, wg, wu, wd)
+    check_args(x, wg, wu, wd)
     E, C, d = x.shape
     ff = wg.shape[2]
-    if d % 4 or d > MAX_D:
-        raise ValueError(f"moe_swiglu: d={d}; the kernel takes a multiple "
-                         f"of 4 up to {MAX_D}")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y

@@ -58,6 +58,21 @@ def workspace_bytes(B: int, S: int, C: int) -> int:
     return 4 * (nc * B * C + nc * B * -(-C // 32) + 1)
 
 
+def check_args(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> None:
+    """Raise on what the backward kernel refuses on any device: dtypes
+    other than float32, shapes other than three equal (B, S, C), a batch
+    over 65535."""
+    for name, t in (("a", a), ("h", h), ("dh", dh)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+    if a.dim() != 3 or h.shape != a.shape or dh.shape != a.shape:
+        raise ValueError(f"rglru_scan backward: a {tuple(a.shape)}, h "
+                         f"{tuple(h.shape)}, dh {tuple(dh.shape)}; expected "
+                         "three equal (B, S, C)")
+    if a.shape[0] > 65535:
+        raise ValueError(f"rglru_scan backward: batch {a.shape[0]} > 65535")
+
+
 def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
                         dh: torch.Tensor) -> tuple:
     """a, h (the forward's output) and dh (B, S, C) float32, contiguous,
@@ -68,17 +83,10 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"{name}: on {t.device}, expected a's CUDA "
                              f"device ({a.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    if a.dim() != 3 or h.shape != a.shape or dh.shape != a.shape:
-        raise ValueError(f"rglru_scan backward: a {tuple(a.shape)}, h "
-                         f"{tuple(h.shape)}, dh {tuple(dh.shape)}; expected "
-                         "three equal (B, S, C)")
+    check_args(a, h, dh)
     B, S, C = a.shape
-    if B > 65535:
-        raise ValueError(f"rglru_scan backward: batch {B} > 65535")
     da, db = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
         return da, db

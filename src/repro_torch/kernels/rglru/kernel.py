@@ -43,6 +43,17 @@ def check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)}; expected two equal (B, S, C)")
 
 
+def check_args(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise on what the kernel refuses on any device: dtypes other than
+    float32, :func:`check_shapes`' shapes, a batch over 65535."""
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+    check_shapes(a, b)
+    if a.shape[0] > 65535:
+        raise ValueError(f"rglru_scan: batch {a.shape[0]} > 65535")
+
+
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b (B, S, C) float32, contiguous, on one CUDA device -> h
     (B, S, C) float32 with h_t = a_t h_{t-1} + b_t from h = 0."""
@@ -52,14 +63,10 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"{name}: on {t.device}, expected a's CUDA "
                              f"device ({a.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    check_shapes(a, b)
+    check_args(a, b)
     B, S, C = a.shape
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} > 65535")
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h

@@ -85,6 +85,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def check_args(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise on what the kernel refuses on any device: dtypes other than
+    both float32 or both bfloat16, shapes other than (R, d) and (d,),
+    rows that are not whole 16-byte vectors (or wider than
+    :func:`launch_shape` takes)."""
+    dt = x.dtype
+    if dt not in DTYPES or w.dtype != dt:
+        raise TypeError(f"rmsnorm_cuda: dtypes {dt}/{w.dtype}, "
+                        "expected both float32 or both bfloat16")
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm_cuda: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}; expected (R, d) and (d,)")
+    R, d = x.shape
+    size = x.element_size()
+    if (d * size) % 16:
+        raise ValueError(f"rmsnorm_cuda: rows of {d} x {size} "
+                         "bytes, or x or w not 16-byte aligned; the kernel "
+                         "reads 16-byte vectors only")
+    if R and d:
+        launch_shape(d, size, R)
+
+
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """x (R, d) and w (d,), both float32 or both bfloat16, contiguous and
@@ -92,21 +114,16 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
     (R, d) in x's dtype."""
     if not (torch.is_tensor(x) and torch.is_tensor(w)):
         raise TypeError("rmsnorm_cuda: x and w must be tensors")
-    dev, dt = x.device, x.dtype
+    dev = x.device
     if dev.type != "cuda" or w.device != dev:
         raise ValueError(f"rmsnorm_cuda: x on {dev}, w on {w.device}; "
                          "expected one CUDA device")
-    if dt not in DTYPES or w.dtype != dt:
-        raise TypeError(f"rmsnorm_cuda: dtypes {dt}/{w.dtype}, "
-                        "expected both float32 or both bfloat16")
-    if x.dim() != 2 or w.shape != (x.shape[1],):
-        raise ValueError(f"rmsnorm_cuda: shapes x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)}; expected (R, d) and (d,)")
+    check_args(x, w)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm_cuda: x and w must be contiguous")
     R, d = x.shape
-    size, xp, wp = x.element_size(), x.data_ptr(), w.data_ptr()
-    if (d * size) % 16 or (xp | wp) % 16:
+    dt, size, xp, wp = x.dtype, x.element_size(), x.data_ptr(), w.data_ptr()
+    if (xp | wp) % 16:
         raise ValueError(f"rmsnorm_cuda: rows of {d} x {size} "
                          "bytes, or x or w not 16-byte aligned; the kernel "
                          "reads 16-byte vectors only")

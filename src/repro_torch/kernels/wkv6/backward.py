@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .kernel import BODIES, DTYPES, HEAD_SIZES, body_for, check_shapes
+from .kernel import BODIES, DTYPES, body_for
+from .kernel import check_args as check_args_fwd
 from .ref import CHUNK
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
@@ -87,6 +88,26 @@ def workspace_bytes(B: int, S: int, H: int, n: int,
     return 4 * B * H * (5 * nc * n * n + nc * n)
 
 
+def check_args(r, k, v, w, u, s0, dy, ds=None) -> str:
+    """Raise on what the backward kernels refuse on any device: the
+    forward's dtypes, shapes and head sizes (:func:`.kernel.check_args`,
+    ``ds`` in the final state's place), dy not r's shape in float32, an
+    empty input, the chunked body with B·H over 65535; else the body."""
+    check_args_fwd(r, k, v, w, u, s0, ds)
+    if dy.dtype != torch.float32:
+        raise TypeError(f"dy: dtype {dy.dtype}, expected torch.float32")
+    if dy.shape != r.shape:
+        raise ValueError(f"wkv6 backward: dy {tuple(dy.shape)} != r "
+                         f"{tuple(r.shape)}")
+    B, S, H, n = r.shape
+    if r.numel() == 0:
+        raise ValueError(f"wkv6 backward: empty input {tuple(r.shape)}")
+    body = body_for(S, n)
+    if body == "chunked" and B * H > 65535:
+        raise ValueError(f"wkv6 backward: B·H {B * H} > 65535")
+    return body
+
+
 def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor,
                   s0: Optional[torch.Tensor], dy: torch.Tensor,
@@ -96,12 +117,11 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n 32 or 64; contiguous, on one CUDA device -> (dr, dk, dv in r's
     dtype, dw, du, ds0 float32; ds0 None when s0 is None): the gradients
     of :func:`.kernel.wkv6_cuda`'s (y, final state) for (dy, ds)."""
-    if not torch.is_tensor(r) or r.dtype not in DTYPES:
+    if not torch.is_tensor(r):
         raise TypeError("r: expected a float32 or bfloat16 tensor")
     f32 = torch.float32
-    for name, t, dtype in (("r", r, r.dtype), ("k", k, r.dtype),
-                           ("v", v, r.dtype), ("w", w, f32), ("u", u, f32),
-                           ("s0", s0, f32), ("dy", dy, f32), ("ds", ds, f32)):
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0), ("dy", dy), ("ds", ds)):
         if t is None and name in ("s0", "ds"):
             continue
         if not torch.is_tensor(t):
@@ -109,23 +129,10 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != r.device:
             raise ValueError(f"{name}: on {t.device}, expected r's CUDA "
                              f"device ({r.device})")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    check_shapes(r, k, v, w, u, s0, ds)
-    if dy.shape != r.shape:
-        raise ValueError(f"wkv6 backward: dy {tuple(dy.shape)} != r "
-                         f"{tuple(r.shape)}")
+    body = check_args(r, k, v, w, u, s0, dy, ds)
     B, S, H, n = r.shape
-    if n not in HEAD_SIZES:
-        raise ValueError(f"wkv6 backward: head size {n}, expected one of "
-                         f"{HEAD_SIZES}")
-    if r.numel() == 0:
-        raise ValueError(f"wkv6 backward: empty input {tuple(r.shape)}")
-    body = body_for(S, n)
-    if body == "chunked" and B * H > 65535:
-        raise ValueError(f"wkv6 backward: B·H {B * H} > 65535")
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dw = torch.empty_like(w)
     ds0 = None if s0 is None else torch.empty_like(s0)

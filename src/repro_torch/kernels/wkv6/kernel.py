@@ -88,6 +88,24 @@ def check_shapes(r, k, v, w, u, s0=None, state_out=None) -> None:
                              f"{(B, H, n, n)}")
 
 
+def check_args(r, k, v, w, u, s0=None, state_out=None) -> None:
+    """Raise on what the kernel refuses on any device: r, k, v not one
+    float32 or bfloat16 dtype, w, u or the states not float32,
+    :func:`check_shapes`' shapes, a head size not in ``HEAD_SIZES``."""
+    if r.dtype not in DTYPES:
+        raise TypeError("r: expected a float32 or bfloat16 tensor")
+    for name, t, dtype in (("k", k, r.dtype), ("v", v, r.dtype),
+                           ("w", w, torch.float32), ("u", u, torch.float32),
+                           ("s0", s0, torch.float32),
+                           ("state_out", state_out, torch.float32)):
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    check_shapes(r, k, v, w, u, s0, state_out)
+    if r.shape[3] not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {r.shape[3]}, expected one of "
+                         f"{HEAD_SIZES}")
+
+
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               s0: Optional[torch.Tensor] = None,
@@ -99,13 +117,10 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (y (B, S, H, n) float32, the final state): written into
     ``state_out`` (float32, may be ``s0`` itself) when given, else into
     a new tensor."""
-    if not torch.is_tensor(r) or r.dtype not in DTYPES:
+    if not torch.is_tensor(r):
         raise TypeError("r: expected a float32 or bfloat16 tensor")
-    for name, t, dtype in (("r", r, r.dtype), ("k", k, r.dtype),
-                           ("v", v, r.dtype), ("w", w, torch.float32),
-                           ("u", u, torch.float32),
-                           ("s0", s0, torch.float32),
-                           ("state_out", state_out, torch.float32)):
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0), ("state_out", state_out)):
         if t is None and name in ("s0", "state_out"):
             continue
         if not torch.is_tensor(t):
@@ -113,17 +128,12 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != r.device:
             raise ValueError(f"{name}: on {t.device}, expected r's CUDA "
                              f"device ({r.device})")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
         if name in ("r", "k", "v", "w") and t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
-    check_shapes(r, k, v, w, u, s0, state_out)
+    check_args(r, k, v, w, u, s0, state_out)
     B, S, H, n = r.shape
-    if n not in HEAD_SIZES:
-        raise ValueError(f"wkv6: head size {n}, expected one of "
-                         f"{HEAD_SIZES}")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s_final = (state_out if state_out is not None else
                torch.empty((B, H, n, n), dtype=torch.float32,

@@ -12,8 +12,11 @@ the same card, ``gloo`` when some share one (NCCL refuses two ranks on
 one device) or a rank has none.  The port's collectives are
 ``all_reduce`` and ``all_gather``, which gloo runs on CUDA tensors.
 
-The reference's ``make_production_mesh`` (256 and 512 devices) waits
-for its dry run (ROADMAP item 8d).
+:func:`make_production_mesh` gives the reference's production layouts
+(256 and 512 ranks) as the ``{axis: size}`` dict ``make_env`` takes:
+no world of that size exists, so the dry run (``launch/dryrun.py``)
+runs one rank's program on ``meta`` under a recording env of the
+layout.
 """
 from __future__ import annotations
 
@@ -108,6 +111,15 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
                       mesh_dim_names=tuple(axes))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The reference's production layout: ``{"data": 16, "model": 16}``
+    (256 ranks) or ``{"pod": 2, "data": 16, "model": 16}`` (512), the
+    layout ``runtime.meshenv.make_env`` takes."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_host_mesh(max_model: int = 1):
     """A ``("data", "model")`` mesh over every rank of the initialised
     world, the model axis the largest divisor of the world size up to
@@ -125,4 +137,5 @@ def make_host_mesh(max_model: int = 1):
 
 
 __all__ = ["HBM_BW", "NVLINK_BW", "PEAK_BF16_FLOPS", "choose_backend",
-           "init_world", "make_host_mesh", "make_mesh"]
+           "init_world", "make_host_mesh", "make_mesh",
+           "make_production_mesh"]

@@ -18,8 +18,9 @@ trees, the specs of the reference's shardings (None off a mesh), and
 batch dict, ``token``, ``pos``), of which it keeps its own rows, as
 ``runtime.train.make_train_step``'s step does; it returns the rank's
 pieces of the outputs under ``out_specs``.  The reference's
-``jitted()``/``lower()`` have no counterpart here: lowering a program is
-the dry run's (ROADMAP item 8d).
+``jitted()``/``lower()`` have no counterpart here: the dry run
+(``launch/dryrun.py``) runs a rank's ``fn`` on ``meta`` under a count
+and a recording env instead of lowering it.
 
 :func:`input_specs` is the shape oracle: stand-ins for every model input
 of a cell (tokens and labels, the stubbed frontends' precomputed

@@ -61,8 +61,8 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
 def _mask_phantoms(logits: torch.Tensor, gids: torch.Tensor,
                    V: int) -> torch.Tensor:
     return torch.where(gids < V, logits,
-                       torch.tensor(NEG_INF, dtype=logits.dtype,
-                                    device=logits.device))
+                       torch.full((), NEG_INF, dtype=logits.dtype,
+                                  device=logits.device))
 
 
 def unembed_logits(h: torch.Tensor, table: torch.Tensor, *,

@@ -283,12 +283,12 @@ def _local_kv_heads(cfg: ModelConfig, env: MeshEnv, hq_local: int,
     rep = hq_pad // cfg.num_kv_heads
     first = env.axis_index(env.model_axis) * hq_local
     if hq_local % rep == 0:
-        heads = torch.arange(first // rep, (first + hq_local) // rep)
-    elif rep % hq_local == 0:
-        heads = torch.tensor([first // rep])
-    else:
-        heads = (first + torch.arange(hq_local)) // rep
-    return heads.to(device)
+        return torch.arange(first // rep, (first + hq_local) // rep,
+                            device=device)
+    if rep % hq_local == 0:
+        return torch.full((1,), first // rep, dtype=torch.int64,
+                          device=device)
+    return (first + torch.arange(hq_local, device=device)) // rep
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,

@@ -32,7 +32,9 @@ sharing one card use (``launch/mesh.py``).
 
 An env can also be a layout without process groups (:func:`make_env`
 of a ``{axis: size}`` dict): enough to compute spec trees, as the
-reference's dry run does on forced devices, and nothing else.
+reference's dry run does on forced devices, and nothing else.  A
+:class:`RecordingEnv` (:func:`recording_env`) adds a coordinate and
+records the collectives instead of issuing them: the dry run's.
 """
 from __future__ import annotations
 
@@ -98,46 +100,38 @@ class _Reduce(torch.autograd.Function):
     """all-reduce (sum) forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, env, axis):
+        return env._all_reduce(x.clone(), axis, "fwd")
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _ReduceGrad(torch.autograd.Function):
     """identity forward, all-reduce (sum) backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, env, axis):
+        ctx.env, ctx.axis = env, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return ctx.env._all_reduce(g.clone(), ctx.axis, "bwd"), None, None
 
 
 class _ReduceBoth(torch.autograd.Function):
     """all-reduce (sum) forward and backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, env, axis):
+        ctx.env, ctx.axis = env, axis
+        return env._all_reduce(x.clone(), axis, "fwd")
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return ctx.env._all_reduce(g.clone(), ctx.axis, "bwd"), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,25 +294,34 @@ class MeshEnv:
         """Sum over ``axis``: all-reduce forward, identity backward."""
         if self.axis_size(axis) == 1:
             return x
-        return _Reduce.apply(x, self.group(axis).pg)
+        return _Reduce.apply(x, self, axis)
 
     def psum_grad(self, x: torch.Tensor, axis: AxisName) -> torch.Tensor:
         """Identity forward, all-reduce (sum) of the gradient backward."""
         if self.axis_size(axis) == 1:
             return x
-        return _ReduceGrad.apply(x, self.group(axis).pg)
+        return _ReduceGrad.apply(x, self, axis)
 
     def psum_both(self, x: torch.Tensor, axis: AxisName) -> torch.Tensor:
         """Sum over ``axis``, all-reduce forward and backward: the
         transpose of a sum whose result each rank uses whole."""
         if self.axis_size(axis) == 1:
             return x
-        return _ReduceBoth.apply(x, self.group(axis).pg)
+        return _ReduceBoth.apply(x, self, axis)
+
+    def _all_reduce(self, x: torch.Tensor, axis: AxisName, phase: str,
+                    op=None) -> torch.Tensor:
+        """The one all-reduce primitive: ``x`` reduced in place over
+        ``axis`` (``op`` None: a sum); ``phase`` says whether autograd's
+        forward ("fwd") or backward ("bwd") emits it.  Returns x."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self.group(axis).pg)
+        return x
 
     def _reduce(self, x, axis, op):
         out = x.detach().clone()
         if self.axis_size(axis) > 1:
-            dist.all_reduce(out, op=op, group=self.group(axis).pg)
+            self._all_reduce(out, axis, "fwd", op)
         return out
 
     def pmax(self, x: torch.Tensor, axis: AxisName) -> torch.Tensor:
@@ -332,12 +335,13 @@ class MeshEnv:
     def all_reduce_(self, x: torch.Tensor, axis: AxisName) -> torch.Tensor:
         """In-place sum of ``x`` over ``axis`` (no autograd); returns x."""
         if self.axis_size(axis) > 1:
-            dist.all_reduce(x, group=self.group(axis).pg)
+            self._all_reduce(x, axis, "fwd")
         return x
 
     def gather_parts(self, x: torch.Tensor, axis: AxisName) -> list:
         """Every member's ``x`` (all of one shape), in axis order: one
-        ``all_gather`` over the axis's group."""
+        ``all_gather`` over the axis's group, the one all-gather
+        primitive."""
         x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, x, group=self.group(axis).pg)
@@ -369,6 +373,62 @@ class MeshEnv:
 
 
 CPU_ENV = MeshEnv()
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingEnv(MeshEnv):
+    """A layout with a coordinate and no process groups: every
+    collective the program emits is appended to :attr:`record` as
+    ``(kind, bytes, group size, "fwd" | "bwd")`` (``launch/
+    collective_stats.py``), and returns what the real one's shape is
+    without communicating.  An all-reduce records its tensor's bytes
+    and leaves the tensor as it is (this member's part); an all-gather
+    records its output's bytes (every member's piece) and returns
+    copies of this member's piece.  The reductions autograd's backward
+    emits (``psum_grad``, ``psum_both``) record there, as "bwd".  Used
+    by the dry run (``launch/dryrun.py``) to run one rank's program on
+    ``meta`` at a layout no world has; nothing here calls
+    ``torch.distributed``."""
+    record: list = dataclasses.field(default_factory=list, compare=False,
+                                     repr=False)
+
+    def group(self, axis: AxisName) -> _Group:
+        key = tuple(a for a in _names(axis) if a in self.shape)
+        return _Group(pg=None, ranks=(), index=self.axis_index(key))
+
+    def barrier(self) -> None:
+        pass
+
+    def _all_reduce(self, x, axis, phase, op=None):
+        self.record.append(("all-reduce", x.numel() * x.element_size(),
+                            self.axis_size(axis), phase))
+        return x
+
+    def gather_parts(self, x, axis):
+        n = self.axis_size(axis)
+        self.record.append(("all-gather", n * x.numel() * x.element_size(),
+                            n, "fwd"))
+        x = x.detach()
+        return [x.clone(memory_format=torch.contiguous_format)
+                for _ in range(n)]
+
+
+def recording_env(layout: Dict[str, int],
+                  coordinate: Optional[Tuple[int, ...]] = None, *,
+                  context_parallel_attn: bool = False) -> RecordingEnv:
+    """The :class:`RecordingEnv` of a ``{axis: size}`` layout at
+    ``coordinate`` (default (0, ..., 0)), its record empty."""
+    base = make_env(dict(layout), context_parallel_attn=context_parallel_attn)
+    coordinate = (tuple(0 for _ in base.axes) if coordinate is None
+                  else tuple(int(c) for c in coordinate))
+    if len(coordinate) != len(base.axes) or any(
+            not 0 <= c < n for c, (_, n) in zip(coordinate, base.axes)):
+        raise ValueError(f"coordinate {coordinate} is not on the layout "
+                         f"{dict(base.axes)}")
+    return RecordingEnv(batch_axes=base.batch_axes,
+                        model_axis=base.model_axis,
+                        context_parallel_attn=context_parallel_attn,
+                        axes=base.axes, coordinate=coordinate)
 
 
 def shard_tree(tree, specs, env: MeshEnv):
@@ -448,4 +508,5 @@ def make_env(mesh, *, context_parallel_attn: bool = False) -> MeshEnv:
 
 
 __all__ = ["AxisName", "BATCH_AXIS_NAMES", "CPU_ENV", "MeshEnv",
-           "P", "PartitionSpec", "make_env", "shard_tree", "unshard_tree"]
+           "P", "PartitionSpec", "RecordingEnv", "make_env", "recording_env",
+           "shard_tree", "unshard_tree"]
