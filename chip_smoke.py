@@ -1839,7 +1839,7 @@ def vlm_patch_prefill(cfg, params, device, counters) -> dict:
                         f"{rec['logits_finite']}")
     seq = cfg.frontend_len + VLM_TOKENS
     if [VLM_BATCH, seq, seq, cfg.num_heads, cfg.num_kv_heads,
-            cfg.head_dim, 1, 0] not in held["flash_attention"]["shapes"]:
+            cfg.head_dim, 1, 0, 0] not in held["flash_attention"]["shapes"]:
         breaches.append("no attention launch over the whole image + "
                         "text sequence was held")
     for name, want in (("flash_attention", L), ("flash_attention_tc", L),
@@ -2192,7 +2192,8 @@ def serving_session(sc, factory, device):
 def record_lm_launches() -> tuple:
     """Spy on the attention and RMSNorm kernel wrappers the models
     launch through: keep a copy of the inputs of the first launch at
-    each new shape (attention: B, Sq, Skv, Hq, Hkv, hd, causal, window),
+    each new shape (attention: B, Sq, Skv, Hq, Hkv, hd, causal, window,
+    q offset),
     then launch as before (each wrapper still counts its launch once).
     Returns (records by (kernel, shape), a function that removes the
     spies)."""
@@ -2205,7 +2206,8 @@ def record_lm_launches() -> tuple:
         B, Sq, Hq, hd = q.shape
         key = ("flash_attention", (B, Sq, k.shape[1], Hq, k.shape[2], hd,
                                    int(kw.get("causal", True)),
-                                   kw.get("window", 0)), q.dtype)
+                                   kw.get("window", 0),
+                                   kw.get("q_offset") or 0), q.dtype)
         if key not in seen:
             seen[key] = (q.clone(), k.clone(), v.clone(), kw)
         return flash(q, k, v, **kw)
@@ -3378,6 +3380,21 @@ TRAIN_ATTN_CASES = (
 #: non-causal attention (the encoder-decoder's encoder and cross
 #: attention): seamless-m4t-large-v2's 16/16 heads of 64 at 1024 frames
 TRAIN_ATTN_NONCAUSAL = ((4, 1024, (16, 16, 64), "bfloat16", 0.0),)
+#: row 3 at a q offset (context-parallel attention: a rank's sequence
+#: shard of S/4 q rows against all S keys), forward and backward at
+#: offsets 0, S/4 and 3S/4: (B, S, (Hq, Hkv, hd), window, dtype) at
+#: starcoder2-3b's, recurrentgemma-9b's (window 2048) and granite's
+#: heads, in bfloat16 (tensor cores) and float32 (CUDA cores), each held
+#: against its plain version under ATTN_TOL / ATTN_RMS_TOL and GRAD_TOL /
+#: GRAD_RMS_TOL, with SDPA given the same boolean mask beside it
+TRAIN_ATTN_OFFSET_CASES = (
+    (1, 4096, (24, 2, 128), 0, "bfloat16"),
+    (1, 4096, (16, 1, 256), 2048, "bfloat16"),
+    (1, 4096, (16, 8, 64), 1024, "bfloat16"),
+    (1, 4096, (24, 2, 128), 0, "float32"),
+    (1, 4096, (16, 1, 256), 2048, "float32"),
+    (1, 4096, (16, 8, 64), 1024, "float32"),
+)
 #: [train-kernels]' expert SwiGLU backward cases (E, C, d, ff, dtype):
 #: granite-moe-1b-a400m's training shape (C = capacity_for(4096)), a
 #: decode-sized capacity, and float32
@@ -3480,6 +3497,15 @@ def train_kernel_cases(device) -> dict:
     out, breaches = {}, []
     errs = {"flash_attention_bwd": [], "rmsnorm_bwd": [],
             "moe_swiglu_bwd": [], "rglru_scan_bwd": [], "wkv6_bwd": []}
+    out["flash_attention_offset"], fwd_errs = [], []
+    for B, S, heads, window, dtn in TRAIN_ATTN_OFFSET_CASES:
+        for q_offset in (0, S // 4, 3 * S // 4):
+            rec = attention_offset_case(device, randn, B, S, heads, window,
+                                        dtn, q_offset, breaches)
+            fwd_errs.append(rec["fwd"]["max_abs_err"])
+            errs["flash_attention_bwd"].append(rec["bwd"]["max_abs_err"])
+            out["flash_attention_offset"].append(rec)
+    out["flash_attention_offset_fwd_err"] = max(fwd_errs)
     for B, S, heads, window, dtn, c in TRAIN_ATTN_CASES:
         rec = attention_bwd_case(device, randn, B, S, heads, window, dtn,
                                  breaches, key_offset=c)
@@ -3626,6 +3652,112 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
     phase("train-kernels", "flash_attention_bwd " + json.dumps(rec))
+    return rec
+
+
+def attention_offset_case(device, randn, B, S, heads, window, dtn,
+                          q_offset: int, breaches) -> dict:
+    """Row 3 at a q offset: Sq = S/4 q rows at key positions q_offset..
+    against all S keys (causal, ``window``), forward (the serving and the
+    training call, the same bits) against the plain version under
+    ATTN_TOL / ATTN_RMS_TOL and backward against float32 autograd
+    through it under GRAD_TOL / GRAD_RMS_TOL; each with its time (median
+    of 10, CUDA events), the plain version's, SDPA's with the same
+    boolean mask (``attn_mask``, ``enable_gqa``) and the bound of the
+    pairs the shifted masks leave (PERF.md §6), at the bf16 tensor-core
+    peak or, in float32, the CUDA cores'."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention.ops import pairs
+    Hq, Hkv, hd = heads
+    Sq = S // 4
+    dt = getattr(torch, dtn)
+    label = (f"attention {B}x{Sq}@{q_offset} of {S} {heads} w{window} "
+             f"{dtn}")
+    q = randn((B, Sq, Hq, hd), dt)
+    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
+    dout = randn((B, Sq, Hq, hd), dt)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o = fa.flash_attention_cuda(q, k, v, **kw)
+    kw_b = kw
+    if dt == torch.bfloat16:
+        o_t, lse, o_lo = fa.flash_attention_cuda(q, k, v, stats=True, **kw)
+        if not torch.equal(o_t, o):
+            breaches.append(f"{label}: the training forward's output "
+                            "differs from the serving forward's")
+        kw_b = dict(kw, lse=lse, out_lo=o_lo)
+        del o_t
+    want = fa.attention_ref(q, k, v, **kw).float()
+    err = (o.float() - want).abs().max().item()
+    rr = rel_rms(o.float(), want)
+    tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
+    if not (torch.allclose(o.float(), want, atol=tol, rtol=tol)
+            and rr <= rms_tol):
+        breaches.append(f"{label} forward: max {err:.3g} (tol {tol}), "
+                        f"error RMS / output RMS {rr:.3g} (tol {rms_tol})")
+    del want
+    got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.attention_ref(*leaves, **kw), leaves,
+                              dout.float())
+    sub = []
+    berr, brr = _hold_grads("qkv", got, ref, dtn, sub)
+    breaches.extend(f"{label} backward {b}" for b in sub)
+    del got, ref, leaves
+    qp = q_offset + torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(S, device=device)[None, :]
+    mask = qp >= kp
+    if window:
+        mask &= (qp - kp) < window
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dh = dout.transpose(1, 2)
+    lib_ms = lib_bwd_ms = None
+    try:
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        lib_ms = timed_ms(lambda: library().detach(), 10, 2)
+        lo = library()
+        lib_bwd_ms = timed_ms(lambda: torch.autograd.grad(
+            lo, (qh, kh, vh), dh, retain_graph=True), 10, 2)
+        del lo
+    except TypeError:        # a PyTorch without enable_gqa
+        pass
+    n = pairs(Sq, S, True, window, q_offset)
+    es = q.element_size()
+    flops = 4.0 * B * Hq * hd * n
+    # the type's peak: bf16 tensor cores, or float32 outside them
+    peak = PEAK_BF16_S if dt == torch.bfloat16 else PEAK_FP32_S
+    fwd_ops, fwd_bytes = (flops / peak * 1e3,
+                          (2 * q.numel() + 2 * k.numel()) * es
+                          / PEAK_BYTES_S * 1e3)
+    bwd_ops, bwd_bytes = (2.5 * flops / peak * 1e3,
+                          4 * (q.numel() + k.numel()) * es
+                          / PEAK_BYTES_S * 1e3)
+    bwd_call = (lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout,
+                                                    **kw_b))
+    rec = dict(
+        B=B, Sq=Sq, Skv=S, q_offset=q_offset, Hq=Hq, Hkv=Hkv, hd=hd,
+        window=window, dtype=dtn, pairs=n,
+        fwd=dict(max_abs_err=err, rel_rms_err=rr,
+                 ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                             10, 2),
+                 plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw),
+                                   3, 1),
+                 library_ms=lib_ms, bound_ms=max(fwd_ops, fwd_bytes),
+                 bound_by="operations" if fwd_ops >= fwd_bytes
+                 else "bytes"),
+        bwd=dict(max_abs_err=berr, rel_rms_err=brr,
+                 ms=timed_ms(bwd_call, 10, 2),
+                 plain_ms=timed_ms(lambda: fa.attention_bwd_ref(
+                     q, k, v, o, dout, **kw_b), 3, 1),
+                 library_ms=lib_bwd_ms, bound_ms=max(bwd_ops, bwd_bytes),
+                 bound_by="operations" if bwd_ops >= bwd_bytes
+                 else "bytes"))
+    phase("train-kernels", "flash_attention_offset " + json.dumps(rec))
     return rec
 
 
@@ -4230,7 +4362,10 @@ MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
 #: of MESH_SHAPES, bfloat16 at MESH_BF16_* on the last (both axes at
 #: once).  Gloo stages every collective through the host at about 1 GB/s
 #: here, so a data-parallel float32 step takes 5-9 s (PR 28's first run)
-MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 1, 2
+#: (one step each for (b) and (d), two before, so that (g) and (h) fit
+#: in the run's time; several ZeRO-1 steps on a data mesh stay covered
+#: by (c)'s launcher runs)
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 1, 1
 MESH_SHAPES = (("model 2", (1, 2)), ("data 2", (2, 1)),
                ("data 2 x model 2", (2, 2)))
 MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
@@ -4325,7 +4460,8 @@ MESH_SERVE_CASES = (
     ("starcoder2-3b model 4 bf16", "starcoder2-3b", 2, (1, 4), 4, 1024,
      2048, 0, "bfloat16", False),
 )
-MESH_SERVE_STEPS = 8
+#: 4 (8 before), for the run's time
+MESH_SERVE_STEPS = 4
 #: float32, mesh against one process, set from PERF.md §6's argument
 #: before the first card run: the mesh reorders float32 sums (the
 #: all-reduce of each row-parallel output's 2 or 4 partials, the
@@ -4337,6 +4473,43 @@ MESH_SERVE_STEPS = 8
 #: most MESH_SERVE_CODE_SHARE of them (a rounding tie the sums move)
 MESH_SERVE_RTOL = 1e-5
 MESH_SERVE_CODE_SHARE = 1e-3
+#: (g) context-parallel attention on model 4 (the attention weights
+#: replicated, the sequence sharded, k/v and the output all-gathered),
+#: float32 at published widths with depth cut: starcoder2-3b (2 layers;
+#: its 2 kv heads do not divide 4, so its decode cache shards by length)
+#: and recurrentgemma-9b (its three blocks of three kinds, the local
+#: window 2048 under 2560 tokens, one kv head).  Training: (d)'s
+#: machinery, MESH_STEPS step against one process at TRAIN_CROSS_*
+#: (loss, grad_norm, every gradient leaf, every leaf's change);
+#: (label, config, layers, (data, model), batch, sequence)
+MESH_CP_TRAIN_CASES = (
+    ("starcoder2-3b model 4 cp", "starcoder2-3b", 2, (1, 4), 2, 2048),
+    ("recurrentgemma-9b model 4 cp", "recurrentgemma-9b", 3, (1, 4), 1,
+     2560),
+)
+#: (g) serving under the flag: (e)'s machinery and cases' fields
+#: (a prefill of a sequence the axis divides, then MESH_SERVE_STEPS
+#: decode steps, every head on every rank), MESH_SERVE_RTOL, every
+#: greedy token equal
+MESH_CP_SERVE_CASES = (
+    ("starcoder2-3b model 4 cp", "starcoder2-3b", 2, (1, 4), 2, 2048, 4096,
+     0, "float32", False),
+    ("recurrentgemma-9b model 4 cp", "recurrentgemma-9b", 3, (1, 4), 1,
+     2560, 4096, 0, "float32", False),
+)
+#: (h) the engine on a data 2 x model 2 mesh (InferenceEngine(env=)):
+#: starcoder2-3b at published width, MESH_ENGINE_LAYERS layers, float32,
+#: MESH_ENGINE_PROMPTS requests of mixed lengths in MESH_ENGINE_SLOTS
+#: slots of MESH_ENGINE_CACHE positions, MESH_ENGINE_NEW greedy tokens
+#: each, once without and once with context-parallel attention; every
+#: token on every rank equal to a one-process engine's on the card.
+#: Then one split-server generation (SplitServer(env=), a batch of 2 x
+#: MESH_ENGINE_SPLIT_PROMPT tokens at block 1) against the one-process
+#: split server
+MESH_ENGINE_ARCH, MESH_ENGINE_LAYERS = "starcoder2-3b", 2
+MESH_ENGINE_PROMPTS = (96, 200, 64, 333, 128, 250, 77, 180)
+MESH_ENGINE_SLOTS, MESH_ENGINE_CACHE, MESH_ENGINE_NEW = 4, 512, 8
+MESH_ENGINE_SPLIT_PROMPT = 128
 
 
 def int8_flip_bound(flipped: int, positions: int) -> float:
@@ -5326,6 +5499,166 @@ def mesh_serve_rank(rank: int, device, counters, total: dict) -> list:
     return out
 
 
+def mesh_cp_rank(rank: int, device, counters, total: dict) -> dict:
+    """(g): each of MESH_CP_TRAIN_CASES through (d)'s one-process run and
+    mesh run, then each of MESH_CP_SERVE_CASES through (e)'s, on an env
+    with context-parallel attention."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.meshenv import make_env
+    out = {"train": [], "serve": []}
+    for label, arch, layers, shape, B, S in MESH_CP_TRAIN_CASES:
+        cfg = _family_cfg(arch, layers)
+        layout = make_env({"data": shape[0], "model": shape[1]})
+        t0 = time.perf_counter()
+        base = (mesh_family_baseline(cfg, layout, 1, B, S, device)
+                if rank == 0 else None)
+        dist.barrier()
+        env = make_env(make_mesh(shape, ("data", "model")),
+                       context_parallel_attn=True)
+        if env.member:
+            rec = mesh_family_run(cfg, env, B, S, device, counters, base,
+                                  total)
+            out["train"].append(dict(case=label, batch=B, seq=S,
+                                     layers=layers,
+                                     s=time.perf_counter() - t0, **rec))
+        dist.barrier()
+        del base
+        release_memory()
+    for case in MESH_CP_SERVE_CASES:
+        label, arch, layers, shape, _, _, _, _, dtn, _ = case
+        cfg = _serve_cfg(arch, layers, dtn)
+        layout = make_env({"data": shape[0], "model": shape[1]})
+        t0 = time.perf_counter()
+        base = (mesh_serve_baseline(cfg, layout, case, 1, device)
+                if rank == 0 else None)
+        dist.barrier()
+        env = make_env(make_mesh(shape, ("data", "model")),
+                       context_parallel_attn=True)
+        rec = mesh_serve_run(rank, cfg, env, case, device, counters, base,
+                             total)
+        if env.member:
+            out["serve"].append(dict(case=label,
+                                     s=time.perf_counter() - t0, **rec))
+        dist.barrier()
+        del base
+        release_memory()
+    return out
+
+
+def _engine_prompts(cfg) -> list:
+    import numpy as np
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int64)
+            for n in MESH_ENGINE_PROMPTS]
+
+
+def _engine_tokens(engine, prompts) -> dict:
+    for p in prompts:
+        engine.submit(p, MESH_ENGINE_NEW)
+    return {int(k): [int(t) for t in v]
+            for k, v in engine.run_to_completion().items()}
+
+
+def mesh_engine_rank(rank: int, device, counters, total: dict) -> dict:
+    """(h): the one-process engine and split server on rank 0 while the
+    others wait, then the data 2 x model 2 engine without and with
+    context-parallel attention (the counts zeroed just before each run
+    and read just after; no plain version) and the mesh split server;
+    each rank's tokens against the one-process ones."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.interop import shard_lm_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.meshenv import make_env
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.split import SplitServer
+    cfg = _serve_cfg(MESH_ENGINE_ARCH, MESH_ENGINE_LAYERS, "float32")
+    shape = (2, 2)
+    layout = make_env({"data": shape[0], "model": shape[1]})
+    prompts = _engine_prompts(cfg)
+    split_tokens = torch.randint(
+        0, cfg.vocab_size, (2, MESH_ENGINE_SPLIT_PROMPT), device=device,
+        generator=torch.Generator(device).manual_seed(22))
+    base = [None]
+    if rank == 0:
+        release_memory()
+        t0 = time.perf_counter()
+        params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
+                             device, layout)
+        with torch.no_grad():
+            tokens = _engine_tokens(InferenceEngine(
+                cfg, params, device=device, slots=MESH_ENGINE_SLOTS,
+                cache_len=MESH_ENGINE_CACHE), prompts)
+            split = SplitServer(cfg, params, device=device).generate(
+                split_tokens, 1, MESH_ENGINE_NEW).cpu().tolist()
+        base = [dict(tokens=tokens, split=split,
+                     s=time.perf_counter() - t0)]
+        del params
+        release_memory()
+    dist.broadcast_object_list(base, src=0)
+    base = base[0]
+    out = {"one_process": base, "runs": []}
+    bad = []
+    for cp in (False, True):
+        env = make_env(make_mesh(shape, ("data", "model")),
+                       context_parallel_attn=cp)
+        params = None
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params = shard_lm_params(cfg, tfm.init_lm(
+                    cfg, torch.Generator(device).manual_seed(0), device,
+                    env), env)
+                release_memory()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), plain_version_calls() as plain:
+            torch.cuda.synchronize()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            tokens = _engine_tokens(InferenceEngine(
+                cfg, params, device=device, slots=MESH_ENGINE_SLOTS,
+                cache_len=MESH_ENGINE_CACHE, env=env), prompts)
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+            launches = _nonzero(counters)
+            _add_launches(total, launches)
+            split = None
+            if cp:
+                zero_counters(counters)
+                split = SplitServer(cfg, params, device=device,
+                                    env=env).generate(
+                    split_tokens, 1, MESH_ENGINE_NEW).cpu().tolist()
+                split_launches = _nonzero(counters)
+                _add_launches(total, split_launches)
+        tag = f"engine cp={cp}"
+        if any(plain.values()):
+            bad.append(f"{tag}: plain versions called: {plain}")
+        for name in ("flash_attention", "rmsnorm"):
+            if not launches.get(name):
+                bad.append(f"{tag}: {name} not launched")
+        differ = {k: (v, base["tokens"].get(k)) for k, v in tokens.items()
+                  if v != base["tokens"].get(k)}
+        if differ or sorted(tokens) != sorted(base["tokens"]):
+            bad.append(f"{tag}: tokens differ from one process's: {differ}")
+        rec = dict(cp=cp, coordinate=env.coordinate, engine_s=engine_s,
+                   launches=launches,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens_equal=not differ)
+        if split is not None:
+            rec.update(split_equal=split == base["split"],
+                       split_launches=split_launches)
+            if split != base["split"]:
+                bad.append(f"split server {split} != {base['split']}")
+        out["runs"].append(rec)
+        del params
+        release_memory()
+        dist.barrier()
+    out["bad"] = bad
+    return out
+
+
 def mesh_cross_lse(device) -> dict:
     """Row 3's float32 log-sum-exp (``stats=True``), which the merge over
     a length-sharded cross cache takes, against the plain version's at
@@ -5425,7 +5758,7 @@ def gloo_cuda_probe(device) -> dict:
 
 def mesh_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of [mesh]'s world: gloo on card 0 through a FileStore in
-    ``tmp``; (a), (b), (d), (e) and the gloo probe; its record written to
+    ``tmp``; (a), (b), (d), (e), (g), (h) and the gloo probe; its record written to
     ``tmp/rank<r>.json``, or its traceback to ``tmp/rank<r>.err``."""
     import os
     import traceback
@@ -5458,6 +5791,14 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         t0 = time.perf_counter()
         rec["serve"] = mesh_serve_rank(rank, device, counters, total)
         rec["serve_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec["cp"] = mesh_cp_rank(rank, device, counters, total)
+        rec["cp_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec["engine"] = mesh_engine_rank(rank, device, counters, total)
+        rec["engine_s"] = time.perf_counter() - t0
         dist.barrier()
         rec["gloo_cuda"] = gloo_cuda_probe(device)
         rec["launches"] = total
@@ -5581,8 +5922,8 @@ def mesh_launcher(counters) -> list:
 
 
 def mesh_phase(device, counters) -> tuple:
-    """[mesh]: (a), (b), (d) and (e) in a world of MESH_WORLD ranks
-    sharing the card, then (f) the cell programs in this process and (c)
+    """[mesh]: (a), (b), (d), (e), (g) and (h) in a world of MESH_WORLD
+    ranks sharing the card, then (f) the cell programs in this process and (c)
     for each of MESH_LAUNCH_ARCHS.  Prints each
     record; raises on any breach.  Returns
     (records, launches of every rank and of (c)'s one-process runs)."""
@@ -5637,6 +5978,28 @@ def mesh_phase(device, counters) -> tuple:
         if cases != wanted:
             bad.append(f"rank {r['rank']} served {sorted(cases)}, want "
                        f"{sorted(wanted)}")
+        phase("mesh", f"cp rank {r['rank']}: {r['cp_s']:.1f} s")
+        for kind in ("train", "serve"):
+            for t in r["cp"][kind]:
+                phase("mesh", f"cp {kind} {t['case']} rank {r['rank']} "
+                      + json.dumps(t))
+                bad.extend(f"cp {kind} {t['case']} rank {r['rank']}: {b}"
+                           for b in t["bad"])
+        cases = {(k, t["case"]) for k in ("train", "serve")
+                 for t in r["cp"][k]}
+        wanted = {(k, c[0]) for k, cs in (("train", MESH_CP_TRAIN_CASES),
+                                          ("serve", MESH_CP_SERVE_CASES))
+                  for c in cs if r["rank"] < c[3][0] * c[3][1]}
+        if cases != wanted:
+            bad.append(f"rank {r['rank']} ran cp {sorted(cases)}, want "
+                       f"{sorted(wanted)}")
+        phase("mesh", f"engine rank {r['rank']}: {r['engine_s']:.1f} s "
+              + json.dumps(r["engine"]))
+        bad.extend(f"engine rank {r['rank']}: {b}"
+                   for b in r["engine"]["bad"])
+        if len(r["engine"]["runs"]) != 2:
+            bad.append(f"engine rank {r['rank']}: runs "
+                       f"{r['engine']['runs']}")
     want = choose_backend([r["card_uuid"] for r in ranks])
     if any(r["backend"] != want for r in ranks):
         bad.append(f"backends {[r['backend'] for r in ranks]}, the cards "
@@ -6166,6 +6529,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_k = train_kernel_cases(device)
     phase("train-kernels", f"{time.perf_counter() - t0:.1f} s")
+    lm["flash_attention"]["max_abs_err"] = max(
+        lm["flash_attention"]["max_abs_err"],
+        train_k["flash_attention_offset_fwd_err"])
     t0 = time.perf_counter()
     _, train_launches = train_full_width(device, counters)
     phase("train", f"{time.perf_counter() - t0:.1f} s")

@@ -17,13 +17,17 @@ LSE and output residual (``kernel.flash_attention_cuda(stats=True)``).
 float32 runs the CUDA-core body, which recomputes LSE and takes D from
 its float32 output.  :func:`group_split`, :func:`slots` and
 :func:`smem_bytes` are the tensor-core body's launch shape, from the
-shape alone.
+shape alone.  ``q_offset`` places query row i at key position
+``q_offset + i``, as in the forward (``kernel.py``); the bands the
+kernels walk, and so :func:`band_q_tiles` and :func:`group_split`, read
+the shifted positions.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -92,28 +96,31 @@ def smem_bytes(hd: int, kernel: str) -> int:
     return tiles + stats + 8 * 3 + 1024
 
 
-def band_q_tiles(Sq: int, Skv: int, causal: bool, window: int) -> list:
+def band_q_tiles(Sq: int, Skv: int, causal: bool, window: int,
+                 q_offset: int = 0) -> list:
     """For each kv tile of 64 keys, the q tiles of 64 rows that the dK/dV
-    kernel walks for one head (those whose rows meet its keys under the
-    masks), as the kernel counts them."""
+    kernel walks for one head (those whose rows, at key positions
+    ``q_offset + row``, meet its keys under the masks), as the kernel
+    counts them."""
     out = []
     for kt in range(-(-Skv // TILE)):
         k0, k_last = kt * TILE, min(kt * TILE + TILE, Skv) - 1
-        first = k0 // TILE if causal else 0
-        q_end = min(Sq, k_last + window) if window > 0 else Sq
+        first = max(0, k0 - q_offset) // TILE if causal else 0
+        q_end = (min(Sq, max(0, k_last + window - q_offset)) if window > 0
+                 else Sq)
         out.append(max(0, -(-q_end // TILE) - first))
     return out
 
 
 def group_split(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, causal: bool,
-                window: int, hd: int) -> int:
+                window: int, hd: int, q_offset: int = 0) -> int:
     """How many dK/dV blocks share one (kv tile, k/v head, batch): the
     smallest divisor n of Hq // Hkv for which the heaviest block (its kv
     tile's q tiles x Hq // Hkv // n heads) is no longer than the mean work
     of a slot (all blocks' q tiles over ``slots(hd)``); Hq // Hkv if none
     is.  More than 1 adds a pass that sums the n float32 partials."""
     rep = Hq // Hkv
-    tiles = band_q_tiles(Sq, Skv, causal, window)
+    tiles = band_q_tiles(Sq, Skv, causal, window, q_offset)
     total = B * Hq * sum(tiles)
     for n in range(1, rep + 1):
         if rep % n == 0 and max(tiles, default=0) * (rep // n) * slots(hd) \
@@ -129,7 +136,7 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mcsa_attention_bwd_launch.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-        ctypes.c_float, i, i, i, i, i, p]
+        ctypes.c_float, i, i, i, i, i, i, p]
     lib.mcsa_attention_bwd_launch.restype = ctypes.c_int
     lib.mcsa_attention_bwd_smem.argtypes = [i, i]
     lib.mcsa_attention_bwd_smem.restype = ctypes.c_int
@@ -157,10 +164,12 @@ def _check(name: str, t, device) -> None:
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, dout: torch.Tensor, *, causal: bool,
-               window: int, lse, out_lo) -> str:
+               window: int, lse, out_lo,
+               q_offset: Optional[int] = None) -> str:
     """Raise on what the backward kernels refuse on any device: dtypes
     other than one float32 or bfloat16 for q, k, v, out and dout, shapes
-    :func:`.kernel.check_shapes` refuses or out/dout not q's, a head_dim
+    or offsets :func:`.kernel.check_shapes` refuses or out/dout not q's,
+    a head_dim
     :func:`body_for` has no body for, bfloat16 without the forward's
     ``lse`` (B, Hq, Sq) float32 and ``out_lo`` (q's shape and dtype),
     float32 with either; else the body."""
@@ -169,7 +178,7 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype}")
-    check_shapes(q, k, v, causal, window)
+    check_shapes(q, k, v, causal, window, q_offset)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"attention backward: out {tuple(out.shape)} and "
                          f"dout {tuple(dout.shape)} must have q's shape "
@@ -199,13 +208,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, *, causal: bool = True,
                              window: int = 0, lse: torch.Tensor = None,
-                             out_lo: torch.Tensor = None) -> tuple:
+                             out_lo: torch.Tensor = None,
+                             q_offset: Optional[int] = None) -> tuple:
     """q, out, dout (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), one dtype
     (float32 or bfloat16), contiguous and 16-byte aligned, on one CUDA
     device, ``out`` the forward's output for (q, k, v) -> (dq, dk, dv) in
     that dtype.  bfloat16 also takes the training forward's ``lse``
     (B, Hq, Sq) float32 and ``out_lo`` (out's shape and dtype); float32
-    takes neither.  hd 32, 64, 128 or 256; any other raises."""
+    takes neither.  hd 32, 64, 128 or 256; any other raises.
+    ``q_offset``: query row i at key position q_offset + i."""
     if not torch.is_tensor(q):
         raise TypeError("q: expected a tensor")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
@@ -215,7 +226,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         if t is not None:
             _check(name, t, q.device)
     body = check_args(q, k, v, out, dout, causal=causal, window=window,
-                      lse=lse, out_lo=out_lo)
+                      lse=lse, out_lo=out_lo, q_offset=q_offset)
+    off = int(q_offset or 0)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     tc = body == "tensor_cores"
@@ -226,7 +238,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if tc:
         scratch = torch.empty((B, Hq, -(-Sq // TILE) * TILE, 2),
                               dtype=torch.float32, device=q.device)
-        nsplit = group_split(B, Sq, Skv, Hq, Hkv, causal, window, hd)
+        nsplit = group_split(B, Sq, Skv, Hq, Hkv, causal, window, hd, off)
         if nsplit > 1:
             partial = torch.empty((2, nsplit, B, Skv, Hkv, hd),
                                   dtype=torch.float32, device=q.device)
@@ -241,7 +253,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         lse.data_ptr() if tc else None, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr(),
         partial.data_ptr() if partial is not None else None, B, Sq, Skv, Hq,
-        Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window),
+        Hkv, hd, float(hd ** -0.5), int(bool(causal)), int(window), off,
         DTYPES[q.dtype], BODIES[body], nsplit, stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()

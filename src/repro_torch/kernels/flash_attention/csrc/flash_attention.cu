@@ -20,8 +20,11 @@
 //
 // Semantics kept from the TPU kernel by both bodies, so both equal
 // attention_ref:
-//   * q position i aligns with k position i (the caller refuses causal
-//     Sq != Skv);
+//   * q row i sits at key position q_off + i (q_off 0 unless the caller
+//     gives an offset: a rank's sequence shard of q against the gathered
+//     keys, context-parallel attention; the caller refuses causal Sq !=
+//     Skv without one); every mask, tile skip and band below reads the
+//     shifted position, and q rows are still stored at their own row;
 //   * masked scores are NEG_INF = -1e30, not -inf: a row with no valid key
 //     in a visited tile gets p = exp(0) = 1 there, which the first tile
 //     with a valid key wipes out through corr = exp(-1e30 - m) = 0;
@@ -134,7 +137,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int Sq, int Skv, int Hq,
-                       int Hkv, float scale, int causal, int window) {
+                       int Hkv, float scale, int causal, int window,
+                       int q_off) {
   constexpr int QP = HD + 4;           // pitch of the q and k tiles
   constexpr int NC = HD / 32;          // float4 output chunks per thread
   extern __shared__ float4 smem4[];
@@ -156,8 +160,8 @@ flash_attention_kernel(const float* __restrict__ q,
                    q_stride, BQ, Sq - q0);
 
   int k_begin = 0, k_end = Skv;
-  if (causal) k_end = min(Skv, q_last + 1);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
+  if (causal) k_end = min(Skv, q_off + q_last + 1);
+  if (window > 0) k_begin = max(0, q_off + q0 - window + 1);
   const int kt_begin = k_begin / BK, kt_end = (k_end + BK - 1) / BK;
 
   float m[RPT], l[RPT], acc[RPT][NC * 4];
@@ -205,10 +209,10 @@ flash_attention_kernel(const float* __restrict__ q,
       float mt = NEG_INF;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const int kpos = k0 + tc + 8 * j;
+        const int kpos = k0 + tc + 8 * j, qk = q_off + qpos;
         bool ok = kpos < Skv && qpos < Sq;
-        if (causal) ok = ok && qpos >= kpos;
-        if (window > 0) ok = ok && (qpos - kpos) < window;
+        if (causal) ok = ok && qk >= kpos;
+        if (window > 0) ok = ok && (qk - kpos) < window;
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -284,7 +288,8 @@ flash_attention_kernel(const float* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv,
-           float scale, int causal, int window, cudaStream_t stream) {
+           float scale, int causal, int window, int q_off,
+           cudaStream_t stream) {
   // its float32 output needs no residual; lse is the serving merge's (its
   // backward recomputes LSE)
   if (out_lo != nullptr) return (int)cudaErrorInvalidValue;
@@ -298,7 +303,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B), block(THREADS);
   kern<<<grid, block, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
-      Sq, Skv, Hq, Hkv, scale, causal, window);
+      Sq, Skv, Hq, Hkv, scale, causal, window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -342,8 +347,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                           const __grid_constant__ CUtensorMap tmV,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           bf16* __restrict__ out_lo, int Sq, int Skv, int Hq,
-                          int Hkv, float scale_log2, int causal,
-                          int window) {
+                          int Hkv, float scale_log2, int causal, int window,
+                          int q_off) {
   using C = Cfg<HD>;
   constexpr int HDP = C::HDP, NCB = HDP / 64, BQ = C::BQ;
   constexpr int NWG = C::NWG, STAGES = C::STAGES;
@@ -372,10 +377,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
   const int wq_last = min(wq0 + 64, Sq) - 1;   // < wq0: no rows
   const int r0 = wq0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
   const int c2 = 2 * (lane & 3);
+  // key positions of this warpgroup's first and last rows and of this
+  // thread's two rows
+  const int wp0 = q_off + wq0, wp_last = q_off + wq_last;
+  const int kq0 = q_off + r0, kq1 = q_off + r1;
 
   int k_begin = 0, k_end = Skv;
-  if (causal) k_end = min(Skv, q_last + 1);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
+  if (causal) k_end = min(Skv, q_off + q_last + 1);
+  if (window > 0) k_begin = max(0, q_off + q0 - window + 1);
   const int kt_begin = k_begin / BK, kt_end = (k_end + BK - 1) / BK;
 
   // tile kt sits in stage (kt - kt_begin) % STAGES: K, then V
@@ -421,8 +430,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
     mbar_wait(full_of(kt), ((kt - kt_begin) / STAGES) & 1);
     const uint32_t sK = sK_of(kt), sV = sK + C::KV_BYTES;
     const int k0 = kt * BK;
-    const bool active = wq_last >= wq0 && (!causal || k0 <= wq_last) &&
-                        (window == 0 || k0 + BK - 1 > wq0 - window);
+    const bool active = wq_last >= wq0 && (!causal || k0 <= wp_last) &&
+                        (window == 0 || k0 + BK - 1 > wp0 - window);
     if (active) {                    // uniform over the warpgroup
       float s[BK / 2];
       wgmma_fence();
@@ -439,8 +448,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
       wgmma_wait<0>();
       fence_regs(s);
 
-      const bool edge = (causal && k0 + BK - 1 > wq0) ||
-                        (window > 0 && k0 <= wq_last - window) ||
+      const bool edge = (causal && k0 + BK - 1 > wp0) ||
+                        (window > 0 && k0 <= wp_last - window) ||
                         k0 + BK > Skv;
       float mt0 = NEG_INF, mt1 = NEG_INF;
 #pragma unroll
@@ -452,10 +461,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
           if (edge) {
             const int kp = k0 + 8 * jj + c2 + e;
             bool ok0 = kp < Skv, ok1 = kp < Skv;
-            if (causal) { ok0 = ok0 && r0 >= kp; ok1 = ok1 && r1 >= kp; }
+            if (causal) { ok0 = ok0 && kq0 >= kp; ok1 = ok1 && kq1 >= kp; }
             if (window > 0) {
-              ok0 = ok0 && (r0 - kp) < window;
-              ok1 = ok1 && (r1 - kp) < window;
+              ok0 = ok0 && (kq0 - kp) < window;
+              ok1 = ok1 && (kq1 - kp) < window;
             }
             x0 = ok0 ? x0 : NEG_INF;
             x1 = ok1 ? x1 : NEG_INF;
@@ -578,7 +587,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv,
-           float scale, int causal, int window, cudaStream_t stream) {
+           float scale, int causal, int window, int q_off,
+           cudaStream_t stream) {
   using C = Cfg<HD>;
   auto kern = flash_attention_tc_kernel<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -592,7 +602,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((Sq + C::BQ - 1) / C::BQ, Hq, B), block(C::THREADS);
   kern<<<grid, block, C::BYTES, stream>>>(tq, tk, tv, (bf16*)out, lse,
                                           (bf16*)out_lo, Sq, Skv, Hq, Hkv,
-                                          scale * LOG2E, causal, window);
+                                          scale * LOG2E, causal, window,
+                                          q_off);
   return (int)cudaGetLastError();
 }
 
@@ -600,7 +611,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*,
                         float*, void*, int, int, int, int, int, float, int,
-                        int, cudaStream_t);
+                        int, int, cudaStream_t);
 
 // the instance of a body for head_dim hd in {32, 64, 128, 256}, else null
 LaunchFn pick(int hd, const LaunchFn (&fns)[4]) {
@@ -625,14 +636,18 @@ extern "C" {
 // are both null (serving) or both given (the tensor-core body of a
 // training forward: base-2 log-sum-exp of each row's scaled scores, and
 // bf16(o - out) of the float32 output o); the CUDA-core body takes lse
-// alone (a serving merge over sharded keys) or neither.
+// alone (a serving merge over sharded keys) or neither.  q_off: query row
+// i sits at key position q_off + i, q_off >= 0 (kernel.py holds a given
+// offset to q_off + Sq <= Skv).
 int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, void* out_lo, int B,
                                 int Sq, int Skv, int Hq, int Hkv, int hd,
                                 float scale, int causal, int window,
-                                int dtype, int body, void* stream) {
+                                int q_off, int dtype, int body,
+                                void* stream) {
   if (body == 1 && (lse == nullptr) != (out_lo == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (q_off < 0) return (int)cudaErrorInvalidValue;
   static const LaunchFn cc_fns[4] = {cc::launch<32>, cc::launch<64>,
                                      cc::launch<128>, cc::launch<256>};
   static const LaunchFn tc_fns[4] = {tc::launch<32>, tc::launch<64>,
@@ -642,7 +657,7 @@ int mcsa_flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 1 && body == 1) fn = pick(hd, tc_fns);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, scale, causal,
-            window, (cudaStream_t)stream);
+            window, q_off, (cudaStream_t)stream);
 }
 
 // Dynamic shared memory a block of body `body` takes at head_dim hd

@@ -122,10 +122,14 @@
 // 2560 split 4 ways); their float32 partials are summed by launch 3.  Causal blocks run heaviest
 // first: the kv tile (dK/dV) or q tile (dQ) is the grid's slowest axis.
 //
-// Semantics kept from the forward (and so from attention_ref): q position
-// i aligns with key i (the caller refuses causal Sq != Skv); a pair is
-// kept when k < Skv and, if causal, q >= k and, with a window, q - k <
-// window; rows past Sq and keys past Skv come in as zeros and get P = 0.
+// Semantics kept from the forward (and so from attention_ref): q row i
+// sits at key position p = q_off + i (q_off 0 unless the caller gives an
+// offset: context parallelism's sequence shard of q; the caller refuses
+// causal Sq != Skv without one); a pair is kept when k < Skv and, if
+// causal, p >= k and, with a window, p - k < window; rows past Sq and keys
+// past Skv come in as zeros and get P = 0.  The kv band of a q tile, the
+// q band of a kv tile (dK/dV's first q tile, max(0, k0 - q_off) / 64 when
+// causal) and the edge tests read the shifted positions.
 //
 // Shared memory (tensor-core body), bytes at HD 128 (HD 32 pads to 64):
 // dkdv K, V + 2 stages x (Q, dO) of 64 x 128 bf16 + 2 x 512 of stats =
@@ -146,12 +150,35 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
+// q row qp (at key position q_off + qp) and key kp
 __device__ __forceinline__ bool keep(int qp, int kp, int Sq, int Skv,
-                                     int causal, int window) {
+                                     int causal, int window, int q_off) {
   bool ok = qp < Sq && kp < Skv;
-  if (causal) ok = ok && qp >= kp;
-  if (window > 0) ok = ok && (qp - kp) < window;
+  if (causal) ok = ok && q_off + qp >= kp;
+  if (window > 0) ok = ok && (q_off + qp - kp) < window;
   return ok;
+}
+
+// The q rows [q_begin, q_end) whose key positions (q_off + row) meet keys
+// [k0, k_last] under the masks
+__device__ __forceinline__ void q_band(int k0, int k_last, int Sq,
+                                       int causal, int window, int q_off,
+                                       int& q_begin, int& q_end) {
+  q_begin = causal ? max(0, k0 - q_off) : 0;
+  q_end = window > 0 ? min(Sq, max(0, k_last + window - q_off)) : Sq;
+}
+
+// The kv tiles [kt_begin, kt_end) of BK keys that q rows at key positions
+// [q0, q_last] meet.
+template <int BK>
+__device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
+                                        int causal, int window,
+                                        int& kt_begin, int& kt_end) {
+  int k_begin = 0, k_end = Skv;
+  if (causal) k_end = min(Skv, q_last + 1);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  kt_begin = k_begin / BK;
+  kt_end = (k_end + BK - 1) / BK;
 }
 
 template <typename K>
@@ -293,18 +320,6 @@ __device__ __forceinline__ void store_acc(const float (&acc)[RA][Acc<HD>::NC],
   }
 }
 
-// The kv tiles [kt_begin, kt_end) of BK keys that q rows [q0, q_last] meet.
-template <int BK>
-__device__ __forceinline__ void kv_band(int q0, int q_last, int Skv,
-                                        int causal, int window,
-                                        int& kt_begin, int& kt_end) {
-  int k_begin = 0, k_end = Skv;
-  if (causal) k_end = min(Skv, q_last + 1);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  kt_begin = k_begin / BK;
-  kt_end = (k_end + BK - 1) / BK;
-}
-
 // 1. LSE (natural log) and D = rowsum(dO ⊙ out), TPR threads a row
 template <int HD, int R>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -312,7 +327,7 @@ attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ out, const float* __restrict__ dout,
               float* __restrict__ lse, float* __restrict__ delta, int Sq,
               int Skv, int Hq, int Hkv, float scale, int causal,
-              int window) {
+              int window, int q_off) {
   constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   constexpr int TPR = THREADS / R;
   extern __shared__ float4 smem4[];
@@ -322,7 +337,7 @@ attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
-  const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
+  const size_t q_at = (((size_t)b * Sq + q0) * Hq + h) * HD;
   const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;   // into lse / delta
 
   // D: TPR threads a row, every (4·TPR)-th group of 4 columns each
@@ -330,8 +345,8 @@ attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
     const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
     float s = 0.f;
     if (q0 + r < Sq) {
-      const float* o = out + q_off + r * q_stride;
-      const float* g = dout + q_off + r * q_stride;
+      const float* o = out + q_at + r * q_stride;
+      const float* g = dout + q_at + r * q_stride;
       for (int c = part * 4; c < HD; c += 4 * TPR) {
         const float4 ov = load4(o + c), gv = load4(g + c);
         s += ov.x * gv.x + ov.y * gv.y + ov.z * gv.z + ov.w * gv.w;
@@ -343,10 +358,10 @@ attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
     if (part == 0 && q0 + r < Sq) delta[row0 + r] = s;
   }
 
-  load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Qs, q + q_at, q_stride, BQ, Sq - q0);
   int kt_begin, kt_end;
-  kv_band<BK>(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin,
-              kt_end);
+  kv_band<BK>(q_off + q0, q_off + min(q0 + BQ, Sq) - 1, Skv, causal, window,
+              kt_begin, kt_end);
   float m[RA], l[RA];
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
@@ -367,7 +382,8 @@ attn_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
       float mt = NEG_INF;
 #pragma unroll
       for (int bb = 0; bb < RA; ++bb) {
-        const bool ok = keep(qp, k0 + tx + 16 * bb, Sq, Skv, causal, window);
+        const bool ok =
+            keep(qp, k0 + tx + 16 * bb, Sq, Skv, causal, window, q_off);
         s[a][bb] = ok ? s[a][bb] * scale : NEG_INF;
         mt = fmaxf(mt, s[a][bb]);
       }
@@ -403,7 +419,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dk, float* __restrict__ dv, int Sq,
               int Skv, int Hq, int Hkv, float scale, int causal,
-              int window) {
+              int window, int q_off) {
   using C = Acc<HD>;
   constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   extern __shared__ float4 smem4[];
@@ -424,8 +440,8 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 
   // the q tiles whose rows meet keys [k0, k_last]
   const int k_last = min(k0 + BK, Skv) - 1;
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  int q_begin, q_end;
+  q_band(k0, k_last, Sq, causal, window, q_off, q_begin, q_end);
   const int qt_begin = q_begin / BQ, qt_end = (q_end + BQ - 1) / BQ;
 
   float dka[RA][C::NC], dva[RA][C::NC];
@@ -438,11 +454,11 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const int h = hk * rep + hh;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
-      const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
+      const size_t q_at = (((size_t)b * Sq + q0) * Hq + h) * HD;
       const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;
       __syncthreads();                     // the last tiles are consumed
-      load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
-      load_tile<HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
+      load_tile<HD>(Qs, q + q_at, q_stride, BQ, Sq - q0);
+      load_tile<HD>(Gs, dout + q_at, q_stride, BQ, Sq - q0);
       for (int i = threadIdx.x; i < BQ; i += THREADS) {
         const bool in = q0 + i < Sq;
         Ls[i] = in ? lse[row0 + i] : 0.f;
@@ -457,7 +473,8 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int bb = 0; bb < RA; ++bb) {
           const int c = tx + 16 * bb;
-          const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
+          const bool ok =
+              keep(q0 + r, k0 + c, Sq, Skv, causal, window, q_off);
           p[a][bb] = ok ? expf(p[a][bb] * scale - Ls[r]) : 0.f;
           Ps[r * PS + c] = p[a][bb];
         }
@@ -488,7 +505,7 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-            float scale, int causal, int window) {
+            float scale, int causal, int window, int q_off) {
   using C = Acc<HD>;
   constexpr int P = HD + 4, RA = R / 16, BQ = R, BK = R;
   extern __shared__ float4 smem4[];
@@ -503,18 +520,18 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
-  const size_t q_off = (((size_t)b * Sq + q0) * Hq + h) * HD;
+  const size_t q_at = (((size_t)b * Sq + q0) * Hq + h) * HD;
   const size_t row0 = ((size_t)b * Hq + h) * Sq + q0;
-  load_tile<HD>(Qs, q + q_off, q_stride, BQ, Sq - q0);
-  load_tile<HD>(Gs, dout + q_off, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Qs, q + q_at, q_stride, BQ, Sq - q0);
+  load_tile<HD>(Gs, dout + q_at, q_stride, BQ, Sq - q0);
   for (int i = threadIdx.x; i < BQ; i += THREADS) {
     const bool in = q0 + i < Sq;
     Ls[i] = in ? lse[row0 + i] : 0.f;
     Ds[i] = in ? delta[row0 + i] : 0.f;
   }
   int kt_begin, kt_end;
-  kv_band<BK>(q0, min(q0 + BQ, Sq) - 1, Skv, causal, window, kt_begin,
-              kt_end);
+  kv_band<BK>(q_off + q0, q_off + min(q0 + BQ, Sq) - 1, Skv, causal, window,
+              kt_begin, kt_end);
 
   float dqa[RA][C::NC];
 #pragma unroll
@@ -538,7 +555,8 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int bb = 0; bb < RA; ++bb) {
         const int c = tx + 16 * bb;
-        const bool ok = keep(q0 + r, k0 + c, Sq, Skv, causal, window);
+        const bool ok =
+            keep(q0 + r, k0 + c, Sq, Skv, causal, window, q_off);
         const float pv = ok ? expf(s[a][bb] * scale - Ls[r]) : 0.f;
         Ps[r * PS + c] = pv * (dp[a][bb] - Ds[r]);
       }
@@ -546,7 +564,7 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     acc_tile<HD, false, RA>(dqa, Ps, Ks, ty, tx);
   }
-  store_acc<HD, RA>(dqa, dq + q_off, q_stride, Sq - q0, scale, ty, tx);
+  store_acc<HD, RA>(dqa, dq + q_at, q_stride, Sq - q0, scale, ty, tx);
 }
 
 template <int HD, int R>
@@ -563,7 +581,7 @@ template <int HD>
 int launch(const float* q, const float* k, const float* v, const float* out,
            const float* dout, float* dq, float* dk, float* dv, float* lse,
            float* delta, int B, int Sq, int Skv, int Hq, int Hkv,
-           float scale, int causal, int window, cudaStream_t s) {
+           float scale, int causal, int window, int q_off, cudaStream_t s) {
   constexpr int R = rows_for<HD>();
   auto prep = attn_bwd_prep<HD, R>;
   auto dkdv = attn_bwd_dkdv<HD, R>;
@@ -578,17 +596,18 @@ int launch(const float* q, const float* k, const float* v, const float* out,
   const dim3 qgrid((Sq + R - 1) / R, Hq, B), kgrid((Skv + R - 1) / R, Hkv,
                                                    B);
   prep<<<qgrid, THREADS, prep_smem<HD, R>(), s>>>(
-      q, k, out, dout, lse, delta, Sq, Skv, Hq, Hkv, scale, causal, window);
+      q, k, out, dout, lse, delta, Sq, Skv, Hq, Hkv, scale, causal, window,
+      q_off);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dkdv<<<kgrid, THREADS, grad_smem<HD, R>(), s>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Skv, Hq, Hkv, scale, causal,
-      window);
+      window, q_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dqk<<<qgrid, THREADS, grad_smem<HD, R>(), s>>>(
       q, k, v, dout, lse, delta, dq, Sq, Skv, Hq, Hkv, scale, causal,
-      window);
+      window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -596,7 +615,8 @@ int launch(const float* q, const float* k, const float* v, const float* out,
 int launch_f32(int hd, const void* q, const void* k, const void* v,
                const void* out, const void* dout, void* dq, void* dk,
                void* dv, float* scratch, int B, int Sq, int Skv, int Hq,
-               int Hkv, float scale, int causal, int window, cudaStream_t s) {
+               int Hkv, float scale, int causal, int window, int q_off,
+               cudaStream_t s) {
   float* lse = scratch;
   float* delta = scratch + (size_t)B * Hq * Sq;
 #define MCSA_CC_F32(HD)                                                     \
@@ -604,7 +624,7 @@ int launch_f32(int hd, const void* q, const void* k, const void* v,
     return launch<HD>((const float*)q, (const float*)k, (const float*)v,    \
                       (const float*)out, (const float*)dout, (float*)dq,    \
                       (float*)dk, (float*)dv, lse, delta, B, Sq, Skv, Hq,   \
-                      Hkv, scale, causal, window, s);
+                      Hkv, scale, causal, window, q_off, s);
   switch (hd) {
     MCSA_CC_F32(32)
     MCSA_CC_F32(64)
@@ -779,7 +799,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                         bf16* __restrict__ dk, bf16* __restrict__ dv,
                         float* __restrict__ partial, int Sq, int Sq_pad,
                         int Skv, int Hq, int Hkv, int nsplit, float scale,
-                        float scale_log2, int causal, int window) {
+                        float scale_log2, int causal, int window,
+                        int q_off) {
   using C = Cfg<HD>;
   constexpr int NCB = C::NCB, HO = C::HO, NA = HO / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -810,8 +831,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
 
   // the q tiles whose rows meet keys [k0, k_last]; iteration it visits
   // head h_first + it / n_qt, q tile qt_begin + it % n_qt
-  const int qt_begin = causal ? k0 / TILE_ROWS : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  int q_begin, q_end;
+  q_band(k0, k_last, Sq, causal, window, q_off, q_begin, q_end);
+  const int qt_begin = q_begin / TILE_ROWS;
   const int n_qt = max(0, (q_end + TILE_ROWS - 1) / TILE_ROWS - qt_begin);
   const int n_it = hps * n_qt;
 
@@ -870,9 +892,10 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
     // Pᵀ = 2^(x − LSE) of column (query) c, zero where masked; a thread
     // holds keys kr0 (registers 4jj + e) and kr1 (4jj + 2 + e) of columns
     // 8jj + c2 + e
-    const bool edge = (causal && q0 < k0 + TILE_ROWS - 1) ||
-                      (window > 0 && q0 + TILE_ROWS - 1 - k0 >= window) ||
-                      k0 + TILE_ROWS > Skv || q0 + TILE_ROWS > Sq;
+    const bool edge =
+        (causal && q_off + q0 < k0 + TILE_ROWS - 1) ||
+        (window > 0 && q_off + q0 + TILE_ROWS - 1 - k0 >= window) ||
+        k0 + TILE_ROWS > Skv || q0 + TILE_ROWS > Sq;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -882,8 +905,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
         float p0 = fast_exp2(s[4 * jj + e] * scale_log2 - L);
         float p1 = fast_exp2(s[4 * jj + 2 + e] * scale_log2 - L);
         if (edge) {
-          p0 = keep(q0 + c, kr0, Sq, Skv, causal, window) ? p0 : 0.f;
-          p1 = keep(q0 + c, kr1, Sq, Skv, causal, window) ? p1 : 0.f;
+          p0 = keep(q0 + c, kr0, Sq, Skv, causal, window, q_off) ? p0 : 0.f;
+          p1 = keep(q0 + c, kr1, Sq, Skv, causal, window, q_off) ? p1 : 0.f;
         }
         s[4 * jj + e] = p0;
         s[4 * jj + 2 + e] = p1;
@@ -976,7 +999,8 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                       const __grid_constant__ CUtensorMap tmG,
                       const float2* __restrict__ stats, bf16* __restrict__ dq,
                       int Sq, int Sq_pad, int Skv, int Hq, int Hkv,
-                      float scale, float scale_log2, int causal, int window) {
+                      float scale, float scale_log2, int causal, int window,
+                      int q_off) {
   using C = Cfg<HD>;
   constexpr int NCB = C::NCB, HO = C::HO, NA = HO / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -999,11 +1023,9 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
   const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
   const int c2 = 2 * (lane & 3);
 
-  int k_begin = 0, k_end = Skv;
-  if (causal) k_end = min(Skv, q_last + 1);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  const int kt_begin = k_begin / TILE_ROWS;
-  const int kt_end = (k_end + TILE_ROWS - 1) / TILE_ROWS;
+  int kt_begin, kt_end;
+  kv_band<TILE_ROWS>(q_off + q0, q_off + q_last, Skv, causal, window,
+                     kt_begin, kt_end);
 
   auto sK_of = [&](int kt) {
     return sRing + 2 * ((kt - kt_begin) % STAGES) * C::TILE;
@@ -1063,8 +1085,8 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
 
     // P = 2^(x − LSE), zero where masked: rows r0 (registers 4jj + e) and
     // r1 (4jj + 2 + e), keys k0 + 8jj + c2 + e
-    const bool edge = (causal && k0 + TILE_ROWS - 1 > q0) ||
-                      (window > 0 && k0 <= q_last - window) ||
+    const bool edge = (causal && k0 + TILE_ROWS - 1 > q_off + q0) ||
+                      (window > 0 && k0 <= q_off + q_last - window) ||
                       k0 + TILE_ROWS > Skv;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
@@ -1074,8 +1096,8 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
         float p1 = fast_exp2(s[4 * jj + 2 + e] * scale_log2 - st1.x);
         if (edge) {
           const int kp = k0 + 8 * jj + c2 + e;
-          p0 = keep(r0, kp, Sq, Skv, causal, window) ? p0 : 0.f;
-          p1 = keep(r1, kp, Sq, Skv, causal, window) ? p1 : 0.f;
+          p0 = keep(r0, kp, Sq, Skv, causal, window, q_off) ? p0 : 0.f;
+          p1 = keep(r1, kp, Sq, Skv, causal, window, q_off) ? p1 : 0.f;
         }
         s[4 * jj + e] = p0;
         s[4 * jj + 2 + e] = p1;
@@ -1127,7 +1149,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
            const void* out_lo, const void* dout, const float* lse, void* dq,
            void* dk, void* dv, float2* stats, float* partial, int B, int Sq,
            int Skv, int Hq, int Hkv, float scale, int causal, int window,
-           int nsplit, cudaStream_t s) {
+           int q_off, int nsplit, cudaStream_t s) {
   using C = Cfg<HD>;
   auto dkdv = attn_bwd_dkdv_tc_kernel<HD>;
   auto dqk = attn_bwd_dq_tc_kernel<HD>;
@@ -1158,7 +1180,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   const dim3 kgrid(B * Hkv * nsplit, (Skv + TILE_ROWS - 1) / TILE_ROWS);
   dkdv<<<kgrid, C::THREADS, C::KV_BYTES, s>>>(
       tq, tk, tv, tg, stats, (bf16*)dk, (bf16*)dv, partial, Sq, Sq_pad, Skv,
-      Hq, Hkv, nsplit, scale, scale_log2, causal, window);
+      Hq, Hkv, nsplit, scale, scale_log2, causal, window, q_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (nsplit > 1) {
@@ -1171,7 +1193,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   const dim3 qgrid(B * Hq, (Sq + TILE_ROWS - 1) / TILE_ROWS);
   dqk<<<qgrid, C::THREADS, C::Q_BYTES, s>>>(tq, tk, tv, tg, stats, (bf16*)dq,
                                          Sq, Sq_pad, Skv, Hq, Hkv, scale,
-                                         scale_log2, causal, window);
+                                         scale_log2, causal, window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -1192,15 +1214,16 @@ extern "C" {
 //     the training forward; scratch (B, Hq, Sq_pad, 2) float32, Sq_pad =
 //     Sq rounded up to 64; nsplit divides Hq / Hkv; partial (2, nsplit, B,
 //     Skv, Hkv, hd) float32 when nsplit > 1, else null.
+// q_off: query row i sits at key position q_off + i (q_off >= 0).
 int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
                               const void* out, const void* out_lo,
                               const void* dout, const float* lse, void* dq,
                               void* dk, void* dv, void* scratch,
                               float* partial, int B, int Sq, int Skv, int Hq,
                               int Hkv, int hd, float scale, int causal,
-                              int window, int dtype, int body, int nsplit,
-                              void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv)
+                              int window, int q_off, int dtype, int body,
+                              int nsplit, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv || q_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && body == 0) {
@@ -1209,7 +1232,7 @@ int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
     return cc::launch_f32(hd, q, k, v, out, dout, dq, dk, dv,
                           (float*)scratch, B, Sq, Skv, Hq, Hkv, scale, causal,
-                          window, s);
+                          window, q_off, s);
   }
   if (dtype == 1 && body == 1) {
     float2* stats = (float2*)scratch;
@@ -1217,19 +1240,19 @@ int mcsa_attention_bwd_launch(const void* q, const void* k, const void* v,
       case 32:
         return tc::launch<32>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
                               stats, partial, B, Sq, Skv, Hq, Hkv, scale,
-                              causal, window, nsplit, s);
+                              causal, window, q_off, nsplit, s);
       case 64:
         return tc::launch<64>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
                               stats, partial, B, Sq, Skv, Hq, Hkv, scale,
-                              causal, window, nsplit, s);
+                              causal, window, q_off, nsplit, s);
       case 128:
         return tc::launch<128>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
                                stats, partial, B, Sq, Skv, Hq, Hkv, scale,
-                               causal, window, nsplit, s);
+                               causal, window, q_off, nsplit, s);
       case 256:
         return tc::launch<256>(q, k, v, out, out_lo, dout, lse, dq, dk, dv,
                                stats, partial, B, Sq, Skv, Hq, Hkv, scale,
-                               causal, window, nsplit, s);
+                               causal, window, q_off, nsplit, s);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -19,12 +19,18 @@ the tensor-core body (wgmma, bf16 tiles), float32 the CUDA-core body
 (fp32 FMAs, so the float32 path keeps full float32 products).  The
 launch names the body and the library refuses any other pairing, so a
 bfloat16 tensor never reaches the CUDA-core body.
+
+``q_offset`` places query row i at key position ``q_offset + i`` (a
+rank's sequence shard of q against the gathered keys: context-parallel
+attention); the masks and the tiles each body skips follow the shifted
+positions.  Not given (None), causal attention takes Sq == Skv only.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -64,7 +70,8 @@ def library() -> ctypes.CDLL:
     lib = _build.load(LIB_NAME, SOURCE, FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mcsa_flash_attention_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+        p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i,
+        p]
     lib.mcsa_flash_attention_launch.restype = ctypes.c_int
     lib.mcsa_flash_attention_smem.argtypes = [i, i]
     lib.mcsa_flash_attention_smem.restype = ctypes.c_int
@@ -80,12 +87,15 @@ def smem_bytes(hd: int, body: str) -> int:
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 causal: bool, window: int) -> None:
+                 causal: bool, window: int,
+                 q_offset: Optional[int] = None) -> int:
     """Raise on what neither version takes: shapes that are not
     (B, S, H, hd) with matching B/hd, Hkv not dividing Hq, k/v shapes that
-    differ, a negative window, or causal attention with Sq != Skv (the
-    kernel aligns q 0 with k 0, while ``models.attention.naive_attention``
-    aligns the ends: prefill always has Sq == Skv)."""
+    differ, a negative window, a ``q_offset`` below 0 or past Skv - Sq,
+    or, with no ``q_offset``, causal attention with Sq != Skv (which end
+    of the keys q 0 meets is then the caller's to say:
+    ``models.attention.naive_attention`` aligns the ends, ``q_offset =
+    Skv - Sq``).  Returns the offset (0 when not given)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
@@ -98,28 +108,38 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "does not divide Hq")
     if window < 0:
         raise ValueError(f"attention: window {window} < 0")
-    if causal and Sq != Skv:
-        raise ValueError(f"attention: causal with Sq={Sq} != Skv={Skv} is "
-                         "refused (q 0 would align with k 0, not with the "
-                         "end of the keys)")
+    if q_offset is None:
+        if causal and Sq != Skv:
+            raise ValueError(f"attention: causal with Sq={Sq} != Skv={Skv} "
+                             "and no q_offset is refused (say where q 0 "
+                             "sits among the keys)")
+        return 0
+    q_offset = int(q_offset)
+    if q_offset < 0 or q_offset + Sq > Skv:
+        raise ValueError(f"attention: q_offset {q_offset} with Sq={Sq}, "
+                         f"Skv={Skv}; expected 0 <= q_offset <= Skv - Sq")
+    return q_offset
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool, window: int) -> str:
+               causal: bool, window: int,
+               q_offset: Optional[int] = None) -> str:
     """Raise on what the kernel refuses on any device: q, k and v not
-    all float32 or all bfloat16, :func:`check_shapes`' shapes, a head_dim
-    :func:`body_for` has no body for; else the body."""
+    all float32 or all bfloat16, :func:`check_shapes`' shapes and
+    offsets, a head_dim :func:`body_for` has no body for; else the
+    body."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES or t.dtype != q.dtype:
             raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
                             "bfloat16, the same for q, k and v")
-    check_shapes(q, k, v, causal, window)
+    check_shapes(q, k, v, causal, window, q_offset)
     return body_for(q.dtype, q.shape[3])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         stats: bool = False):
+                         stats: bool = False,
+                         q_offset: Optional[int] = None):
     """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), one dtype (float32 or
     bfloat16), contiguous and 16-byte aligned, on one CUDA device ->
     (B, Sq, Hq, hd) in that dtype.
@@ -127,7 +147,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``stats=True`` returns ``(out, lse, out_lo)``: ``out`` with the same
     bits, each row's log-sum-exp of the scaled scores in base 2 (B, Hq,
     Sq) float32, and in bfloat16 ``out_lo`` = bf16(o − out) of the
-    float32 output o (see ``ref.attention_ref``), in float32 None."""
+    float32 output o (see ``ref.attention_ref``), in float32 None.
+    ``q_offset``: query row i at key position q_offset + i."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name}: expected a tensor")
@@ -137,7 +158,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: not contiguous or not 16-byte "
                              "aligned")
-    body = check_args(q, k, v, causal, window)
+    body = check_args(q, k, v, causal, window, q_offset)
+    off = int(q_offset or 0)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -156,8 +178,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr() if stats else None,
         out_lo.data_ptr() if out_lo is not None else None, B, Sq, Skv, Hq,
         Hkv, hd,
-        float(hd ** -0.5), int(bool(causal)), int(window), DTYPES[q.dtype],
-        BODIES[body], stream)
+        float(hd ** -0.5), int(bool(causal)), int(window), off,
+        DTYPES[q.dtype], BODIES[body], stream)
     if rc != 0:
         msg = lib.mcsa_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash attention launch failed: {msg} ({rc})")

@@ -143,10 +143,17 @@ def padded_heads(hq: int, hkv: int, tp: int) -> int:
     return pad
 
 
+def attention_heads_sharded(env: MeshEnv) -> bool:
+    """True when attention's q heads shard over the model axis (tp > 1
+    without context-parallel attention, under which the attention
+    weights replicate and the sequence shards instead)."""
+    return env.tp > 1 and not env.context_parallel_attn
+
+
 def kv_sharded(cfg: ModelConfig, env: MeshEnv) -> bool:
     """True when k/v heads shard over the model axis (they divide TP)."""
-    return (env.tp > 1 and cfg.num_kv_heads % env.tp == 0
-            and not env.context_parallel_attn)
+    return (attention_heads_sharded(env)
+            and cfg.num_kv_heads % env.tp == 0)
 
 
 def attention_specs(cfg: ModelConfig, env: MeshEnv,
@@ -154,8 +161,7 @@ def attention_specs(cfg: ModelConfig, env: MeshEnv,
     """The reference's attention specs for ``env``: q heads over the
     model axis, k/v heads only when they divide TP, qk-norm weights
     replicated."""
-    q_axis = ("model" if env.tp > 1 and not env.context_parallel_attn
-              else None)
+    q_axis = "model" if attention_heads_sharded(env) else None
     kv_axis = "model" if kv_sharded(cfg, env) else None
     specs = {"wq": P(None, q_axis, None), "wk": P(None, kv_axis, None),
              "wv": P(None, kv_axis, None), "wo": P(q_axis, None, None)}
@@ -190,7 +196,8 @@ def init_norm(cfg: ModelConfig, device) -> torch.Tensor:
     return torch.zeros((cfg.d_model,), dtype=param_dtype(cfg), device=device)
 
 
-__all__ = ["Params", "apply_mlp", "apply_rope", "attention_specs",
-           "dense_init", "group_norm_heads", "init_attention", "init_mlp",
+__all__ = ["Params", "apply_mlp", "apply_rope", "attention_heads_sharded",
+           "attention_specs", "dense_init", "group_norm_heads",
+           "init_attention", "init_mlp",
            "init_norm", "kv_sharded", "mlp_specs", "padded_heads",
            "param_dtype", "rms_norm", "rope_freqs"]

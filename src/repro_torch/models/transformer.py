@@ -74,8 +74,23 @@ residual, and each row-parallel output ends in an all-reduce over the
 model axis.  ``src_embeds`` and ``patch_embeds`` are rows of the batch
 like the tokens.  The reference's sequence-sharded residual between
 blocks is a GSPMD layout choice that does not change the numbers and is
-not reproduced; its context-parallel attention raises
-:class:`NotImplementedError` naming ROADMAP item 8e.
+not reproduced.
+
+Context-parallel attention (``env.context_parallel_attn`` with tp > 1,
+the reference's rule): the attention weights replicate (self and cross).
+In modes ``train``, ``prefill`` and ``encode``, when the model axis
+divides the sequence, rank r takes rows [r·S/tp, (r+1)·S/tp) of the
+replicated residual, projects its q, k and v, all-gathers k and v to the
+whole sequence with a gradient (``MeshEnv.all_gather_grad``: backward,
+the rank's rows of the gradient summed over the model axis), runs row 3
+with ``q_offset = r·S/tp``, projects through the replicated ``wo`` with
+no all-reduce and all-gathers the output back to the replicated residual
+that the tensor-parallel MLP, MoE and recurrent blocks take.  Otherwise
+(a sequence the axis does not divide, decode, cross attention) attention
+runs on every head on every rank; a decode or cross cache sharded by
+heads (the reference's ``_kv_spec``, which does not read the flag) is
+read with the rank's q heads and their outputs all-gathered.  RWKV-6
+has no attention and does not change.
 
 Serving on a mesh (:func:`prefill`, :func:`decode_step` with ``env``)
 keeps the reference's sharded caches (:func:`cache_specs`): k/v by
@@ -109,9 +124,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from . import attention as attn_lib
 from .attention import quantize_kv
 from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
-from .layers import (apply_mlp, apply_rope, attention_specs, dense_init,
-                     init_attention, init_mlp, init_norm, kv_sharded,
-                     mlp_specs, param_dtype, rms_norm)
+from .layers import (apply_mlp, apply_rope, attention_heads_sharded,
+                     attention_specs, dense_init, init_attention, init_mlp,
+                     init_norm, kv_sharded, mlp_specs, param_dtype, rms_norm)
 from .moe import apply_moe, init_moe, moe_specs
 from .rglru import (apply_rglru_decode, apply_rglru_seq, init_rglru,
                     rglru_specs)
@@ -136,9 +151,7 @@ MOE_AUX_WEIGHT = 0.01
 def check_supported(cfg: ModelConfig, env: MeshEnv = CPU_ENV) -> None:
     """Raise ``ValueError`` for a layer type the port does not know, or
     for a model axis that the MoE's experts or the RG-LRU's channels and
-    heads do not divide (the reference's specs need it), and
-    ``NotImplementedError`` for the reference's context-parallel
-    attention with ``tp > 1`` (ROADMAP item 8e)."""
+    heads do not divide (the reference's specs need it)."""
     types = set(cfg.layer_types())
     for lt in types:
         if lt not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6):
@@ -148,9 +161,6 @@ def check_supported(cfg: ModelConfig, env: MeshEnv = CPU_ENV) -> None:
             moe_specs(cfg, env)
         if RGLRU in types:
             rglru_specs(cfg, env)
-    if env.context_parallel_attn and env.tp > 1:
-        raise NotImplementedError("context-parallel attention waits for "
-                                  "ROADMAP item 8e")
 
 
 def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -296,16 +306,19 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
     """x (B, S, d) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE'd
     with the local base for a sliding-window block.
 
-    With ``env.tp > 1`` the q heads (and k/v heads, when they divide TP)
-    are this rank's; replicated k/v come back whole (every kv head):
-    :func:`_read_kv` cuts them to the heads the local q heads read.  A
-    replicated tensor that only part of each rank's computation uses (x,
-    replicated wk/wv, the qk-norm weights) enters through ``psum_grad``,
-    so its gradient is the sum over the model axis."""
+    With the q heads sharded (:func:`.layers.attention_heads_sharded`)
+    the q heads (and k/v heads, when they divide TP) are this rank's;
+    replicated k/v come back whole (every kv head): :func:`_read_kv`
+    cuts them to the heads the local q heads read.  A replicated tensor
+    that only part of each rank's computation uses (x, replicated wk/wv,
+    the qk-norm weights) enters through ``psum_grad``, so its gradient
+    is the sum over the model axis.  Under context-parallel attention
+    every head is computed here (:func:`_sequence_shard` feeds a
+    sequence shard)."""
     B, S, d = x.shape
     wk, wv = p["wk"], p["wv"]
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
-    if env.tp > 1:
+    if attention_heads_sharded(env):
         model = env.model_axis
         x = env.psum_grad(x, model)
         if not kv_sharded(cfg, env):
@@ -329,9 +342,10 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
 
 def _read_kv(cfg: ModelConfig, env: MeshEnv, hq_local: int, *kv):
     """The k/v heads (dim 2) that this rank's ``hq_local`` q heads read:
-    the tensors as they are on one process or when the kv heads shard,
-    else their :func:`_local_kv_heads` (int8 scales (B, L, Hkv) too)."""
-    if env.tp <= 1 or kv_sharded(cfg, env):
+    the tensors as they are when every q head is here (one process,
+    context-parallel attention) or when the kv heads shard, else their
+    :func:`_local_kv_heads` (int8 scales (B, L, Hkv) too)."""
+    if not attention_heads_sharded(env) or kv_sharded(cfg, env):
         return kv
     heads = _local_kv_heads(cfg, env, hq_local, kv[0].device)
     return tuple(None if t is None else t.index_select(2, heads)
@@ -351,14 +365,32 @@ def _to_ring(t: torch.Tensor, L: int) -> torch.Tensor:
     return t[:, (S - 1) - torch.remainder((S - 1) - j, L)]
 
 
-def _length_shard(cache: dict, spec: Optional[P], env: MeshEnv) -> dict:
-    """This rank's slots of whole-length cache tensors (B, L, ...) when
-    ``spec`` shards the cache length (its dim 1), as copies; else the
-    tensors as they are."""
-    if spec is None or spec[1] is None:
+def _cp_heads(spec: Optional[P], env: MeshEnv):
+    """The axis that shards a cache's kv heads (dim 2) under
+    context-parallel attention, where the rank computes every head; else
+    None."""
+    if spec is None or attention_heads_sharded(env):
+        return None
+    return spec[2]
+
+
+def _cache_piece(cache: dict, spec: Optional[P], env: MeshEnv) -> dict:
+    """This rank's piece of cache tensors (B, L, Hkv, ...) under
+    ``spec``, as copies: its slots when the spec shards the cache length
+    (dim 1), and under context-parallel attention, where every kv head
+    was computed here, its kv heads when the spec shards them (dim 2);
+    else the tensors as they are."""
+    heads = _cp_heads(spec, env)
+    if spec is None or (spec[1] is None and heads is None):
         return cache
-    return {n: env.local_slice(t, 1, spec[1]).clone()
-            for n, t in cache.items()}
+    out = {}
+    for n, t in cache.items():
+        if spec[1] is not None:
+            t = env.local_slice(t, 1, spec[1])
+        if heads is not None:
+            t = env.local_slice(t, 2, heads)
+        out[n] = t.clone()
+    return out
 
 
 def _write_decode_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -417,37 +449,84 @@ def _decode_self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     the model axis, or replicated, attend with the local q heads; a
     cache length sharded over ``spec[1]`` takes every q head (gathered
     over the model axis), a float32 partial over its own slots and the
-    online-softmax merge over ``spec[1]``, then the local heads."""
+    online-softmax merge over ``spec[1]``, then the local heads.  Under
+    context-parallel attention every q head is here and stays: a cache
+    sharded by heads is read with the rank's share of them, whose
+    outputs are then all-gathered."""
     q, k, v = _project_qkv(cfg, p, x, pos[:, None], layer_type, env)
     axis = None if spec is None else spec[1]
+    heads = _cp_heads(spec, env)
     L = cache["k"].shape[1]
     n = env.axis_size(axis) if axis is not None else 1
     first = env.axis_index(axis) * L if axis is not None else 0
     for name, new in _kv_rows(k, v, "k_scale" in cache,
                               cache["k"].dtype).items():
+        if heads is not None:
+            new = env.local_slice(new, 2, heads)
         _write_decode_rows(cache[name], new, pos, ring=bool(W), first=first,
                            length=L * n)
     ck, cv, ks, vs = (cache["k"], cache["v"], cache.get("k_scale"),
                       cache.get("v_scale"))
     if axis is None:
+        if heads is not None:
+            out = attn_lib.decode_attention(
+                env.local_slice(q, 2, heads), ck, cv, pos, window=W,
+                k_scale=ks, v_scale=vs)
+            return env.all_gather(out, 2, heads)
         ck, cv, ks, vs = _read_kv(cfg, env, q.shape[2], ck, cv, ks, vs)
         return attn_lib.decode_attention(q, ck, cv, pos, window=W,
                                          k_scale=ks, v_scale=vs)
-    if env.tp > 1:
+    sharded = attention_heads_sharded(env)
+    if sharded:
         q = env.all_gather(q, 2, env.model_axis)
     m, l, o = attn_lib.decode_attention_partial(
         q, ck, cv, pos, window=W, first=first, length=L * n, k_scale=ks,
         v_scale=vs)
     out = _merge_partials(m, l, o, env, axis).to(q.dtype)
-    return env.local_slice(out, 2, env.model_axis) if env.tp > 1 else out
+    return env.local_slice(out, 2, env.model_axis) if sharded else out
 
 
 def _out_proj(p: Params, out: torch.Tensor, env: MeshEnv) -> torch.Tensor:
-    """(B, S, Hq_local, hd) through ``wo``, summed over the model axis."""
+    """(B, S, Hq_local, hd) through ``wo``, summed over the model axis
+    when the heads shard over it."""
     B, S = out.shape[:2]
     Hq, hd, d = p["wo"].shape
     out = out.reshape(B, S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
-    return env.psum(out, env.model_axis) if env.tp > 1 else out
+    return (env.psum(out, env.model_axis) if attention_heads_sharded(env)
+            else out)
+
+
+def _sequence_shard(env: MeshEnv, S: int) -> bool:
+    """True when context-parallel attention shards this sequence of S
+    rows over the model axis (tp > 1 divides S)."""
+    return (env.context_parallel_attn and env.tp > 1
+            and S % env.tp == 0)
+
+
+def _cp_self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       positions, layer_type: str, causal: bool, W: int,
+                       env: MeshEnv) -> tuple:
+    """Context-parallel attention over the sequence: this rank's rows of
+    the replicated ``x`` (B, S, d) project q, k and v (every head, the
+    weights replicated and entering through ``psum_grad``), k and v are
+    all-gathered along the sequence with a gradient, row 3 runs the
+    rank's q rows at their offset, ``wo`` projects them and the output
+    is all-gathered back to (B, S, d).  Returns (out, k, v), k and v
+    whole (B, S, Hkv, hd) for the prefill cache."""
+    model = env.model_axis
+    S = x.shape[1]
+    p = {n: env.psum_grad(w, model) for n, w in p.items()}
+    x = env.local_slice(env.psum_grad(x, model), 1, model)
+    positions = env.local_slice(positions, 1, model)
+    q, k, v = _project_qkv(cfg, p, x, positions, layer_type, env)
+    k = env.all_gather_grad(k, 1, model, summed=True)
+    v = env.all_gather_grad(v, 1, model, summed=True)
+    out = flash_ops.flash_attention(
+        q, k, v, causal=causal, window=W,
+        q_offset=env.axis_index(model) * (S // env.tp))
+    out = env.all_gather_grad(_out_proj(p, out, env), 1, model,
+                              summed=False)
+    return out, k, v
 
 
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
@@ -469,11 +548,12 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     mode ``train``: causal attention over the whole sequence (windowed
     on a local layer), no cache.
     With ``env.tp > 1`` attention runs on this rank's q heads
-    (:func:`_project_qkv`) and the output is summed over the model axis;
-    ``cache_spec`` (the k/v spec of :func:`cache_specs`) says which
-    piece of the cache this rank keeps at prefill (its kv heads, its
-    slots of the cache length, or all) and reads at decode
-    (:func:`_decode_self_attention`)."""
+    (:func:`_project_qkv`) and the output is summed over the model axis,
+    or under context-parallel attention on this rank's sequence shard
+    (:func:`_cp_self_attention`) or on every head; ``cache_spec`` (the
+    k/v spec of :func:`cache_specs`) says which piece of the cache this
+    rank keeps at prefill (its kv heads, its slots of the cache length,
+    or all) and reads at decode (:func:`_decode_self_attention`)."""
     B, S, d = x.shape
     W = cfg.window_size if layer_type == ATTN_LOCAL else 0
     if mode == "decode":
@@ -485,30 +565,37 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if mode not in ("prefill", "encode", "train"):
         raise ValueError(f"mode {mode!r}: 'prefill', 'decode', 'encode' or "
                          "'train'")
-    q, k, v = _project_qkv(cfg, p, x, positions, layer_type, env)
-    out = flash_ops.flash_attention(q, *_read_kv(cfg, env, q.shape[2], k, v),
-                                    causal=mode != "encode", window=W)
+    causal = mode != "encode"
+    if _sequence_shard(env, S):
+        out, k, v = _cp_self_attention(cfg, p, x, positions, layer_type,
+                                       causal, W, env)
+    else:
+        q, k, v = _project_qkv(cfg, p, x, positions, layer_type, env)
+        out = _out_proj(p, flash_ops.flash_attention(
+            q, *_read_kv(cfg, env, q.shape[2], k, v), causal=causal,
+            window=W), env)
     new_cache = None
     if mode == "prefill":
         L = min(W, max(cache_len, S)) if W else max(cache_len, S)
-        new_cache = _length_shard(
+        new_cache = _cache_piece(
             {n: _to_ring(t, L) for n, t in
              _kv_rows(k, v, kv_quant, param_dtype(cfg)).items()},
             cache_spec, env)
-    return _out_proj(p, out, env), new_cache
+    return out, new_cache
 
 
 def cross_kv(cfg: ModelConfig, p: Params, kv_memory: torch.Tensor,
              env: MeshEnv = CPU_ENV) -> dict:
     """The cross cache {"k", "v"} (B, Ss, Hkv, hd) of one decoder block:
     the encoder output through its ``cross`` wk/wv, in the model dtype.
-    With ``env.tp > 1``, this rank's kv heads when they shard, else
-    every kv head; the replicated encoder output, and replicated wk/wv,
-    enter through ``psum_grad``."""
+    With the heads sharded over the model axis, this rank's kv heads
+    when they shard, else every kv head; the replicated encoder output,
+    and replicated wk/wv, enter through ``psum_grad``.  Under
+    context-parallel attention every kv head, computed whole."""
     B, Ss, d = kv_memory.shape
     dt = param_dtype(cfg)
     wk, wv = p["wk"], p["wv"]
-    if env.tp > 1:
+    if attention_heads_sharded(env):
         model = env.model_axis
         kv_memory = env.psum_grad(kv_memory, model)
         if not kv_sharded(cfg, env):
@@ -530,26 +617,36 @@ def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     model axis.  A cache whose source length is sharded (``cache_spec``
     of :func:`cache_specs`) takes every q head (gathered over the model
     axis), row 3's forward with its log-sum-exp over the local source
-    rows, and the online-softmax merge over ``cache_spec[1]``."""
+    rows, and the online-softmax merge over ``cache_spec[1]``.  Under
+    context-parallel attention cross attention replicates: every q head
+    here, a cache sharded by heads read with the rank's share of them
+    and their outputs all-gathered, ``wo`` with no all-reduce."""
     B, S, d = x.shape
-    if env.tp > 1:
+    sharded = attention_heads_sharded(env)
+    if sharded:
         x = env.psum_grad(x, env.model_axis)
     q = (x @ p["wq"].reshape(d, -1)).reshape(B, S, p["wq"].shape[1],
                                              p["wq"].shape[2])
     axis = None if cache_spec is None else cache_spec[1]
+    heads = _cp_heads(cache_spec, env)
     if axis is None:
-        out = flash_ops.flash_attention(
-            q, *_read_kv(cfg, env, q.shape[2], cache["k"], cache["v"]),
-            causal=False)
+        if heads is not None:
+            out = env.all_gather(flash_ops.flash_attention(
+                env.local_slice(q, 2, heads), cache["k"], cache["v"],
+                causal=False), 2, heads)
+        else:
+            out = flash_ops.flash_attention(
+                q, *_read_kv(cfg, env, q.shape[2], cache["k"], cache["v"]),
+                causal=False)
         return _out_proj(p, out, env)
-    if env.tp > 1:
+    if sharded:
         q = env.all_gather(q, 2, env.model_axis)
     out, lse, out_lo = flash_ops.flash_attention_lse(q, cache["k"],
                                                      cache["v"])
     o = out.float() if out_lo is None else out.float() + out_lo.float()
     m = (lse * math.log(2.0)).transpose(1, 2)[..., None]     # (B, S, H, 1)
     out = _merge_partials(m, torch.ones_like(m), o, env, axis).to(q.dtype)
-    if env.tp > 1:
+    if sharded:
         out = env.local_slice(out, 2, env.model_axis)
     return _out_proj(p, out, env)
 
@@ -613,7 +710,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *, mode: str,
         else:
             cross = cross_kv(cfg, p["cross"], kv_memory, env)
             h = h + apply_cross_attention(cfg, p["cross"], xc, cross, env)
-            cross = _length_shard(cross, cross_spec, env)
+            cross = _cache_piece(cross, cross_spec, env)
         if new_cache is not None:
             new_cache["cross"] = cross
     x = rms_norm(h, p["ln2"], cfg.norm_eps)

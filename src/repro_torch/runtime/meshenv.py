@@ -24,7 +24,14 @@ the port calls them explicitly, over the process group of a named axis
 * :meth:`MeshEnv.pmax` / :meth:`MeshEnv.pmin`: reductions that carry no
   gradient;
 * :meth:`MeshEnv.all_gather`: the shards of an axis concatenated along
-  a dim, one ``all_gather`` (no gradient).
+  a dim, one ``all_gather`` (no gradient);
+* :meth:`MeshEnv.all_gather_grad`: the same with a gradient, whose
+  backward is this rank's slice of the incoming gradient, summed over
+  the axis first (an all-reduce) when each rank uses the gathered
+  tensor only in part (context parallelism's k/v: each rank's queries
+  read every key) and taken as it is when every rank holds its whole
+  gradient (the gathered attention output, entering the replicated
+  residual).
 
 Every collective is an ``all_reduce`` or an ``all_gather``: ``nccl``
 runs both, and so does ``gloo`` on CUDA tensors, which is what ranks
@@ -134,6 +141,24 @@ class _ReduceBoth(torch.autograd.Function):
         return ctx.env._all_reduce(g.clone(), ctx.axis, "bwd"), None, None
 
 
+class _Gather(torch.autograd.Function):
+    """all-gather along ``dim`` forward; backward, this rank's slice of
+    the gradient, all-reduced (sum) over the axis first when ``summed``."""
+
+    @staticmethod
+    def forward(ctx, x, env, dim, axis, summed):
+        ctx.env, ctx.dim, ctx.axis, ctx.summed = env, dim, axis, summed
+        return torch.cat(env.gather_parts(x, axis), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        env = ctx.env
+        if ctx.summed:
+            g = env._all_reduce(g.contiguous().clone(), ctx.axis, "bwd")
+        return (env.local_slice(g, ctx.dim, ctx.axis).contiguous(), None,
+                None, None, None)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Group:
     """One process group of an axis key: the global ranks in it, in
@@ -148,8 +173,9 @@ class MeshEnv:
     mesh: Optional[object] = None          # a DeviceMesh, or None
     batch_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = None
-    # the reference's §Perf flag (attention sharded over the sequence);
-    # kept for its specs, waits for ROADMAP item 8e in the model code
+    # the reference's §Perf flag: with tp > 1, attention shards over the
+    # sequence instead of the heads (its weights replicate; k/v and the
+    # output all-gather; models/transformer.py)
     context_parallel_attn: bool = False
     #: (name, size) of every mesh axis, major first; empty off the mesh
     axes: Tuple[Tuple[str, int], ...] = ()
@@ -354,6 +380,16 @@ class MeshEnv:
         if self.axis_size(axis) == 1:
             return x
         return torch.cat(self.gather_parts(x, axis), dim=dim)
+
+    def all_gather_grad(self, x: torch.Tensor, dim: int, axis: AxisName,
+                        summed: bool) -> torch.Tensor:
+        """:meth:`all_gather` with a gradient: backward, this rank's chunk
+        of the incoming gradient along ``dim``, summed over ``axis``
+        first when ``summed`` (each rank's use of the gathered tensor
+        gives only part of its gradient)."""
+        if self.axis_size(axis) == 1:
+            return x
+        return _Gather.apply(x, self, dim, axis, summed)
 
     def gather_into_(self, full: torch.Tensor, dim: int,
                      axis: AxisName) -> torch.Tensor:

@@ -36,8 +36,9 @@ the reference's.  The reference's three mesh-only fields are read by
 the cell programs (``launch/steps.py``): ``triangular_attention`` by
 prefill (accepted; the attention kernel always skips the masked-out kv
 blocks, so it changes no number), ``kv_quant_serving`` by decode (int8
-caches), and ``context_parallel_attention``, which ``check_supported``
-refuses with tp > 1 (ROADMAP item 8e).
+caches), and ``context_parallel_attention``, which the dry run reads
+into its env (``MeshEnv.context_parallel_attn``: attention over the
+sequence, ``models/transformer.py``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ class TrainConfig:
     remat: bool = True
     capacity_factor: float = 1.25
     triangular_attention: bool = False  # prefill: changes no number
-    context_parallel_attention: bool = False   # refused: ROADMAP item 8e
+    context_parallel_attention: bool = False   # the dry run's env flag
     kv_quant_serving: bool = False      # decode cells: int8 k/v caches
     bf16_collectives: bool = False      # gradients cross in their dtype
     zero1: bool = True                  # read nowhere, as the reference's

@@ -27,6 +27,21 @@ A request must fit its cache: :meth:`InferenceEngine.submit` refuses one
 whose prompt and new tokens need more than ``cache_len`` positions (the
 reference accepts it, drops the global cache's writes past the end and
 so corrupts the stream), so a ring shorter than the window never wraps.
+
+On a mesh (``env``, a ``runtime.meshenv.MeshEnv``; ``params`` this
+rank's slices, ``interop.shard_lm_params``) every rank runs the same
+host bookkeeping (queue, slot assignment, positions, finished requests)
+and so returns the same results.  The pool is ``init_caches(env=)``'s:
+the slots split over the batch axes when they divide them (the
+reference's batch rule; else every data rank holds every slot) and each
+leaf over the model axis by the reference's ``_kv_spec`` and state
+specs (``transformer.cache_specs``).  Admission prefills the request
+with ``prefill(env=)`` and only the rank that owns the slot writes its
+rows (re-cut from the one-row prefill's layout when the two differ);
+:meth:`~InferenceEngine.step` calls ``decode_step(env=, specs=)`` and
+gathers the next tokens over the batch axes;
+:meth:`~InferenceEngine.export_cache` gathers a slot whole and
+:meth:`~InferenceEngine.import_cache` cuts it again.
 """
 from __future__ import annotations
 
@@ -39,6 +54,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.models.sharded_ops import sharded_argmax
+from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv, P
 
 Params = dict
 
@@ -106,14 +123,14 @@ def _bucket(n: int, buckets=(64, 128, 256, 512, 1024, 2048, 4096)) -> int:
 CACHE_LEN_LEAVES = ("k", "v")
 
 
-def _leaf_pairs(pool: dict, other: dict):
-    """(pool leaf, ``other``'s leaf at the same key path) for every leaf
-    of one block's cache tree."""
+def _leaf_pairs(pool: dict, *others: dict):
+    """(pool leaf, each of ``others``' leaves at the same key path) for
+    every leaf of one block's cache tree."""
     for key, sub in pool.items():
         if isinstance(sub, dict):
-            yield from _leaf_pairs(sub, other[key])
+            yield from _leaf_pairs(sub, *(o[key] for o in others))
         else:
-            yield sub, other[key]
+            yield (sub,) + tuple(o[key] for o in others)
 
 
 def _export_tree(tree: dict, slot: int, pos: int) -> dict:
@@ -151,15 +168,46 @@ def _slot_write(pool: torch.Tensor, one: torch.Tensor, slot: int) -> None:
     row[tuple(slice(0, n) for n in one.shape[1:])] = one[0].to(pool.dtype)
 
 
+def _row_spec(spec: P) -> P:
+    """A cache leaf's spec with its slot (batch) entry dropped."""
+    return P(None, *tuple(spec)[1:])
+
+
+def _whole_shape(local: torch.Tensor, spec: P, env: MeshEnv) -> tuple:
+    """The logical shape of one slot of a pool leaf from its local
+    piece: each dim past the slot's times the size of its axes."""
+    ent = tuple(spec) + (None,) * (local.dim() - len(spec))
+    return (1,) + tuple(n * env.axis_size(e)
+                        for n, e in zip(local.shape[1:], ent[1:]))
+
+
+def _pad_to(one: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``one`` (1, L', ...) zero-padded to ``shape``; raises
+    :class:`CacheOverflowError` where it is longer."""
+    over = [i for i, (a, b) in enumerate(zip(one.shape, shape)) if a > b]
+    if over or one.dim() != len(shape):
+        raise CacheOverflowError(
+            f"cache leaf {tuple(one.shape)} exceeds pool slot {shape} on "
+            f"axes {over}")
+    if tuple(one.shape) == tuple(shape):
+        return one
+    out = one.new_zeros(shape)
+    out[tuple(slice(0, n) for n in one.shape)] = one
+    return out
+
+
 class InferenceEngine:
     """Continuous batching over ``slots`` slots of ``cache_len`` positions
     on ``device`` (``None`` means the card, and raises without one;
     ``"cpu"`` takes the plain PyTorch path).  ``params`` must live on
-    that device."""
+    that device: the whole tree on one process, this rank's slices
+    under ``env`` on a mesh (the module says how the pool and the steps
+    split there)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, *, device=None,
-                 slots: int = 4, cache_len: int = 512):
-        tfm.check_supported(cfg)
+                 slots: int = 4, cache_len: int = 512,
+                 env: MeshEnv = CPU_ENV):
+        tfm.check_supported(cfg, env)
         if cfg.enc_dec:
             raise ValueError(f"{cfg.name}: InferenceEngine serves decoder-only "
                              "stacks (its prefill takes tokens only, as "
@@ -170,12 +218,21 @@ class InferenceEngine:
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
+        self.env = env
         self.slots = slots
         self.cache_len = cache_len
         self.requests: Dict[int, Request] = {}
         self.slot_of: Dict[int, int] = {}
+        # on a mesh: the pool's specs, the axes its slots split over, and
+        # the one-row prefill's specs
+        self.specs = self._one_specs = self._b_ax = None
+        if env.is_spmd:
+            self.specs = tfm.cache_specs(cfg, env, slots, cache_len)
+            self._one_specs = tfm.cache_specs(cfg, env, 1, cache_len)
+            self._b_ax = env.batch_if(slots)
         self.state = DecodeState(
-            caches=tfm.init_caches(cfg, slots, cache_len, self.device),
+            caches=tfm.init_caches(cfg, slots, cache_len, self.device,
+                                   env=env),
             last_token=torch.zeros((slots, 1), dtype=torch.long,
                                    device=self.device),
             pos=np.zeros((slots,), np.int64),
@@ -184,6 +241,66 @@ class InferenceEngine:
         self._next_rid = 0
 
     # ------------------------------------------------------------------
+    def _local_row(self, slot: int):
+        """The pool row of ``slot`` on this rank, or None when another
+        data rank owns it."""
+        if self._b_ax is None:
+            return slot
+        n = self.slots // self.env.dp
+        row = slot - self.env.axis_index(self._b_ax) * n
+        return row if 0 <= row < n else None
+
+    def _write_slot(self, caches: List[dict], slot: int,
+                    specs: List[dict] = None) -> None:
+        """Write single-request cache trees into ``slot``'s rows: on a
+        mesh, ``caches`` are this rank's pieces under ``specs``
+        (re-cut to the pool's layout when it differs), or whole trees
+        when ``specs`` is None; only the rank that owns the slot
+        writes."""
+        if not self.env.is_spmd:
+            for pool, one in zip(self.state.caches, caches):
+                for leaf, new in _leaf_pairs(pool, one):
+                    _slot_write(leaf, new.to(self.device), slot)
+            return
+        row = self._local_row(slot)
+        env = self.env
+        whole = specs is None
+        for pool, one, psp, osp in zip(self.state.caches, caches, self.specs,
+                                       specs or self.specs):
+            for leaf, new, sp, nsp in _leaf_pairs(pool, one, psp, osp):
+                rest = _row_spec(sp)
+                if whole:
+                    new = env.shard(_pad_to(new.to(self.device),
+                                            _whole_shape(leaf, sp, env)),
+                                    rest)
+                elif tuple(nsp)[1:] != tuple(rest)[1:]:
+                    new = env.shard(env.unshard(new, nsp), rest)
+                if row is not None:
+                    _slot_write(leaf, new, row)
+
+    def _slot_leaves(self, slot: int) -> List[dict]:
+        """Copies of ``slot``'s row of every pool leaf, whole: on a mesh
+        gathered from the rank that owns the slot and over the model
+        axis (every rank calls it)."""
+        env = self.env
+
+        def whole(tree, spec):
+            out = {}
+            for key, sub in tree.items():
+                if isinstance(sub, dict):
+                    out[key] = whole(sub, spec[key])
+                    continue
+                if self._b_ax is None:
+                    row = sub[slot:slot + 1]
+                else:
+                    n = self.slots // env.dp
+                    row = env.all_gather(sub[slot % n:slot % n + 1], 0,
+                                         self._b_ax)[slot // n:slot // n + 1]
+                out[key] = env.unshard(row, _row_spec(spec[key])).clone()
+            return out
+
+        return [whole(c, sp) for c, sp in zip(self.state.caches, self.specs)]
+
     @property
     def free_slots(self) -> int:
         """Number of slots not currently running a request."""
@@ -219,12 +336,14 @@ class InferenceEngine:
             tokens = torch.from_numpy(prompt[:, :S]).to(self.device)
             logits, caches = tfm.prefill(self.cfg, self.params,
                                          {"tokens": tokens},
-                                         cache_len=self.cache_len)
-            nxt = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+                                         cache_len=self.cache_len,
+                                         env=self.env)
+            if self.env.is_spmd:            # the vocab shards' argmax
+                nxt = int(sharded_argmax(logits, env=self.env)[0])
+            else:
+                nxt = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
             req.out.append(nxt)
-            for pool, one in zip(self.state.caches, caches):
-                for leaf, new in _leaf_pairs(pool, one):
-                    _slot_write(leaf, new, slot)
+            self._write_slot(caches, slot, self._one_specs)
             self.state.last_token[slot, 0] = nxt
             self.state.pos[slot] = S
             self.state.active[slot] = True
@@ -265,12 +384,18 @@ class InferenceEngine:
         ``leaves`` one cache tree per block with the stream's row of every
         leaf (copies, so the engine may go on writing its pool): k/v
         cropped to (1, pos, Hkv, hd), recurrent state whole; ``pos`` the
-        filled positions.  The engine state is untouched."""
+        filled positions.  The engine state is untouched.  On a mesh the
+        leaves are whole, gathered from every rank that holds a piece
+        (every rank calls it and gets the same)."""
         slot = self.slot_of.get(rid)
         if slot is None:
             raise KeyError(f"rid {rid} has no active slot")
         pos = int(self.state.pos[slot])
-        leaves = [_export_tree(c, slot, pos) for c in self.state.caches]
+        if self.env.is_spmd:
+            leaves = [_export_tree(c, 0, pos)
+                      for c in self._slot_leaves(slot)]
+        else:
+            leaves = [_export_tree(c, slot, pos) for c in self.state.caches]
         return leaves, pos
 
     def import_cache(self, tokens: np.ndarray, max_new: int, leaves,
@@ -282,7 +407,8 @@ class InferenceEngine:
         ``(leaves, pos)`` what :meth:`export_cache` returned.  Raises
         :class:`CacheOverflowError` when ``pos + max_new > cache_len``
         (position ``pos`` itself must still be writable) and
-        ``RuntimeError`` when no slot is free."""
+        ``RuntimeError`` when no slot is free.  On a mesh ``leaves`` are
+        whole and each rank keeps its piece of them."""
         pos = int(pos)
         tokens = np.asarray(tokens)
         if max_new < 1:
@@ -298,9 +424,7 @@ class InferenceEngine:
         if not free:
             raise RuntimeError("import_cache: no free slot")
         slot = free[0]
-        for pool, one in zip(self.state.caches, leaves):
-            for leaf, new in _leaf_pairs(pool, one):
-                _slot_write(leaf, new.to(self.device), slot)
+        self._write_slot(leaves, slot)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, tokens=tokens, max_new=max_new)
@@ -321,7 +445,10 @@ class InferenceEngine:
         pos = torch.from_numpy(self.state.pos.copy()).to(self.device)
         _, nxt, _ = tfm.decode_step(self.cfg, self.params,
                                     self.state.last_token, pos,
-                                    self.state.caches)
+                                    self.state.caches, env=self.env,
+                                    specs=self.specs)
+        if self._b_ax is not None:          # every slot's, on every rank
+            nxt = self.env.all_gather(nxt, 0, self._b_ax)
         self.state.last_token = nxt[:, None]
         nxt_np = nxt.cpu().numpy()
         emitted = []

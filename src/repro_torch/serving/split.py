@@ -15,6 +15,14 @@ token.  KV caches are split too: the device half holds its prefix
 blocks' caches, the edge half the suffix's.  PyTorch runs eagerly, so
 the reference's per-(split, mode) ``jax.jit`` cache has no counterpart.
 
+On a mesh (``env``; ``params`` this rank's slices,
+``interop.shard_lm_params``) both halves run under the env, as the
+reference's ``device_prefix``/``edge_suffix`` take it: each rank takes
+its rows of the batch (``transformer.serving_rows``), keeps its piece of
+every cache under ``transformer.cache_specs`` and returns its vocab
+shard of the logits; the server gathers the next tokens over the batch
+axes, so every rank returns the same tokens.
+
 Server loss mid-stream raises :class:`ServerLostError` from the edge
 half; :meth:`SplitServer.generate_with_failover` relays the stream to a
 fallback server and prices the relay-back (activation bits x hops /
@@ -29,6 +37,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime.meshenv import CPU_ENV, MeshEnv
 
 from .failover import FailoverEvent, FailoverReport, ServerLostError
 
@@ -48,29 +57,38 @@ def layer_params(cfg: ModelConfig, params: Params, i: int) -> Params:
 
 def device_prefix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   split: int, *, mode: str = "prefill", cache_len: int = 0,
-                  caches: Optional[List] = None, pos=None):
+                  caches: Optional[List] = None, pos=None,
+                  env: MeshEnv = CPU_ENV, specs: Optional[List] = None):
     """The device half: embedding and blocks [0, split).  Returns (w_s
     activation (B, S, d), device caches).
 
     mode ``prefill``: tokens (B, S).  mode ``decode``: tokens (B, 1), pos
-    the position, caches required (updated in place)."""
-    h = tfm._embed_tokens(cfg, params, tokens)
+    the position, caches required (updated in place).  On a mesh,
+    ``tokens`` are this rank's rows, ``env`` the env its model code runs
+    under and ``specs`` the caches' (``transformer.cache_specs`` of the
+    blocks [0, split))."""
+    h = tfm._embed_tokens(cfg, params, tokens, env)
     positions = pos if mode == "decode" else tfm._positions(tokens)
     return tfm.apply_stack(cfg, params, h, mode=mode, positions=positions,
                            caches=caches, cache_len=cache_len, lo=0,
-                           hi=split)
+                           hi=split, env=env, specs=specs)
 
 
 def edge_suffix(cfg: ModelConfig, params: Params, h_split: torch.Tensor,
                 split: int, *, mode: str = "prefill", cache_len: int = 0,
-                caches: Optional[List] = None, pos=None):
+                caches: Optional[List] = None, pos=None,
+                env: MeshEnv = CPU_ENV, specs: Optional[List] = None):
     """The edge half: blocks [split, M) and the head, from the shipped
-    activation.  Returns (logits (B, Vp), next token (B,), edge caches)."""
+    activation.  Returns (logits (B, Vp), next token (B,), edge caches);
+    on a mesh (``env``, ``specs`` as :func:`device_prefix`'s, of the
+    blocks [split, M)) the rank's rows and its vocab shard of the
+    logits."""
     positions = pos if mode == "decode" else tfm._positions(h_split)
     h, new_caches = tfm.apply_stack(cfg, params, h_split, mode=mode,
                                     positions=positions, caches=caches,
-                                    cache_len=cache_len, lo=split)
-    logits, nxt = tfm.head(cfg, params, h[:, -1:])
+                                    cache_len=cache_len, lo=split, env=env,
+                                    specs=specs)
+    logits, nxt = tfm.head(cfg, params, h[:, -1:], env)
     return logits, nxt, new_caches
 
 
@@ -83,11 +101,12 @@ def activation_bits(cfg: ModelConfig, batch: int, tokens: int) -> float:
 class SplitServer:
     """Executes MCSA-planned split inference for one model on ``device``
     (``None`` means the card, and raises without one; ``"cpu"`` takes the
-    plain PyTorch path).  ``params`` must live on that device."""
+    plain PyTorch path).  ``params`` must live on that device: the whole
+    tree, or on a mesh (``env``) this rank's slices."""
 
     def __init__(self, cfg: ModelConfig, params: Params, device=None,
-                 name: str = "edge"):
-        tfm.check_supported(cfg)
+                 name: str = "edge", env: MeshEnv = CPU_ENV):
+        tfm.check_supported(cfg, env)
         if cfg.enc_dec:
             raise ValueError(f"{cfg.name}: SplitServer serves decoder-only "
                              "stacks (its prefill takes tokens only, as "
@@ -98,6 +117,7 @@ class SplitServer:
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
+        self.env = env
         self.name = name
         self.up = True                    # edge-server liveness
         self._fail_after: Optional[int] = None
@@ -132,33 +152,62 @@ class SplitServer:
                              f"{self.cfg.num_layers}]")
 
     # -- serving ----------------------------------------------------------
+    def _rows(self, tokens: torch.Tensor) -> tuple:
+        """(this rank's rows of the global ``tokens``, the env its model
+        code runs under)."""
+        if not self.env.is_spmd:
+            return tokens, self.env
+        rows, renv = tfm.serving_rows({"tokens": tokens}, self.env)
+        return rows["tokens"], renv
+
+    def _all_rows(self, nxt: torch.Tensor, renv: MeshEnv) -> torch.Tensor:
+        """The next tokens of every row: gathered over the batch axes
+        when the rows split over them."""
+        if renv.is_spmd and renv.dp > 1:
+            return self.env.all_gather(nxt, 0, renv.batch())
+        return nxt
+
+    def _run(self, tokens, split: int, caches, specs, **kw) -> tuple:
+        """Both halves on ``tokens`` (the global batch) -> (logits, every
+        row's next tokens, the caches as :meth:`prefill` returns them)."""
+        rows, renv = self._rows(tokens)
+        dev_caches, edge_caches = caches
+        h_split, dev_caches = device_prefix(
+            self.cfg, self.params, rows, split, caches=dev_caches, env=renv,
+            specs=None if specs is None else specs[:split], **kw)
+        self._edge_guard()
+        logits, nxt, edge_caches = edge_suffix(
+            self.cfg, self.params, h_split, split, caches=edge_caches,
+            env=renv, specs=None if specs is None else specs[split:], **kw)
+        caches = ((dev_caches, edge_caches) if specs is None
+                  else (dev_caches, edge_caches, specs))
+        return logits, self._all_rows(nxt, renv), caches
+
     def prefill(self, tokens, split: int, cache_len: int):
         """Split prefill: device prefix -> shipped w_s -> edge suffix.
         Raises :class:`ServerLostError` when the edge server is down (the
-        device prefix runs regardless — it is local)."""
+        device prefix runs regardless — it is local).  Returns (logits,
+        next tokens, (device caches, edge caches)); on a mesh the logits
+        are the rank's piece, the tokens every row's, and the caches
+        carry their specs (``transformer.cache_specs``) as a third
+        entry."""
         self._check_split(split)
         tokens = torch.as_tensor(tokens, device=self.device)
-        h_split, dev_caches = device_prefix(self.cfg, self.params, tokens,
-                                            split, cache_len=cache_len)
-        self._edge_guard()
-        logits, nxt, edge_caches = edge_suffix(
-            self.cfg, self.params, h_split, split, cache_len=cache_len)
-        return logits, nxt, (dev_caches, edge_caches)
+        specs = None
+        if self.env.is_spmd:
+            specs = tfm.cache_specs(self.cfg, self.env, tokens.shape[0],
+                                    max(cache_len, tokens.shape[1]))
+        return self._run(tokens, split, (None, None), specs,
+                         cache_len=cache_len)
 
     def decode(self, token, pos, caches, split: int):
         """One split decode step; ``caches`` from :meth:`prefill` (updated
         in place)."""
         self._check_split(split)
-        dev_caches, edge_caches = caches
+        dev_caches, edge_caches, *specs = caches
         token = torch.as_tensor(token, device=self.device)
-        h_split, dev_caches = device_prefix(
-            self.cfg, self.params, token, split, mode="decode",
-            caches=dev_caches, pos=pos)
-        self._edge_guard()
-        logits, nxt, edge_caches = edge_suffix(
-            self.cfg, self.params, h_split, split, mode="decode",
-            caches=edge_caches, pos=pos)
-        return logits, nxt, (dev_caches, edge_caches)
+        return self._run(token, split, (dev_caches, edge_caches),
+                         specs[0] if specs else None, mode="decode", pos=pos)
 
     def generate(self, tokens, split: int, max_new: int,
                  cache_len: Optional[int] = None) -> torch.Tensor:

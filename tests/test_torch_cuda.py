@@ -359,20 +359,21 @@ def test_cuda_flash_attention_matches_plain_version(B, Hq, Hkv, S, hd, causal,
 
 
 def _attention_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
-                    Skv=None):
+                    Skv=None, q_offset=None):
     """One call of the kernel against its plain version, at the tolerances
-    above (``Skv`` keys, default S); returns the launch counts'
-    increments."""
+    above (``Skv`` keys, default S; query row i at key ``q_offset + i``);
+    returns the launch counts' increments."""
     dt = getattr(torch, dtype)
     Skv = S if Skv is None else Skv
     q = _randn((B, S, Hq, hd), dt, device, 60)
     k = _randn((B, Skv, Hkv, hd), dt, device, 61)
     v = _randn((B, Skv, Hkv, hd), dt, device, 62)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     before = dict(tflash.LAUNCHES)
-    out = tflash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out = tflash.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     counts = {n: tflash.LAUNCHES[n] - before[n] for n in before}
-    ref = tflash.attention_ref(q, k, v, causal=causal, window=window).float()
+    ref = tflash.attention_ref(q, k, v, **kw).float()
     tol, rms_tol = (2e-5, 2e-5) if dtype == "float32" else (1e-2, 1e-3)
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
     rms = lambda t: t.square().mean().sqrt().item()               # noqa: E731
@@ -949,7 +950,7 @@ def _chip_smoke():
 
 
 def _attention_bwd_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
-                        Skv=None, key_offset=0.0):
+                        Skv=None, key_offset=0.0, q_offset=None):
     """The backward kernel on the forward kernel's output (bf16: with the
     training forward's LSE and residual, whose ``out`` must equal the
     serving forward's bit for bit) against float32 autograd through
@@ -964,7 +965,7 @@ def _attention_bwd_case(B, Hq, Hkv, S, hd, causal, window, dtype, device,
          + key_offset).to(dt)
     v = _randn((B, Skv, Hkv, hd), dt, device, 72)
     dout = _randn((B, S, Hq, hd), dt, device, 73)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     stats = {}
     out = tflash.flash_attention_cuda(q, k, v, **kw)
     if dtype == "bfloat16":
@@ -1088,6 +1089,28 @@ def test_cuda_flash_attention_bwd_cross_shapes_bf16(Sq, Skv, key_offset,
                                                     cuda):
     _attention_bwd_case(2, 4, 4, Sq, 64, False, 0, "bfloat16", cuda,
                         Skv=Skv, key_offset=key_offset)
+
+
+#: context parallelism's shards, off the 64-row tiles: 75 q rows of 300
+#: keys at the first, a middle and the last offset
+Q_OFFSETS = (0, 113, 225)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", Q_OFFSETS)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_at_a_q_offset(q_offset, causal, window, hd,
+                                            dtype, cuda):
+    """Row 3's forward and backward with query row i at key q_offset +
+    i (a rank's sequence shard against the gathered keys)."""
+    _attention_case(1, 8, 1, 75, hd, causal, window, dtype, cuda, Skv=300,
+                    q_offset=q_offset)
+    counts = _attention_bwd_case(1, 8, 1, 75, hd, causal, window, dtype,
+                                 cuda, Skv=300, q_offset=q_offset)
+    assert counts == _bwd_counts(dtype)
 
 
 @pytest.mark.cuda

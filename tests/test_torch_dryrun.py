@@ -36,13 +36,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_dryrun_cases import (cell_of, draw, program, record_rank,  # noqa
-                                small_cfg)
+from torch_dryrun_cases import (BATCH, SEQ, cell_of, draw, program,  # noqa
+                                record_rank, small_cfg)
 from repro_torch.configs import get_config                         # noqa
 from repro_torch.configs.base import ShapeCell                     # noqa
 from repro_torch.launch import dryrun                              # noqa
 from repro_torch.launch.costs import count                         # noqa
 from repro_torch.launch.steps import build_cell                    # noqa
+from repro_torch.models.layers import param_dtype as t_param_dtype  # noqa
 from repro_torch.runtime.meshenv import recording_env              # noqa
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -251,3 +252,89 @@ def test_a_cut_cell_against_the_references_compiled_program():
         "temp": mem["temp_size_in_bytes"]
         / ref["memory"]["temp_size_in_bytes"]}
     print("port / XLA:", json.dumps(ratios))
+
+
+# ---------------------------------------------------------------------------
+# context-parallel attention
+# ---------------------------------------------------------------------------
+def test_a_cp_cell_records_the_gathers_where_tp_records_the_psum():
+    """A cut starcoder2-3b train cell counts on ``meta`` under
+    ``TrainConfig(context_parallel_attention=True)``.  In the loss's
+    forward on data 2 x model 2 (one kv head, so k/v and the residual
+    differ in bytes), each attention call trades TP's all-reduce of the
+    (B, S, d) output for three all-gathers: k and v (B, S, 1, hd) and
+    the output (B, S, d), in that order."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.meshenv import shard_tree
+    from repro_torch.runtime.train import TrainConfig
+    cut = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2)
+    rec = dryrun.run_cell("starcoder2-3b", ShapeCell("cut_train", 128, 16,
+                                                     "train"), False,
+                          cfg=cut,
+                          tcfg=TrainConfig(context_parallel_attention=True))
+    assert rec["status"] == "ok"
+    assert rec["collectives"]["counts"]["all-gather"] > 0
+    cfg = reduced(get_config("starcoder2-3b"), layers=2, kv_heads=1)
+    B = BATCH // LAYOUT["data"]
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, SEQ), generator=g)
+             for k in ("tokens", "labels")}
+    got = {}
+    for cp in (False, True):
+        env = recording_env(LAYOUT, context_parallel_attn=cp)
+        params = shard_tree(tfm.init_lm(cfg, torch.Generator().manual_seed(0),
+                                        "cpu", env),
+                            tfm.param_specs(cfg, env), env)
+        with torch.no_grad(), count() as c:
+            tfm.loss_fn(cfg, params, batch, remat=False, env=env)
+        got[cp] = (c.kernels["flash_attention"]["calls"],
+                   [(k, b) for k, b, _, _ in env.record])
+    calls = got[False][0]
+    assert got[True][0] == calls == cfg.num_layers
+    es = torch.empty((), dtype=t_param_dtype(cfg)).element_size()
+    resid = B * SEQ * cfg.d_model * es
+    kv = B * SEQ * cfg.num_kv_heads * cfg.head_dim * es
+    assert kv != resid
+    tp, cp = got[False][1], got[True][1]
+    assert (tp.count(("all-reduce", resid))
+            - cp.count(("all-reduce", resid))) == calls
+    assert [b for k, b in tp if k == "all-gather"] == []
+    assert [b for k, b in cp if k == "all-gather"] == [kv, kv, resid] * calls
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid", "enc_dec",
+                                    "vlm"])
+def test_the_cp_count_on_meta_equals_the_count_on_the_cpu(family, kind):
+    arch = FAMILIES[family]
+    got = {}
+    for dev in ("meta", "cpu"):
+        env = recording_env(LAYOUT, (1, 1), context_parallel_attn=True)
+        cfg, prog, args = program(arch, kind, env)
+        if dev == "cpu":
+            args = draw(args, cfg)
+        c = _counted(prog.fn, args)
+        got[dev] = (c.flops, c.aten_flops, c.bytes, c.peak, c.kernels,
+                    env.record)
+        assert c.flops > 0 and c.bytes > 0 and c.peak > 0, dev
+    assert got["meta"] == got["cpu"]
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_row_3_reports_the_pairs_of_its_shard_s_offset(coord):
+    """Under CP the rank at model index m runs row 3 on q rows [m·S/2,
+    (m+1)·S/2) of each sequence against all S keys: the forward's
+    reported flops are 4·B·Hq·hd·pairs(S/2, S, causal, window, m·S/2) a
+    call, the backward's 2.5 times that."""
+    from repro_torch.kernels.flash_attention.ops import pairs
+    env = recording_env(LAYOUT, coord, context_parallel_attn=True)
+    cfg, prog, args = program("starcoder2-3b", "train", env)
+    c = _counted(prog.fn, args)
+    B, half = BATCH // 2, SEQ // 2
+    Hq = cfg.num_heads
+    want = 4.0 * B * Hq * cfg.head_dim * pairs(half, SEQ, True, 0,
+                                               coord[1] * half)
+    fwd, bwd = c.kernels["flash_attention"], c.kernels["flash_attention_bwd"]
+    assert fwd["flops"] == fwd["calls"] * want
+    assert bwd["flops"] == bwd["calls"] * 2.5 * want

@@ -24,8 +24,10 @@
   ``quantize_int8`` / ``dequantize_int8`` summed in pod order, bit for
   bit, over two calls (the second carrying the first's error feedback).
 * ``shrink_mesh``'s edge cases; every family accepted on a data and on
-  a model mesh with the reference's spec tree, and context-parallel
-  attention refused (ROADMAP item 8e).
+  a model mesh with the reference's spec tree; context-parallel
+  attention on a model 2 recording env through the four calls
+  (``check_supported``, a train step, ``prefill``, ``decode_step``),
+  and RWKV-6, which has no attention, unchanged by the flag.
 """
 import os
 import subprocess
@@ -153,14 +155,12 @@ def _assert_same_specs(port, ref, where="") -> None:
 @pytest.mark.parametrize("tree", ["params", "opt_state"])
 def test_spec_trees_match_the_reference(arch, data, model, cp, tree):
     """``cp``: the reference's context-parallel attention replicates the
-    attention weights; the port's specs follow, and its model refuses
-    the mode (ROADMAP item 8e)."""
+    attention weights; the port's specs follow, and its model takes the
+    mode."""
     jcfg, tcfg = _cfgs(arch)
     jspecs, shapes, jenv = _reference(jcfg, data, model, cp)
     env = make_env({"data": data, "model": model}, context_parallel_attn=cp)
-    if cp:
-        with pytest.raises(NotImplementedError, match="8e"):
-            t_tfm.check_supported(tcfg, env)
+    t_tfm.check_supported(tcfg, env)
     pspecs = _reference_specs(tcfg, env)
     if tree == "params":
         _assert_same_specs(pspecs, jspecs)
@@ -201,19 +201,68 @@ def test_every_family_is_accepted_on_a_mesh_with_the_reference_s_specs(
     _assert_same_specs(_reference_specs(tcfg, env), jspecs)
 
 
+def _recorded_calls(arch: str, cp: bool) -> dict:
+    """The four calls (``check_supported``, a ``make_train_step`` step,
+    ``prefill``, two ``decode_step``s) of a reduced ``arch`` on rank (0,
+    1) of a data 1 x model 2 recording env (``runtime.meshenv.
+    recording_env``: the collectives recorded instead of sent), from the
+    rank's slices of seeded weights: the loss, the prefill logits, the
+    last decode logits, the decode tokens and the record."""
+    from repro_torch.runtime.data import DataConfig, batch_at
+    from repro_torch.runtime.meshenv import recording_env, shard_tree
+    cfg = reduced(get_config(arch), layers=2)
+    env = recording_env({"data": 1, "model": 2}, (0, 1),
+                        context_parallel_attn=cp)
+    t_tfm.check_supported(cfg, env)
+    logical = t_tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu",
+                            env)
+    params = shard_tree(logical, t_tfm.param_specs(cfg, env), env)
+    batch = batch_at(cfg, DataConfig(seed=1, seq_len=8, global_batch=2), 0,
+                     "cpu")
+    step = t_train.make_train_step(cfg, env=env)
+    _, _, metrics = step(params, t_train.init_opt_state(cfg, params, env),
+                         batch)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        logits, caches = t_tfm.prefill(cfg, params, prompt, cache_len=16,
+                                       env=env)
+        specs = t_tfm.cache_specs(cfg, env, 2, 16)
+        pos = 8 + (cfg.frontend_len if cfg.frontend == "vit" else 0)
+        tokens = []
+        token = torch.zeros((2, 1), dtype=torch.int64)
+        for i in range(2):
+            dec_logits, nxt, caches = t_tfm.decode_step(
+                cfg, params, token, pos + i, caches, env=env, specs=specs)
+            token = nxt[:, None]
+            tokens.append(nxt)
+    return {"loss": metrics["loss"], "logits": logits, "decode": dec_logits,
+            "tokens": torch.stack(tokens), "record": list(env.record)}
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-1b"])
 def test_context_parallel_attention_on_a_model_mesh_waits_for_item_8e(arch):
-    env = make_env({"data": 1, "model": 2}, context_parallel_attn=True)
-    cfg = reduced(get_config(arch))
-    tokens = torch.zeros((2, 4), dtype=torch.int64)
-    for call in (lambda: t_tfm.check_supported(cfg, env),
-                 lambda: t_train.make_train_step(cfg, env=env),
-                 lambda: t_tfm.prefill(cfg, {}, {"tokens": tokens},
-                                       cache_len=8, env=env),
-                 lambda: t_tfm.decode_step(cfg, {}, tokens[:, :1], 4, [],
-                                           env=env)):
-        with pytest.raises(NotImplementedError, match="8e"):
-            call()
+    """The four calls that refused context-parallel attention with tp > 1
+    now run it: the rank's q rows and the all-gathered k/v, finite
+    numbers of the shapes the rank holds (its vocab shard of the
+    logits), and the k/v and output all-gathers in the record."""
+    got = _recorded_calls(arch, cp=True)
+    cfg = reduced(get_config(arch), layers=2)
+    Vp = t_ops.padded_vocab(cfg.vocab_size, 2)
+    assert torch.isfinite(got["loss"])
+    assert got["logits"].shape == (2, Vp // 2)
+    assert torch.isfinite(got["logits"]).all()
+    assert got["tokens"].shape == (2, 2)
+    gathers = [r for r in got["record"] if r[0] == "all-gather"]
+    assert len(gathers) >= 3 * cfg.num_layers
+
+
+def test_rwkv6_under_context_parallel_attention_equals_rwkv6_without_it():
+    """RWKV-6 has no attention: the flag changes no number and no
+    collective of the four calls."""
+    on, off = (_recorded_calls("rwkv6-3b", cp) for cp in (True, False))
+    for key in ("loss", "logits", "decode", "tokens"):
+        assert torch.equal(on[key], off[key]), key
+    assert on["record"] == off["record"]
 
 
 @pytest.mark.parametrize("arch,tp", [("granite-moe-1b-a400m", 3),

@@ -16,7 +16,9 @@ the whole batch for the global rule of a data mesh, on each data shard's
 rows for the per-shard rule of tp > 1); ``remesh`` re-cuts the live
 state after the step by ``elastic.remesh_state`` onto data 4 x model 1
 (every sharded spec changes) and takes one more step there, held
-against an unbroken two-step run on one process (:func:`unbroken`).
+against an unbroken two-step run on one process (:func:`unbroken`);
+``cp`` runs both packages under context-parallel attention (``make_env(
+..., context_parallel_attn=True)``).
 
 The weights are the port's ``init_lm`` for the case's mesh (q heads
 padded for its TP size), in the reference's stacked tree, with the norm
@@ -91,7 +93,8 @@ def spy(x_flat, router, *a, num_experts, top_k, capacity, **kw):
 out = {}
 for name, arch, kw, (data, model), extras in cases:
     devs = np.asarray(jax.devices()[:data * model]).reshape(data, model)
-    env = make_env(jax.sharding.Mesh(devs, ("data", "model")))
+    env = make_env(jax.sharding.Mesh(devs, ("data", "model")),
+                   context_parallel_attn="cp" in extras)
     cfg = dataclasses.replace(reduced(get_config(arch), **kw),
                               dtype="float32")
     specs = {}
@@ -219,7 +222,8 @@ def mesh_rank(rank: int, inputs: dict) -> dict:
     out = {}
     for name, arch, kw, shape, extras in inputs["__cases__"]:
         cfg = cfg_of(arch, kw)
-        env = make_env(make_mesh(shape, ("data", "model")))
+        env = make_env(make_mesh(shape, ("data", "model")),
+                       context_parallel_attn="cp" in extras)
         if not env.member:
             continue
         r = inputs[name]

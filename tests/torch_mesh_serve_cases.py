@@ -6,8 +6,9 @@ A case is (name, arch, ``reduced`` kwargs, mesh (data, model), extras);
 extras may hold ``kv_quant`` (int8 caches), ``positions`` (per-sequence
 (B,) positions at decode, each row its own offset), ``batch`` (the
 batch size, default ``BATCH``), ``prompt`` (the prompt length, default
-``PROMPT``) and ``drops`` (count the assignments the MoE's decode
-capacity drops).  The port runs it in a spawned four-rank gloo world
+``PROMPT``), ``drops`` (count the assignments the MoE's decode
+capacity drops) and ``cp`` (both packages under context-parallel
+attention).  The port runs it in a spawned four-rank gloo world
 (``torch_mesh_ranks``; a mesh of fewer ranks leaves the others out),
 the reference in a subprocess with four forced host devices, jitting
 ``transformer.prefill`` with a cache longer than the prompt (its
@@ -71,7 +72,8 @@ with open(sys.argv[1], "rb") as f:
 out = {}
 for name, arch, kw, (data, model), extras in inputs["__cases__"]:
     devs = np.asarray(jax.devices()[:data * model]).reshape(data, model)
-    env = make_env(jax.sharding.Mesh(devs, ("data", "model")))
+    env = make_env(jax.sharding.Mesh(devs, ("data", "model")),
+                   context_parallel_attn="cp" in extras)
     cfg = dataclasses.replace(reduced(get_config(arch), **kw),
                               dtype="float32")
     r = inputs[name]
@@ -186,7 +188,8 @@ def serve_rank(rank: int, inputs: dict) -> dict:
         name, arch, kw, shape, _ = case
         ex = _extras(case)
         cfg = cfg_of(arch, kw)
-        env = make_env(make_mesh(shape, ("data", "model")))
+        env = make_env(make_mesh(shape, ("data", "model")),
+                       context_parallel_attn=bool(ex.get("cp")))
         if not env.member:
             continue
         r = inputs[name]
