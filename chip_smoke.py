@@ -86,7 +86,9 @@ card, over its main paths.
   and 4's backward kernels against float32 autograd through their plain
   versions at starcoder2-3b's, qwen3-8b's, gemma3-27b's and the qk-norm's
   shapes, and with keys that share an offset (randn + 2, randn + 4) at
-  starcoder2-3b's and 32/8 heads of 128, bit for bit from run to run,
+  starcoder2-3b's and 32/8 heads of 128, and row 3 forward and
+  backward at q offsets (S/4 query rows against all S keys), bit for
+  bit from run to run,
   the training forward's output bit for bit equal to the serving
   forward's, with each case's body, times, bounds and the library
   backward's.  ``[train]``: starcoder2-3b at full width and
@@ -101,18 +103,23 @@ card, over its main paths.
   FileStore rendezvous; no rank builds a kernel) run (a) the static
   plan of megafleet_100k (100,000 users, 50,000 a rank) and of
   capacitated_k3 (K 3) on a data-2 mesh against the one-process plan,
-  and (b) full-width starcoder2-3b cut to 2 of its 30 layers, B 4 x S
-  1024, on model 2, data 2 and data 2 x model 2 meshes (ZeRO-1) in
-  float32 and on data 2 x model 2 in bfloat16, two steps each against
-  the one-process steps from the same weights, and (d) every other
-  family at its published widths, depth cut, two float32 steps each
-  against the one-process steps (MESH_FAMILY_CASES: granite-moe on a
-  data 2 mesh under the global capacity rule and on data 2 x model 2
-  with expert parallelism; rwkv6-3b, recurrentgemma-9b and
-  seamless-m4t on data 2 x model 2; internvl2-1b with its patch prefix
-  on model 4); then (c) ``launch.train --mesh host`` under
-  ``torch.distributed.run`` (2 ranks) for qwen3-8b's and
-  granite-moe's 100m members, preempted and resumed by one process
+  and (b) full-width starcoder2-3b cut to 1 of its 30 layers, B 4 x S
+  1024, on a data 2 x model 2 mesh (ZeRO-1) in float32 and in
+  bfloat16, one AdamW step each against the one-process step from the
+  same weights, and (d) every other family at its published widths,
+  depth cut, one float32 step each against the one-process step
+  (MESH_FAMILY_CASES: granite-moe on a data 2 mesh under the global
+  capacity rule and on data 2 x model 2 with expert parallelism;
+  rwkv6-3b, recurrentgemma-9b and seamless-m4t on data 2 x model 2;
+  internvl2-1b with its patch prefix on model 4); (e) a prefill and
+  greedy decode steps of each family on a mesh against one process;
+  (g) context-parallel attention (starcoder2-3b and recurrentgemma-9b
+  on model 4: one train step, prefill and decode against one
+  process); (h) ``InferenceEngine`` and ``SplitServer`` on data 2 x
+  model 2, every token equal to the one-process engine's on every
+  rank; then (c) ``launch.train --mesh host`` under
+  ``torch.distributed.run`` (2 ranks) for qwen3-8b's 100m member,
+  preempted and resumed by one process
   against an unbroken run.  Ranks sharing one card show the sharded
   paths, not multi-card speed or memory.
 * The dry run, ``[dryrun]``: (a) ``launch.dryrun`` counts every
@@ -140,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1174,6 +1182,13 @@ def steps_case(sess, device) -> dict:
 def rel_rms(got, want) -> float:
     return ((got - want).square().mean().sqrt()
             / want.square().mean().sqrt()).item()
+
+
+def rel_rms_held(got, want) -> float:
+    """rel_rms, but inf where ``want`` is all zero: a gradient or a
+    weight's change that did not happen holds nothing, and NaN would
+    pass every ``> tol`` test."""
+    return rel_rms(got, want) if bool(want.any()) else math.inf
 
 
 def grad_errors(got, want, dtn: str) -> tuple:
@@ -3497,14 +3512,13 @@ def train_kernel_cases(device) -> dict:
     out, breaches = {}, []
     errs = {"flash_attention_bwd": [], "rmsnorm_bwd": [],
             "moe_swiglu_bwd": [], "rglru_scan_bwd": [], "wkv6_bwd": []}
-    out["flash_attention_offset"], fwd_errs = [], []
+    fwd_errs = []
     for B, S, heads, window, dtn in TRAIN_ATTN_OFFSET_CASES:
         for q_offset in (0, S // 4, 3 * S // 4):
-            rec = attention_offset_case(device, randn, B, S, heads, window,
-                                        dtn, q_offset, breaches)
+            rec = attention_bwd_case(device, randn, B, S, heads, window,
+                                     dtn, breaches, q_offset=q_offset)
             fwd_errs.append(rec["fwd"]["max_abs_err"])
-            errs["flash_attention_bwd"].append(rec["bwd"]["max_abs_err"])
-            out["flash_attention_offset"].append(rec)
+            errs["flash_attention_bwd"].append(rec["max_abs_err"])
     out["flash_attention_offset_fwd_err"] = max(fwd_errs)
     for B, S, heads, window, dtn, c in TRAIN_ATTN_CASES:
         rec = attention_bwd_case(device, randn, B, S, heads, window, dtn,
@@ -3562,26 +3576,46 @@ def _hold_grads(label, got, want, dtn, breaches) -> tuple:
     return err, rr
 
 
+def key_band(Sq: int, Skv: int, causal: bool, window: int,
+             q_offset: int = 0) -> int:
+    """Keys that some query row reaches under the masks (row i at key
+    position q_offset + i): the k/v rows a bound counts as read."""
+    lo = max(0, q_offset - window + 1) if window else 0
+    hi = min(Skv, q_offset + Sq) if causal else Skv
+    return max(hi - lo, 0)
+
+
 def attention_bwd_case(device, randn, B, S, heads, window, dtn,
                        breaches, key_offset: float = 0.0,
-                       causal: bool = True) -> dict:
+                       causal: bool = True, q_offset=None) -> dict:
     """The attention backward kernel at one shape (``heads`` = (Hq, Hkv,
     hd); keys randn + ``key_offset``; causal unless ``causal`` is False)
     on the forward kernel's output: in bf16 the training forward's (with
     LSE and residual), whose output must equal the serving forward's bit
-    for bit."""
+    for bit.  With ``q_offset`` (context-parallel attention), S/4 query
+    rows at key positions q_offset.. against all S keys, and the forward
+    too: held against its plain version under ATTN_TOL / ATTN_RMS_TOL and
+    timed beside SDPA given the same boolean mask (``attn_mask``).  The
+    bounds count the pairs the masks leave (``ops.pairs``) at the type's
+    peak (bf16 tensor cores, float32 CUDA cores) and the bytes of q, the
+    output, the keys some row reaches (``key_band``) and dk/dv whole."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention.ops import pairs
     Hq, Hkv, hd = heads
     dt = getattr(torch, dtn)
+    Sq, off = (S, 0) if q_offset is None else (S // 4, q_offset)
     label = (f"attention bwd {B}x{S} {heads} w{window} {dtn} "
-             f"c{key_offset:g}{'' if causal else ' non-causal'}")
-    q = randn((B, S, Hq, hd), dt)
+             f"c{key_offset:g}{'' if causal else ' non-causal'}"
+             + ("" if q_offset is None else f" q {Sq}@{off}"))
+    q = randn((B, Sq, Hq, hd), dt)
     k = (randn((B, S, Hkv, hd), torch.float32) + key_offset).to(dt)
-    v, dout = randn((B, S, Hkv, hd), dt), randn((B, S, Hq, hd), dt)
+    v, dout = randn((B, S, Hkv, hd), dt), randn((B, Sq, Hq, hd), dt)
     kw = dict(causal=causal, window=window)
+    if q_offset is not None:
+        kw["q_offset"] = q_offset
     o = fa.flash_attention_cuda(q, k, v, **kw)
     body = fb.body_for(dt, hd)
     out_same, kw_b = None, kw
@@ -3593,6 +3627,19 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
                             "differs from the serving forward's")
         kw_b = dict(kw, lse=lse, out_lo=o_lo)
         del o_t
+    fwd = None
+    if q_offset is not None:
+        want = fa.attention_ref(q, k, v, **kw).float()
+        fwd = dict(max_abs_err=(o.float() - want).abs().max().item(),
+                   rel_rms_err=rel_rms(o.float(), want))
+        tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
+        if not (torch.allclose(o.float(), want, atol=tol, rtol=tol)
+                and fwd["rel_rms_err"] <= rms_tol):
+            breaches.append(
+                f"{label} forward: max {fwd['max_abs_err']:.3g} (tol "
+                f"{tol}), error RMS / output RMS {fwd['rel_rms_err']:.3g} "
+                f"(tol {rms_tol})")
+        del want
     before = dict(fb.LAUNCHES)
     got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
     again = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
@@ -3617,147 +3664,60 @@ def attention_bwd_case(device, randn, B, S, heads, window, dtn,
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     mask = None
-    if window:
-        i = torch.arange(S, device=device)
-        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
-                                              < window)
-    lib_ms = None
+    if window or q_offset is not None:
+        qp = off + torch.arange(Sq, device=device)[:, None]
+        kp = torch.arange(S, device=device)[None, :]
+        mask = (qp >= kp) & ((qp - kp < window) if window else True)
+    lib_ms = lib_fwd_ms = None
     try:
-        lo = F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+        if fwd is not None:
+            lib_fwd_ms = timed_ms(lambda: library().detach(), 30, 3)
+        lo = library()
         dh = dout.transpose(1, 2)
         lib_ms = timed_ms(lambda: torch.autograd.grad(
             lo, (qh, kh, vh), dh, retain_graph=True), 30, 3)
         del lo
     except TypeError:        # a PyTorch without enable_gqa
         pass
-    pairs = attention_pairs(S, causal, window)
-    flops = 2.5 * 4.0 * B * Hq * hd * pairs
-    t_ops = flops / PEAK_BF16_S * 1e3
-    t_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+    n = pairs(Sq, S, causal, window, off)
+    flops = 4.0 * B * Hq * hd * n
+    peak = PEAK_BF16_S if dt == torch.bfloat16 else PEAK_FP32_S
+    es = q.element_size()
+    band = B * key_band(Sq, S, causal, window, off) * Hkv * hd
+    t_ops = 2.5 * flops / peak * 1e3
+    t_bytes = (4 * q.numel() + 2 * band + 2 * k.numel()) * es \
         / PEAK_BYTES_S * 1e3
     call = (lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b))
     rec = dict(
-        B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window, dtype=dtn,
-        causal=causal, key_offset=key_offset, body=body,
-        nsplit=(fb.group_split(B, S, S, Hq, Hkv, causal, window, hd)
+        B=B, S=S, Sq=Sq, q_offset=q_offset, Hq=Hq, Hkv=Hkv, hd=hd,
+        window=window, dtype=dtn, causal=causal, key_offset=key_offset,
+        body=body, pairs=n,
+        nsplit=(fb.group_split(B, Sq, S, Hq, Hkv, causal, window, hd, off)
                 if body == "tensor_cores" else None),
         max_abs_err=err, rel_rms_err=rr, rel_rms_by_grad=rr_by,
         same_bits=same, out_same_bits=out_same,
         ms=timed_ms(call, 30, 3), device_ms=device_ms(call, 30, 3),
         plain_ms=timed_ms(lambda: fa.attention_bwd_ref(q, k, v, o, dout,
                                                        **kw_b), 5, 1),
-        library_ms=lib_ms, flops=flops, bound_ms=max(t_ops, t_bytes),
+        library_ms=lib_ms, flops=2.5 * flops, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
-    rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["tflop_per_s"] = 2.5 * flops / (rec["ms"] * 1e-3) / 1e12
+    if fwd is not None:
+        f_ops = flops / peak * 1e3
+        f_bytes = (2 * q.numel() + 2 * band) * es / PEAK_BYTES_S * 1e3
+        fwd.update(
+            ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                        30, 3),
+            plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw), 5,
+                              1),
+            library_ms=lib_fwd_ms, bound_ms=max(f_ops, f_bytes),
+            bound_by="operations" if f_ops >= f_bytes else "bytes")
+        rec["fwd"] = fwd
     phase("train-kernels", "flash_attention_bwd " + json.dumps(rec))
-    return rec
-
-
-def attention_offset_case(device, randn, B, S, heads, window, dtn,
-                          q_offset: int, breaches) -> dict:
-    """Row 3 at a q offset: Sq = S/4 q rows at key positions q_offset..
-    against all S keys (causal, ``window``), forward (the serving and the
-    training call, the same bits) against the plain version under
-    ATTN_TOL / ATTN_RMS_TOL and backward against float32 autograd
-    through it under GRAD_TOL / GRAD_RMS_TOL; each with its time (median
-    of 10, CUDA events), the plain version's, SDPA's with the same
-    boolean mask (``attn_mask``, ``enable_gqa``) and the bound of the
-    pairs the shifted masks leave (PERF.md §6), at the bf16 tensor-core
-    peak or, in float32, the CUDA cores'."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.flash_attention import backward as fb
-    from repro_torch.kernels.flash_attention.ops import pairs
-    Hq, Hkv, hd = heads
-    Sq = S // 4
-    dt = getattr(torch, dtn)
-    label = (f"attention {B}x{Sq}@{q_offset} of {S} {heads} w{window} "
-             f"{dtn}")
-    q = randn((B, Sq, Hq, hd), dt)
-    k, v = randn((B, S, Hkv, hd), dt), randn((B, S, Hkv, hd), dt)
-    dout = randn((B, Sq, Hq, hd), dt)
-    kw = dict(causal=True, window=window, q_offset=q_offset)
-    o = fa.flash_attention_cuda(q, k, v, **kw)
-    kw_b = kw
-    if dt == torch.bfloat16:
-        o_t, lse, o_lo = fa.flash_attention_cuda(q, k, v, stats=True, **kw)
-        if not torch.equal(o_t, o):
-            breaches.append(f"{label}: the training forward's output "
-                            "differs from the serving forward's")
-        kw_b = dict(kw, lse=lse, out_lo=o_lo)
-        del o_t
-    want = fa.attention_ref(q, k, v, **kw).float()
-    err = (o.float() - want).abs().max().item()
-    rr = rel_rms(o.float(), want)
-    tol, rms_tol = ATTN_TOL[dtn], ATTN_RMS_TOL[dtn]
-    if not (torch.allclose(o.float(), want, atol=tol, rtol=tol)
-            and rr <= rms_tol):
-        breaches.append(f"{label} forward: max {err:.3g} (tol {tol}), "
-                        f"error RMS / output RMS {rr:.3g} (tol {rms_tol})")
-    del want
-    got = fb.flash_attention_bwd_cuda(q, k, v, o, dout, **kw_b)
-    leaves = [t.float().requires_grad_() for t in (q, k, v)]
-    ref = torch.autograd.grad(fa.attention_ref(*leaves, **kw), leaves,
-                              dout.float())
-    sub = []
-    berr, brr = _hold_grads("qkv", got, ref, dtn, sub)
-    breaches.extend(f"{label} backward {b}" for b in sub)
-    del got, ref, leaves
-    qp = q_offset + torch.arange(Sq, device=device)[:, None]
-    kp = torch.arange(S, device=device)[None, :]
-    mask = qp >= kp
-    if window:
-        mask &= (qp - kp) < window
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    dh = dout.transpose(1, 2)
-    lib_ms = lib_bwd_ms = None
-    try:
-        def library():
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, enable_gqa=True)
-        lib_ms = timed_ms(lambda: library().detach(), 10, 2)
-        lo = library()
-        lib_bwd_ms = timed_ms(lambda: torch.autograd.grad(
-            lo, (qh, kh, vh), dh, retain_graph=True), 10, 2)
-        del lo
-    except TypeError:        # a PyTorch without enable_gqa
-        pass
-    n = pairs(Sq, S, True, window, q_offset)
-    es = q.element_size()
-    flops = 4.0 * B * Hq * hd * n
-    # the type's peak: bf16 tensor cores, or float32 outside them
-    peak = PEAK_BF16_S if dt == torch.bfloat16 else PEAK_FP32_S
-    fwd_ops, fwd_bytes = (flops / peak * 1e3,
-                          (2 * q.numel() + 2 * k.numel()) * es
-                          / PEAK_BYTES_S * 1e3)
-    bwd_ops, bwd_bytes = (2.5 * flops / peak * 1e3,
-                          4 * (q.numel() + k.numel()) * es
-                          / PEAK_BYTES_S * 1e3)
-    bwd_call = (lambda: fb.flash_attention_bwd_cuda(q, k, v, o, dout,
-                                                    **kw_b))
-    rec = dict(
-        B=B, Sq=Sq, Skv=S, q_offset=q_offset, Hq=Hq, Hkv=Hkv, hd=hd,
-        window=window, dtype=dtn, pairs=n,
-        fwd=dict(max_abs_err=err, rel_rms_err=rr,
-                 ms=timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
-                             10, 2),
-                 plain_ms=timed_ms(lambda: fa.attention_ref(q, k, v, **kw),
-                                   3, 1),
-                 library_ms=lib_ms, bound_ms=max(fwd_ops, fwd_bytes),
-                 bound_by="operations" if fwd_ops >= fwd_bytes
-                 else "bytes"),
-        bwd=dict(max_abs_err=berr, rel_rms_err=brr,
-                 ms=timed_ms(bwd_call, 10, 2),
-                 plain_ms=timed_ms(lambda: fa.attention_bwd_ref(
-                     q, k, v, o, dout, **kw_b), 3, 1),
-                 library_ms=lib_bwd_ms, bound_ms=max(bwd_ops, bwd_bytes),
-                 bound_by="operations" if bwd_ops >= bwd_bytes
-                 else "bytes"))
-    phase("train-kernels", "flash_attention_offset " + json.dumps(rec))
     return rec
 
 
@@ -4354,21 +4314,23 @@ MESH_WORLD_TIMEOUT_S = 720.0
 MESH_PLAN_SCENARIOS = ("megafleet_100k", "capacitated_k3")
 #: (b) full-width starcoder2-3b cut to 1 of its 30 layers (so that (d)
 #: and (e) fit in the run's time), TRAIN_BATCH x TRAIN_SEQ tokens, remat,
-#: MESH_STEPS AdamW steps on each mesh, against the one-process steps
-#: on the same card from the same weights and
-#: batches: float32 at TRAIN_CROSS_* (the loss; every gradient leaf and,
-#: by the triangle inequality, grad_norm at TRAIN_CROSS_GRAD_RMS; every
-#: leaf's change over the steps at TRAIN_CROSS_UPDATE_RMS) on every mesh
-#: of MESH_SHAPES, bfloat16 at MESH_BF16_* on the last (both axes at
-#: once).  Gloo stages every collective through the host at about 1 GB/s
-#: here, so a data-parallel float32 step takes 5-9 s (PR 28's first run)
-#: (one step each for (b) and (d), two before, so that (g) and (h) fit
-#: in the run's time; several ZeRO-1 steps on a data mesh stay covered
-#: by (c)'s launcher runs)
+#: MESH_STEPS AdamW step at the optimizer's own rate (no schedule: a
+#: warm-up starts at 0 and would leave every weight where it was) on the
+#: data 2 x model 2 mesh (ZeRO-1 over data, the tensor-parallel blocks
+#: over model), against the one-process step on the same card from the
+#: same weights and batch: float32 at TRAIN_CROSS_* (the loss; every
+#: gradient leaf and, by the triangle inequality, grad_norm at
+#: TRAIN_CROSS_GRAD_RMS; every leaf's change at TRAIN_CROSS_UPDATE_RMS, a
+#: leaf that did not move a breach), bfloat16 at MESH_BF16_*.  Gloo
+#: stages every collective through the host at about 1 GB/s here, so a
+#: data-parallel float32 step takes 5-9 s (PR 28's first run).  One step
+#: and one mesh, where PR 31 took two steps on model 2, data 2 and data 2
+#: x model 2, so that (g) and (h) fit in the run's time: model 2 alone
+#: stays covered by (e) and (g), data 2 alone by (d)'s granite-moe and
+#: (c)'s launcher runs (several ZeRO-1 steps)
 MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_STEPS = "starcoder2-3b", 1, 1
-MESH_SHAPES = (("model 2", (1, 2)), ("data 2", (2, 1)),
-               ("data 2 x model 2", (2, 2)))
-MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES[-1:]))
+MESH_SHAPES = (("data 2 x model 2", (2, 2)),)
+MESH_DTYPES = (("float32", MESH_SHAPES), ("bfloat16", MESH_SHAPES))
 #: bfloat16, mesh against one process, set from the rounding argument in
 #: PERF.md §6 (PR 28) before the first card run: a bf16 rounding is off
 #: by at most 2^-8 relative (RMS about 2.3e-3); each row-parallel output
@@ -4390,16 +4352,19 @@ MESH_BF16_UPDATE_RMS = 0.4
 #: and resumed by one process, each loss against an unbroken
 #: one-process run within TRAIN_RESUME_RTOL
 MESH_LAUNCH_ARGS = ("--size", "100m", "--steps", "4", "--ckpt-every", "2")
-#: (c) again for an MoE (the global capacity rule of a data mesh), the
-#: two torchrun worlds started together
-MESH_LAUNCH_ARCHS = ("qwen3-8b", "granite-moe-1b-a400m")
+#: (c)'s worlds, started together: qwen3-8b's alone, where PR 29 added
+#: granite-moe's (an MoE under the global capacity rule of a data mesh),
+#: so that (g) and (h) fit in the run's time; (d)'s granite-moe data 2
+#: holds that rule on the card
+MESH_LAUNCH_ARCHS = ("qwen3-8b",)
 #: (d) every other family at its published widths on a mesh, depth cut
 #: (recurrentgemma-9b keeps its three blocks of three kinds; the others
 #: keep 1-2, so that (e) fits in the run's time)
 #: (label, config, layers kept (an encoder-decoder's encoder too),
 #: (data, model), batch, sequence): the shapes of its [train-*] phase
 #: (internvl2-1b, which has none: [serve-vlm]'s 4 x (256 patches + 768
-#: tokens)).  Each runs MESH_STEPS float32 AdamW steps on the mesh from
+#: tokens)).  Each runs MESH_STEPS float32 AdamW step (no schedule, as
+#: (b)) on the mesh from
 #: the same weights (init_lm for the mesh, cut by shard_lm_params) and
 #: batches as a one-process run on the card, held at TRAIN_CROSS_*
 #: (loss, aux, grad_norm, the step-1 gradient of every leaf, every
@@ -4664,7 +4629,6 @@ def mesh_baseline(cfg, device) -> dict:
     from repro_torch._tree import leaves
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
-    from repro_torch.optim.schedules import cosine_with_warmup
     from repro_torch.runtime.train import (TrainConfig, loss_and_grads,
                                            make_train_step)
     release_memory()
@@ -4675,7 +4639,7 @@ def mesh_baseline(cfg, device) -> dict:
     p0 = [p.detach().clone() for p in leaves(params)]
     batches = _mesh_batches(cfg, device)
     _, _, g1 = loss_and_grads(cfg, params, batches[0], tcfg=tcfg)
-    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10))
+    step = make_train_step(cfg, tcfg)
     opt, steps = adamw.init(params), []
     for b in batches:
         torch.cuda.synchronize()
@@ -4704,7 +4668,6 @@ def mesh_train_run(cfg, env, device, counters, base, total: dict) -> dict:
     from repro_torch._tree import leaves
     from repro_torch.interop import shard_lm_params
     from repro_torch.models import transformer as tfm
-    from repro_torch.optim.schedules import cosine_with_warmup
     from repro_torch.runtime.train import (TrainConfig, init_opt_state,
                                            loss_and_grads, make_train_step)
     release_memory()
@@ -4725,10 +4688,11 @@ def mesh_train_run(cfg, env, device, counters, base, total: dict) -> dict:
     for i, (g, sp) in enumerate(zip(grads, specs)):
         full = env.unshard(g, sp)
         if base is not None:
-            grad_rr.append(rel_rms(full.float(), base["g1"][i].float()))
+            grad_rr.append(rel_rms_held(full.float(),
+                                        base["g1"][i].float()))
         del full
     del grads
-    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10), env=env)
+    step = make_train_step(cfg, tcfg, env=env)
     want = train_launches_per_step(cfg, TRAIN_BATCH // env.dp, TRAIN_SEQ)
     steps, bad = [], []
     with plain_version_calls() as plain:
@@ -4753,8 +4717,8 @@ def mesh_train_run(cfg, env, device, counters, base, total: dict) -> dict:
         full = env.unshard(p.detach(), sp)
         if base is not None:
             p0 = base["p0"][i].float()
-            upd_rr.append(rel_rms(full.float() - p0,
-                                  base["p2"][i].float() - p0))
+            upd_rr.append(rel_rms_held(full.float() - p0,
+                                       base["p2"][i].float() - p0))
         del full
     rec = dict(coordinate=env.coordinate, tp=env.tp, dp=env.dp,
                rows_per_rank=TRAIN_BATCH // env.dp, steps=steps,
@@ -4919,19 +4883,17 @@ def mesh_family_baseline(cfg, layout, shards: int, B: int, S: int,
     from repro_torch._tree import leaves, unflatten
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
-    from repro_torch.optim.schedules import cosine_with_warmup
     from repro_torch.runtime.train import (TrainConfig, loss_and_grads,
                                            make_train_step)
     release_memory()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
     tcfg = TrainConfig(remat=True)
-    sched = cosine_with_warmup(2, 10)
     params = tfm.init_lm(cfg, torch.Generator(device).manual_seed(0),
                          device, layout)
     p0 = _host(leaves(params))
     batches = _family_batches(cfg, B, S, device)
-    step = make_train_step(cfg, tcfg, sched)
+    step = make_train_step(cfg, tcfg)
     opt, steps = adamw.init(params), []
     with first_grads() as g1, moe_drops() as seen:
         for b in batches:
@@ -4949,8 +4911,7 @@ def mesh_family_baseline(cfg, layout, shards: int, B: int, S: int,
                 if not steps:
                     g1[:] = [grads]
                 params, opt, om = adamw.update(
-                    tcfg.adamw, unflatten(params, grads), opt, params,
-                    lr_scale=sched(opt.step))
+                    tcfg.adamw, unflatten(params, grads), opt, params)
                 m = {k: sum(float(r[1][k]) for r in parts) / shards
                      for k in ("loss", "aux")}
                 m["grad_norm"] = float(om["grad_norm"])
@@ -5029,7 +4990,9 @@ def _compare_leaves(local, specs, env, want, device) -> float:
             a, b = _sq_sums(piece, ref, device)
             num, den = num + a, den + b
         if pieces:
-            worst = max(worst, (num / den).sqrt().item())
+            # a zero reference (a weight that did not move) holds nothing
+            worst = max(worst, (num / den).sqrt().item() if den > 0
+                        else math.inf)
             want[i] = None
     return worst
 
@@ -5046,7 +5009,6 @@ def mesh_family_run(cfg, env, B: int, S: int, device, counters, base,
     from repro_torch.interop import shard_lm_params
     from repro_torch.models import transformer as tfm
     from repro_torch.models.moe import capacity_for
-    from repro_torch.optim.schedules import cosine_with_warmup
     from repro_torch.runtime.train import (TrainConfig, init_opt_state,
                                            make_train_step)
     release_memory()
@@ -5058,7 +5020,7 @@ def mesh_family_run(cfg, env, B: int, S: int, device, counters, base,
     p0 = _host(leaves(params))
     opt = init_opt_state(cfg, params, env)
     batches = _family_batches(cfg, B, S, device)
-    step = make_train_step(cfg, tcfg, cosine_with_warmup(2, 10), env=env)
+    step = make_train_step(cfg, tcfg, env=env)
     rows_local, rows = B // env.dp, 0
     if cfg.num_experts:
         rows = (capacity_for(rows_local * S, cfg, tcfg.capacity_factor)

@@ -118,6 +118,7 @@ class SplitServer:
         self.cfg = cfg
         self.params = params
         self.env = env
+        self._specs: Optional[List] = None   # the caches' on a mesh
         self.name = name
         self.up = True                    # edge-server liveness
         self._fail_after: Optional[int] = None
@@ -167,11 +168,12 @@ class SplitServer:
             return self.env.all_gather(nxt, 0, renv.batch())
         return nxt
 
-    def _run(self, tokens, split: int, caches, specs, **kw) -> tuple:
+    def _run(self, tokens, split: int, caches, **kw) -> tuple:
         """Both halves on ``tokens`` (the global batch) -> (logits, every
-        row's next tokens, the caches as :meth:`prefill` returns them)."""
+        row's next tokens, (device caches, edge caches))."""
         rows, renv = self._rows(tokens)
         dev_caches, edge_caches = caches
+        specs = self._specs
         h_split, dev_caches = device_prefix(
             self.cfg, self.params, rows, split, caches=dev_caches, env=renv,
             specs=None if specs is None else specs[:split], **kw)
@@ -179,35 +181,30 @@ class SplitServer:
         logits, nxt, edge_caches = edge_suffix(
             self.cfg, self.params, h_split, split, caches=edge_caches,
             env=renv, specs=None if specs is None else specs[split:], **kw)
-        caches = ((dev_caches, edge_caches) if specs is None
-                  else (dev_caches, edge_caches, specs))
-        return logits, self._all_rows(nxt, renv), caches
+        return logits, self._all_rows(nxt, renv), (dev_caches, edge_caches)
 
     def prefill(self, tokens, split: int, cache_len: int):
         """Split prefill: device prefix -> shipped w_s -> edge suffix.
         Raises :class:`ServerLostError` when the edge server is down (the
         device prefix runs regardless — it is local).  Returns (logits,
         next tokens, (device caches, edge caches)); on a mesh the logits
-        are the rank's piece, the tokens every row's, and the caches
-        carry their specs (``transformer.cache_specs``) as a third
-        entry."""
+        are the rank's piece, the tokens every row's, and the caches this
+        rank's slices, laid out by ``transformer.cache_specs`` of this
+        batch and cache length (kept for :meth:`decode`)."""
         self._check_split(split)
         tokens = torch.as_tensor(tokens, device=self.device)
-        specs = None
         if self.env.is_spmd:
-            specs = tfm.cache_specs(self.cfg, self.env, tokens.shape[0],
-                                    max(cache_len, tokens.shape[1]))
-        return self._run(tokens, split, (None, None), specs,
-                         cache_len=cache_len)
+            self._specs = tfm.cache_specs(self.cfg, self.env,
+                                          tokens.shape[0],
+                                          max(cache_len, tokens.shape[1]))
+        return self._run(tokens, split, (None, None), cache_len=cache_len)
 
     def decode(self, token, pos, caches, split: int):
-        """One split decode step; ``caches`` from :meth:`prefill` (updated
-        in place)."""
+        """One split decode step; ``caches`` from this server's last
+        :meth:`prefill` (updated in place)."""
         self._check_split(split)
-        dev_caches, edge_caches, *specs = caches
         token = torch.as_tensor(token, device=self.device)
-        return self._run(token, split, (dev_caches, edge_caches),
-                         specs[0] if specs else None, mode="decode", pos=pos)
+        return self._run(token, split, caches, mode="decode", pos=pos)
 
     def generate(self, tokens, split: int, max_new: int,
                  cache_len: Optional[int] = None) -> torch.Tensor:
